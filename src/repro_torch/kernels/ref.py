@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the ADT transfer kernels (counterpart of
+``repro.kernels.ref``).
+
+An IEEE-754 fp32 weight is viewed as a 32-bit word and only its most
+significant ``round_to`` bytes are kept, as a struct-of-arrays of byte
+planes: plane ``k`` holds byte ``k`` (MSB first) of every weight. This is
+the wire format, so these functions are the bar every kernel is held to
+(byte-equal planes, bit-equal unpack).
+
+PyTorch has no uint32 shift or add on the CPU, so the word is handled as
+an int32 view: ``(u >> s) & 0xFF`` is the same byte whether the shift is
+arithmetic or logical. Rebuilding goes through int64 and wraps back to
+int32 before the bitcast to fp32; nearest rounding's saturating bump
+needs the int64 range too.
+
+Rounding modes:
+  * ``truncate``   — the paper's mode: drop the low bytes.
+  * ``nearest``    — add half an ULP of the kept format first (saturating).
+  * ``stochastic`` — not ported yet (needs ``jax.random.randint``'s bits).
+"""
+from __future__ import annotations
+
+import torch
+
+VALID_ROUND_TO = (1, 2, 3, 4)
+
+_SHIFTS = (24, 16, 8, 0)  # MSB-first byte shifts within a 32-bit word
+_U32 = 0xFFFFFFFF
+
+
+def _as_i32(w: torch.Tensor) -> torch.Tensor:
+    if w.dtype != torch.float32:
+        raise ValueError(f"bitpack expects float32, got {w.dtype}")
+    return w.view(torch.int32)
+
+
+def _wrap_i32(u64: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 value -> the int32 with the same bits."""
+    return torch.where(u64 >= 2**31, u64 - 2**32, u64).to(torch.int32)
+
+
+def _round_bits(u: torch.Tensor, round_to: int, mode: str, key=None) -> torch.Tensor:
+    """Apply rounding to the (int32-viewed) word before truncation."""
+    drop = 8 * (4 - round_to)
+    if drop == 0 or mode == "truncate":
+        return u
+    if mode == "nearest":
+        # add half of the dropped range; saturate at 0xFFFFFFFF so the
+        # word never wraps (same as the reference's `bumped < u` check)
+        bumped = (u.to(torch.int64) & _U32) + (1 << (drop - 1))
+        return _wrap_i32(torch.clamp(bumped, max=_U32))
+    if mode == "stochastic":
+        raise NotImplementedError(
+            "stochastic rounding is not ported yet (needs a bit-exact "
+            "jax.random.randint)"
+        )
+    raise ValueError(f"unknown rounding mode {mode!r}")
+
+
+def bitpack_ref(
+    w: torch.Tensor, round_to: int, *, mode: str = "truncate", key=None
+) -> torch.Tensor:
+    """fp32 tensor -> uint8 byte planes, shape ``(round_to, *w.shape)``.
+
+    Plane 0 is the most significant byte (sign + 7 exponent bits).
+    """
+    if round_to not in VALID_ROUND_TO:
+        raise ValueError(f"round_to must be in {VALID_ROUND_TO}")
+    u = _round_bits(_as_i32(w), round_to, mode, key)
+    planes = [
+        ((u >> _SHIFTS[k]) & 0xFF).to(torch.uint8) for k in range(round_to)
+    ]
+    return torch.stack(planes, dim=0)
+
+
+def bitunpack_ref(planes: torch.Tensor) -> torch.Tensor:
+    """uint8 byte planes ``(round_to, ...)`` -> fp32 (low bytes zero-filled)."""
+    if planes.dtype != torch.uint8:
+        raise ValueError(f"bitunpack expects uint8 planes, got {planes.dtype}")
+    round_to = planes.shape[0]
+    if round_to not in VALID_ROUND_TO:
+        raise ValueError(f"leading plane dim must be in {VALID_ROUND_TO}")
+    u = torch.zeros(planes.shape[1:], dtype=torch.int64, device=planes.device)
+    for k in range(round_to):
+        u = u | (planes[k].to(torch.int64) << _SHIFTS[k])
+    return _wrap_i32(u).view(torch.float32)
+
+
+def quantize_ref(
+    w: torch.Tensor, round_to: int, *, mode: str = "truncate", key=None
+) -> torch.Tensor:
+    """pack∘unpack — the value actually seen by the compute side."""
+    return bitunpack_ref(bitpack_ref(w, round_to, mode=mode, key=key))
+
