@@ -26,6 +26,33 @@ Phases, each printing its own lines:
      the device's idle share.
   5. reference — reduced AlexNet trained 4 steps on the card and on the CPU
      (plain versions) from the same weights: losses and norms must agree.
+  6. flash — the flash prefill kernel against its plain version on the card
+     at qwen3-1.7b's heads (B=1, H=16, Kv=8, hd=128; Sq=Sk 128, 256, 384,
+     512, 2048; a continuation Sq=128, Sk=512, q_offset=384; B=2 at 512),
+     unit normals from a seed, max |err| <= 1e-5. Times the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the library yardstick) with CUDA
+     events beside the bound (causal FLOPs at 67 TFLOP/s fp32, or bytes at
+     3.35 TB/s).
+  7. serve — full-width qwen3-1.7b (28 layers, d 2048, vocab 151,936, random
+     weights from seed 0) served through ``repro_torch.launch.serve``'s
+     functions: ``PrecisionPlan.build(round_to=2)``, five greedy requests
+     (prompts 512, 512, 384, 256, 200; 16 new tokens each), 2 slots, cache
+     512 + 16. The static one-shot reference, then the engine, then the
+     engine with ``weight_stationary``. Launch counts are zeroed before and
+     read after each run: 28 flash launches per prefill whose length is a
+     multiple of 128 (the 200-token prompt takes ``attend_tiled``, by the
+     reference's rule), Bitpack/Bitunpack once per ``DIST`` leaf per
+     materialization. Engine streams must equal the static streams, the
+     measured ``host_device`` bytes must equal ``serve_host_device_bytes``,
+     and every logit the engines sample from must be finite. The first
+     flash launch at each distinct shape of these runs (B=1 at 512, 384 and
+     256; B=2 at 512 in the static run) is recorded and held to the plain
+     version on its own inputs within 1e-5, so a kernel fault at a main-path
+     shape fails the run even though the engine and the static reference
+     both go through the kernel. Prints
+     admission (prefill) ms per prompt length, decode ms/step, tokens/s, the
+     memory peak, and a ``torch.profiler`` trace of one 512-token admission
+     and one warm decode step.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -285,33 +312,44 @@ def main_path(torch, device, *, cfg=None, batch=64):
     }
 
 
-def profile_step(torch, step, storage, mom, data, batch, lr):
-    """Kernel time by name over one warm step (torch.profiler): device
+def profile(torch, fn, label, top=10):
+    """Kernel time by name over one call of ``fn`` (torch.profiler): device
     busy time is the sum of the CUDA kernels' own durations (one stream,
-    so they do not overlap), idle share is the rest of the step's wall."""
+    so they do not overlap), idle share is the rest of the call's wall.
+    Returns ``{kernel name: ms}``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    check(busy_ms > 0, f"{label}: the profiler saw no device time")
+    say(f"   profile {label}: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms "
+        f"({len(rows)} kernel names, {sum(e.count for e in rows)} launches), idle share "
+        f"{1 - busy_ms / wall_ms:.1%}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        say(f"   profile: {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:80]}")
+    return {e.key: e.self_device_time_total / 1e3 for e in rows}
+
+
+def profile_step(torch, step, storage, mom, data, batch, lr):
+    """Profile one warm CNN train step (after one unprofiled warm-up)."""
     from repro_torch import random as jr
 
     imgs, labels = data.batch(batch, 10_000)
     b = {"images": imgs, "labels": labels}
     float(step(storage, mom, b, lr, jr.PRNGKey(7))[2]["loss"])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(storage, mom, b, lr, jr.PRNGKey(8))[2]["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    packing = sum(e.self_device_time_total for e in rows if "bitpack" in e.key or "bitunpack" in e.key) / 1e3
-    say(f"   profile oracle:2 step: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms "
-        f"({len(rows)} kernel names, {sum(e.count for e in rows)} launches), idle share "
-        f"{1 - busy_ms / wall_ms:.1%}; bitpack+bitunpack {packing:.3f} ms")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
-        say(f"   profile: {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:80]}")
+    by_name = profile(
+        torch, lambda: float(step(storage, mom, b, lr, jr.PRNGKey(8))[2]["loss"]),
+        "oracle:2 step",
+    )
+    packing = sum(ms for k, ms in by_name.items() if "bitpack" in k or "bitunpack" in k)
+    say(f"   profile oracle:2 step: bitpack+bitunpack {packing:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -378,6 +416,322 @@ def _small_run(torch, device, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the flash prefill kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM data sheet: 67 TFLOP/s fp32 on the CUDA cores (the kernel
+# runs fp32 FMAs, TF32 off).
+FP32_FLOP_PER_S = 67e12
+# (B, H, Kv, Sq, Sk, q_offset): qwen3-1.7b's heads (hd 128), at the timed
+# lengths, phase 7's prefill lengths (512 at B=1 and 2, 384, 256) and a
+# continuation
+FLASH_SHAPES = (
+    (1, 16, 8, 128, 128, 0),
+    (1, 16, 8, 512, 512, 0),
+    (1, 16, 8, 2048, 2048, 0),
+    (1, 16, 8, 384, 384, 0),
+    (1, 16, 8, 256, 256, 0),
+    (1, 16, 8, 128, 512, 384),
+    (2, 16, 8, 512, 512, 0),
+)
+FLASH_TIMED = (128, 512, 2048)  # Sq = Sk, B = 1, q_offset = 0
+FLASH_TOL = 1e-5
+
+
+def flash_bound(B, H, Kv, Sq, Sk, q_offset, hd=128):
+    """Least time for the causal attention these inputs need: the larger
+    of the FLOPs of the unmasked (q, k) pairs (2·hd for q·k and 2·hd for
+    p·v each) at the fp32 peak, and q, k, v and out moved once at the HBM
+    rate. Returns (ms, "operations" or "bytes")."""
+    rows = [min(q_offset + r + 1, Sk) for r in range(Sq)]
+    flops = 4 * hd * B * H * sum(rows)
+    nbytes = 4 * hd * (2 * B * H * Sq + 2 * B * Kv * Sk)
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_flash(torch, device):
+    """Kernel vs plain version at every FLASH_SHAPES case; times at
+    FLASH_TIMED. Returns {Sq: row} with the S = Sq = Sk numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    out = {}
+    for B, H, Kv, Sq, Sk, off in FLASH_SHAPES:
+        q = torch.randn((B, H, Sq, 128), generator=gen, device=device)
+        k = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
+        v = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
+        got = flash_prefill(q, k, v, q_offset=off)
+        want = ref.flash_prefill_ref(q, k, v, q_offset=off)
+        err = float((got - want).abs().max())
+        torch.cuda.synchronize()
+        label = f"B={B} H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}"
+        check(math.isfinite(err) and err <= FLASH_TOL,
+              f"flash {label}: max |err| {err:.3e} > {FLASH_TOL}")
+        line = f"   flash {label}: max |kernel - plain| {err:.3e}"
+        if B == 1 and Sq == Sk and off == 0 and Sq in FLASH_TIMED:
+            ms = time_cuda(torch, lambda: flash_prefill(q, k, v))
+            plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v),
+                              iters=5)
+            lib = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            bound, by = flash_bound(B, H, Kv, Sq, Sk, off)
+            out[Sq] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err}
+            line += (f"; kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
+                     f"{lib * 1e3:.1f} us, bound {bound * 1e3:.1f} us ({by}, "
+                     f"{bound / ms:.0%} of it)")
+        say(line)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width qwen3-1.7b served through the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+SERVE_LENS, SERVE_GEN, SERVE_SLOTS = (512, 512, 384, 256, 200), 16, 2
+
+
+def counts():
+    from repro_torch.kernels.bitpack import bitpack
+    from repro_torch.kernels.bitunpack import bitunpack
+    from repro_torch.kernels.flash_prefill import flash_prefill
+
+    return {"bitpack": bitpack.launches, "bitunpack": bitunpack.launches,
+            "flash_prefill": flash_prefill.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels.bitpack import bitpack
+    from repro_torch.kernels.bitunpack import bitunpack
+    from repro_torch.kernels.flash_prefill import flash_prefill
+
+    bitpack.launches = bitunpack.launches = flash_prefill.launches = 0
+
+
+def watch_flash(torch, seen):
+    """Route the model's flash calls through a recorder that keeps the
+    inputs and output of the first launch at each distinct (q shape, k
+    shape, q_offset) in ``seen``; :func:`check_seen_flash` then holds them
+    to the plain version. Only copies are taken inside the run, so its
+    timings keep the kernel's pace. Returns the undo function."""
+    from repro_torch.models import attention
+
+    kernel = attention.flash_prefill
+
+    def recorded(q, k, v, *, q_offset=0):
+        out = kernel(q, k, v, q_offset=q_offset)
+        key = (tuple(q.shape), tuple(k.shape), int(q_offset))
+        if key not in seen:
+            seen[key] = {"inputs": (q.clone(), k.clone(), v.clone()), "out": out.clone()}
+        return out
+
+    attention.flash_prefill = recorded
+    return lambda: setattr(attention, "flash_prefill", kernel)
+
+
+def check_seen_flash(seen):
+    """The plain version on each recorded launch's own inputs: the main
+    path's real shapes and data, within FLASH_TOL."""
+    from repro_torch.kernels import ref
+
+    for key, rec in seen.items():
+        if "max_abs_err" in rec:
+            continue
+        (q, k, v), (_, _, off) = rec.pop("inputs"), key
+        err = float((rec.pop("out") - ref.flash_prefill_ref(q, k, v, q_offset=off)).abs().max())
+        rec["max_abs_err"] = err
+        check(math.isfinite(err) and err <= FLASH_TOL,
+              f"flash on the main path, q {key[0]} k {key[1]} q_offset {off}: "
+              f"max |err| {err:.3e} > {FLASH_TOL}")
+        say(f"   flash on the main path, q {key[0]} k {key[1]} q_offset {off}: "
+            f"max |kernel - plain| {err:.3e}")
+
+
+def instrument(engine, timings):
+    """Host-clock each admission and decode tick of ``engine`` (both end in
+    the d2h copy of the sampled ids, which waits for the device) and hold
+    every logit it samples from to be finite."""
+    import torch
+
+    admit, tick, sample = engine.admit, engine.decode_tick, engine._sample
+
+    def timed_admit(req):
+        t0 = time.perf_counter()
+        admit(req)
+        timings["admit"].append((len(req.prompt_ids), time.perf_counter() - t0))
+
+    def timed_tick():
+        active = engine.active_slots
+        t0 = time.perf_counter()
+        tick()
+        if active:
+            timings["decode"].append(time.perf_counter() - t0)
+
+    def checked_sample(logits):
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        return sample(logits)
+
+    engine.admit, engine.decode_tick, engine._sample = timed_admit, timed_tick, checked_sample
+
+
+def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req):
+    """Greedy decode of one request (batch 1) with each step's top-2 logit
+    gap: what a diverging stream is checked against."""
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    S, dev = len(req.prompt_ids), storage["embed"].device
+    pre = make_prefill_step(cfg, mesh_cfg, None, spec_tree, plan=plan,
+                            cache_capacity=S + req.max_new)
+    dec = make_decode_step(cfg, mesh_cfg, None, spec_tree, plan=plan)
+    logits, caches = pre(storage, {"tokens": torch.tensor([req.prompt_ids], device=dev)})
+    toks, gaps = [], []
+    for i in range(req.max_new):
+        top = torch.topk(logits[0, -1, : cfg.vocab_size], 2)
+        toks.append(int(top.indices[0]))
+        gaps.append(float(top.values[0] - top.values[1]))
+        if i + 1 < req.max_new:
+            tok = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+            pos = torch.tensor(S + i, dtype=torch.int32, device=dev)
+            logits, caches = dec(storage, caches, {"tokens": tok, "pos": pos})
+    return toks, gaps
+
+
+def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
+    """Full-width qwen3-1.7b through the serve twin's functions. Returns
+    the measurements; raises on a failed check. Launch counts, the
+    memory peak and the profile are read on a card only, so that
+    ``serve_path(torch, torch.device("cpu"), cfg=reduced(...), lens=...)``
+    rehearses the phase on the CPU with the plain versions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.spec import DIST
+    from repro_torch.launch.serve import build_requests, check_wire, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine, generate_static
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    requests = build_requests(lens, gen, cfg.vocab_size)
+    cap = max(lens) + gen
+    n_params = sum(x.numel() for x in [storage[k] for k in storage if k != "groups"]
+                   + [x for g in storage["groups"] for x in tree_leaves(g)])
+    # materializations per forward: each stacked DIST leaf once per layer,
+    # each top-level DIST leaf once; placement packs each leaf once, whole
+    per_forward = sum(s.reps for g in spec_tree["groups"] for s in tree_leaves(g)
+                      if s.kind == DIST) + sum(
+        1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
+    per_place = sum(1 for g in spec_tree["groups"] for s in tree_leaves(g)
+                    if s.kind == DIST) + sum(
+        1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
+    # the reference's viability rule for these prompts (device, hd, length)
+    viable = [on_card and cfg.head_dim % 128 == 0 and S % 128 == 0 for S in lens]
+    say(f"   {cfg.name}: {n_params:,} fp32 parameters ({n_params * 4 / 1e9:.2f} GB), "
+        f"init {setup_s:.2f} s; {per_forward} DIST materializations per forward, "
+        f"{per_place} per placement")
+
+    launches, out, seen = {}, {}, {}
+    unwatch = watch_flash(torch, seen)
+    zero_counts()
+    t0 = time.perf_counter()
+    static = generate_static(cfg, mesh_cfg, None, spec_tree, storage, requests, plan=plan)
+    static_s = time.perf_counter() - t0
+    launches["static"] = counts()
+    check_seen_flash(seen)
+    groups = sorted(set(lens))
+    forwards = len(groups) + len(groups) * (gen - 1)
+    want = {"flash_prefill": cfg.num_layers * sum(v for S, v in dict(zip(lens, viable)).items()),
+            "bitpack": per_forward * forwards * on_card}
+    want["bitunpack"] = want["bitpack"]
+    check(launches["static"] == want, f"static: launches {launches['static']}, expected {want}")
+    say(f"   static reference: {len(groups)} groups in {static_s:.2f} s; launches "
+        f"{launches['static']}")
+
+    for ws in (False, True):
+        label = "engine, weight-stationary" if ws else "engine"
+        timings = {"admit": [], "decode": []}
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
+                             max_slots=SERVE_SLOTS, cache_capacity=cap,
+                             weight_stationary=ws)
+        instrument(engine, timings)
+        results = engine.run(requests)
+        wall = time.perf_counter() - t0
+        got = counts()
+        launches[label] = got
+        check_seen_flash(seen)
+        summary = engine.wire_summary()
+        analytic = check_wire(engine, plan, requests)
+        diverged = [r for r in requests if results[r.rid].tokens != static[r.rid]]
+        for r in diverged:
+            toks, gaps = top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, r)
+            t = next(i for i, (a, b) in enumerate(zip(results[r.rid].tokens, static[r.rid]))
+                     if a != b)
+            say(f"   DIVERGED request {r.rid} (prompt {len(r.prompt_ids)}) at step {t}: "
+                f"engine {results[r.rid].tokens[t]}, static {static[r.rid][t]}, batch-1 "
+                f"greedy {toks[t]}, top-2 logit gap {gaps[t]:.3e}")
+        check(not diverged, f"{label}: streams of {[r.rid for r in diverged]} differ "
+                            "from the static reference")
+        admissions = summary["admissions"]
+        packed = admissions * per_forward + (per_place if ws else
+                                             summary["decode_steps"] * per_forward)
+        want = {"flash_prefill": cfg.num_layers * sum(viable), "bitpack": packed * on_card,
+                "bitunpack": packed * on_card}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        new_tokens = sum(len(r.tokens) for r in results.values())
+        dec = sorted(timings["decode"])
+        by_len = {}
+        for S, t in timings["admit"]:
+            by_len.setdefault(S, []).append(t * 1e3)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        say(f"   {label}: {summary['steps']} steps ({summary['decode_steps']} decode, "
+            f"{admissions} admissions) in {wall:.2f} s, {new_tokens} tokens, "
+            f"{new_tokens / wall:.1f} tokens/s; streams equal to the static reference")
+        say(f"   {label}: admission (prefill + insert + first id) ms by prompt length "
+            f"{ {S: [round(x, 2) for x in v] for S, v in sorted(by_len.items())} }")
+        say(f"   {label}: decode ms/step median {dec[len(dec) // 2] * 1e3:.2f} "
+            f"(min {dec[0] * 1e3:.2f}, max {dec[-1] * 1e3:.2f}, {len(dec)} steps)")
+        say(f"   {label}: host_device {summary['host_device']} B == serve_host_device_bytes "
+            f"{analytic['total']} B at {summary['token_width']} B/id; launches {got}; "
+            f"memory peak {peak / 2**30:.2f} GiB")
+        out[label] = {"wall_s": wall, "tokens": new_tokens, "decode_ms": dec[len(dec) // 2] * 1e3,
+                      "admit_ms": by_len, "peak": peak, "engine": engine}
+
+    unwatch()
+    # every prefill shape the kernel took was held to the plain version
+    want_shapes = {(b, S) for S, v in zip(lens, viable) if v for b in (1, lens.count(S))}
+    got_shapes = {(key[0][0], key[0][2]) for key in seen}
+    check(got_shapes == want_shapes,
+          f"flash shapes held to the plain version {sorted(got_shapes)}, expected "
+          f"{sorted(want_shapes)}")
+    if on_card:
+        engine = out["engine"]["engine"]  # the non-stationary engine, warm
+        engine.begin_stream()
+        first, second = requests[0], requests[1]  # both of the longest length
+        engine.admit(first)
+        profile(torch, lambda: engine.admit(second),
+                f"admission of a {len(second.prompt_ids)}-token prompt")
+        profile(torch, engine.decode_tick, "decode step (2 slots)")
+    for o in out.values():
+        del o["engine"]
+    return {"launches": launches, "runs": out, "static_s": static_s,
+            "flash_err": max((r["max_abs_err"] for r in seen.values()), default=0.0)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -441,6 +795,17 @@ def main() -> int:
     say("phase 5: reference — reduced AlexNet on the card vs the CPU")
     reference_check(torch, device)
 
+    say("phase 6: flash prefill kernel vs its plain version on the card")
+    flash = check_flash(torch, device)
+
+    say(f"phase 7: main path — full-width qwen3-1.7b served, prompts {list(SERVE_LENS)}, "
+        f"+{SERVE_GEN} tokens, {SERVE_SLOTS} slots")
+    serve = serve_path(torch, device)
+    served = {k: sum(run[k] for run in serve["launches"].values())
+              for k in ("bitpack", "bitunpack", "flash_prefill")}
+    say(f"   launches over phase 7's three runs: {served}; flash on the main path within "
+        f"{serve['flash_err']:.3e} of its plain version")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -449,10 +814,18 @@ def main() -> int:
         t = times[(name, 2)]  # fc5 at round_to=2 (bf16), the oracle:2 format
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": run["launches"][name], "max_abs_err": float(err[name]),
+            "launches": run["launches"][name] + served[name], "max_abs_err": float(err[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         })
+    f512 = flash[512]
+    kernels.append({
+        "name": "flash_prefill", "route": "cuda", "source": "src/repro_torch/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:110",
+        "launches": served["flash_prefill"], "max_abs_err": f512["max_abs_err"],
+        "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
+        "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,5 +1,11 @@
 """Carry weights across from the reference package's layouts.
 
+``convert_lm_params`` takes ``repro.models.init.init_params``'s params as
+numpy arrays (``{"groups": [{"p0": {...}}], "embed", "head",
+"final_norm"}``) and returns the port's tree on ``device``. The port keeps
+the reference's ``(in, out)`` weight layouts and its per-group stacking,
+so this is an exact copy: same keys, shapes and values.
+
 ``convert_cnn_params`` takes ``repro.models.cnn.init_cnn``'s params as
 numpy arrays (``{"layers": {name: {key: array}}}``, as ``np.asarray`` gives
 them) and returns the port's params on ``device``:
@@ -29,6 +35,25 @@ def _fc_rows(w: np.ndarray, hw: int, ch: int) -> np.ndarray:
         return w
     out = w.shape[1]
     return w.reshape(hw, hw, ch, out).transpose(2, 0, 1, 3).reshape(-1, out)
+
+
+def convert_lm_params(cfg, params, *, device="cuda"):
+    """Reference-layout numpy LM params -> port params (an exact copy,
+    tensors on ``device``). ``cfg`` is checked against the tree's shapes."""
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return put(tree)
+
+    if len(params["groups"]) != cfg.num_groups:
+        raise ValueError(f"{len(params['groups'])} groups, config has {cfg.num_groups}")
+    if tuple(np.shape(params["embed"])) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed {np.shape(params['embed'])} does not match {cfg.name}")
+    out = {k: walk(v) for k, v in params.items() if k != "groups"}
+    return {"groups": [walk(g) for g in params["groups"]], **out}
 
 
 def convert_cnn_params(cfg: CNNConfig, params, *, device="cuda"):

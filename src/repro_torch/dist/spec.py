@@ -14,9 +14,10 @@ Kind assignment depends only on the logical shape, the
 :class:`~repro_torch.models.meta.ParamMeta` and ``compress_min_size``,
 never on the mesh geometry, exactly as in the reference.
 
-This slice runs on one device, the trivial mesh (``tp == 1 and
+The port runs on one device, the trivial mesh (``tp == 1 and
 dshards == 1``): storage *is* the logical tensor and materialization of a
-``DIST`` leaf is the straight-through format truncation. Sharded layouts
+``DIST`` leaf is the straight-through format truncation (per use, or once
+under weight-stationary serving, :func:`placed_leaf`). Sharded layouts
 raise ``NotImplementedError`` until the data-parallel slice.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ import math
 from repro_torch.models.meta import COMPRESS_MIN_SIZE, ParamMeta
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
-from repro_torch.utils.trees import round_up
+from repro_torch.utils.trees import round_up, tree_map
 
 DIST = "dist"
 REPL = "repl"
@@ -150,4 +151,47 @@ def materialize_leaf(
     _require_trivial(mesh_cfg)
     if spec.kind == DIST:
         return _T.quantize(x, policy_for(round_to), key)
+    return x
+
+
+def build_spec_tree(params, metas, mesh_cfg: MeshCfg):
+    """Spec tree matching the LM's ``{"groups": [...], <top leaves>}``
+    layout: group subtrees are layer-stacked (leading repetition dim),
+    top-level leaves are not."""
+    groups = [
+        tree_map(lambda x, m: build_leaf_spec(x.shape, m, mesh_cfg, stacked=True), gp, gm)
+        for gp, gm in zip(params["groups"], metas["groups"])
+    ]
+    top = {
+        k: build_leaf_spec(params[k].shape, metas[k], mesh_cfg, stacked=False)
+        for k in params if k != "groups"
+    }
+    return {"groups": groups, **top}
+
+
+def tree_to_storage(params, spec_tree, mesh_cfg: MeshCfg):
+    """Lay the LM tree out in storage form (the identity on the trivial
+    mesh: storage is the logical tensors themselves)."""
+    _require_trivial(mesh_cfg)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# weight-stationary placement (serving)
+# ---------------------------------------------------------------------------
+
+
+def placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg, round_to):
+    """Run the leaf's transfer ONCE, giving resident logical weights
+    (stacked leaves keep their repetition dim, and go through the kernels
+    as one tensor). Decode steps built with ``weight_stationary=True``
+    then move no weights at all."""
+    _require_trivial(mesh_cfg)
+    if spec.kind == DIST:
+        return _T.quantize(x, policy_for(round_to))
+    return x
+
+
+def materialize_placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg):
+    """Placed weights are already logical: the identity."""
     return x

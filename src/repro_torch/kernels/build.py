@@ -18,7 +18,7 @@ import pathlib
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("bitpack.cu", "bitunpack.cu")
+SOURCES = ("bitpack.cu", "bitunpack.cu", "flash_prefill.cu")
 BUILD_DIR = _PKG.parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-O3",
@@ -27,7 +27,8 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "repro_torch_kernels"
 
-# argtypes of every C entry point: (src, dst, n, round_to, stream)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every C entry point
 _SIGNATURES = {
     "repro_bitpack": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "repro_bitunpack": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
+    ],
+    # (q, k, v, out, B, H, Kv, Sq, Sk, q_offset, scale, stream)
+    "repro_flash_prefill": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ],
 }
 

@@ -92,3 +92,78 @@ def quantize_ref(
     """pack∘unpack — the value actually seen by the compute side."""
     return bitunpack_ref(bitpack_ref(w, round_to, mode=mode, key=key))
 
+
+
+# ---------------------------------------------------------------------------
+# flash prefill attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # masked score: exp() underflows to exactly 0.0
+FLASH_BLOCK_Q = 128
+FLASH_BLOCK_K = 128
+
+
+def _resolve_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> tuple[int, int]:
+    block_q = min(block_q, Sq)
+    block_k = min(block_k, Sk)
+    if Sq % block_q or Sk % block_k:
+        raise ValueError(
+            f"Sq={Sq}/Sk={Sk} must divide into blocks ({block_q}, {block_k})"
+        )
+    return block_q, block_k
+
+
+def flash_prefill_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_offset: int = 0,
+    block_q: int = FLASH_BLOCK_Q,
+    block_k: int = FLASH_BLOCK_K,
+) -> torch.Tensor:
+    """Plain version of the causal flash prefill kernel (counterpart of
+    ``repro.kernels.flash_prefill.flash_prefill_ref`` at ``causal=True``,
+    the kernel's one mask): the reference's
+    tile schedule (128 x 128 tiles, every k-block) and its tile update
+    ``_flash_tile``, batched over (b, h).
+
+    ``q (B, H, Sq, hd)``, ``k/v (B, Kv, Sk, hd)``, ``G = H // Kv`` query
+    heads per kv head (head ``h`` reads kv head ``h // G``); ``q_offset``
+    is the absolute position of ``q[..., 0, :]`` relative to ``k[..., 0,
+    :]``. Scores and the running ``(m, l, acc)`` are fp32; the output is
+    ``acc / max(l, 1e-30)`` in q's dtype.
+    """
+    B, H, Sq, hd = q.shape
+    Kv, Sk = k.shape[1], k.shape[2]
+    if H % Kv:
+        raise ValueError(f"H={H} not a multiple of Kv={Kv}")
+    G = H // Kv
+    block_q, block_k = _resolve_blocks(Sq, Sk, block_q, block_k)
+    kh = k.repeat_interleave(G, dim=1)
+    vh = v.repeat_interleave(G, dim=1).to(torch.float32)
+    scale = hd ** -0.5
+    dev = q.device
+    out = torch.empty_like(q)
+    for i in range(Sq // block_q):
+        qb = q[:, :, i * block_q:(i + 1) * block_q]
+        q_pos = q_offset + i * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((B, H, block_q), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, block_q, hd), dtype=torch.float32, device=dev)
+        for j in range(Sk // block_k):
+            kb = kh[:, :, j * block_k:(j + 1) * block_k]
+            vb = vh[:, :, j * block_k:(j + 1) * block_k]
+            s = torch.matmul(qb, kb.transpose(-1, -2)).to(torch.float32) * scale
+            k_pos = j * block_k + torch.arange(block_k, device=dev)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(p, vb)
+            m = m_new
+        out[:, :, i * block_q:(i + 1) * block_q] = (
+            acc / torch.clamp(l, min=1e-30)[..., None]
+        ).to(q.dtype)
+    return out

@@ -54,6 +54,10 @@ class ParamMeta:
         return tuple(out)
 
 
+# RMSNorm scales applied before a TP-region enter (token-partial grads
+# under the sequence-parallel layout)
+SEQ_NORM = ParamMeta(tp_dim=None, compress=False, grad_sync_seq=True)
+
 # compression threshold: leaves smaller than this stay uncompressed and
 # replicated-gathered in fp32 (the paper's "biases" carve-out)
 COMPRESS_MIN_SIZE = 65536

@@ -1,10 +1,12 @@
 """PrecisionPlan — the declarative precision plan (counterpart of
-``repro.plan.plan``, the subset the one-device CNN path uses).
+``repro.plan.plan``, the subset the one-device paths use).
 
 A plan holds one :class:`~repro_torch.transport.CompressionPolicy` per
-weight precision group, an optional ``activations`` policy (the
-stage-boundary quantize) and a schedule source (``static`` — the paper's
-oracle — or ``awp``, with Algorithm 1's hyper-parameters).
+weight precision group, an optional ``activations`` policy (the CNN's
+stage-boundary quantize), an optional ``host_device`` policy (the serve
+engine's token staging; defaults to the weight entries) and a schedule
+source (``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
+hyper-parameters).
 :meth:`PrecisionPlan.wire_table` is the per-entry byte account of one
 step on one device, from the policy formulas.
 
@@ -23,6 +25,8 @@ import dataclasses
 import json
 from typing import Mapping
 
+import torch
+
 from repro_torch.core.awp import AWPConfig
 from repro_torch.transport.policy import (
     FP32_BYTES,
@@ -40,7 +44,6 @@ VALID_SCHEDULES = ("static", "awp")
 UNPORTED_DEFAULTS = {
     "gradients": None,
     "seq_boundary": None,
-    "host_device": None,
     "kv_migration": None,
     "weight_publish": None,
     "seq_parallel": False,
@@ -111,6 +114,7 @@ class PrecisionPlan:
 
     weights: tuple[CompressionPolicy, ...] = (CompressionPolicy(),)
     activations: CompressionPolicy | None = None
+    host_device: CompressionPolicy | None = None
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
 
     def __post_init__(self):
@@ -122,6 +126,7 @@ class PrecisionPlan:
             raise ValueError("plan needs at least one weights entry")
         object.__setattr__(self, "weights", ws)
         object.__setattr__(self, "activations", _coerce_policy(self.activations))
+        object.__setattr__(self, "host_device", _coerce_policy(self.host_device))
         if isinstance(self.schedule, Mapping):
             object.__setattr__(self, "schedule", Schedule(**self.schedule))
         if not isinstance(self.schedule, Schedule):
@@ -178,6 +183,25 @@ class PrecisionPlan:
         """The per-group policies the transport runs."""
         return self.weights
 
+    def host_device_policies(self) -> tuple[CompressionPolicy, ...]:
+        """Policies of the host<->device boundary (the paper's weight
+        staging model and the serve engine's token staging): the
+        ``host_device`` entry for every group, else the weight entries."""
+        if self.host_device is not None:
+            return (self.host_device,) * len(self.weights)
+        return self.weights
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.float32  # the plan's dtype field is "f32" (only that is ported)
+
+    def make_env(self, mesh_cfg):
+        """Build the execution :class:`~repro_torch.models.env.Env` (the
+        trivial mesh only: ``Env`` raises for tp > 1)."""
+        from repro_torch.models.env import Env
+
+        return Env(tp=mesh_cfg.tp, dtype=self.compute_dtype)
+
     @property
     def needs_rng(self) -> bool:
         """True when a stochastic mode is configured on the weight path
@@ -216,7 +240,8 @@ class PrecisionPlan:
             )
         table = {k: 0 for k in TRAFFIC_CLASSES}
         table["host_device"] = sum(
-            pol.host_device_bytes(e) for pol, e in zip(self.weights, elems)
+            pol.host_device_bytes(e)
+            for pol, e in zip(self.host_device_policies(), elems)
         )
         table["total"] = table["host_device"]
         return table
@@ -231,6 +256,7 @@ class PrecisionPlan:
         ours = {
             "weights": [pol(w) for w in self.weights],
             "activations": pol(self.activations),
+            "host_device": pol(self.host_device),
             "schedule": dataclasses.asdict(self.schedule),
         }
         d = {"version": 1}

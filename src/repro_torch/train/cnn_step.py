@@ -29,21 +29,10 @@ from repro_torch.dist.spec import (
 from repro_torch.models.cnn import CNNConfig, cnn_loss, topk_error
 from repro_torch.optim.sgd import SGDConfig, sgd_update
 from repro_torch.plan import PrecisionPlan
+from repro_torch.train.step import resolve_plan
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
 from repro_torch.utils.trees import tree_leaves, tree_map
-
-
-def resolve_plan(
-    *, plan: PrecisionPlan | None, caller: str, num_groups: int
-) -> PrecisionPlan:
-    """Type-check the required ``plan=`` and broadcast it to the
-    architecture's group count (the reference's ``train.step.resolve_plan``)."""
-    if plan is None:
-        raise TypeError(f"{caller}: needs plan= (a repro_torch.plan.PrecisionPlan)")
-    if not isinstance(plan, PrecisionPlan):
-        raise TypeError(f"{caller}: plan must be a PrecisionPlan")
-    return plan.broadcast(num_groups)
 
 
 def _act_quant_fn(act_policy):
@@ -115,7 +104,7 @@ def make_cnn_train_step(
     ``compress_min_size``, is monitored and decayed but never packed)."""
     groups, num_groups = groups_info
     plan = resolve_plan(
-        plan=plan, caller="make_cnn_train_step", num_groups=num_groups
+        cfg, plan=plan, caller="make_cnn_train_step", num_groups=num_groups
     )
     fp32_math()
     policies = plan.weight_policies()
@@ -167,7 +156,7 @@ def make_cnn_eval(cfg, mesh_cfg, spec_tree, groups_info, *,
     """Returns ``evaluate(storage, images, labels)`` (top-5 error) at the
     plan's weight widths."""
     groups, num_groups = groups_info
-    plan = resolve_plan(plan=plan, caller="make_cnn_eval", num_groups=num_groups)
+    plan = resolve_plan(cfg, plan=plan, caller="make_cnn_eval", num_groups=num_groups)
     fp32_math()
     # evaluation is deterministic: stochastic forward rounding falls back
     # to nearest (same kept bytes, no PRNG dependence)

@@ -1,5 +1,5 @@
 """CompressionPolicy — the wire format of one precision group (counterpart
-of ``repro.transport.policy``, the part the one-device path reads).
+of ``repro.transport.policy``, the part the one-device paths read).
 
   * ``round_to``      — bytes kept per fp32 weight on the transfer path
                         (paper §III: 1=fp8e7, 2=bf16, 3=bf24, 4=fp32),
@@ -63,6 +63,26 @@ class CompressionPolicy:
     def host_device_bytes(self, elems: int) -> int:
         """Paper's host->device model: every weight moves once per batch."""
         return elems * self.round_to
+
+    # -- host<->device token staging (serve engine) -----------------------
+    def token_wire_width(self, vocab_size: int) -> int:
+        """Staged bytes per token id on the host<->device boundary.
+
+        Ids are integers, so the representation stays lossless: an
+        uncompressed policy (``round_to == 4``) stages raw int32 words; a
+        compressing policy keeps the low byte planes a ``vocab_size`` id
+        can populate, never fewer than that even if ``round_to`` asks for
+        fewer (a truncated id would be another token)."""
+        needed = max(1, (max(int(vocab_size) - 1, 1).bit_length() + 7) // 8)
+        if self.round_to >= FP32_BYTES:
+            return FP32_BYTES
+        return min(FP32_BYTES, max(needed, self.round_to))
+
+    def token_host_bytes(self, n_tokens: int, vocab_size: int) -> int:
+        """Bytes staged across the host<->device boundary for ``n_tokens``
+        ids in one direction (prompts h2d, sampled ids d2h, next-step
+        feeds h2d)."""
+        return n_tokens * self.token_wire_width(vocab_size)
 
 
 def policy_for(round_to, **overrides) -> CompressionPolicy:
