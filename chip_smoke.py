@@ -54,12 +54,44 @@ Phases, each printing its own lines:
      memory peak, and a ``torch.profiler`` trace of one 512-token admission
      and one warm decode step.
 
+  8. paged — the paged decode kernel against its plain version on the card
+     at phase 9's shape (B=2, Kv=8, G=2, hd=128, page 64, a 9-page table,
+     19 pool rows; lengths 1, 63, 64, 65, 200, 528 and 0; a permuted table
+     with unused entries at the trash row) and at page 8 with G = 1 and 4,
+     unit normals from a seed, max |err| <= 2e-6; each case again on a
+     permuted pool, where the output must not change. Times the kernel,
+     the plain version and a ``k_pool[table]`` gather plus fp32
+     ``scaled_dot_product_attention`` with a length mask (two calls: no
+     single PyTorch call reads through a page table) with CUDA events, at
+     phase 9's shape and at B=16, 4096 tokens a slot in 64 pages of 64,
+     beside the bound (K and V of the attended rows, q and out at 3.35 TB/s).
+  9. paged serve — phase 7's weights served through
+     ``ServeEngine(paged=True, page_size=64)``. Phase 7's requests (2 slots,
+     capacity 528): streams equal to phase 7's static and contiguous-engine
+     streams (a divergence prints the reference's top-2 logit gap and
+     fails), measured ``host_device`` (the 72 B page table a decode step
+     included) equal to ``serve_host_device_bytes``, a clean page audit, 3
+     prefill buckets first seen and 2 seen before, and launches: flash 28
+     per admission (every bucket, 512, 384 and 256, is a multiple of 128),
+     ``paged_attend`` 28 per decode step, Bitpack/Bitunpack once per
+     ``DIST`` leaf per forward. Then a 256-token shared prefix with tails of
+     64, 100 and 128 tokens (3 slots, capacity 400): the peak equals
+     ``serve_paged_kv_bytes`` (11 pages of 14,680,064 B) and streams equal
+     ``generate_static`` (a divergence passes only at a reference top-2 gap
+     below 1e-3, since the shared pages hold the first writer's bits). The
+     first ``paged_attend`` launch at each shape and layer 0's launch of
+     every decode step are recorded and held to the plain version on their
+     own inputs within 2e-6. Prints decode ms/step, admission ms, tokens/s,
+     the memory peak and a ``torch.profiler`` trace of one paged decode
+     step.
+
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -499,17 +531,20 @@ def counts():
     from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bitunpack import bitunpack
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attend import paged_attend
 
     return {"bitpack": bitpack.launches, "bitunpack": bitunpack.launches,
-            "flash_prefill": flash_prefill.launches}
+            "flash_prefill": flash_prefill.launches, "paged_attend": paged_attend.launches}
 
 
 def zero_counts():
     from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bitunpack import bitunpack
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attend import paged_attend
 
     bitpack.launches = bitunpack.launches = flash_prefill.launches = 0
+    paged_attend.launches = 0
 
 
 def watch_flash(torch, seen):
@@ -652,7 +687,7 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
     groups = sorted(set(lens))
     forwards = len(groups) + len(groups) * (gen - 1)
     want = {"flash_prefill": cfg.num_layers * sum(v for S, v in dict(zip(lens, viable)).items()),
-            "bitpack": per_forward * forwards * on_card}
+            "bitpack": per_forward * forwards * on_card, "paged_attend": 0}
     want["bitunpack"] = want["bitpack"]
     check(launches["static"] == want, f"static: launches {launches['static']}, expected {want}")
     say(f"   static reference: {len(groups)} groups in {static_s:.2f} s; launches "
@@ -689,7 +724,7 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
         packed = admissions * per_forward + (per_place if ws else
                                              summary["decode_steps"] * per_forward)
         want = {"flash_prefill": cfg.num_layers * sum(viable), "bitpack": packed * on_card,
-                "bitunpack": packed * on_card}
+                "bitunpack": packed * on_card, "paged_attend": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         new_tokens = sum(len(r.tokens) for r in results.values())
         dec = sorted(timings["decode"])
@@ -708,7 +743,8 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
             f"{analytic['total']} B at {summary['token_width']} B/id; launches {got}; "
             f"memory peak {peak / 2**30:.2f} GiB")
         out[label] = {"wall_s": wall, "tokens": new_tokens, "decode_ms": dec[len(dec) // 2] * 1e3,
-                      "admit_ms": by_len, "peak": peak, "engine": engine}
+                      "admit_ms": by_len, "peak": peak, "engine": engine,
+                      "streams": {k: r.tokens for k, r in results.items()}}
 
     unwatch()
     # every prefill shape the kernel took was held to the plain version
@@ -728,7 +764,335 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
     for o in out.values():
         del o["engine"]
     return {"launches": launches, "runs": out, "static_s": static_s,
-            "flash_err": max((r["max_abs_err"] for r in seen.values()), default=0.0)}
+            "flash_err": max((r["max_abs_err"] for r in seen.values()), default=0.0),
+            # what phase 9 reuses: the weights are built once
+            "cfg": cfg, "setup": (mesh_cfg, spec_tree, storage), "plan": plan,
+            "requests": requests,
+            "static": static, "per_forward": per_forward}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paged decode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# Another summation order than the plain version's (per-row dots, shuffle
+# trees) in fp32 on O(1) outputs: on an H100 the kernel differed by at most
+# 6.0e-7 on unit normals and 1.2e-6 on the main path's own inputs.
+PAGED_TOL = 2e-6
+# (B, Kv, G, page, table width, pool rows, lengths): phase 9's shape
+# (qwen3-1.7b's heads, page 64, 9-page table, 18 pages + the trash row) at
+# the lengths that cross page edges, a slot of length 0, and the largest;
+# then page 8 with G = 1 and 4, so that the fold h = kv * G + g is held
+PAGED_CASES = (
+    (2, 8, 2, 64, 9, 19, (528, 0)),
+    (2, 8, 2, 64, 9, 19, (1, 63)),
+    (2, 8, 2, 64, 9, 19, (64, 65)),
+    (2, 8, 2, 64, 9, 19, (200, 528)),
+    (3, 8, 1, 8, 66, 199, (528, 9, 0)),
+    (3, 8, 4, 8, 66, 199, (8, 527, 1)),
+)
+PAGED_TIMED = (
+    ("main path", (2, 8, 2, 64, 9, 19, (528, 528))),
+    ("4096 tokens", (16, 8, 2, 64, 64, 1025, (4096,) * 16)),
+)
+
+
+def paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths):
+    """Unit normals; each slot's live pages at distinct random pool rows
+    (a permuted table), its unused entries at the trash row ``P - 1``."""
+    q = torch.randn((B, Kv, G, 128), generator=gen, device=device)
+    k_pool = torch.randn((P, page, Kv, 128), generator=gen, device=device)
+    v_pool = torch.randn((P, page, Kv, 128), generator=gen, device=device)
+    rows = torch.randperm(P - 1, generator=gen, device=device)[: B * width].reshape(B, width)
+    table = torch.full((B, width), P - 1, dtype=torch.int32, device=device)
+    for b, n in enumerate(lengths):
+        live = -(-n // page) if n else width  # a slot of length 0 walks them all
+        table[b, :live] = rows[b, :live].to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k_pool, v_pool, table, lens
+
+
+def paged_bound(B, Kv, G, page, width, lengths, hd=128):
+    """Least time for these inputs: K and V of the rows they attend (a slot
+    of length L >= 1 needs L rows, one of length 0 all ``width * page``),
+    q read once and out written once, at the HBM rate; the G/2 FLOPs a
+    byte are far below the fp32 ridge. Returns ms."""
+    rows = sum(min(n, width * page) if n else width * page for n in lengths)
+    nbytes = 4 * hd * (2 * Kv * rows + 2 * B * Kv * G)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def gather_sdpa(torch, q, k_pool, v_pool, table, lengths):
+    """The library yardstick: ``k_pool[table]`` gather, then fp32
+    ``scaled_dot_product_attention`` with a length mask (two calls; no
+    single PyTorch call reads through a page table). Length >= 1 only."""
+    import torch.nn.functional as F
+
+    B, Kv, G, hd = q.shape
+    idx = table.to(torch.int64)
+    k = k_pool[idx].reshape(B, -1, Kv, hd).transpose(1, 2)
+    v = v_pool[idx].reshape(B, -1, Kv, hd).transpose(1, 2)
+    mask = torch.arange(k.shape[2], device=q.device)[None, :] < lengths[:, None].to(torch.int64)
+    out = F.scaled_dot_product_attention(q.reshape(B, Kv * G, 1, hd), k, v,
+                                         attn_mask=mask[:, None, None, :], enable_gqa=True)
+    return out.reshape(B, Kv, G, hd)
+
+
+def check_paged(torch, device):
+    """Kernel vs plain version at every PAGED_CASES case (and on a permuted
+    pool, where the output must not change); times at PAGED_TIMED. Returns
+    {label: row}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attend import paged_attend
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    err = 0.0
+    for B, Kv, G, page, width, P, lengths in PAGED_CASES:
+        args = paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
+        got = paged_attend(*args)
+        e = float((got - ref.paged_attend_ref(*args)).abs().max())
+        q, kp, vp, table, lens = args
+        perm = torch.randperm(P, generator=gen, device=device)
+        inv = torch.argsort(perm).to(torch.int32)
+        moved = paged_attend(q, kp[perm], vp[perm], inv[table.to(torch.int64)], lens)
+        torch.cuda.synchronize()
+        label = f"B={B} Kv={Kv} G={G} page={page} width={width} lengths={list(lengths)}"
+        check(math.isfinite(e) and e <= PAGED_TOL,
+              f"paged_attend {label}: max |err| {e:.3e} > {PAGED_TOL}")
+        check(torch.equal(moved, got), f"paged_attend {label}: a permuted pool changed the output")
+        err = max(err, e)
+        say(f"   paged_attend {label}: max |kernel - plain| {e:.3e}; permuted pool: equal")
+    out = {}
+    for label, (B, Kv, G, page, width, P, lengths) in PAGED_TIMED:
+        args = paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
+        got = paged_attend(*args)
+        e = float((got - ref.paged_attend_ref(*args)).abs().max())
+        lib_err = float((gather_sdpa(torch, *args) - got).abs().max())
+        check(math.isfinite(e) and e <= PAGED_TOL, f"paged_attend {label}: max |err| {e:.3e}")
+        err = max(err, e)
+        ms = time_cuda(torch, lambda: paged_attend(*args))
+        plain = time_cuda(torch, lambda: ref.paged_attend_ref(*args), iters=5)
+        lib = time_cuda(torch, lambda: gather_sdpa(torch, *args))
+        bound = paged_bound(B, Kv, G, page, width, lengths)
+        out[label] = {"ms": ms, "plain_ms": plain, "gather_sdpa_ms": lib, "bound_ms": bound,
+                      "max_abs_err": e}
+        say(f"   paged_attend {label} (B={B} Kv={Kv} G={G}, {width} pages of {page}, lengths "
+            f"{lengths[0]}): kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, gather+sdpa "
+            f"{lib * 1e3:.1f} us (within {lib_err:.1e} of the kernel), bound "
+            f"{bound * 1e3:.1f} us (bytes, {bound / ms:.0%} of it); max |err| {e:.3e}")
+    out["max_abs_err"] = err
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-width qwen3-1.7b served through the paged engine
+# ---------------------------------------------------------------------------
+
+PAGE = 64
+# a 256-token (4-page) shared prefix plus tails of 64, 100 and 128 tokens
+SHARED_PREFIX, SHARED_TAILS, SHARED_CAPACITY = 256, (64, 100, 128), 400
+# a shared-prefix stream may leave the static reference only where the
+# reference's top-2 logits are this close (the card test's FULL_TOL): the
+# shared pages hold bits the 320-token prefill (attend_tiled) wrote, not
+# the ones the slot's own prefill (flash) would have
+NEAR_TIE = 1e-3
+
+
+def watch_paged(torch, seen, every):
+    """Route the model's paged_attend calls through a recorder that keeps
+    copies of the inputs and output of the first launch at each distinct
+    shape and of every ``every``-th launch after it (with ``every`` a
+    multiple of the layer count, layer 0 of every few decode steps, so the
+    lengths a run reaches); :func:`check_seen_paged` holds them to the
+    plain version. Returns the undo function."""
+    from repro_torch.models import attention
+
+    kernel, calls = attention.paged_attend, [0]
+
+    def recorded(q, k_pool, v_pool, page_table, lengths):
+        out = kernel(q, k_pool, v_pool, page_table, lengths)
+        key = tuple(tuple(t.shape) for t in (q, k_pool, page_table))
+        if key not in {k for k, _ in seen} or calls[0] % every == 0:
+            seen.append((key, {"inputs": tuple(t.clone() for t in
+                                               (q, k_pool, v_pool, page_table, lengths)),
+                               "out": out.clone()}))
+        calls[0] += 1
+        return out
+
+    attention.paged_attend = recorded
+    return lambda: setattr(attention, "paged_attend", kernel)
+
+
+def check_seen_paged(seen):
+    """The plain version on each recorded launch's own inputs, within
+    PAGED_TOL; returns the largest error."""
+    from repro_torch.kernels import ref
+
+    err, shapes = 0.0, set()
+    for key, rec in seen:
+        if "max_abs_err" not in rec:
+            inputs = rec.pop("inputs")
+            rec["max_abs_err"] = float((rec.pop("out") - ref.paged_attend_ref(*inputs))
+                                       .abs().max())
+            check(math.isfinite(rec["max_abs_err"]) and rec["max_abs_err"] <= PAGED_TOL,
+                  f"paged_attend on the main path, shapes {key}: max |err| "
+                  f"{rec['max_abs_err']:.3e} > {PAGED_TOL}")
+        err = max(err, rec["max_abs_err"])
+        shapes.add(key)
+    say(f"   paged_attend on the main path: {len(seen)} launches at shapes (q, pool, table) "
+        f"{sorted(shapes)} held to the plain version, max |kernel - plain| {err:.3e}")
+    return err
+
+
+def report_divergence(torch, cfg, mesh_cfg, spec_tree, storage, plan, r, got, want):
+    """Print where a stream left the reference and the reference's batch-1
+    top-2 logit gap there; returns that gap."""
+    t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    toks, gaps = top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, r)
+    say(f"   DIVERGED request {r.rid} (prompt {len(r.prompt_ids)}) at step {t}: "
+        f"paged {got[t]}, reference {want[t]}, batch-1 greedy {toks[t]}, "
+        f"top-2 logit gap {gaps[t]:.3e}")
+    return gaps[t]
+
+
+def paged_path(torch, device, phase7, *, page=PAGE, shared=SHARED_PREFIX,
+               tails=SHARED_TAILS, shared_cap=SHARED_CAPACITY):
+    """Full-width qwen3-1.7b through ``ServeEngine(paged=True)`` on phase
+    7's weights (``phase7``, :func:`serve_path`'s result). Two runs: phase
+    7's requests, held to phase 7's static and contiguous-engine streams
+    exactly; and a shared-prefix run whose three requests are resident at
+    once, held to ``serve_paged_kv_bytes`` and to ``generate_static`` (a
+    divergence passes only at a reference top-2 gap below ``NEAR_TIE``:
+    the shared pages hold the first writer's bits). Returns the
+    measurements; raises on a failed check. Launch counts, the memory peak
+    and the profile are read on a card only, so the phase rehearses on the
+    CPU at a reduced config with a smaller ``page``, ``shared`` and
+    ``tails``."""
+    from repro_torch.launch.serve import build_requests, check_wire
+    from repro_torch.roofline.analysis import serve_paged_kv_bytes
+    from repro_torch.serve.engine import ServeEngine, generate_static
+
+    mesh_cfg, spec_tree, storage = phase7["setup"]
+    plan, per_forward = phase7["plan"], phase7["per_forward"]
+    cfg = phase7["cfg"]
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gen = phase7["requests"][0].max_new
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    out, seen = {}, []
+    gc.collect()  # phase 7's engines (reference cycles through instrument())
+    # layer 0 of every 8th decode step: ~10 MB of copies each
+    unwatch = watch_paged(torch, seen, 8 * cfg.num_layers)
+
+    def run(label, requests, cap, slots, static):
+        timings = {"admit": [], "decode": []}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
+                             max_slots=slots, cache_capacity=cap, paged=True, page_size=page)
+        instrument(engine, timings)
+        results = engine.run(requests)  # finish() audits the pages
+        wall = time.perf_counter() - t0
+        got = counts()
+        summary = engine.wire_summary()
+        analytic = check_wire(engine, plan, requests)
+        check(summary["page_table_entries"] == slots * -(-cap // page),
+              f"{label}: {summary['page_table_entries']} page-table entries")
+        audit = engine.pages.audit()
+        check(audit["live"] == 0 and audit["allocs"] == audit["releases"],
+              f"{label}: page audit {audit}")
+        buckets = [-(-len(r.prompt_ids) // page) * page for r in requests]
+        misses = len(set(buckets))
+        check((summary["prefill_misses"], summary["prefill_hits"]) ==
+              (misses, len(buckets) - misses),
+              f"{label}: prefill buckets {summary['prefill_misses']} first seen, "
+              f"{summary['prefill_hits']} seen before; expected {misses}")
+        steps = summary["decode_steps"]
+        packed = (summary["admissions"] + steps) * per_forward * on_card
+        want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0 for S in buckets),
+                "paged_attend": cfg.num_layers * steps * on_card,
+                "bitpack": packed, "bitunpack": packed}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        new_tokens = sum(len(r.tokens) for r in results.values())
+        dec = sorted(timings["decode"])
+        by_len = {}
+        for S, t in timings["admit"]:
+            by_len.setdefault(S, []).append(t * 1e3)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        say(f"   {label}: {summary['steps']} steps ({steps} decode, "
+            f"{summary['admissions']} admissions) in {wall:.2f} s, {new_tokens} tokens, "
+            f"{new_tokens / wall:.1f} tokens/s")
+        say(f"   {label}: admission (pad + prefill + page insert + first id) ms by prompt "
+            f"length { {S: [round(x, 2) for x in v] for S, v in sorted(by_len.items())} }")
+        say(f"   {label}: decode ms/step median {dec[len(dec) // 2] * 1e3:.2f} "
+            f"(min {dec[0] * 1e3:.2f}, max {dec[-1] * 1e3:.2f}, {len(dec)} steps)")
+        say(f"   {label}: host_device {summary['host_device']} B (page table "
+            f"{summary['page_table']} B) == serve_host_device_bytes {analytic['total']} B; "
+            f"buckets {summary['prefill_misses']} first seen, {summary['prefill_hits']} seen "
+            f"before; launches {got}; memory peak {peak / 2**30:.2f} GiB")
+        res = engine.kv_residency()
+        say(f"   {label}: page audit {audit}; peak {res['pages_peak']} pages of "
+            f"{res['bytes_per_page']} B ({res['kv_bytes_peak'] / 1e6:.1f} MB), pool "
+            f"{(engine.num_pages + 1) * res['bytes_per_page'] / 1e6:.1f} MB")
+        out[label] = {"wall_s": wall, "tokens": new_tokens, "decode_ms": dec[len(dec) // 2] * 1e3,
+                      "admit_ms": by_len, "peak": peak, "launches": got, "residency": res}
+        streams = {k: r.tokens for k, r in results.items()}
+        diverged = [r for r in requests if streams[r.rid] != static[r.rid]]
+        return engine, streams, diverged
+
+    # run 1: phase 7's requests, 2 slots, capacity 512 + 16
+    requests = phase7["requests"]
+    cap = max(len(r.prompt_ids) for r in requests) + gen
+    engine, streams, diverged = run("paged engine", requests, cap, SERVE_SLOTS,
+                                    phase7["static"])
+    for r in diverged:
+        report_divergence(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                          streams[r.rid], phase7["static"][r.rid])
+    check(not diverged, f"paged engine: streams of {[r.rid for r in diverged]} differ from "
+                        "the static reference")
+    contiguous = phase7["runs"]["engine"]["streams"]
+    check(streams == contiguous, "paged engine: streams differ from the contiguous engine's")
+    say("   paged engine: streams equal to the static reference and the contiguous engine")
+
+    # run 2: the shared prefix, every request resident at once
+    sreqs = build_requests(tails, gen, cfg.vocab_size, shared_prefix=shared)
+    t0 = time.perf_counter()
+    sstatic = generate_static(cfg, mesh_cfg, None, spec_tree, storage, sreqs, plan=plan)
+    say(f"   static reference for the shared-prefix requests (prompts "
+        f"{[len(r.prompt_ids) for r in sreqs]}): {time.perf_counter() - t0:.2f} s")
+    _, sstreams, sdiverged = run("shared-prefix engine", sreqs, shared_cap, len(sreqs), sstatic)
+    for r in sdiverged:
+        gap = report_divergence(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                                sstreams[r.rid], sstatic[r.rid])
+        check(gap < NEAR_TIE, f"shared-prefix engine: request {r.rid} diverged at a top-2 "
+                              f"gap of {gap:.3e} >= {NEAR_TIE}")
+    analytic = serve_paged_kv_bytes(cfg, page_size=page,
+                                    requests=[(len(r.prompt_ids), gen) for r in sreqs],
+                                    shared_prefix_len=shared)
+    res = out["shared-prefix engine"]["residency"]
+    check((res["pages_peak"], res["bytes_per_page"]) ==
+          (analytic["pages"], analytic["bytes_per_page"]),
+          f"shared-prefix engine: peak {res['pages_peak']} pages of {res['bytes_per_page']} B, "
+          f"serve_paged_kv_bytes {analytic}")
+    say(f"   shared-prefix engine: peak {res['pages_peak']} pages == serve_paged_kv_bytes "
+        f"({analytic['shared_pages']} shared + {analytic['private_pages']} private, "
+        f"{analytic['kv_bytes_resident']} B); {len(sreqs) - len(sdiverged)} of {len(sreqs)} "
+        "streams equal to the static reference")
+    unwatch()
+    if on_card:
+        check(seen, "no paged_attend launch was recorded")
+        engine.begin_stream()  # run 1's engine, warm, without the recorder
+        for r in requests[:SERVE_SLOTS]:
+            engine.admit(r)
+        engine.decode_tick()
+        profile(torch, engine.decode_tick, f"paged decode step ({SERVE_SLOTS} slots)")
+    err = check_seen_paged(seen) if seen else 0.0
+    launches = {k: sum(o["launches"][k] for o in out.values()) for k in counts()}
+    return {"runs": out, "launches": launches, "paged_err": err, "analytic": analytic,
+            "diverged": len(sdiverged)}
 
 
 # ---------------------------------------------------------------------------
@@ -806,6 +1170,18 @@ def main() -> int:
     say(f"   launches over phase 7's three runs: {served}; flash on the main path within "
         f"{serve['flash_err']:.3e} of its plain version")
 
+    say("phase 8: paged decode kernel vs its plain version on the card")
+    paged = check_paged(torch, device)
+
+    say(f"phase 9: main path — full-width qwen3-1.7b served through the paged engine, "
+        f"page {PAGE}: phase 7's requests, then a {SHARED_PREFIX}-token shared prefix with "
+        f"tails {list(SHARED_TAILS)}")
+    paged_run = paged_path(torch, device, serve)
+    del serve
+    for k in served:
+        served[k] += paged_run["launches"][k]
+    say(f"   launches over phase 9's two runs: {paged_run['launches']}")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -825,6 +1201,15 @@ def main() -> int:
         "launches": served["flash_prefill"], "max_abs_err": f512["max_abs_err"],
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
+    })
+    pm = paged["main path"]  # no single PyTorch call reads through a page table
+    kernels.append({
+        "name": "paged_attend", "route": "cuda", "source": "src/repro_torch/csrc/paged_attend.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:98",
+        "launches": paged_run["launches"]["paged_attend"],
+        "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"]),
+        "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -17,8 +17,14 @@ them) and returns the port's params on ``device``:
     ``(c, h, w)``;
   * everything else (biases, norm scales, later fc weights) is copied.
 
+``convert_paged_cache`` takes a reference ``PagedKVCache`` whose leaves
+are numpy arrays (pools ``(P, page, Kv, hd)``, ``pos (B,)``, stacked or
+not) and returns the port's :class:`PagedKVCache` with the same values,
+so ``_paged_write`` and ``attend_decode_paged`` can start from identical
+state in both packages.
+
 The values are moved exactly, so both packages can start a run from the
-same weights.
+same weights (and caches).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.cnn import CNNConfig
 
 
@@ -105,3 +112,16 @@ def convert_cnn_params(cfg: CNNConfig, params, *, device="cuda"):
             raise ValueError(kind)
     dense("head")
     return {"layers": out}
+
+
+def convert_paged_cache(cache, *, device="cuda") -> PagedKVCache:
+    """Reference ``PagedKVCache`` with numpy leaves -> the port's (an exact
+    copy on ``device``: pools keep their float dtype, ``pos`` is int32)."""
+    k, v, pos = (np.asarray(x) for x in (cache.k, cache.v, cache.pos))
+    if k.shape != v.shape or k.ndim < 4:
+        raise ValueError(f"need pools (..., P, page, Kv, hd); got {k.shape}, {v.shape}")
+    return PagedKVCache(
+        torch.from_numpy(k.copy()).to(device),
+        torch.from_numpy(v.copy()).to(device),
+        torch.from_numpy(pos.astype(np.int32)).to(device),
+    )

@@ -18,7 +18,7 @@ import pathlib
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("bitpack.cu", "bitunpack.cu", "flash_prefill.cu")
+SOURCES = ("bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "paged_attend.cu")
 BUILD_DIR = _PKG.parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-O3",
@@ -41,6 +41,11 @@ _SIGNATURES = {
     # (q, k, v, out, B, H, Kv, Sq, Sk, q_offset, scale, stream)
     "repro_flash_prefill": [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    ],
+    # (q, k_pool, v_pool, page_table, lengths, out, B, Kv, G, P, page,
+    #  n_pages, scale, stream)
+    "repro_paged_attend": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ],
 }
 

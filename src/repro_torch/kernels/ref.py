@@ -167,3 +167,54 @@ def flash_prefill_ref(
             acc / torch.clamp(l, min=1e-30)[..., None]
         ).to(q.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def paged_attend_ref(
+    q: torch.Tensor,           # (B, Kv, G, hd)
+    k_pool: torch.Tensor,      # (P, page, Kv, hd)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, n_pages) int32 pool rows
+    lengths: torch.Tensor,     # (B,) int32 live tokens per slot
+) -> torch.Tensor:
+    """Plain version of the paged decode kernel (counterpart of
+    ``repro.kernels.paged_attention.paged_attend_ref``): the reference's
+    walk over every logical page ``j`` in order, through its page update
+    ``_page_update`` and mask ``_page_valid``, batched over the rows.
+
+    Page ``j`` of row ``b`` is pool row ``page_table[b, j]``; its rows at
+    ``j * page + offset >= lengths[b]`` score ``-1e30``. Scores are
+    ``(q . k) * hd^-0.5`` in fp32 with the running ``(m, l, acc)``; the
+    output is ``acc / max(l, 1e-30)`` in q's dtype. Every page is walked,
+    so a row of length 0 (all masked) gets the mean of V over its
+    ``n_pages * page`` table rows, as in the reference.
+    """
+    B, Kv, G, hd = q.shape
+    page = k_pool.shape[1]
+    n_pages = page_table.shape[1]
+    scale = hd ** -0.5
+    dev = q.device
+    offs = torch.arange(page, device=dev)
+    m = torch.full((B, Kv, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Kv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Kv, G, hd), dtype=torch.float32, device=dev)
+    table = page_table.to(torch.int64)
+    for j in range(n_pages):
+        pid = table[:, j]
+        k_pg, v_pg = k_pool[pid], v_pool[pid]  # (B, page, Kv, hd)
+        valid = (j * page + offs)[None, :] < lengths.to(torch.int64)[:, None]  # (B, page)
+        s = torch.einsum("bkgh,bpkh->bkgp", q, k_pg).to(torch.float32) * scale
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgp,bpkh->bkgh", p, v_pg.to(torch.float32)
+        )
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

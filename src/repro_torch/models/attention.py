@@ -4,18 +4,22 @@ KV caches (counterpart of ``repro.models.attention``, the serving part).
 Covered: causal GQA with qk-norm and rotary embeddings, ``attend_tiled``
 (with the reference's pad of a short kv to a chunk multiple), the fused
 flash prefill kernel behind the reference's ``_flash_prefill_viable``
-rule, and decode over a contiguous :class:`KVCache` with a scalar
-(uniform batch) or a ``(B,)`` per-slot position. Paged caches, int8 KV,
-cross-attention, sliding windows / ring caches, the multi-token verify
-block and the training mode raise ``NotImplementedError``.
+rule, decode over a contiguous :class:`KVCache` with a scalar (uniform
+batch) or a ``(B,)`` per-slot position, and one-token decode over the
+block-paged pool :class:`PagedKVCache` through a page table. int8 KV
+(contiguous or paged), cross-attention, sliding windows / ring caches,
+the multi-token verify block (contiguous or paged) and the training mode
+raise ``NotImplementedError``.
 
-Viability of the kernel: where the reference asks for a TPU backend
+Viability of the kernels: where the reference asks for a TPU backend
 (``jax.default_backend() == "tpu"``), the port asks for a tensor on a
-CUDA device; the rest of the rule is the reference's (causal, no window,
-not cross, a scalar offset, ``hd % 128 == 0``, Sq and Sk multiples of
-128). So on the CPU prefill runs ``attend_tiled``, as the reference does
-on the CPU, and on the card it runs the kernel exactly where the
-reference would on its chip.
+CUDA device; the rest of each rule is the reference's. Flash prefill:
+causal, no window, not cross, a scalar offset, ``hd % 128 == 0``, Sq and
+Sk multiples of 128. Paged decode (``attend_decode_paged``): an fp pool,
+no window, one token. So on the CPU prefill runs ``attend_tiled`` and
+paged decode the dense gather, as the reference does on the CPU, and on
+the card each kernel runs exactly where the reference would run its
+Pallas kernel on its chip.
 
 KV caches are updated in place (the reference returns new arrays): a
 prefill or decode step writes its keys and values into the cache's
@@ -29,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.paged_attend import paged_attend
 from repro_torch.models.env import Env
 from repro_torch.models.layers import apply_rope, head_rms_norm
 
@@ -57,6 +62,33 @@ class KVCache:
         return KVCache(self.k[r], self.v[r], self.pos[r])
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-paged KV cache: one page *pool* shared by every slot instead
+    of per-slot contiguous arrays. Which pool rows a slot owns is the
+    host's page table (``(B, n_pages)`` int32, staged into each decode step
+    as ``batch["page_table"]``; scheduler state, not cache state). The last
+    pool row is the **trash page**: retired slots' ballast writes and
+    unused table entries point there, so resident bytes track the tokens
+    written, not ``max_slots * capacity``.
+
+    ``pos`` is the per-slot absorbed-token count, as in the slotted
+    :class:`KVCache`. Stacked per layer group, the leaves carry a leading
+    repetition dim (``k (R, P, page, Kv, hd)``, ``pos (R, B)``)."""
+
+    k: torch.Tensor    # (P, page, Kv_local, head_dim) — row P-1 is trash
+    v: torch.Tensor
+    pos: torch.Tensor  # (B,) int32
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[1]
+
+    def rep(self, r: int) -> "PagedKVCache":
+        """Views of repetition ``r`` of a stacked cache (writes go through)."""
+        return PagedKVCache(self.k[r], self.v[r], self.pos[r])
+
+
 def check_cache_geometry(capacity: int, context: int, *, label: str = ""):
     """Guard against a KV cache that would drop live tokens: without a
     sliding window (the only caches ported) a linear cache must hold the
@@ -80,6 +112,21 @@ def init_cache(batch: int, capacity: int, kv_heads: int, head_dim: int, dtype,
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
         pos,
+    )
+
+
+def init_paged_cache(batch: int, num_pages: int, page_size: int, kv_heads: int,
+                     head_dim: int, dtype, *, device="cpu"):
+    """Zeroed pool + per-slot positions. ``num_pages`` counts *allocatable*
+    pages; one extra trash row (index ``num_pages``) is appended for
+    ballast writes and unused page-table entries."""
+    if dtype == torch.int8:
+        raise NotImplementedError("int8 paged KV (PagedQuantKVCache) is not ported")
+    shape = (num_pages + 1, page_size, kv_heads, head_dim)
+    return PagedKVCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
 
@@ -207,6 +254,55 @@ def attend_decode(
     return out[:, None]
 
 
+def attend_decode_paged(
+    q: torch.Tensor,  # (B, 1, Kv, G, hd)
+    cache: PagedKVCache,  # already updated
+    page_table: torch.Tensor,  # (B, n_pages) int32
+) -> torch.Tensor:
+    """Single-token attention over the paged pool.
+
+    Dispatch is the reference's, with "on a TPU" read as "on a CUDA
+    device": the page-walking kernel for a CUDA tensor, an fp pool and one
+    token; otherwise the dense gather, which collects each slot's pages
+    into a contiguous view and runs the exact :func:`attend_decode` ops, so
+    positions past ``pos`` score ``-1e30`` and weigh exactly 0.0: paged
+    streams are then bit-identical to the contiguous engine's. (The
+    reference's ``window`` and ``impl`` arguments have no caller here:
+    paged windows raise in :func:`mha`.)"""
+    if q.device.type == "cuda" and cache.k.dtype.is_floating_point and q.shape[1] == 1:
+        out = paged_attend(q[:, 0].contiguous(), cache.k, cache.v, page_table, cache.pos)
+        return out[:, None]
+    B = q.shape[0]
+    cap = page_table.shape[1] * cache.page_size
+    idx = page_table.to(torch.int64)
+    gk = cache.k[idx].reshape(B, cap, *cache.k.shape[2:])
+    gv = cache.v[idx].reshape(B, cap, *cache.v.shape[2:])
+    return attend_decode(q, KVCache(gk, gv, cache.pos), ring=False, window=None)
+
+
+def _paged_write(cache: PagedKVCache, k, v, page_table) -> PagedKVCache:
+    """Scatter the decoded token into each slot's page, in place, and
+    advance ``pos``. ``k/v (B, T, Kv, hd)``; only ``T = 1`` (the ordinary
+    decode step) is ported. Logical page ``pos // page`` is clamped to the
+    table width: retired-ballast slots (table all trash, ``pos`` still
+    advancing) then keep writing into the trash page."""
+    if k.shape[1] != 1:
+        raise NotImplementedError(
+            f"the paged write of a {k.shape[1]}-token block (speculative verify) "
+            "is not ported"
+        )
+    B = page_table.shape[0]
+    page = cache.page_size
+    pos = cache.pos.to(torch.int64)  # tokens absorbed BEFORE this one
+    pi = torch.clamp(pos // page, max=page_table.shape[1] - 1)
+    phys = page_table[torch.arange(B, device=pos.device), pi].to(torch.int64)
+    off = pos % page
+    cache.k[phys, off] = k[:, 0].to(cache.k.dtype)
+    cache.v[phys, off] = v[:, 0].to(cache.v.dtype)
+    cache.pos.add_(1)
+    return cache
+
+
 def _flash_prefill_viable(causal, window, is_cross, pos_offset, qg, k):
     """The fused kernel serves the plain causal prefill shape on the card;
     everything else (CPU runs, windows, cross, per-slot offsets, untiled
@@ -271,8 +367,22 @@ def mha(
         raise NotImplementedError(f"mha mode={mode!r} is not ported (prefill, decode)")
     if is_cross or kv_ext is not None:
         raise NotImplementedError("cross-attention is not ported")
-    if page_table is not None:
-        raise NotImplementedError("paged KV caches are not ported")
+    paged = isinstance(cache, PagedKVCache)
+    if paged and mode != "decode":
+        raise ValueError(
+            "paged caches are decode-only: prefill runs on contiguous "
+            "caches and the serve engine scatters them into pages"
+        )
+    if paged and page_table is None:
+        raise ValueError(
+            "paged decode needs a page_table (S=1 ordinary decode, "
+            "S=k+1 the speculative verify block)"
+        )
+    if paged and window is not None:
+        raise ValueError(
+            "paged KV keeps the full context: sliding-window decode "
+            "stays on the contiguous ring layout"
+        )
     if window is not None:
         raise NotImplementedError("sliding-window attention is not ported")
     if cfg.qkv_bias:
@@ -297,8 +407,11 @@ def mha(
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
     qg = q.reshape(B, S, Kv_l, G, hd)
 
-    C = cache.capacity
-    if mode == "decode":
+    if paged:
+        _paged_write(cache, k, v, page_table)
+        out = attend_decode_paged(qg, cache, page_table)
+    elif mode == "decode":
+        C = cache.capacity
         per_slot = cache.pos.ndim > 0
         if S != 1:
             raise NotImplementedError(
@@ -323,6 +436,7 @@ def mha(
         cache.pos.add_(1)
         out = attend_decode(qg, cache, ring=False, window=None)
     else:
+        C = cache.capacity
         causal = cfg.causal
         q_off = int(pos_offset) if isinstance(pos_offset, int) else 0
         if _flash_prefill_viable(causal, window, False, pos_offset, qg, k):

@@ -9,7 +9,9 @@ only one layer's materialized weights are alive at a time. The
 reference scans the repetitions; PyTorch runs them as a Python loop.
 
 Caches are stacked per group (leading repetition dim) and updated in
-place; the returned caches are the same tensors.
+place; the returned caches are the same tensors. The serve engine's
+paged layout (:func:`init_paged_caches`) gives every attention block a
+page pool instead, read through the ``page_table`` a decode step carries.
 """
 from __future__ import annotations
 
@@ -19,7 +21,14 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KVCache, check_cache_geometry, init_cache, mha
+from repro_torch.models.attention import (
+    KVCache,
+    PagedKVCache,
+    check_cache_geometry,
+    init_cache,
+    init_paged_cache,
+    mha,
+)
 from repro_torch.models.env import Env
 from repro_torch.models.layers import embed_lookup_vp, rms_norm
 from repro_torch.models.mlp import swiglu
@@ -43,6 +52,7 @@ def apply_block(
     mode: str,
     cache: Any = None,
     pos_offset=0,
+    page_table=None,
 ):
     """One block of the pattern. Returns (x', cache'); the reference's
     third value, the MoE auxiliary loss, has no counterpart here."""
@@ -52,7 +62,8 @@ def apply_block(
         raise NotImplementedError("sliding-window attention is not ported")
     wa = w["attn"]
     xn = rms_norm(x, wa["ln"], cfg.norm_eps)
-    y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, pos_offset=pos_offset)
+    y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, pos_offset=pos_offset,
+                   page_table=page_table)
     x = x + y
     return x + _channel_mix(x, w, cfg, env), cache
 
@@ -65,8 +76,9 @@ def run_group(
     *,
     mode: str,
     mat_fn: Callable[[str, dict], dict],  # (pattern key, rep storage) -> weights
-    caches: Any = None,      # {p<i>: stacked KVCache} or None
+    caches: Any = None,      # {p<i>: stacked KVCache | PagedKVCache} or None
     pos_offset=0,
+    page_table=None,         # (B, n_pages) int32 — paged decode only
 ):
     """Run the group's pattern repetitions. Returns (x, caches')."""
     for rep in range(cfg.layers_per_group // len(cfg.pattern)):
@@ -76,6 +88,7 @@ def run_group(
             c_in = caches[key].rep(rep) if caches is not None else None
             x, _ = apply_block(
                 kind, x, w, cfg, env, mode=mode, cache=c_in, pos_offset=pos_offset,
+                page_table=page_table,
             )
             del w  # one layer's materialized weights alive at a time
     return x, caches
@@ -108,10 +121,11 @@ def _logits(x, params, cfg: ModelConfig, env: Env, mat_top):
 def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
                     cache_capacity):
     """Prefill: returns (last-token logits (B, 1, V), caches per group).
-    The reference's ``batch["last"]`` (padded, page-bucketed prompts) is
-    part of paged serving and raises."""
-    if "last" in batch:
-        raise NotImplementedError("batch['last'] (bucketed paged prefill) is not ported")
+
+    ``batch["last"]`` (an int or a 0-d integer tensor, optional) marks the
+    last *real* token when the prompt is right-padded to a page-bucket
+    length: the logits are read there instead of at ``S - 1``. Padding is
+    causal-safe for pure-attention patterns, the only ones ported."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     B, S = x.shape[:2]
     check_cache_geometry(cache_capacity, S)
@@ -121,23 +135,28 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
             x, gp, cfg, env, mode="prefill",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
         )
-    logits = _logits(x[:, -1:], params, cfg, env, mat_top)
+    if "last" in batch:
+        last = torch.as_tensor(batch["last"], device=x.device).reshape(1)
+        x_last = x.index_select(1, last.to(torch.int64))
+    else:
+        x_last = x[:, -1:]
+    logits = _logits(x_last, params, cfg, env, mat_top)
     return logits, caches
 
 
 def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
     """One-token decode step. ``batch["tokens"]`` (B, 1); ``batch["pos"]``
-    is a scalar (uniform batch) or ``(B,)`` (per-slot). Returns
+    is a scalar (uniform batch) or ``(B,)`` (per-slot); the paged engine's
+    batches also carry ``batch["page_table"]`` (B, n_pages). Returns
     (logits (B, 1, V), caches') — the caches are updated in place."""
-    if batch.get("page_table") is not None:
-        raise NotImplementedError("paged decode is not ported")
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     pos = batch["pos"]
+    page_table = batch.get("page_table")
     for g, gp in enumerate(params["groups"]):
         x, _ = run_group(
             x, gp, cfg, env, mode="decode",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
-            pos_offset=pos,
+            pos_offset=pos, page_table=page_table,
         )
     return _logits(x, params, cfg, env, mat_top), caches
 
@@ -166,6 +185,33 @@ def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
             one = init_cache(batch, capacity, kv_l, cfg.head_dim, dtype,
                              per_slot=per_slot, device=device)
             entry[f"p{pi}"] = KVCache(*(
+                t.expand(reps, *t.shape).clone() for t in (one.k, one.v, one.pos)
+            ))
+        groups.append(entry)
+    return groups
+
+
+def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
+                      page_size: int, dtype, *, device="cpu"):
+    """Paged twin of ``init_caches(per_slot=True)``: every "attn" block
+    gets a page pool (:func:`~repro_torch.models.attention.init_paged_cache`,
+    ``num_pages`` allocatable rows plus the trash row) instead of per-slot
+    contiguous arrays, stacked per group (``k (R, P, page, Kv, hd)``,
+    ``pos (R, B)``). The reference's recurrent kinds keep their slotted
+    state there; the port has only "attn" blocks."""
+    if cfg.sliding_window:
+        raise ValueError("sliding-window blocks have no paged layout")
+    reps = cfg.layers_per_group // len(cfg.pattern)
+    kv_l = env.heads_local(cfg.num_kv_heads)
+    groups = []
+    for _ in range(cfg.num_groups):
+        entry = {}
+        for pi, kind in enumerate(cfg.pattern):
+            if kind != "attn":
+                raise NotImplementedError(f"block kind {kind!r} is not ported")
+            one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
+                                   dtype, device=device)
+            entry[f"p{pi}"] = PagedKVCache(*(
                 t.expand(reps, *t.shape).clone() for t in (one.k, one.v, one.pos)
             ))
         groups.append(entry)

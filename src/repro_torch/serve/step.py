@@ -59,12 +59,18 @@ def global_cache_shapes(
     dtype=torch.float32,
     *,
     per_slot: bool = False,
+    paged_pages: int | None = None,
+    page_size: int | None = None,
 ):
     """The decode step's cache tree as ``meta`` tensors (shapes and dtypes,
     no allocation): the counterpart of the reference's
-    ``ShapeDtypeStruct`` tree."""
+    ``ShapeDtypeStruct`` tree. ``paged_pages`` + ``page_size`` select
+    ``model.init_paged_caches`` (``capacity`` is then not read)."""
     _one_device(None, mesh_cfg, "global_cache_shapes")
     env = Env(tp=mesh_cfg.tp)
+    if paged_pages is not None:
+        return M.init_paged_caches(cfg, env, batch, paged_pages, page_size, dtype,
+                                   device="meta")
     return M.init_caches(cfg, env, batch, capacity, dtype, per_slot=per_slot,
                          device="meta")
 
@@ -142,10 +148,10 @@ def make_decode_step(
     """``step(weights, caches, batch) -> (logits, caches')``; ``weights``
     is the storage tree, or the placed tree when ``weight_stationary``.
     Per-slot positions (the engine's slotted caches) are read from the
-    caches' ``pos`` and the batch's ``pos``."""
+    caches' ``pos`` and the batch's ``pos``. ``paged=True`` is the step over
+    ``init_paged_caches`` pools, whose batches carry ``page_table``
+    (B, n_pages) int32; a batch that does not match the layout raises."""
     plan = _serve_plan(cfg, plan, caller="make_decode_step")
-    if paged:
-        raise NotImplementedError("paged decode is not ported")
     _one_device(mesh, mesh_cfg, "make_decode_step")
     fp32_math()
     env = plan.make_env(mesh_cfg)
@@ -156,6 +162,11 @@ def make_decode_step(
 
     @torch.no_grad()
     def step(weights, caches, batch):
+        if paged != (batch.get("page_table") is not None):
+            raise ValueError(
+                f"make_decode_step(paged={paged}): the batch "
+                f"{'lacks' if paged else 'carries'} a page_table"
+            )
         return M.forward_decode(
             weights, batch, caches, cfg, env,
             mat_group=mat_group, mat_top=mat_top_factory(weights),

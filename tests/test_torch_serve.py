@@ -295,7 +295,10 @@ def test_slot_manager_audit_and_misuse():
 
 
 def _raises_paged(s):
-    _port_engine(s, paged=True)
+    # the paged layout is served (tests/test_torch_paged_serve.py); its
+    # int8 pools (PagedQuantKVCache) are not ported
+    tstep.global_cache_shapes(s["tcfg"], s["tmesh"], SLOTS, CAPACITY, torch.int8,
+                              paged_pages=6, page_size=8)
 
 
 def _raises_draft(s):
