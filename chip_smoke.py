@@ -84,8 +84,33 @@ Phases, each printing its own lines:
      own inputs within 2e-6. Prints decode ms/step, admission ms, tokens/s,
      the memory peak and a ``torch.profiler`` trace of one paged decode
      step.
+ 10. l2norm — the AWP monitor's Σw² kernel against its plain version on the
+     card: unit normals from a seed at lengths 1, 127, 32,769, 20,000,000
+     (the Table II/III profile size), 88,080,384 (a stacked gate of
+     qwen3-1.7b), 88,936,448 (AlexNet's DIST weights) and 311,164,928
+     (qwen3-1.7b's embed), an unaligned view, and the
+     special values (inf and NaN where the plain version has them); rtol
+     1e-5, and two calls on one input must give the same bits. Times the
+     kernel, the plain version and ``torch.dot(x, x)`` (the library
+     yardstick) with CUDA events at 20,000,000, a stacked gate
+     (88,080,384) and the embed, beside the bound (4 B an element at
+     3.35 TB/s).
+ 11. main path — A²DTWP training of full-width qwen3-1.7b (28 layers,
+     random weights from seed 0, ``cfg.remat`` on) through ``Trainer`` and
+     ``make_train_step`` on ``synthetic_lm_batch`` at batch 8 x seq 128:
+     an AWP plan forced to widen every 2 steps (8→16→24→32 bits), then
+     ``oracle:2`` steps. Losses finite, wire bytes equal to the plan's
+     ``wire_table``, and launch counts zeroed before and read after:
+     Bitpack/Bitunpack once per ``DIST`` leaf per materialization (198 a
+     forward, and the 196 group leaves again in the remat backward, at
+     every step below 32 bits), ``l2norm_sq`` once per ``DIST`` leaf per
+     step (30). Layer group 0's first monitor call of each step is recorded
+     and held to the plain version within rtol 1e-5. Prints warm step ms,
+     the memory peak and a ``torch.profiler`` trace of one ``oracle:2``
+     step with the monitor's and the transfer's share of kernel time.
 
-Then one ``{"kernels": [...]}`` line and, last, the device line
+Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
+monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without the last line.
 """
@@ -107,6 +132,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FC5 = 51_380_224  # AlexNet fc5: 256·7·7 × 4096 weights, the largest leaf
 ALEXNET_DIST = 88_936_448  # weights in DIST leaves (all but conv0)
+QWEN3_EMBED = 151_936 * 2_048  # qwen3-1.7b's embed (and head): the largest leaf
+# one layer's gate/up/down, wq/wo and wk/wv: the per-layer views that
+# phases 7, 9 and 11 pack and unpack
+QWEN3_LAYER = (2_048 * 6_144, 2_048 * 2_048, 2_048 * 1_024)
 SPECIAL_BITS = (
     0x00000000, 0x80000000, 0x3F800000, 0xBF800000, 0x7F800000, 0xFF800000,
     0x00000001, 0x807FFFFF, 0x00400000, 0x7FC00000, 0x7F800001, 0xFFFFFFFF,
@@ -136,7 +165,7 @@ def kernel_cases(torch, device):
     import numpy as np
 
     gen = torch.Generator(device=device).manual_seed(0)
-    for n in (1, 127, 32_769, FC5):
+    for n in (1, 127, 32_769, FC5, *QWEN3_LAYER, QWEN3_EMBED):
         yield f"normal n={n}", torch.randn(n, generator=gen, device=device) * 3.0
     special = np.array(SPECIAL_BITS, dtype=np.uint32).view(np.float32)
     yield "special", torch.from_numpy(np.tile(special, 37)).to(device)
@@ -148,7 +177,7 @@ def word_err(torch, a, b):
     """Largest difference of two tensors over their integer views."""
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
-    if a.numel() == 0:
+    if a.numel() == 0 or torch.equal(a, b):  # no int64 copies of equal tensors
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
@@ -300,13 +329,14 @@ def main_path(torch, device, *, cfg=None, batch=64):
     evaluate = make_cnn_eval(cfg, mesh_cfg, spec_tree, groups_info, plan=oracle_plan)
     val_imgs, val_labels = data.validation(EVAL_SIZE)
 
-    from repro_torch.kernels.bitpack import bitpack
-    from repro_torch.kernels.bitunpack import bitunpack
+    n_monitor = sum(
+        s.meta.compress for leafs in spec_tree["layers"].values() for s in leafs.values()
+    )
 
     fc5_start = storage["layers"]["fc5"]["w"].clone() if "fc5" in storage["layers"] else None
     if device.type == "cuda":
         torch.cuda.synchronize()
-    bitpack.launches = bitunpack.launches = 0
+    zero_counts()
     t_run = time.perf_counter()
     storage, mom, _, awp_data_s = train(awp, storage, mom, data, AWP_STEPS, batch, opt.lr)
     storage, mom, _, orc_data_s = train(
@@ -314,7 +344,8 @@ def main_path(torch, device, *, cfg=None, batch=64):
     )
     top5 = float(evaluate(storage, val_imgs, val_labels))
     run_s = time.perf_counter() - t_run
-    launches = {"bitpack": bitpack.launches, "bitunpack": bitunpack.launches}
+    got = counts()
+    launches = {k: got[k] for k in ("bitpack", "bitunpack", "l2norm_sq")}
 
     moved = None
     if fc5_start is not None:
@@ -332,12 +363,17 @@ def main_path(torch, device, *, cfg=None, batch=64):
     packed_steps = widened + ORACLE_STEPS + 1  # + the eval's materialization
     expect = n_dist * packed_steps
     if device.type == "cuda":
-        for name, count in launches.items():
-            check(count == expect, f"{name}: {count} launches, expected {expect}")
+        for name in ("bitpack", "bitunpack"):
+            check(launches[name] == expect, f"{name}: {launches[name]} launches, "
+                                            f"expected {expect}")
+        # the AWP monitor: one l2norm_sq per monitored leaf per train step
+        want = n_monitor * (AWP_STEPS + ORACLE_STEPS)
+        check(launches["l2norm_sq"] == want,
+              f"l2norm_sq: {launches['l2norm_sq']} launches, expected {want}")
         step = make_cnn_train_step(cfg, mesh_cfg, spec_tree, groups_info, opt, plan=oracle_plan)
         profile_step(torch, step, storage, mom, data, batch, opt.lr)
     return {
-        "elems": elems, "n_dist": n_dist, "awp": awp, "oracle": oracle,
+        "elems": elems, "n_dist": n_dist, "n_monitor": n_monitor, "awp": awp, "oracle": oracle,
         "top5": top5, "launches": launches, "setup_s": setup_s,
         "run_s": run_s, "data_s": awp_data_s + orc_data_s, "fc5_moved": moved,
         "lr": opt.lr,
@@ -381,7 +417,9 @@ def profile_step(torch, step, storage, mom, data, batch, lr):
         "oracle:2 step",
     )
     packing = sum(ms for k, ms in by_name.items() if "bitpack" in k or "bitunpack" in k)
-    say(f"   profile oracle:2 step: bitpack+bitunpack {packing:.3f} ms")
+    monitor = sum(ms for k, ms in by_name.items() if "l2norm" in k)
+    say(f"   profile oracle:2 step: bitpack+bitunpack {packing:.3f} ms, l2norm_sq "
+        f"{monitor:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -527,24 +565,24 @@ def check_flash(torch, device):
 SERVE_LENS, SERVE_GEN, SERVE_SLOTS = (512, 512, 384, 256, 200), 16, 2
 
 
-def counts():
+def _wrappers():
     from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bitunpack import bitunpack
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.l2norm import l2norm_sq
     from repro_torch.kernels.paged_attend import paged_attend
 
-    return {"bitpack": bitpack.launches, "bitunpack": bitunpack.launches,
-            "flash_prefill": flash_prefill.launches, "paged_attend": paged_attend.launches}
+    return {"bitpack": bitpack, "bitunpack": bitunpack, "flash_prefill": flash_prefill,
+            "paged_attend": paged_attend, "l2norm_sq": l2norm_sq}
+
+
+def counts():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def zero_counts():
-    from repro_torch.kernels.bitpack import bitpack
-    from repro_torch.kernels.bitunpack import bitunpack
-    from repro_torch.kernels.flash_prefill import flash_prefill
-    from repro_torch.kernels.paged_attend import paged_attend
-
-    bitpack.launches = bitunpack.launches = flash_prefill.launches = 0
-    paged_attend.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def watch_flash(torch, seen):
@@ -687,7 +725,7 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
     groups = sorted(set(lens))
     forwards = len(groups) + len(groups) * (gen - 1)
     want = {"flash_prefill": cfg.num_layers * sum(v for S, v in dict(zip(lens, viable)).items()),
-            "bitpack": per_forward * forwards * on_card, "paged_attend": 0}
+            "bitpack": per_forward * forwards * on_card, "paged_attend": 0, "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
     check(launches["static"] == want, f"static: launches {launches['static']}, expected {want}")
     say(f"   static reference: {len(groups)} groups in {static_s:.2f} s; launches "
@@ -724,7 +762,7 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
         packed = admissions * per_forward + (per_place if ws else
                                              summary["decode_steps"] * per_forward)
         want = {"flash_prefill": cfg.num_layers * sum(viable), "bitpack": packed * on_card,
-                "bitunpack": packed * on_card, "paged_attend": 0}
+                "bitunpack": packed * on_card, "paged_attend": 0, "l2norm_sq": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         new_tokens = sum(len(r.tokens) for r in results.values())
         dec = sorted(timings["decode"])
@@ -1014,7 +1052,7 @@ def paged_path(torch, device, phase7, *, page=PAGE, shared=SHARED_PREFIX,
         packed = (summary["admissions"] + steps) * per_forward * on_card
         want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0 for S in buckets),
                 "paged_attend": cfg.num_layers * steps * on_card,
-                "bitpack": packed, "bitunpack": packed}
+                "bitpack": packed, "bitunpack": packed, "l2norm_sq": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         new_tokens = sum(len(r.tokens) for r in results.values())
         dec = sorted(timings["decode"])
@@ -1095,6 +1133,304 @@ def paged_path(torch, device, phase7, *, page=PAGE, shared=SHARED_PREFIX,
             "diverged": len(sdiverged)}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the l2norm kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# Another summation order than the plain version's (torch.sum's tree) over
+# up to 311 M squares in fp32: the bar of tests/test_kernels.py.
+L2_RTOL = 1e-5
+QWEN3_GATE = 7 * 2_048 * 6_144  # a stacked gate of one precision group
+L2_SIZES = (1, 127, 32_769, 20_000_000, QWEN3_GATE, ALEXNET_DIST, QWEN3_EMBED)
+# Table II/III's profile size (benchmarks/run.py), qwen3's stacked gate, its embed
+L2_TIMED = (20_000_000, QWEN3_GATE, QWEN3_EMBED)
+
+
+def l2norm_cases(torch, device):
+    import numpy as np
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    for n in L2_SIZES:
+        yield f"normal n={n}", torch.randn(n, generator=gen, device=device)
+    base = torch.randn(32_772, generator=gen, device=device)
+    yield "unaligned view n=32768", base[1:32_769]
+    special = np.array(SPECIAL_BITS, dtype=np.uint32).view(np.float32)
+    with np.errstate(invalid="ignore"):
+        small = special[np.isfinite(special) & (np.abs(special) < 1e18)]
+    yield "special, finite squares", torch.from_numpy(np.tile(small, 37)).to(device)
+    yield "special, with inf", torch.from_numpy(special[~np.isnan(special)].copy()).to(device)
+    yield "special, with nan", torch.from_numpy(np.tile(special, 37)).to(device)
+
+
+def check_l2norm(torch, device):
+    """Kernel vs plain version on every case (rtol L2_RTOL; inf and NaN
+    where the plain version has them), two calls bit-equal; times at
+    L2_TIMED beside the plain version, ``torch.dot(x, x)`` (one cuBLAS
+    call computing the same Σw²) and the bound. Returns {n: row} and the
+    largest |kernel - plain| over the finite cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2norm import l2norm_sq
+
+    out, max_err = {}, 0.0
+    for label, w in l2norm_cases(torch, device):
+        got, again, want = l2norm_sq(w), l2norm_sq(w), ref.l2norm_sq_ref(w)
+        torch.cuda.synchronize()
+        check(bool((got.view(torch.int32) == again.view(torch.int32)).all()),
+              f"l2norm {label}: two calls differ ({float(got)!r}, {float(again)!r})")
+        k, p = float(got), float(want)
+        if math.isfinite(p):
+            err = abs(k - p)
+            check(err <= L2_RTOL * abs(p), f"l2norm {label}: kernel {k!r}, plain {p!r}")
+            max_err = max(max_err, err)
+            line = f"   l2norm {label}: {k:.9g} vs plain {p:.9g}, rel err {err / (abs(p) or 1):.2e}"
+        else:
+            check(math.isnan(k) == math.isnan(p) and (math.isnan(p) or k == p),
+                  f"l2norm {label}: kernel {k!r}, plain {p!r}")
+            line = f"   l2norm {label}: {k!r} as the plain version"
+        if w.numel() in L2_TIMED:
+            n = w.numel()
+            ms = time_cuda(torch, lambda: l2norm_sq(w))
+            plain = time_cuda(torch, lambda: ref.l2norm_sq_ref(w), iters=5)
+            lib = time_cuda(torch, lambda: torch.dot(w, w))
+            bound = 4 * n / HBM_BYTES_PER_S * 1e3  # each input read once
+            out[n] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound}
+            line += (f"; kernel {ms * 1e3:.1f} us ({4 * n / ms / 1e6:.0f} GB/s), plain "
+                     f"{plain * 1e3:.1f} us, torch.dot {lib * 1e3:.1f} us, bound "
+                     f"{bound * 1e3:.1f} us ({bound / ms:.0%} of it)")
+        say(line + "; two calls bit-equal")
+    return out, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 11: full-width qwen3-1.7b A²DTWP training
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_SEQ = 8, 128  # the training launcher's defaults
+# the launcher's default rate: a 4-step baseline sweep of the launcher at
+# full width kept the loss finite at 0.005, 0.05, 0.5 and 5 (PERF.md)
+LM_LR = 0.05
+
+
+def watch_monitor(torch, seen, every):
+    """Route the AWP monitor's kernel calls through a recorder that keeps a
+    copy of the input and output of every ``every``-th call: with
+    ``every`` = the monitor calls of one step, layer group 0's first leaf
+    of each step. Returns the undo function."""
+    from repro_torch.kernels import ops
+
+    kernel, calls = ops._l2norm_kernel, [0]
+
+    def recorded(w):
+        out = kernel(w)
+        if calls[0] % every == 0:
+            seen.append((w.clone(), out.clone()))
+        calls[0] += 1
+        return out
+
+    ops._l2norm_kernel = recorded
+    return lambda: setattr(ops, "_l2norm_kernel", kernel)
+
+
+def watch_packing(torch, seen):
+    """Route the materialization's Bitpack and Bitunpack launches through
+    recorders that keep a copy of the input and output of the first launch
+    of each kernel at each (length, round_to) in ``seen`` — qwen3's embed,
+    gate/up/down, wq/wo and wk/wv at every format the run reaches; the keys
+    stay in ``seen`` once checked. Returns the undo function."""
+    from repro_torch.kernels import ops
+
+    pack, unpack = ops._bitpack_kernel, ops._bitunpack_kernel
+
+    def record(name, rt, x, out):
+        key = (name, x.numel() // (rt if name == "bitunpack" else 1), rt)
+        if key not in seen:
+            seen[key] = (x.clone(), out.clone())
+
+    def packed(w, rt):
+        out = pack(w, rt)
+        record("bitpack", rt, w, out)
+        return out
+
+    def unpacked(planes):
+        out = unpack(planes)
+        record("bitunpack", planes.shape[0], planes, out)
+        return out
+
+    ops._bitpack_kernel, ops._bitunpack_kernel = packed, unpacked
+
+    def undo():
+        ops._bitpack_kernel, ops._bitunpack_kernel = pack, unpack
+
+    return undo
+
+
+def check_seen_packing(torch, seen):
+    """The plain versions on each recorded launch's own input: planes
+    byte-equal to ``bitpack_ref``, words bit-equal to ``bitunpack_ref``.
+    Frees the copies and keeps the keys."""
+    from repro_torch.kernels import ref
+
+    for key, rec in seen.items():
+        if rec is None:
+            continue
+        (name, n, rt), (x, out) = key, rec
+        want = ref.bitpack_ref(x, rt) if name == "bitpack" else ref.bitunpack_ref(x)
+        check(word_err(torch, out, want) == 0,
+              f"{name} on the main path, n={n} round_to={rt}: differs from its plain version")
+        seen[key] = None
+
+
+def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR):
+    """Full-width qwen3-1.7b trained through ``Trainer`` and
+    ``make_train_step``: the AWP plan forced to widen every 2 steps, then
+    ``oracle:2`` steps. Returns the measurements; raises on a failed
+    check. Launch counts, the monitor and packing records, the memory
+    peak and the profile are read on a card only, so the phase rehearses on the CPU at
+    a reduced config."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    mesh_cfg = MeshCfg()
+    spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    nrt = cfg.num_groups + 1
+    elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
+    group_dist = [s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+    top_dist = [k for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST]
+    # materializations a step: every stacked DIST leaf once per layer and
+    # every top-level one once in the forward; under remat the backward
+    # runs each layer again, its leaves included
+    per_forward = sum(s.reps for s in group_dist) + len(top_dist)
+    recomputed = sum(s.reps for s in group_dist) if cfg.remat else 0
+    n_monitor = len(group_dist) + len(top_dist)
+    n_params = sum(x.numel() for x in tree_leaves(storage))
+    say(f"   {cfg.name}: {n_params:,} fp32 parameters, init {setup_s:.2f} s; per step "
+        f"{per_forward} + {recomputed} (remat) DIST materializations, {n_monitor} monitor "
+        f"calls; batch {batch} x seq {seq}, lr {lr:g}")
+
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+
+    def trainer_for(plan):
+        def builder(rts):
+            return make_train_step(cfg, mesh_cfg, None, spec_tree, opt, shapes,
+                                   plan=plan.with_round_tos(rts))
+        return Trainer(builder, nrt, plan=plan, dist_elems_per_group=elems)
+
+    # forced to widen, as in phase 4: 8 -> 16 -> 24 -> 32 bits at steps 3, 5, 7
+    awp_plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
+                                   awp_interval=2)
+    oracle_plan = PrecisionPlan.build(nrt, round_to=2)
+    awp, oracle = trainer_for(awp_plan), trainer_for(oracle_plan)
+    # the copies of a step's first monitor call and of its first packing
+    # launches at each new (length, round_to) are held to the plain
+    # versions after the step, then freed; the memory peak is read over
+    # the steps that took no packing copy
+    seen, packs, errs, peaks = [], {}, [], []
+    unwatch = watch_monitor(torch, seen, n_monitor)
+    unwatch_packing = watch_packing(torch, packs)
+    data_s = check_s = 0.0
+    zero_counts()
+    sync()
+    t_run = time.perf_counter()
+    for i in range(AWP_STEPS + ORACLE_STEPS):
+        t0 = time.perf_counter()
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+        data_s += time.perf_counter() - t0
+        trainer = awp if i < AWP_STEPS else oracle
+        n_packs = len(packs)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        storage, mom, _ = trainer.run_step(storage, mom, {"tokens": tokens, "labels": labels}, lr)
+        if on_card and len(packs) == n_packs:
+            peaks.append(torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        for w, out in seen:
+            p, k = float(ref.l2norm_sq_ref(w)), float(out)
+            check(abs(k - p) <= L2_RTOL * abs(p), f"step {i}: monitor call on the main path: "
+                                                  f"kernel {k!r}, plain {p!r}")
+            errs.append(abs(k - p))
+        seen.clear()
+        check_seen_packing(torch, packs)
+        check_s += time.perf_counter() - t0
+    sync()
+    run_s = time.perf_counter() - t_run - check_s
+    got = counts()
+    unwatch()
+    unwatch_packing()
+    peak = max(peaks, default=0)
+
+    records = awp.records + oracle.records
+    losses = [r.loss for r in records]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    for r, plan in [(r, awp_plan) for r in awp.records] + [(r, oracle_plan) for r in oracle.records]:
+        want = plan.with_round_tos(r.round_tos).wire_table(elems, 1)["total"]
+        check(r.wire_bytes == want, f"step {r.step}: wire {r.wire_bytes} != plan {want}")
+    check(all(len(set(r.round_tos)) == 1 for r in records), "groups widened apart")
+    packed = sum(r.round_tos[0] < 4 for r in records) * (per_forward + recomputed) * on_card
+    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
+            "l2norm_sq": n_monitor * len(records) * on_card}
+    check(got == want, f"launches {got}, expected {want}")
+    if on_card:
+        check(len(errs) == len(records), f"{len(errs)} monitor calls recorded, "
+                                         f"{len(records)} steps")
+        # every DIST length at every packed format the run reached
+        lengths = {x[0].numel() for g, gs in zip(storage["groups"], spec_tree["groups"])
+                   for x, s in zip(tree_leaves(g), tree_leaves(gs)) if s.kind == DIST}
+        lengths |= {storage[k].numel() for k in top_dist}
+        rts = {r.round_tos[0] for r in records} - {4}
+        want_keys = {(k, n, rt) for k in ("bitpack", "bitunpack") for n in lengths for rt in rts}
+        check(set(packs) == want_keys, f"packing launches checked {sorted(packs)}, "
+                                       f"expected {sorted(want_keys)}")
+    for r in records:
+        say(f"   step {r.step:2d} round_to {r.round_tos[0]} loss {r.loss:.5f} "
+            f"wire {r.wire_bytes} B  {r.wall_s * 1e3:.1f} ms"
+            f"{'  (first at these formats)' if r.recompiled else ''}")
+    warm = sorted(r.wall_s for r in records if not r.recompiled)
+    say(f"   AWP bits history {awp.bits_history}")
+    say(f"   launches {got}; layer group 0's first monitor call of each step within "
+        f"{max(errs, default=0.0):.3e} of its plain version ({len(errs)} steps)")
+    say(f"   bitpack/bitunpack on the main path equal to their plain versions at "
+        f"{len(packs)} (kernel, length, round_to): {sorted(packs)}")
+    say(f"   step ms (host clock to the loss sync): median of warm steps "
+        f"{warm[len(warm) // 2] * 1e3:.2f}; run {run_s:.2f} s without the checks' "
+        f"{check_s:.2f} s, batch synthesis {data_s:.2f} s; memory peak of the "
+        f"{len(peaks)} steps with no packing copy {peak / 2**30:.2f} GiB")
+    profiled = {}
+    if on_card:
+        step = make_train_step(cfg, mesh_cfg, None, spec_tree, opt, shapes, plan=oracle_plan)
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, 10_000, device=device)
+        b = {"tokens": tokens, "labels": labels}
+        float(step(storage, mom, b, lr)[2]["loss"])  # warm
+        by_name = profile(torch, lambda: float(step(storage, mom, b, lr)[2]["loss"]),
+                          "qwen3-1.7b oracle:2 train step")
+        busy = sum(by_name.values())
+        profiled = {
+            "busy_ms": busy,
+            "l2norm_ms": sum(ms for k, ms in by_name.items() if "l2norm" in k),
+            "packing_ms": sum(ms for k, ms in by_name.items()
+                              if "bitpack" in k or "bitunpack" in k),
+        }
+        say(f"   profile train step: l2norm_sq {profiled['l2norm_ms']:.3f} ms "
+            f"({profiled['l2norm_ms'] / busy:.2%} of kernel time), bitpack+bitunpack "
+            f"{profiled['packing_ms']:.3f} ms ({profiled['packing_ms'] / busy:.2%})")
+    return {"awp": awp, "oracle": oracle, "launches": got, "peak": peak,
+            "monitor_err": max(errs, default=0.0), "profile": profiled}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1148,7 +1484,9 @@ def main() -> int:
     warm = [r.wall_s for r in awp.records + oracle.records if not r.recompiled]
     say(f"   AWP bits history {awp.bits_history}")
     say(f"   launches: bitpack {run['launches']['bitpack']}, bitunpack "
-        f"{run['launches']['bitunpack']} ({run['n_dist']} packed leaves per step)")
+        f"{run['launches']['bitunpack']} ({run['n_dist']} packed leaves per step), "
+        f"l2norm_sq {run['launches']['l2norm_sq']} ({run['n_monitor']} monitored leaves "
+        "per step)")
     say(f"   top-5 error after {len(rts)} steps: {run['top5']:.4f}; fc5 master moved by "
         f"{run['fc5_moved']:.3e} of its norm (lr {run['lr']:g})")
     say(f"   step ms (host clock to the loss sync): median of warm steps "
@@ -1182,6 +1520,19 @@ def main() -> int:
         served[k] += paged_run["launches"][k]
     say(f"   launches over phase 9's two runs: {paged_run['launches']}")
 
+    say("phase 10: l2norm kernel vs its plain version on the card")
+    l2, l2_err = check_l2norm(torch, device)
+
+    gc.collect()  # phases 7 and 9's weights and engines
+    torch.cuda.empty_cache()
+    say(f"phase 11: main path — full-width qwen3-1.7b A²DTWP training, batch {LM_BATCH} x "
+        f"seq {LM_SEQ}")
+    lm = lm_train_path(torch, device)
+    bits = [(s, b[0]) for s, b in lm["awp"].bits_history]
+    check(bits == [(0, 8), (3, 16), (5, 24), (7, 32)], f"bits history {lm['awp'].bits_history}")
+    for k in served:
+        served[k] += lm["launches"][k]
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -1210,6 +1561,15 @@ def main() -> int:
         "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
+    })
+    t = l2[QWEN3_EMBED]  # the main path's largest monitored leaf
+    kernels.append({
+        "name": "l2norm_sq", "route": "cuda", "source": "src/repro_torch/csrc/l2norm.cu",
+        "replaces": "src/repro/kernels/l2norm.py:31",
+        "launches": run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"],
+        "max_abs_err": max(l2_err, lm["monitor_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": t["library_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -40,6 +40,7 @@ class ModelConfig:
 
     # --- AWP ----------------------------------------------------------------
     num_precision_groups: int = 4    # AWP group granularity (paper: block level)
+    remat: bool = True               # activation checkpointing per layer (train)
 
     def __post_init__(self):
         if self.arch_type != "dense":

@@ -32,7 +32,8 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference shrinks it:
-    2 layers, d_model <= 256, <= 4 heads, d_ff <= 512, vocab <= 512."""
+    2 layers, d_model <= 256, <= 4 heads, d_ff <= 512, vocab <= 512, and
+    no activation checkpointing."""
     num_heads = min(cfg.num_heads, 4)
     num_kv = max(1, min(cfg.num_kv_heads, num_heads))
     while num_heads % num_kv:
@@ -49,4 +50,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=None if cfg.sliding_window is None else 32,
         num_precision_groups=min(cfg.num_precision_groups, 2),
+        remat=False,
     )

@@ -1,9 +1,11 @@
-"""Synthetic ImageNet-shaped data (counterpart of ``repro.data.pipeline``).
+"""Synthetic data (counterpart of ``repro.data.pipeline``).
 
 ``SyntheticImageNet`` draws class prototypes + noise + a random shift from
 numpy ``SeedSequence`` streams, the reference's exact recipe, so both
 packages see identical batches; they are returned as tensors on the
 requested device (images NHWC float32, labels int64).
+``synthetic_lm_batch`` is the reference's k-gram token stream, drawn with
+the same numpy calls, so tokens and labels equal the reference's (int32).
 """
 from __future__ import annotations
 
@@ -55,3 +57,26 @@ class SyntheticImageNet:
 
     def validation(self, size: int = 512):
         return self.batch(size, step=-1)
+
+
+def synthetic_lm_batch(
+    vocab: int, batch: int, seq: int, step: int, *, seed: int = 0, order: int = 3,
+    device="cuda",
+):
+    """Deterministic k-gram stream: next = (a·t1 + b·t2 + c·t3 + t0) mod
+    vocab with 10 % noise tokens. Returns ``(tokens, labels)``, ``(batch,
+    seq)`` int32 tensors on ``device``; labels are tokens shifted by one."""
+    rng = _step_rng(seed, step)
+    coef = np.array([3, 5, 7])
+    toks = rng.integers(0, vocab, (batch, order + seq + 1))
+    for t in range(order, order + seq + 1):
+        nxt = (toks[:, t - 3] * coef[0] + toks[:, t - 2] * coef[1]
+               + toks[:, t - 1] * coef[2] + toks[:, 0]) % vocab
+        noise = rng.random(batch) < 0.1
+        toks[:, t] = np.where(noise, toks[:, t], nxt)
+    stream = toks[:, order:]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return put(stream[:, :-1]), put(stream[:, 1:])

@@ -28,7 +28,7 @@ import math
 from repro_torch.models.meta import COMPRESS_MIN_SIZE, ParamMeta
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
-from repro_torch.utils.trees import round_up, tree_map
+from repro_torch.utils.trees import round_up, tree_leaves, tree_map
 
 DIST = "dist"
 REPL = "repl"
@@ -167,6 +167,24 @@ def build_spec_tree(params, metas, mesh_cfg: MeshCfg):
         for k in params if k != "groups"
     }
     return {"groups": groups, **top}
+
+
+def dist_elems_per_group(spec_tree, mesh_cfg: MeshCfg, num_groups: int) -> list[int]:
+    """Compressed (``DIST``) element count per precision group — the
+    geometry :meth:`~repro_torch.plan.PrecisionPlan.wire_table` multiplies
+    by a policy's bytes/element. The last group covers the top-level
+    leaves (embedding / head), matching the ``round_tos`` layout."""
+    elems = [0] * num_groups
+
+    def visit(idx, leaves):
+        for s in leaves:
+            if s.kind == DIST:
+                elems[idx] += s.s_loc * mesh_cfg.dshards
+
+    for g, gs in enumerate(spec_tree["groups"]):
+        visit(g, tree_leaves(gs))
+    visit(num_groups - 1, [v for k, v in spec_tree.items() if k != "groups"])
+    return elems
 
 
 def tree_to_storage(params, spec_tree, mesh_cfg: MeshCfg):

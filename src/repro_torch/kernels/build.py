@@ -18,7 +18,9 @@ import pathlib
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "paged_attend.cu")
+SOURCES = (
+    "bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "paged_attend.cu", "l2norm.cu",
+)
 BUILD_DIR = _PKG.parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-O3",
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "repro_paged_attend": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ],
+    # (w, partials, max_parts, out, n, stream)
+    "repro_l2norm_sq": [_P, _P, _I, _P, ctypes.c_longlong, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

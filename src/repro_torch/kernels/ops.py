@@ -7,7 +7,9 @@ other than truncation live in the plain version, as in the reference);
 ``"cuda"`` forces the kernel and raises for a CPU tensor; ``"ref"``
 forces the plain version. The kernels take any length, so the
 reference's pad-to-(rows, 128)-tiles plumbing has no counterpart here:
-planes are always exact-shape ``(round_to, *w.shape)``.
+planes are always exact-shape ``(round_to, *w.shape)``, and
+:func:`l2norm_sq` reads the tensor as it is (zero padding adds nothing to
+Σw² in the reference either).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.bitpack import bitpack as _bitpack_kernel
 from repro_torch.kernels.bitunpack import bitunpack as _bitunpack_kernel
+from repro_torch.kernels.l2norm import l2norm_sq as _l2norm_kernel
 from repro_torch.transport.policy import VALID_IMPLS
 
 
@@ -57,3 +60,10 @@ def quantize(
     if round_to == 4 and mode == "truncate":
         return w
     return bitunpack(bitpack(w, round_to, impl=impl, mode=mode, key=key), impl=impl)
+
+
+def l2norm_sq(w: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Σw² over a tensor of any shape -> 0-d float32 (the AWP monitor)."""
+    if resolve_impl(impl, "truncate", w.device) == "ref":
+        return ref.l2norm_sq_ref(w)
+    return _l2norm_kernel(w.to(torch.float32).contiguous())

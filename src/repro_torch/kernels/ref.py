@@ -93,6 +93,11 @@ def quantize_ref(
     return bitunpack_ref(bitpack_ref(w, round_to, mode=mode, key=key))
 
 
+def l2norm_sq_ref(w: torch.Tensor) -> torch.Tensor:
+    """Σ w² as a 0-d float32 tensor (AWP's per-layer monitor quantity)."""
+    wf = w.to(torch.float32)
+    return torch.sum(wf * wf)
+
 
 # ---------------------------------------------------------------------------
 # flash prefill attention

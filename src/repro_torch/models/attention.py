@@ -1,5 +1,6 @@
-"""GQA attention for serving: tiled prefill, one-token decode, contiguous
-KV caches (counterpart of ``repro.models.attention``, the serving part).
+"""GQA attention: training, tiled prefill, one-token decode, contiguous
+KV caches (counterpart of ``repro.models.attention``, the self-attention
+part).
 
 Covered: causal GQA with qk-norm and rotary embeddings, ``attend_tiled``
 (with the reference's pad of a short kv to a chunk multiple), the fused
@@ -8,8 +9,16 @@ rule, decode over a contiguous :class:`KVCache` with a scalar (uniform
 batch) or a ``(B,)`` per-slot position, and one-token decode over the
 block-paged pool :class:`PagedKVCache` through a page table. int8 KV
 (contiguous or paged), cross-attention, sliding windows / ring caches,
-the multi-token verify block (contiguous or paged) and the training mode
-raise ``NotImplementedError``.
+the multi-token verify block (contiguous or paged) raise
+``NotImplementedError``.
+
+Training (``mode="train"``) runs the prefill's projections, qk-norm and
+RoPE with no cache, and always attends through :func:`attend_tiled`,
+whose plain PyTorch ops autograd differentiates. The reference's rule
+would send a TPU to the flash kernel in train mode too, but that kernel
+has no backward (neither the Pallas one nor the port's), so the port
+keeps train mode off it on every device; on the CPU the two packages take
+the same branch.
 
 Viability of the kernels: where the reference asks for a TPU backend
 (``jax.default_backend() == "tpu"``), the port asks for a tensor on a
@@ -353,7 +362,7 @@ def mha(
     cfg,
     env: Env,
     *,
-    mode: str = "prefill",  # prefill | decode
+    mode: str = "prefill",  # train | prefill | decode
     cache: Optional[KVCache] = None,
     window: Optional[int] = None,
     kv_ext=None,
@@ -362,12 +371,15 @@ def mha(
     page_table=None,
 ):
     """One attention layer. Returns (out (B,S,d), cache) — the cache is
-    updated in place (see the module docstring)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mha mode={mode!r} is not ported (prefill, decode)")
+    updated in place (see the module docstring); train mode takes and
+    returns no cache."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mha mode={mode!r} (train, prefill, decode)")
     if is_cross or kv_ext is not None:
         raise NotImplementedError("cross-attention is not ported")
     paged = isinstance(cache, PagedKVCache)
+    if mode == "train" and cache is not None:
+        raise ValueError("train mode takes no KV cache")
     if paged and mode != "decode":
         raise ValueError(
             "paged caches are decode-only: prefill runs on contiguous "
@@ -387,7 +399,7 @@ def mha(
         raise NotImplementedError("sliding-window attention is not ported")
     if cfg.qkv_bias:
         raise NotImplementedError("qkv_bias is not ported")
-    if cache is None:
+    if cache is None and mode != "train":
         raise ValueError(f"{mode} needs a pre-allocated KV cache")
     hd = cfg.head_dim
     Hq_l = w["wq"].shape[1] // hd
@@ -407,7 +419,12 @@ def mha(
     k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
     qg = q.reshape(B, S, Kv_l, G, hd)
 
-    if paged:
+    if mode == "train":  # no backward kernel: never the flash branch
+        out = attend_tiled(
+            qg, k, v, causal=cfg.causal, window=None, q_offset=0,  # q and k: one sequence
+            chunk=min(env.attn_chunk, S), causal_skip=env.causal_skip,
+        )
+    elif paged:
         _paged_write(cache, k, v, page_table)
         out = attend_decode_paged(qg, cache, page_table)
     elif mode == "decode":

@@ -1,5 +1,5 @@
-"""Model assembly for serving: embedding -> layer groups -> head
-(counterpart of ``repro.models.model``, the ``attn`` pattern).
+"""Model assembly: embedding -> layer groups -> head / loss (counterpart
+of ``repro.models.model``, the ``attn`` pattern).
 
 Every forward routes through :func:`run_group`, whose loop over a group's
 layer repetitions materializes each layer's weights through the caller's
@@ -7,6 +7,13 @@ layer repetitions materializes each layer's weights through the caller's
 weights under weight-stationary serving) just before that layer runs, so
 only one layer's materialized weights are alive at a time. The
 reference scans the repetitions; PyTorch runs them as a Python loop.
+
+Training (:func:`forward_loss`) under ``cfg.remat`` wraps each
+repetition, materialization included, in
+``torch.utils.checkpoint.checkpoint`` (as the reference wraps its scan
+body in ``jax.checkpoint``): the backward keeps only the layer inputs and
+runs the repetition again, so its weights are packed and unpacked a
+second time there.
 
 Caches are stacked per group (leading repetition dim) and updated in
 place; the returned caches are the same tensors. The serve engine's
@@ -19,6 +26,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
@@ -31,6 +39,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.env import Env
 from repro_torch.models.layers import embed_lookup_vp, rms_norm
+from repro_torch.models.loss import lm_loss
 from repro_torch.models.mlp import swiglu
 
 
@@ -80,8 +89,13 @@ def run_group(
     pos_offset=0,
     page_table=None,         # (B, n_pages) int32 — paged decode only
 ):
-    """Run the group's pattern repetitions. Returns (x, caches')."""
-    for rep in range(cfg.layers_per_group // len(cfg.pattern)):
+    """Run the group's pattern repetitions. Returns (x, caches').
+
+    ``group_params`` leaves are stacked ``(R, ...)`` tensors, or lists of
+    ``R`` per-repetition tensors (the train step's leaves, so that each
+    repetition's gradient is its own tensor)."""
+
+    def body(x, rep):
         for pi, kind in enumerate(cfg.pattern):
             key = f"p{pi}"
             w = mat_fn(key, _index(group_params[key], rep))
@@ -91,6 +105,14 @@ def run_group(
                 page_table=page_table,
             )
             del w  # one layer's materialized weights alive at a time
+        return x
+
+    remat = cfg.remat and mode == "train"
+    for rep in range(cfg.layers_per_group // len(cfg.pattern)):
+        if remat:
+            x = checkpoint(body, x, rep, use_reentrant=False)
+        else:
+            x = body(x, rep)
     return x, caches
 
 
@@ -116,6 +138,22 @@ def _logits(x, params, cfg: ModelConfig, env: Env, mat_top):
     if cfg.tie_embeddings:
         return env.enter(x) @ mat_top("embed").T
     return env.enter(x) @ mat_top("head")
+
+
+def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
+                 mat_group: Callable[[int, str, dict], dict],
+                 mat_top: Callable[[str], Any]):
+    """Training forward: summed token NLL. Returns ``(nll_sum, metrics)``
+    with ``metrics = {"nll_sum", "token_count", "aux"}``; the train step
+    divides by the token count (``aux``, the reference's MoE loss, is 0 for
+    the dense model)."""
+    x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
+    for g, gp in enumerate(params["groups"]):
+        x, _ = run_group(x, gp, cfg, env, mode="train",
+                         mat_fn=functools.partial(mat_group, g))
+    logits = _logits(x, params, cfg, env, mat_top)
+    nll_sum, count = lm_loss(logits, batch["labels"], env, 0, cfg.vocab_size)
+    return nll_sum, {"nll_sum": nll_sum, "token_count": count, "aux": 0.0}
 
 
 def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,

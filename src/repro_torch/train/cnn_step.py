@@ -8,7 +8,9 @@ entries drives the per-layer formats and the activation policy (a
 straight-through stage-boundary quantize). Each ``DIST`` weight is
 materialized through :func:`~repro_torch.dist.spec.materialize_leaf`:
 Bitpack and Bitunpack in the CUDA kernels for CUDA tensors, the plain
-versions on the CPU.
+versions on the CPU. The AWP monitor's Σw² goes through
+``ops.l2norm_sq`` (the CUDA kernel for CUDA tensors), one call per
+monitored leaf.
 
 PyTorch runs eagerly, so the reference's jitted step becomes a plain
 function; the trainer caches one step per format tuple as the reference
@@ -26,6 +28,7 @@ from repro_torch.dist.spec import (
     leaf_to_storage,
     materialize_leaf,
 )
+from repro_torch.kernels import ops
 from repro_torch.models.cnn import CNNConfig, cnn_loss, topk_error
 from repro_torch.optim.sgd import SGDConfig, sgd_update
 from repro_torch.plan import PrecisionPlan
@@ -139,13 +142,13 @@ def make_cnn_train_step(
             storage, grad_tree, momentum, wd, opt_cfg, lr
         )
 
-        # AWP per-group Σw² (paper Algorithm 1 line 6 input)
+        # AWP per-group Σw² (paper Algorithm 1 line 6 input): the
+        # l2norm_sq kernel on a CUDA tensor
         with torch.no_grad():
             dev = leaves[0].device
             sums = torch.zeros((num_groups,), dtype=torch.float32, device=dev)
             for name, k, g in monitored:
-                v = storage["layers"][name][k].to(torch.float32)
-                sums[g] += torch.sum(v * v)
+                sums[g] += ops.l2norm_sq(storage["layers"][name][k])
         return storage, momentum, {"loss": loss.detach(), "group_norms_sq": sums}
 
     return step
