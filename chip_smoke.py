@@ -14,7 +14,8 @@ Phases, each printing its own lines:
      51,380,224; special values; an unaligned view): planes byte-equal,
      unpack bit-equal, pack∘unpack equal to ``quantize_ref``. Then times
      both at fc5's size with CUDA events beside the plain versions and the
-     HBM bound.
+     HBM bound, and at qwen3-1.7b's per-layer lengths and its embed at
+     round_to 2 with the L2 cold (a CUDA graph over input copies).
   4. main path — A²DTWP training of full-width AlexNet (224×224, 200
      classes, paper init from a seed, batch 64, default ``compress_min_size``)
      through ``Trainer``: an AWP plan that widens every 2 steps
@@ -28,8 +29,10 @@ Phases, each printing its own lines:
      (plain versions) from the same weights: losses and norms must agree.
   6. flash — the flash prefill kernel against its plain version on the card
      at qwen3-1.7b's heads (B=1, H=16, Kv=8, hd=128; Sq=Sk 128, 256, 384,
-     512, 2048; a continuation Sq=128, Sk=512, q_offset=384; B=2 at 512),
-     unit normals from a seed, max |err| <= 1e-5. Times the kernel, the plain version and
+     512, 1024, 2048; a continuation Sq=128, Sk=512, q_offset=384 at B=1
+     and 2; B=2 at 512) and at G=1 and G=4, unit normals from a seed, max
+     |err| <= 1e-5, two calls bit-equal. Times the kernel (in a CUDA graph,
+     the device time, and eager), the plain version and
      ``scaled_dot_product_attention`` (the library yardstick) with CUDA
      events beside the bound (causal FLOPs at 67 TFLOP/s fp32, or bytes at
      3.35 TB/s).
@@ -58,9 +61,12 @@ Phases, each printing its own lines:
      at phase 9's shape (B=2, Kv=8, G=2, hd=128, page 64, a 9-page table,
      19 pool rows; lengths 1, 63, 64, 65, 200, 528 and 0; a permuted table
      with unused entries at the trash row) and at page 8 with G = 1 and 4,
-     unit normals from a seed, max |err| <= 2e-6; each case again on a
-     permuted pool, where the output must not change. Times the kernel,
-     the plain version and a ``k_pool[table]`` gather plus fp32
+     and at the split's edges (lengths on them, a table wider than the live
+     pages, B=16 at 64 pages), unit normals from a seed, max |err| <= 2e-6;
+     each case again on a permuted pool, where the output must not change,
+     and twice, where the bits must not. Times the kernel (in a CUDA graph
+     with the L2 cold and warm, and eager), the plain version and a
+     ``k_pool[table]`` gather plus fp32
      ``scaled_dot_product_attention`` with a length mask (two calls: no
      single PyTorch call reads through a page table) with CUDA events, at
      phase 9's shape and at B=16, 4096 tokens a slot in 64 pages of 64,
@@ -217,6 +223,61 @@ def time_cuda(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph(torch, fns, reps=2):
+    """Device time of one call, with no host dispatch in it: the calls
+    ``fns`` (a rotation over input copies, which a caller sizes past the
+    50 MB L2 to time it cold) captured ``reps`` times over into one CUDA
+    graph and replayed; the mean per call, launch gaps included. The
+    eager loop of :func:`time_cuda` measures the host instead wherever a
+    call's dispatch takes longer than its kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm, on the capture stream's workspaces
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(fns))
+    del graph
+    return ms
+
+
+def time_qwen3_packing(torch, device):
+    """Bitpack and Bitunpack at qwen3-1.7b's per-layer lengths and its
+    embed, round_to 2 (the oracle:2 format), L2 cold: each times a
+    rotation over enough copies that one pass touches >= 100 MB."""
+    from repro_torch.kernels.bitpack import bitpack
+    from repro_torch.kernels.bitunpack import bitunpack
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    for n in (*QWEN3_LAYER, QWEN3_EMBED):
+        nbytes = 6 * n  # 4 B read and 2 B written an element, either way
+        copies = max(1, -(-100_000_000 // nbytes))
+        ws = [torch.randn(n, generator=gen, device=device) for _ in range(copies)]
+        planes = [bitpack(w, 2) for w in ws]
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        for name, fns in (
+            ("bitpack", [lambda w=w: bitpack(w, 2) for w in ws]),
+            ("bitunpack", [lambda p=p: bitunpack(p) for p in planes]),
+        ):
+            ms = time_graph(torch, fns, reps=1 if n == QWEN3_EMBED else 2)
+            say(f"   {name} n={n} round_to=2, L2 cold ({copies} copies): {ms * 1e3:.1f} us "
+                f"({nbytes / ms / 1e6:.0f} GB/s), HBM bound {bound * 1e3:.1f} us "
+                f"({bound / ms:.0%} of it)")
+        del ws, planes
 
 
 def time_kernels(torch, device):
@@ -494,7 +555,9 @@ def _small_run(torch, device, cfg, params):
 FP32_FLOP_PER_S = 67e12
 # (B, H, Kv, Sq, Sk, q_offset): qwen3-1.7b's heads (hd 128), at the timed
 # lengths, phase 7's prefill lengths (512 at B=1 and 2, 384, 256) and a
-# continuation
+# continuation; then the work list's edges: the continuation at B=2 (every
+# unit split into pieces), S=1024 (units of 1 to 16 tiles, those above 9
+# cut in two), and G=1 and G=4 (units of one head and of four)
 FLASH_SHAPES = (
     (1, 16, 8, 128, 128, 0),
     (1, 16, 8, 512, 512, 0),
@@ -503,6 +566,10 @@ FLASH_SHAPES = (
     (1, 16, 8, 256, 256, 0),
     (1, 16, 8, 128, 512, 384),
     (2, 16, 8, 512, 512, 0),
+    (2, 16, 8, 128, 512, 384),
+    (1, 16, 8, 1024, 1024, 0),
+    (1, 8, 8, 256, 256, 0),
+    (1, 32, 8, 192, 320, 128),
 )
 FLASH_TIMED = (128, 512, 2048)  # Sq = Sk, B = 1, q_offset = 0
 FLASH_TOL = 1e-5
@@ -535,25 +602,30 @@ def check_flash(torch, device):
         k = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
         v = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
         got = flash_prefill(q, k, v, q_offset=off)
-        want = ref.flash_prefill_ref(q, k, v, q_offset=off)
+        again = flash_prefill(q, k, v, q_offset=off)
+        # the plain version's 128-row tiles need Sq and Sk to be multiples
+        block = 128 if Sq % 128 == 0 and Sk % 128 == 0 else 64
+        want = ref.flash_prefill_ref(q, k, v, q_offset=off, block_q=block, block_k=block)
         err = float((got - want).abs().max())
         torch.cuda.synchronize()
         label = f"B={B} H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}"
         check(math.isfinite(err) and err <= FLASH_TOL,
               f"flash {label}: max |err| {err:.3e} > {FLASH_TOL}")
-        line = f"   flash {label}: max |kernel - plain| {err:.3e}"
-        if B == 1 and Sq == Sk and off == 0 and Sq in FLASH_TIMED:
-            ms = time_cuda(torch, lambda: flash_prefill(q, k, v))
+        check(torch.equal(got, again), f"flash {label}: two calls gave other bits")
+        line = f"   flash {label}: max |kernel - plain| {err:.3e}; two calls bit-equal"
+        if B == 1 and H == 16 and Sq == Sk and off == 0 and Sq in FLASH_TIMED:
+            eager = time_cuda(torch, lambda: flash_prefill(q, k, v))
+            ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
             plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v),
                               iters=5)
             lib = time_cuda(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
             bound, by = flash_bound(B, H, Kv, Sq, Sk, off)
-            out[Sq] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                       "bound_by": by, "max_abs_err": err}
-            line += (f"; kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
-                     f"{lib * 1e3:.1f} us, bound {bound * 1e3:.1f} us ({by}, "
-                     f"{bound / ms:.0%} of it)")
+            out[Sq] = {"ms": ms, "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+            line += (f"; kernel {ms * 1e3:.1f} us in a CUDA graph ({eager * 1e3:.1f} us "
+                     f"eager), plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
+                     f"{bound * 1e3:.1f} us ({by}, {bound / ms:.0%} of it)")
         say(line)
     return out
 
@@ -796,8 +868,10 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
         engine.begin_stream()
         first, second = requests[0], requests[1]  # both of the longest length
         engine.admit(first)
-        profile(torch, lambda: engine.admit(second),
-                f"admission of a {len(second.prompt_ids)}-token prompt")
+        by_name = profile(torch, lambda: engine.admit(second),
+                          f"admission of a {len(second.prompt_ids)}-token prompt")
+        say(f"   profile: flash_prefill {sum(ms for k, ms in by_name.items() if 'flash' in k):.3f}"
+            " ms of the admission")
         profile(torch, engine.decode_tick, "decode step (2 slots)")
     for o in out.values():
         del o["engine"]
@@ -820,7 +894,11 @@ PAGED_TOL = 2e-6
 # (B, Kv, G, page, table width, pool rows, lengths): phase 9's shape
 # (qwen3-1.7b's heads, page 64, 9-page table, 18 pages + the trash row) at
 # the lengths that cross page edges, a slot of length 0, and the largest;
-# then page 8 with G = 1 and 4, so that the fold h = kv * G + g is held
+# then page 8 with G = 1 and 4, so that the fold h = kv * G + g is held;
+# then the split's edges on 132 SMs: one-page splits at lengths on their
+# edges and the full table, a table wider than the live pages (splits past
+# them empty), and B=16 at 64 pages (2 splits of 32 pages) at and across a
+# split's edge
 PAGED_CASES = (
     (2, 8, 2, 64, 9, 19, (528, 0)),
     (2, 8, 2, 64, 9, 19, (1, 63)),
@@ -828,7 +906,13 @@ PAGED_CASES = (
     (2, 8, 2, 64, 9, 19, (200, 528)),
     (3, 8, 1, 8, 66, 199, (528, 9, 0)),
     (3, 8, 4, 8, 66, 199, (8, 527, 1)),
+    (2, 8, 2, 64, 9, 19, (576, 128)),
+    (3, 8, 2, 64, 20, 61, (65, 129, 0)),
+    (16, 8, 2, 64, 64, 1025, (2048, 2049) * 8),
 )
+# input copies a cold-L2 timing rotates through: 10 x the main path's
+# 10 MB of pools is twice the 50 MB L2
+COLD_COPIES = 10
 PAGED_TIMED = (
     ("main path", (2, 8, 2, 64, 9, 19, (528, 528))),
     ("4096 tokens", (16, 8, 2, 64, 64, 1025, (4096,) * 16)),
@@ -888,6 +972,7 @@ def check_paged(torch, device):
     for B, Kv, G, page, width, P, lengths in PAGED_CASES:
         args = paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
         got = paged_attend(*args)
+        again = paged_attend(*args)
         e = float((got - ref.paged_attend_ref(*args)).abs().max())
         q, kp, vp, table, lens = args
         perm = torch.randperm(P, generator=gen, device=device)
@@ -898,8 +983,10 @@ def check_paged(torch, device):
         check(math.isfinite(e) and e <= PAGED_TOL,
               f"paged_attend {label}: max |err| {e:.3e} > {PAGED_TOL}")
         check(torch.equal(moved, got), f"paged_attend {label}: a permuted pool changed the output")
+        check(torch.equal(again, got), f"paged_attend {label}: two calls gave other bits")
         err = max(err, e)
-        say(f"   paged_attend {label}: max |kernel - plain| {e:.3e}; permuted pool: equal")
+        say(f"   paged_attend {label}: max |kernel - plain| {e:.3e}; permuted pool: equal; "
+            "two calls bit-equal")
     out = {}
     for label, (B, Kv, G, page, width, P, lengths) in PAGED_TIMED:
         args = paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
@@ -908,16 +995,24 @@ def check_paged(torch, device):
         lib_err = float((gather_sdpa(torch, *args) - got).abs().max())
         check(math.isfinite(e) and e <= PAGED_TOL, f"paged_attend {label}: max |err| {e:.3e}")
         err = max(err, e)
-        ms = time_cuda(torch, lambda: paged_attend(*args))
+        eager = time_cuda(torch, lambda: paged_attend(*args))
+        warm = time_graph(torch, [lambda: paged_attend(*args)], reps=10)
+        # cold: a rotation over copies of the pools (the 4096-token pools,
+        # 537 MB, are cold by themselves)
+        copies = [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                           for _ in range(COLD_COPIES - 1 if P < 100 else 0)]
+        cold = time_graph(torch, [lambda a=a: paged_attend(*a) for a in copies])
+        del copies
         plain = time_cuda(torch, lambda: ref.paged_attend_ref(*args), iters=5)
         lib = time_cuda(torch, lambda: gather_sdpa(torch, *args))
         bound = paged_bound(B, Kv, G, page, width, lengths)
-        out[label] = {"ms": ms, "plain_ms": plain, "gather_sdpa_ms": lib, "bound_ms": bound,
-                      "max_abs_err": e}
+        out[label] = {"ms": cold, "warm_ms": warm, "eager_ms": eager, "plain_ms": plain,
+                      "gather_sdpa_ms": lib, "bound_ms": bound, "max_abs_err": e}
         say(f"   paged_attend {label} (B={B} Kv={Kv} G={G}, {width} pages of {page}, lengths "
-            f"{lengths[0]}): kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, gather+sdpa "
-            f"{lib * 1e3:.1f} us (within {lib_err:.1e} of the kernel), bound "
-            f"{bound * 1e3:.1f} us (bytes, {bound / ms:.0%} of it); max |err| {e:.3e}")
+            f"{lengths[0]}): kernel in a CUDA graph {cold * 1e3:.1f} us with the L2 cold, "
+            f"{warm * 1e3:.1f} us warm ({eager * 1e3:.1f} us eager), plain {plain * 1e3:.1f} "
+            f"us, gather+sdpa {lib * 1e3:.1f} us (within {lib_err:.1e} of the kernel), bound "
+            f"{bound * 1e3:.1f} us (bytes, {bound / cold:.0%} of it cold); max |err| {e:.3e}")
     out["max_abs_err"] = err
     return out
 
@@ -1126,7 +1221,9 @@ def paged_path(torch, device, phase7, *, page=PAGE, shared=SHARED_PREFIX,
         for r in requests[:SERVE_SLOTS]:
             engine.admit(r)
         engine.decode_tick()
-        profile(torch, engine.decode_tick, f"paged decode step ({SERVE_SLOTS} slots)")
+        by_name = profile(torch, engine.decode_tick, f"paged decode step ({SERVE_SLOTS} slots)")
+        say(f"   profile: paged_attend "
+            f"{sum(ms for k, ms in by_name.items() if 'paged_attend' in k):.3f} ms of the step")
     err = check_seen_paged(seen) if seen else 0.0
     launches = {k: sum(o["launches"][k] for o in out.values()) for k in counts()}
     return {"runs": out, "launches": launches, "paged_err": err, "analytic": analytic,
@@ -1465,6 +1562,7 @@ def main() -> int:
     say("phase 3: kernels vs plain versions on the card")
     err = check_kernels(torch, device)
     times = time_kernels(torch, device)
+    time_qwen3_packing(torch, device)
 
     say("phase 4: main path — full-width AlexNet A²DTWP training, batch 64")
     run = main_path(torch, device)

@@ -9,12 +9,15 @@ shared library is bound with ``ctypes``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``. A build or load failure raises; there is no
-fallback to the plain PyTorch versions.
+fallback to the plain PyTorch versions. :func:`workspace` keeps the
+scratch buffers that the attention kernels reuse from call to call.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,20 +43,25 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    # (q, k, v, out, B, H, Kv, Sq, Sk, q_offset, scale, stream)
+    # (q, k, v, out, items, n_items, merges, counters, part_acc, part_ml,
+    #  B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream)
     "repro_flash_prefill": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P,
     ],
-    # (q, k_pool, v_pool, page_table, lengths, out, B, Kv, G, P, page,
-    #  n_pages, scale, stream)
+    # (q, k_pool, v_pool, page_table, lengths, out, part_acc, part_ml,
+    #  counters, B, Kv, G, P, page, n_pages, n_splits, pps, scale, stream)
     "repro_paged_attend": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P,
     ],
     # (w, partials, max_parts, out, n, stream)
     "repro_l2norm_sq": [_P, _P, _I, _P, ctypes.c_longlong, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
+# (name, device, stream) -> a kernel's workspace
+_WORKSPACE: dict = {}
 
 
 def library() -> ctypes.CDLL:
@@ -83,3 +91,17 @@ def check_launch(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
+
+
+def workspace(name: str, device: torch.device, stream: int, n: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A buffer of at least ``n`` elements that kernel ``name`` keeps for
+    its calls on ``stream`` (merge counters, partial results), zeroed when
+    it is allocated. One buffer a stream, so the calls that share it run
+    in stream order; a kernel that counts in it leaves it zeroed."""
+    key = (name, device, stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=dtype, device=device)
+        _WORKSPACE[key] = buf
+    return buf

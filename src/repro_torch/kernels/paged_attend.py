@@ -4,11 +4,15 @@ Counterpart of ``repro.kernels.paged_attention.paged_attend``: one decode
 token per slot attends over its KV pages, read from the pools through the
 page table; online softmax across pages with an fp32 running max, sum and
 accumulator, rows at or past ``lengths[b]`` scored ``-1e30``, output
-``acc / max(l, 1e-30)``. The kernel is ``csrc/paged_attend.cu`` (one CTA
-per (slot, kv head) walking the slot's pages, fp32 FMAs on the CUDA
-cores). On a CPU tensor the wrapper runs the plain version
-``ref.paged_attend_ref``; on a CUDA tensor it launches the kernel or
-raises.
+``acc / max(l, 1e-30)``. The kernel is ``csrc/paged_attend.cu``, split
+over pages (flash-decoding): one CTA per (slot, kv head, split of
+contiguous logical pages) writes a partial ``(m, l, acc)``, and the last
+split of a (slot, kv head) to finish merges the partials in split order;
+fp32 FMAs on the CUDA cores. :func:`paged_splits` picks the splits on the
+host from the shapes and the SM count; the partials and the zeroed merge
+counters live in a per-stream ``workspace``.
+On a CPU tensor the wrapper runs the plain version ``ref.paged_attend_ref``;
+on a CUDA tensor it launches the kernel or raises.
 
 Every table entry the slot's live pages use must be a pool row (the
 engine points unused entries at its trash row); the kernel writes NaN for
@@ -22,11 +26,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check_launch, library
+from repro_torch.kernels.build import check_launch, library, workspace
 
 HEAD_DIM = 128  # the one head width the kernel takes (as the flash kernel)
 MAX_G = 16      # query heads per kv head the kernel holds
 MAX_PAGE = 128  # rows per page the kernel takes
+CTAS_PER_SM = 2  # the split kernel's occupancy (shared memory: 107 KB a CTA)
+
+
+def paged_splits(B: int, Kv: int, n_pages: int, sm_count: int) -> tuple[int, int]:
+    """``(n_splits, pages_per_split)`` of the split over pages: as many
+    splits as one wave of ``CTAS_PER_SM`` CTAs an SM holds over the ``B *
+    Kv * n_splits`` grid (a second, partial wave would double the time), at
+    most one split a page. Split ``s`` takes logical pages ``[s * pps, (s +
+    1) * pps)``; every split holds at least one page of the table."""
+    want = CTAS_PER_SM * sm_count // max(B * Kv, 1)
+    pps = -(-n_pages // max(1, min(n_pages, want)))
+    return -(-n_pages // pps), pps
 
 
 def paged_attend(
@@ -75,12 +91,21 @@ def paged_attend(
         raise ValueError("paged_attend kernel needs q and the pools 16-byte aligned")
     out = torch.empty_like(q)
     if B:
+        n_pages = page_table.shape[1]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_splits, pps = paged_splits(B, Kv, n_pages, sms)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = workspace("paged_attend.counters", q.device, stream, B * Kv, torch.int32)
+        parts = B * Kv * n_splits * G if n_splits > 1 else 0
+        # partials: acc (parts, 128), then m and l (parts each)
+        scratch = workspace("paged_attend.partials", q.device, stream, parts * (hd + 2),
+                            torch.float32)
         with torch.cuda.device(q.device):
             rc = library().repro_paged_attend(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                B, Kv, G, P, page, page_table.shape[1], hd ** -0.5,
-                torch.cuda.current_stream(q.device).cuda_stream,
+                scratch.data_ptr(), scratch.data_ptr() + 4 * parts * hd, counters.data_ptr(),
+                B, Kv, G, P, page, n_pages, n_splits, pps, hd ** -0.5, stream,
             )
         check_launch(rc, "paged_attend")
         paged_attend.launches += 1

@@ -19,7 +19,7 @@ from repro.kernels.flash_prefill import flash_prefill as j_flash
 from repro.kernels.flash_prefill import flash_prefill_ref as j_flash_ref
 from repro.models.attention import attend_tiled as j_attend_tiled
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_prefill import KEY_TILE, SLOTS, flash_prefill, flash_work
 from repro_torch.models import attention as ta
 
 ATOL = 2e-5
@@ -102,6 +102,125 @@ def test_plain_version_through_the_fold_matches_attend_tiled(G, off):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# the kernel's work list (host side) and its piece / merge algebra
+# ---------------------------------------------------------------------------
+
+# (B, H, Kv, Sq, Sk, q_offset): chip_smoke's timed and main-path shapes
+# (qwen3-1.7b's heads), the continuation at B=2, G=1, 3 and 4, and the
+# reference kernel test's continuation
+WORK_SHAPES = [
+    (1, 16, 8, 128, 128, 0), (1, 16, 8, 512, 512, 0), (1, 16, 8, 2048, 2048, 0),
+    (2, 16, 8, 512, 512, 0), (1, 16, 8, 384, 384, 0), (2, 16, 8, 128, 512, 384),
+    (1, 16, 8, 1024, 1024, 0), (1, 8, 8, 256, 256, 0), (1, 24, 8, 256, 256, 0),
+    (1, 32, 8, 192, 320, 128), (2, 4, 2, 128, 384, 256),
+]
+
+
+def _unit_rows(unit, Gc, Sq, H):
+    """(b, heads, positions) of a unit's 64 rows, as the kernel reads them."""
+    bq = 64 // Gc
+    nqb, groups = Sq // bq, H // Gc
+    qb, bhg = unit % nqb, unit // nqb
+    hg, b = bhg % groups, bhg // groups
+    return b, [hg * Gc + r // bq for r in range(64)], [qb * bq + r % bq for r in range(64)]
+
+
+@pytest.mark.parametrize("shape", WORK_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_work_list_covers_every_unmasked_tile_once(shape):
+    """Every (unit, unmasked 64-key tile) pair is in exactly one item, no
+    tile lies past Sk or wholly above the diagonal, the units cover every
+    (b, head, position) once, a split unit's pieces are near-equal runs of
+    consecutive tiles on consecutive partial slots, no item holds more
+    than ``ceil(total tiles / SLOTS)`` tiles unless its unit is whole, and
+    the items come longest first."""
+    B, H, Kv, Sq, Sk, off = shape
+    Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, off)
+    assert Gc in (1, 2, 4) and (H // Kv) % Gc == 0
+    bq = 64 // Gc
+    units = B * (H // Gc) * (Sq // bq)
+    need = [-(-min(Sk, off + (u % (Sq // bq) + 1) * bq) // KEY_TILE) for u in range(units)]
+    kmax = max(1, -(-sum(need) // SLOTS))
+    seen = {}
+    for unit, lo, hi, slot, merge in items:
+        _, _, pos = _unit_rows(unit, Gc, Sq, H)
+        assert 0 <= lo < hi <= need[unit] and hi * KEY_TILE <= Sk
+        assert (hi - 1) * KEY_TILE <= off + max(pos)  # the last tile holds a live key
+        assert hi - lo <= kmax or (lo, hi) == (0, need[unit])
+        seen.setdefault(unit, []).append((lo, hi, slot, merge))
+    assert sorted(seen) == list(range(units))
+    rows = {(b, h, p) for u in range(units)
+            for b, hs, ps in [_unit_rows(u, Gc, Sq, H)] for h, p in zip(hs, ps)}
+    assert len(rows) == B * H * Sq
+    slots = []
+    for unit, pieces in seen.items():
+        pieces.sort()
+        tiles = [t for lo, hi, _, _ in pieces for t in range(lo, hi)]
+        assert tiles == list(range(need[unit]))
+        if len(pieces) == 1:
+            assert pieces[0][2:] == (-1, -1)
+            continue
+        first, n = merges[pieces[0][3]]
+        assert n == len(pieces) and [p[2] for p in pieces] == list(range(first, first + n))
+        assert {p[3] for p in pieces} == {pieces[0][3]}
+        sizes = [hi - lo for lo, hi, _, _ in pieces]
+        assert max(sizes) - min(sizes) <= 1
+        slots += [p[2] for p in pieces]
+    assert sorted(slots) == list(range(n_parts))
+    lengths = [hi - lo for _, lo, hi, _, _ in items]
+    assert lengths == sorted(lengths, reverse=True)
+
+
+def _pieces_and_merge(q, k, v, q_offset, slots):
+    """The kernel's algebra in plain PyTorch: each item's softmax over its
+    tiles (rows fully masked in a piece score -1e30 throughout), a whole
+    unit normalised in place, a split unit's partials merged in piece
+    order."""
+    B, H, Sq, hd = q.shape
+    Kv = k.shape[1]
+    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, k.shape[2], q_offset, slots)
+    out, parts = torch.empty_like(q), {}
+    for unit, lo, hi, slot, _ in items:
+        b, heads, pos = _unit_rows(unit, Gc, Sq, H)
+        kvh = heads[0] // (H // Kv)
+        keys = torch.arange(lo * KEY_TILE, hi * KEY_TILE)
+        s = q[b, heads, pos] @ k[b, kvh, keys].T * hd ** -0.5
+        s = torch.where(torch.tensor(pos)[:, None] + q_offset >= keys[None], s, ref.NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[:, None])
+        if slot < 0:
+            out[b, heads, pos] = (p @ v[b, kvh, keys]) / torch.clamp(p.sum(-1), min=1e-30)[:, None]
+        else:
+            parts[slot] = (unit, m, p.sum(-1), p @ v[b, kvh, keys])
+    for first, n in merges:
+        unit = parts[first][0]
+        b, heads, pos = _unit_rows(unit, Gc, Sq, H)
+        m = torch.stack([parts[first + i][1] for i in range(n)]).amax(0)
+        w = [torch.exp(parts[first + i][1] - m) for i in range(n)]
+        l = sum(w[i] * parts[first + i][2] for i in range(n))
+        acc = sum(w[i][:, None] * parts[first + i][3] for i in range(n))
+        out[b, heads, pos] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2, 256, 256, 0), (2, 4, 1, 128, 384, 256),
+                                   (1, 8, 2, 192, 320, 128)],
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("slots", [1, 16, 256])
+def test_pieces_and_merge_match_plain_version(shape, slots):
+    """Cutting a unit's tiles into pieces and merging their partials is
+    the reference's attention (within ATOL), from whole units (one slot)
+    down to one tile a piece; a row wholly masked in a piece weighs
+    exactly 0."""
+    B, H, Kv, Sq, Sk, off = shape
+    merges = flash_work(B, H, Kv, Sq, Sk, off, slots)[2]
+    assert bool(merges) == (slots > 1) or slots == 16  # 16: as the shape falls
+    q, k, v = map(torch.from_numpy, _qkv(B, H, Kv, Sq, Sk, 128, seed=Sq + slots))
+    want = ref.flash_prefill_ref(q, k, v, q_offset=off, block_q=64, block_k=64)
+    got = _pieces_and_merge(q, k, v, off, slots)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+
+
 def _fake(shape, device):
     return types.SimpleNamespace(shape=shape, device=torch.device(device))
 
@@ -136,13 +255,20 @@ def cuda_device():
 
 
 # (B, H, Kv, Sq, Sk, q_offset): qwen3's heads at chip_smoke's lengths, a
-# continuation, batch 2, and untiled-by-128 lengths
+# continuation, batch 2, and untiled-by-128 lengths; then the work list's
+# edges: the continuation at B=2 (every unit in pieces), S=1024 (units of
+# 1 to 16 tiles, those above 9 cut in two), G=4 (units of four heads) and
+# G=3 (of one)
 CARD_CASES = [
     (1, 16, 8, 128, 128, 0),
     (1, 16, 8, 512, 512, 0),
     (1, 16, 8, 128, 512, 384),
     (2, 16, 8, 256, 256, 0),
     (1, 4, 4, 192, 320, 128),
+    (2, 16, 8, 128, 512, 384),
+    (1, 16, 8, 1024, 1024, 0),
+    (1, 32, 8, 192, 320, 128),
+    (1, 24, 8, 256, 256, 0),
 ]
 
 
@@ -160,6 +286,17 @@ def test_kernel_matches_plain_version_on_card(cuda_device, case):
     else:
         want = ref.flash_prefill_ref(q, k, v, q_offset=off)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_kernel_gives_the_same_bits_twice_on_card(cuda_device, case):
+    """The work list is a function of the shapes and every merge runs in
+    piece order, so two calls on one input give the same bits."""
+    B, H, Kv, Sq, Sk, off = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(B, H, Kv, Sq, Sk, 128, seed=1))
+    first = flash_prefill(q, k, v, q_offset=off)
+    assert torch.equal(first, flash_prefill(q, k, v, q_offset=off))
 
 
 @pytest.mark.cuda

@@ -26,7 +26,7 @@ from repro.kernels.paged_attention import paged_attend_ref as j_paged_attend_ref
 from repro.models import attention as ja
 from repro_torch.convert import convert_paged_cache
 from repro_torch.kernels import ref
-from repro_torch.kernels.paged_attend import paged_attend
+from repro_torch.kernels.paged_attend import paged_attend, paged_splits
 from repro_torch.models import attention as ta
 
 ATOL = 2e-6
@@ -130,6 +130,87 @@ def test_wrapper_rejects_mismatched_shapes():
         paged_attend(q, kp, vp[:, :4], table, lengths)
     with pytest.raises(ValueError, match="cuda or cpu"):
         paged_attend(*(t.to("meta") for t in (q, kp, vp, table, lengths)))
+
+
+# ---------------------------------------------------------------------------
+# the split over pages (host side) and its merge algebra
+# ---------------------------------------------------------------------------
+
+# (B, Kv, table width, SM count): the main path's decode (132 SMs), B=16 at
+# 64 pages, the shared-prefix run's 3 slots, one slot, a table of one page,
+# a batch wider than the card, and a small card
+SPLIT_SHAPES = [(2, 8, 9, 132), (16, 8, 64, 132), (3, 8, 7, 132), (1, 8, 66, 132),
+                (4, 8, 1, 132), (64, 8, 40, 132), (2, 2, 100, 8), (5, 1, 3, 16)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_splits_cover_every_page_once(shape):
+    """Every (slot, page) pair is walked by exactly one split, no split
+    reaches past the table, none is empty of table pages, none holds more
+    than ``pps = ceil(n_pages / n_splits)`` pages, and a split grid is one
+    wave of two CTAs an SM that fills at least half of it where the table
+    has pages enough."""
+    B, Kv, n_pages, sms = shape
+    n_splits, pps = paged_splits(B, Kv, n_pages, sms)
+    pages = [p for s in range(n_splits) for p in range(s * pps, min((s + 1) * pps, n_pages))]
+    assert pages == list(range(n_pages))  # each once, in split order
+    assert all(s * pps < n_pages for s in range(n_splits))
+    assert pps == -(-n_pages // n_splits)
+    if n_splits > 1:
+        assert min(sms, B * Kv * n_pages) <= B * Kv * n_splits <= 2 * sms
+    else:  # the slots' kv heads alone fill more than half the wave, or one page
+        assert B * Kv > sms or n_pages == 1
+
+
+def _split_merge(q, k_pool, v_pool, table, lengths, n_splits, pps):
+    """The kernel's algebra in plain PyTorch: each split's online softmax
+    over its live pages (every page for a slot of length 0), a split past
+    them empty (l = 0), then the merge in split order."""
+    B, Kv, G, hd = q.shape
+    page = k_pool.shape[1]
+    out = torch.empty_like(q)
+    for b in range(B):
+        n = int(lengths[b])
+        walk = min(-(-n // page), table.shape[1]) if n else table.shape[1]
+        parts = []
+        for s in range(n_splits):
+            pages = range(s * pps, min((s + 1) * pps, walk))
+            if not pages:
+                parts.append(None)
+                continue
+            rows = torch.tensor([j * page + o for j in pages for o in range(page)])
+            phys = table[b, rows // page].to(torch.int64)
+            k, v = k_pool[phys, rows % page], v_pool[phys, rows % page]  # (R, Kv, hd)
+            sc = torch.einsum("kgh,rkh->kgr", q[b], k) * hd ** -0.5
+            sc = torch.where(rows[None, None] < n, sc, ref.NEG_INF)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgr,rkh->kgh", p, v)))
+        live = [x for x in parts if x is not None]
+        m = torch.stack([x[0] for x in live]).amax(0)
+        w = [torch.exp(x[0] - m) for x in live]
+        l = sum(wi * x[1] for wi, x in zip(w, live))
+        acc = sum(wi[..., None] * x[2] for wi, x in zip(w, live))
+        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    (2, 2, 2, 8, 9, 19, 61, (72, 0)),       # one page a split; a slot of length 0
+    (3, 2, 2, 8, 7, 22, 67, (8, 9, 17)),    # lengths at split edges, table wider
+    (2, 1, 4, 5, 10, 21, 71, (50, 3)),      # multi-page splits; splits past the live pages
+], ids=["one-page", "edges", "multi-page"])
+def test_split_merge_algebra_matches_plain_version(case):
+    """Splitting at logical pages and merging partials is the same
+    attention as the reference's walk (within ATOL); a split made only of
+    masked rows weighs exactly 0 and a split past the live pages nothing."""
+    B, Kv, G, page, n_pages, phys, seed, lengths = case
+    args = _port(_setup(B, Kv, G, page, n_pages, phys, seed=seed, lengths=lengths))
+    want = ref.paged_attend_ref(*args)
+    for sms in (1, 4, 64):
+        n_splits, pps = paged_splits(B, Kv, n_pages, sms)
+        got = _split_merge(*args, n_splits, pps)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +340,57 @@ def test_kernel_matches_plain_version_on_card(cuda_device, case):
     moved = paged_attend(q, kp[perm].contiguous(), vp[perm].contiguous(),
                          inv[table.to(torch.int64)].contiguous(), lengths)
     assert torch.equal(moved, got)
+
+
+# (B, Kv, G, page, n_pages, pool rows, seed, lengths) that cross the
+# split edges on a 132-SM card: lengths at the one-page splits' edges and
+# the full table; a table wider than the live pages (splits past them are
+# empty); multi-page splits (B=16 at 64 pages: 3 splits of 22 pages) at
+# and across a split's edge
+SPLIT_CASES = [
+    (2, 8, 2, 64, 9, 19, 73, (576, 64)),
+    (2, 8, 2, 64, 9, 19, 79, (128, 129)),
+    (3, 8, 2, 64, 20, 61, 83, (65, 1, 0)),
+    (16, 8, 2, 64, 64, 1025, 89, (1408, 1409) * 8),
+    (2, 8, 2, 16, 40, 81, 97, (300, 0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"B{c[0]}p{c[3]}n{c[4]}L{c[7][0]}")
+def test_kernel_at_split_edges_on_card(cuda_device, case):
+    """Split edges on the card: within KERNEL_TOL of the plain version, two
+    calls give the same bits, and a permuted pool the same output."""
+    B, Kv, G, page, n_pages, phys, seed, lengths = case
+    args = _port(_setup(B, Kv, G, page, n_pages, phys, seed=seed, lengths=lengths),
+                 cuda_device)
+    got = paged_attend(*args)
+    again = paged_attend(*args)
+    err = float((got - ref.paged_attend_ref(*args)).abs().max())
+    torch.cuda.synchronize()
+    assert err <= KERNEL_TOL, err
+    assert torch.equal(got, again)
+    q, kp, vp, table, lengths = args
+    perm = torch.randperm(kp.shape[0], generator=torch.Generator().manual_seed(seed))
+    inv = torch.argsort(perm).to(torch.int32).to(cuda_device)
+    perm = perm.to(cuda_device)
+    moved = paged_attend(q, kp[perm].contiguous(), vp[perm].contiguous(),
+                         inv[table.to(torch.int64)].contiguous(), lengths)
+    assert torch.equal(moved, got)
+
+
+@pytest.mark.cuda
+def test_kernel_marks_a_bad_table_entry_on_card(cuda_device):
+    """An entry outside [0, P) in any split makes its slot NaN, and only
+    its slot."""
+    q, kp, vp, table, lengths = _port(_setup(2, 8, 2, 64, 9, 19, seed=101,
+                                             lengths=(528, 528)), cuda_device)
+    for j in (0, 5, 8):
+        bad = table.clone()
+        bad[1, j] = kp.shape[0]
+        out = paged_attend(q, kp, vp, bad, lengths)
+        torch.cuda.synchronize()
+        assert bool(out[1].isnan().all()) and bool(out[0].isfinite().all()), j
 
 
 @pytest.mark.cuda
