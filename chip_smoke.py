@@ -31,7 +31,8 @@ Phases, each printing its own lines:
      at qwen3-1.7b's heads (B=1, H=16, Kv=8, hd=128; Sq=Sk 128, 256, 384,
      512, 1024, 2048; a continuation Sq=128, Sk=512, q_offset=384 at B=1
      and 2; B=2 at 512) and at G=1 and G=4, unit normals from a seed, max
-     |err| <= 1e-5, two calls bit-equal. Times the kernel (in a CUDA graph,
+     |err| <= 1e-5, two calls bit-equal, and each row of a batch of 2 and 4
+     bit-equal to the row alone (S 512, 256 and the continuation). Times the kernel (in a CUDA graph,
      the device time, and eager), the plain version and
      ``scaled_dot_product_attention`` (the library yardstick) with CUDA
      events beside the bound (causal FLOPs at 67 TFLOP/s fp32, or bytes at
@@ -64,7 +65,9 @@ Phases, each printing its own lines:
      and at the split's edges (lengths on them, a table wider than the live
      pages, B=16 at 64 pages), unit normals from a seed, max |err| <= 2e-6;
      each case again on a permuted pool, where the output must not change,
-     and twice, where the bits must not. Times the kernel (in a CUDA graph
+     and twice, where the bits must not; pages of 192 and 256 rows too.
+     Each slot's output must be bit-equal alone, inside batches of 2 and 4
+     and inside a table twice as wide (page 64 and 256). Times the kernel (in a CUDA graph
      with the L2 cold and warm, and eager), the plain version and a
      ``k_pool[table]`` gather plus fp32
      ``scaled_dot_product_attention`` with a length mask (two calls: no
@@ -114,6 +117,31 @@ Phases, each printing its own lines:
      and held to the plain version within rtol 1e-5. Prints warm step ms,
      the memory peak and a ``torch.profiler`` trace of one ``oracle:2``
      step with the monitor's and the transfer's share of kernel time.
+
+ 12. main path — A²DTWP training of full-width AlexNet (phase 4's widths and
+     weights from seed 0, dropout off, default ``compress_min_size``) as 2
+     gloo ranks on the one card: processes spawned by
+     ``repro_torch.launch.mesh.spawn_ranks`` that meet through a
+     ``FileStore`` in a temporary directory, each with 32 of the 64 images
+     of every batch and its shards of the ``DIST`` weights. Through
+     ``Trainer`` and ``make_cnn_train_step(mesh=...)``: two ``oracle:2``
+     steps (fp32 gradient reduce-scatter), one with ``chunks`` 2, one with
+     ``grad_round_to`` 2 (truncate: per-peer blocks packed), then one
+     ``make_cnn_eval`` on the shards. Each rank checks (a) at step 0 every
+     ``DIST`` leaf's gathered and unpacked weights bit-equal to one rank's
+     ``quantize_ref`` of the whole leaf, (b) the chunked gather bit-equal to
+     chunks 1's gather of the same shards, (c) its Bitpack, Bitunpack and
+     ``l2norm_sq`` launch counts (zeroed before, read after) as its leaves
+     require, each first launch at a (length, round_to) held to the plain
+     version, and (d) the measured wire (``dist.comm``'s log through
+     ``ring_wire_bytes``) equal to ``wire_table(elems, 2)`` per class at
+     every step; then (e) the losses and Σw² within ``DP_LOSS_RTOL`` and
+     ``DP_NORM_RTOL`` of one
+     rank's run of the same steps from the same weights (the Σw² of
+     monitored leaves that are not ``DIST``, conv0, counted once per rank
+     as in the reference). Prints step ms, the gloo staging share, and a
+     ``torch.profiler`` trace of one more step on rank 0 with the device's
+     idle share, beside the card's name and power limit.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -627,7 +655,33 @@ def check_flash(torch, device):
                      f"eager), plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
                      f"{bound * 1e3:.1f} us ({by}, {bound / ms:.0%} of it)")
         say(line)
+    check_flash_rows(torch, device, gen)
     return out
+
+
+# (H, Kv, Sq, Sk, q_offset) whose work list the batch used to change: the
+# engine's and the static run's 512 and 256-token prefills, a continuation
+FLASH_ROW_SHAPES = ((16, 8, 512, 512, 0), (16, 8, 256, 256, 0), (16, 8, 128, 512, 384))
+
+
+def check_flash_rows(torch, device, gen):
+    """A row's output is bit-equal alone and inside batches of 2 and 4."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+
+    for H, Kv, Sq, Sk, off in FLASH_ROW_SHAPES:
+        q = torch.randn((4, H, Sq, 128), generator=gen, device=device)
+        k = torch.randn((4, Kv, Sk, 128), generator=gen, device=device)
+        v = torch.randn((4, Kv, Sk, 128), generator=gen, device=device)
+        alone = [flash_prefill(q[b:b + 1], k[b:b + 1], v[b:b + 1], q_offset=off)
+                 for b in range(4)]
+        for B in (2, 4):
+            batch = flash_prefill(q[:B], k[:B], v[:B], q_offset=off)
+            for b in range(B):
+                check(torch.equal(batch[b], alone[b][0]),
+                      f"flash H={H} Sq={Sq} Sk={Sk} q_offset={off}: row {b} differs alone "
+                      f"and in a batch of {B}")
+        say(f"   flash H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}: each row bit-equal "
+            "alone and in batches of 2 and 4")
 
 
 # ---------------------------------------------------------------------------
@@ -895,10 +949,11 @@ PAGED_TOL = 2e-6
 # (qwen3-1.7b's heads, page 64, 9-page table, 18 pages + the trash row) at
 # the lengths that cross page edges, a slot of length 0, and the largest;
 # then page 8 with G = 1 and 4, so that the fold h = kv * G + g is held;
-# then the split's edges on 132 SMs: one-page splits at lengths on their
-# edges and the full table, a table wider than the live pages (splits past
-# them empty), and B=16 at 64 pages (2 splits of 32 pages) at and across a
-# split's edge
+# then the split's edges: one-page splits at lengths on their edges and the
+# full table, a table wider than the live pages (splits past them empty),
+# and B=16 at 64 pages at and across a split's edge; then pages of 192 and
+# 256 rows (walked in 32-row chunks of one pool row), at and across a page
+# edge
 PAGED_CASES = (
     (2, 8, 2, 64, 9, 19, (528, 0)),
     (2, 8, 2, 64, 9, 19, (1, 63)),
@@ -909,6 +964,10 @@ PAGED_CASES = (
     (2, 8, 2, 64, 9, 19, (576, 128)),
     (3, 8, 2, 64, 20, 61, (65, 129, 0)),
     (16, 8, 2, 64, 64, 1025, (2048, 2049) * 8),
+    (2, 8, 2, 192, 4, 9, (768, 193)),
+    (2, 8, 2, 192, 4, 9, (192, 1)),
+    (2, 8, 2, 256, 3, 7, (768, 257)),
+    (2, 8, 2, 256, 3, 7, (256, 700)),
 )
 # input copies a cold-L2 timing rotates through: 10 x the main path's
 # 10 MB of pools is twice the 50 MB L2
@@ -1014,7 +1073,33 @@ def check_paged(torch, device):
             f"us, gather+sdpa {lib * 1e3:.1f} us (within {lib_err:.1e} of the kernel), bound "
             f"{bound * 1e3:.1f} us (bytes, {bound / cold:.0%} of it cold); max |err| {e:.3e}")
     out["max_abs_err"] = err
+    check_paged_rows(torch, device, gen)
     return out
+
+
+def check_paged_rows(torch, device, gen):
+    """A slot's output is bit-equal alone, inside batches of 2 and 4, and
+    inside a table twice as wide (the extra entries at the trash row), at
+    page 64 and page 256."""
+    from repro_torch.kernels.paged_attend import paged_attend
+
+    for page in (64, 256):
+        width = 2048 // page
+        q, kp, vp, table, lens = paged_inputs(torch, device, gen, 4, 8, 2, page, width,
+                                              4 * width + 1, (1500, 700, 2048, 65))
+        alone = [paged_attend(q[b:b + 1], kp, vp, table[b:b + 1], lens[b:b + 1])
+                 for b in range(4)]
+        trash = torch.full_like(table, kp.shape[0] - 1)
+        runs = [(f"a batch of {B}", paged_attend(q[:B], kp, vp, table[:B], lens[:B]))
+                for B in (2, 4)]
+        runs.append(("a table twice as wide",
+                     paged_attend(q, kp, vp, torch.cat([table, trash], 1).contiguous(), lens)))
+        for what, out in runs:
+            for b in range(out.shape[0]):
+                check(torch.equal(out[b], alone[b][0]),
+                      f"paged_attend page={page}: slot {b} differs alone and in {what}")
+        say(f"   paged_attend page={page}, {width}-page table, lengths 1500/700/2048/65: each "
+            "slot bit-equal alone, in batches of 2 and 4 and in a table twice as wide")
 
 
 # ---------------------------------------------------------------------------
@@ -1528,6 +1613,327 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
     return {"awp": awp, "oracle": oracle, "launches": got, "peak": peak,
             "monitor_err": max(errs, default=0.0), "profile": profiled}
 
+
+# ---------------------------------------------------------------------------
+# phase 12: full-width AlexNet A²DTWP training across two gloo ranks
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+# (label, PrecisionPlan.build keywords) of the phase's steps, in order, all at
+# round_to 2: the paper's setting (fp32 gradients) twice, the chunked gather
+# once, and last the packed gradient reduce-scatter (truncate, so that the
+# per-peer blocks go through Bitpack). Last, because one rank has no
+# gradient to pack: every loss (computed before the step's update) then
+# compares with one rank's like for like, and only the last Σw² carries
+# the packed gradient's format error.
+DP_STEPS = (
+    ("oracle:2", {}),
+    ("oracle:2", {}),
+    ("chunks 2", {"chunks": 2}),
+    ("grad_round_to 2", {"grad_round_to": 2, "grad_mode": "truncate"}),
+)
+# (e): the two ranks' losses and Σw² against one rank's run of the same steps
+# from the same weights and batches (relative). Batch 32 against 64 sums the
+# convolutions in another order, and at the paper init (loss ~1e6, falling
+# 10-25 % a step at lr 1e-8) the losses part by 4.6e-5 and 5.9e-5 within 4
+# steps on an H100 (two runs; cuDNN's backward is not bit-reproducible),
+# the Σw² by 1.9e-7 (8.4e-6 in the CPU rehearsal at reduced width, where
+# the last step's truncated gradients at lr 0.01 move it): each bound is
+# at least 12x the gap seen.
+DP_LOSS_RTOL = 1e-3
+DP_NORM_RTOL = 1e-4
+
+
+def dp_config(cfg):
+    """Phase 4's network with dropout off. The reference's data-parallel
+    step draws every rank's dropout mask from the same key over the rank's
+    own rows, so with dropout a 2-rank step is not the 1-rank step of the
+    same batch, and check (e) could not compare like with like."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, dropout=0.0)
+
+
+def watch_materialize(seen):
+    """Route the CNN step's ``materialize_leaf`` through a recorder that,
+    while ``seen["on"]``, keeps a copy of every ``DIST`` leaf's gathered
+    and unpacked weights in ``seen["leaves"]`` (in the step's leaf order).
+    Returns the undo function."""
+    from repro_torch.train import cnn_step
+
+    mat = cnn_step.materialize_leaf
+
+    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, *, key=None, group=None):
+        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, key=key, group=group)
+        if seen["on"] and spec.kind == "dist":
+            seen["leaves"].append(out.detach().clone())
+        return out
+
+    cnn_step.materialize_leaf = recorded
+    return lambda: setattr(cnn_step, "materialize_leaf", mat)
+
+
+def _dp_rank(rank, device_name, cfg, batch, lr, min_size):
+    """One rank of phase 12 (a process of a gloo group): its shards of
+    the weights, phase 12's steps through ``Trainer``, checks (a)-(d) on
+    its own view; returns its measurements."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch import random as jr
+    from repro_torch.data.pipeline import SyntheticImageNet
+    from repro_torch.dist.spec import DIST, MeshCfg, tree_to_local
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.optim.sgd import SGDConfig, init_momentum
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.plan.plan import TRAFFIC_CLASSES
+    from repro_torch.train.cnn_step import (
+        build_cnn_spec_tree, cnn_dist_elems, cnn_to_storage, make_cnn_eval,
+        make_cnn_train_step,
+    )
+    from repro_torch.train.loop import Trainer
+    from repro_torch.transport import CompressionPolicy
+    from repro_torch.transport import transport as T
+
+    fp32_math()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n = torch.distributed.get_world_size()
+    mesh_cfg = MeshCfg(dp=n, compress_min_size=min_size)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    params, metas, gi = init_cnn(cfg, 0, device=device)
+    spec = build_cnn_spec_tree(params, metas, mesh_cfg)
+    storage = tree_to_local(cnn_to_storage(params, spec, mesh_cfg), spec, mesh_cfg, rank)
+    mom = init_momentum(storage)
+    elems = cnn_dist_elems(spec, gi, mesh_cfg)
+    dist_keys = [(a, b) for a, leafs in spec["layers"].items() for b, s in leafs.items()
+                 if s.kind == DIST]
+    # the whole initial leaves (copies: a shard may be a view of its leaf)
+    first = [params["layers"][a][b].clone() for a, b in dist_keys]
+    del params
+    n_monitor = sum(s.meta.compress for leafs in spec["layers"].values() for s in leafs.values())
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=5e-4)
+    data = SyntheticImageNet(num_classes=cfg.num_classes, hw=cfg.in_hw, device=device_name)
+    val_imgs, val_labels = data.validation(EVAL_SIZE)
+    plans = {label: PrecisionPlan.build(gi[1], round_to=2, **kw) for label, kw in DP_STEPS}
+
+    def trainer_for(plan):
+        return Trainer(
+            lambda rts: make_cnn_train_step(cfg, mesh_cfg, spec, gi, opt,
+                                            plan=plan.with_round_tos(rts), mesh=mesh),
+            gi[1], plan=plan, dist_elems_per_group=elems, gather_axis_size=n)
+
+    trainers = {label: trainer_for(plan) for label, plan in plans.items()}
+    evaluate = make_cnn_eval(cfg, mesh_cfg, spec, gi, plan=plans["oracle:2"], mesh=mesh)
+
+    seen, packs = {"on": False, "leaves": []}, {}
+    unwatch = watch_materialize(seen)
+    unwatch_packing = watch_packing(torch, packs) if on_card else (lambda: None)
+    sync()
+    zero_counts()
+    records, norms = [], []
+    for i, (label, _) in enumerate(DP_STEPS):
+        imgs, labels = data.batch(batch, i)
+        want = None
+        if label == "chunks 2":  # (b): chunks 1's gather of the same shards,
+            # on the plain versions (no launch) and outside the step's clock
+            with torch.no_grad():
+                pol = CompressionPolicy(round_to=2, impl="ref")
+                want = [T.all_gather(storage["layers"][a][b].reshape(-1), None, pol)
+                        [:spec["layers"][a][b].n_local] for a, b in dist_keys]
+        seen["on"] = i == 0 or want is not None
+        storage, mom, m = trainers[label].run_step(
+            storage, mom, {"images": imgs, "labels": labels}, lr, jr.PRNGKey(1000 + i))
+        records.append(trainers[label].records[-1])
+        norms.append(m["group_norms_sq"].cpu().numpy())
+        got_leaves, seen["on"] = seen["leaves"], False
+        seen["leaves"] = []
+        if i == 0:  # (a): bit-equal to one rank's quantize of the whole leaf
+            check(len(got_leaves) == len(dist_keys), f"rank {rank}: recorded "
+                  f"{len(got_leaves)} gathers, {len(dist_keys)} DIST leaves")
+            for (a, b), g, w in zip(dist_keys, got_leaves, first):
+                q = ref.quantize_ref(w, 2)
+                check(torch.equal(g.reshape(-1).view(torch.int32), q.reshape(-1).view(torch.int32)),
+                      f"rank {rank} step 0: gathered {a}.{b} differs from the one-rank quantize")
+            del first
+        if want is not None:  # (b)
+            for (a, b), g, w in zip(dist_keys, got_leaves, want):
+                check(torch.equal(g.reshape(-1).view(torch.int32), w.view(torch.int32)),
+                      f"rank {rank}: chunks 2 gathered {a}.{b} differs from chunks 1")
+        if on_card:
+            check_seen_packing(torch, packs)
+    top5 = float(evaluate(storage, val_imgs, val_labels))
+    sync()
+    got = counts()
+    unwatch()
+    unwatch_packing()
+
+    # (d): measured wire == wire_table, per class, every step
+    for i, ((label, _), r) in enumerate(zip(DP_STEPS, records)):
+        table = plans[label].with_round_tos(r.round_tos).wire_table(elems, n)
+        for k in TRAFFIC_CLASSES:
+            check(r.measured_by_entry.get(k, 0) == table[k],
+                  f"rank {rank} step {i} ({label}): measured {k} "
+                  f"{r.measured_by_entry.get(k, 0)} B != wire_table {table[k]} B")
+    # (c): launches as the leaves require, all on the CUDA kernels
+    n_dist = len(dist_keys)
+    chunked = sum(2 if spec["layers"][a][b].s_loc % 2 == 0 else 1 for a, b in dist_keys)
+    packed = 3 * n_dist + n_dist + chunked + n_dist  # 3 gathers, grad blocks, chunks, eval
+    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
+            "l2norm_sq": n_monitor * len(DP_STEPS)}
+    if not on_card:
+        want = {k: 0 for k in want}
+    check(got == want, f"rank {rank}: launches {got}, expected {want}")
+    if on_card:
+        lengths = {spec["layers"][a][b].s_loc for a, b in dist_keys}
+        lengths |= {spec["layers"][a][b].s_loc // 2 for a, b in dist_keys
+                    if spec["layers"][a][b].s_loc % 2 == 0}
+        lengths |= {spec["layers"][a][b].pad_rep for a, b in dist_keys}
+        keys = {(k, nn, 2) for k in ("bitpack", "bitunpack") for nn in lengths}
+        check(packs and set(packs) <= keys, f"rank {rank}: packing launches checked "
+                                            f"{sorted(packs)}, lengths {sorted(lengths)}")
+
+    profiled = {}
+    if on_card:  # one more warm oracle:2 step, profiled on rank 0
+        step = make_cnn_train_step(cfg, mesh_cfg, spec, gi, opt, plan=plans["oracle:2"],
+                                   mesh=mesh)
+        imgs, labels = data.batch(batch, 10_000)
+        b = {"images": imgs, "labels": labels}
+        float(step(storage, mom, b, lr, jr.PRNGKey(7))[2]["loss"])
+        run = lambda: float(step(storage, mom, b, lr, jr.PRNGKey(8))[2]["loss"])  # noqa: E731
+        if rank == 0:
+            by_name = profile(torch, run, "oracle:2 data-parallel step, rank 0")
+            profiled = {"busy_ms": sum(by_name.values())}
+        else:
+            run()
+    return {
+        "records": [{"loss": r.loss, "wall_s": r.wall_s, "stage_s": r.stage_s,
+                     "measured": r.measured_by_entry, "table": r.wire_by_entry}
+                    for r in records],
+        "norms": norms, "launches": got, "top5": top5, "n_dist": n_dist,
+        "n_monitor": n_monitor, "packs": sorted(packs), "profile": profiled,
+    }
+
+
+def _one_rank_run(torch, device, cfg, batch, lr, min_size):
+    """Phase 12's steps on one rank from the same weights and batches (the
+    gradient format and chunks do not move anything on one device): losses,
+    Σw² per group, and per group the Σw² of its monitored leaves that are
+    not ``DIST`` (whole on every rank, so counted once per rank in the
+    data-parallel sum, as in the reference)."""
+    import numpy as np
+
+    from repro_torch import random as jr
+    from repro_torch.data.pipeline import SyntheticImageNet
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.kernels import ref
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train.cnn_step import cnn_dist_elems, make_cnn_train_step
+    from repro_torch.train.loop import Trainer
+
+    mesh_cfg = MeshCfg(compress_min_size=min_size)
+    storage, mom, spec, gi = build_run(cfg, mesh_cfg, device)
+    elems = cnn_dist_elems(spec, gi, mesh_cfg)
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=5e-4)
+    data = SyntheticImageNet(num_classes=cfg.num_classes, hw=cfg.in_hw, device=str(device))
+    groups = gi[0]
+    repl = [(a, b, groups[a]) for a, leafs in spec["layers"].items() for b, s in leafs.items()
+            if s.meta.compress and s.kind != "dist"]
+    losses, norms, repl_sq = [], [], []
+    for i, (label, kw) in enumerate(DP_STEPS):
+        plan = PrecisionPlan.build(gi[1], round_to=2, **kw)
+        trainer = Trainer(lambda rts, plan=plan: make_cnn_train_step(
+            cfg, mesh_cfg, spec, gi, opt, plan=plan.with_round_tos(rts)),
+            gi[1], plan=plan, dist_elems_per_group=elems)
+        imgs, labels = data.batch(batch, i)
+        storage, mom, m = trainer.run_step(storage, mom, {"images": imgs, "labels": labels},
+                                           lr, jr.PRNGKey(1000 + i))
+        losses.append(trainer.records[-1].loss)
+        norms.append(m["group_norms_sq"].cpu().numpy())
+        sq = np.zeros(gi[1], np.float64)
+        for a, b, g in repl:
+            sq[g] += float(ref.l2norm_sq_ref(storage["layers"][a][b]))
+        repl_sq.append(sq)
+    return {"losses": losses, "norms": norms, "repl_sq": repl_sq}
+
+
+def dp_train_path(torch, device, *, cfg=None, batch=64, min_size=None):
+    """Full-width AlexNet (phase 4's widths and weights, dropout off) trained
+    as ``DP_RANKS`` gloo ranks on ``device``, each a spawned process with its
+    slice of the batch: ``DP_STEPS`` through ``Trainer``, then one
+    ``make_cnn_eval``. Each rank checks (a) the gathered weights of step 0
+    against one rank's quantize of the whole leaves, (b) chunks 2 against
+    chunks 1, (c) its launch counts and (d) its measured wire against
+    ``wire_table``; here (e) the losses and Σw² against one rank's run of
+    the same steps. Launch counts, packing records and the profile are read
+    on a card only, so the phase rehearses on the CPU at a reduced
+    config. Returns the measurements; raises on a failed check."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.cnn import ALEXNET
+    from repro_torch.models.meta import COMPRESS_MIN_SIZE
+
+    cfg = dp_config(cfg or ALEXNET)
+    min_size = min_size or COMPRESS_MIN_SIZE
+    lr = 1e-8 if cfg.paper_init else 0.01  # phase 4's rates
+    on_card = device.type == "cuda"
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        say(f"   {DP_RANKS} ranks on one card: {smi}")
+    t0 = time.perf_counter()
+    # the card's machine has 8 cores: 4 a rank for the staging copies
+    outs = spawn_ranks(_dp_rank, DP_RANKS, str(device), cfg, batch, lr, min_size,
+                       threads=4 if on_card else 1)
+    ranks_s = time.perf_counter() - t0
+    one = _one_rank_run(torch, device, cfg, batch, lr, min_size)
+
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        check([x["loss"] for x in o["records"]] == [x["loss"] for x in r0["records"]],
+              f"rank {r}'s losses differ from rank 0's")
+        check(all(np.array_equal(a, b) for a, b in zip(o["norms"], r0["norms"])),
+              f"rank {r}'s Σw² differ from rank 0's")
+    losses = [x["loss"] for x in r0["records"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    # (e)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+    want_norms = [o + (DP_RANKS - 1) * s for o, s in zip(one["norms"], one["repl_sq"])]
+    norm_gap = max(float(np.max(np.abs(a - b) / np.abs(b)))
+                   for a, b in zip(r0["norms"], want_norms))
+    check(loss_gap <= DP_LOSS_RTOL, f"losses {losses} vs one rank {one['losses']}: "
+                                    f"relative gap {loss_gap:.3e} > {DP_LOSS_RTOL}")
+    check(norm_gap <= DP_NORM_RTOL,
+          f"Σw² relative gap {norm_gap:.3e} > {DP_NORM_RTOL} against one rank")
+    check(0.0 <= r0["top5"] <= 1.0, f"top-5 error {r0['top5']} out of range")
+    for i, ((label, _), x) in enumerate(zip(DP_STEPS, r0["records"])):
+        say(f"   step {i} {label:15s} loss {x['loss']:.6g} (one rank {one['losses'][i]:.6g}); "
+            f"wire weights {x['measured']['weights']} B, gradients "
+            f"{x['measured']['gradients']} B (== wire_table), grad_sync "
+            f"{x['measured'].get('grad_sync', 0)} B, metrics {x['measured'].get('metrics', 0)} B; "
+            f"{x['wall_s'] * 1e3:.1f} ms, gloo staging {x['stage_s'] * 1e3:.1f} ms "
+            f"({x['stage_s'] / x['wall_s']:.0%})")
+    warm = r0["records"][1:]
+    say(f"   (e) against one rank: losses within {loss_gap:.3e} (bound {DP_LOSS_RTOL}), Σw² "
+        f"within {norm_gap:.3e} (bound {DP_NORM_RTOL}), relative; top-5 error after "
+        f"{len(losses)} steps {r0['top5']:.4f}")
+    say(f"   launches per rank: {[o['launches'] for o in outs]} ({r0['n_dist']} DIST leaves, "
+        f"{r0['n_monitor']} monitored); packing checked at {len(r0['packs'])} "
+        f"(kernel, length, round_to)")
+    say(f"   step ms on rank 0 after the first: "
+        f"{[round(x['wall_s'] * 1e3, 1) for x in warm]}; gloo staging share "
+        f"{sum(x['stage_s'] for x in warm) / sum(x['wall_s'] for x in warm):.1%}; ranks' "
+        f"processes {ranks_s:.1f} s in all")
+    launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    return {"ranks": outs, "one": one, "launches": launches, "loss_gap": loss_gap,
+            "norm_gap": norm_gap}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1631,6 +2037,12 @@ def main() -> int:
     for k in served:
         served[k] += lm["launches"][k]
 
+    say(f"phase 12: main path — full-width AlexNet A²DTWP training on {DP_RANKS} gloo ranks, "
+        f"batch 64 ({64 // DP_RANKS} a rank), steps {[label for label, _ in DP_STEPS]}")
+    dp = dp_train_path(torch, device)
+    for k in ("bitpack", "bitunpack"):
+        served[k] += dp["launches"][k]
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -1664,7 +2076,8 @@ def main() -> int:
     kernels.append({
         "name": "l2norm_sq", "route": "cuda", "source": "src/repro_torch/csrc/l2norm.cu",
         "replaces": "src/repro/kernels/l2norm.py:31",
-        "launches": run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"],
+        "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
+                     + dp["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],

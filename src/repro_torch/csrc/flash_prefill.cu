@@ -26,10 +26,11 @@
 //     triangle's long q-blocks on the critical path while the short ones'
 //     SMs idle. Here a CTA takes one work item: 64 query rows (a "unit")
 //     and a contiguous range of its unmasked 64-key tiles. The host splits
-//     a unit's tiles into near-equal pieces of at most ceil(total tiles /
-//     264) (two CTAs on each of the H100's 132 SMs) and lists the items
-//     longest first; the list depends only on (B, H, Kv, Sq, Sk, q_offset),
-//     so two calls give the same bits. A piece writes its partial
+//     a unit's tiles into near-equal pieces of at most ceil(tiles of one
+//     batch row / 264) (two CTAs on each of the H100's 132 SMs) and lists
+//     the items longest first; a row's pieces depend only on (H, Kv, Sq,
+//     Sk, q_offset), so two calls give the same bits, and so does a row
+//     alone and inside any batch. A piece writes its partial
 //     (m, l, acc) to scratch; the last piece of a unit to finish (an
 //     integer counter, no float atomics) merges the unit's partials in
 //     piece order (m = max m_p, l = sum l_p e^(m_p - m), acc = sum acc_p

@@ -24,10 +24,11 @@
 // few of the 132 SMs, and one SM's share of the memory rate, ~25 GB/s,
 // then sets the time. What the design does about it (flash-decoding):
 //   * A split over pages. One CTA per (slot, kv head, split), a split being
-//     a contiguous range of logical pages; the host picks the number of
-//     splits from B, Kv, the table width and the SM count so that the grid
-//     is one wave of two CTAs an SM (a partial second wave would double
-//     the time). The lengths stay on the device: a CTA reads lengths[b]
+//     a contiguous range of logical pages; the host cuts the splits at
+//     fixed logical row ranges (pages_per_split from the page size alone),
+//     so a slot's partials and their merge order are the same alone, in
+//     any batch, in a wider table (splits past its length are empty) and
+//     on any card. The lengths stay on the device: a CTA reads lengths[b]
 //     and its table entries itself, with no host sync. Splits are cut at
 //     logical page indices, never at pool rows, so a permuted pool and
 //     table give the same bits.
@@ -45,6 +46,8 @@
 //     row. One launch a call; a table of one split writes the output
 //     directly.
 //   * K and V go through a three-stage shared-memory ring of 32-row chunks
+//     of consecutive logical rows (a chunk may span pages, and a page of
+//     any size, 128 rows or more, is several chunks of its pool row),
 //     filled by cp.async (16 B a copy, a warp per 512 B row): two chunks
 //     are in flight while one is scored, with no register staging. The
 //     ring and q take 107 KB, so two CTAs fit on an SM (four chunks, 128 KB,
@@ -353,7 +356,8 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
 // q (B, Kv, G, 128), k_pool / v_pool (P, page, Kv, 128), page_table
 // (B, n_pages) int32, lengths (B,) int32, out (B, Kv, G, 128): contiguous on
 // the current device, float tensors 16-byte aligned; 1 <= G <= 16,
-// 1 <= page <= 128, n_pages >= 1 (all checked by the Python wrapper).
+// page >= 1, n_pages >= 1, page * n_pages < 2^31 (all checked by the Python
+// wrapper).
 // Split s covers logical pages [s * pps, (s + 1) * pps), and the splits
 // cover the table: (n_splits - 1) * pps < n_pages <= n_splits * pps. With
 // n_splits > 1, part_acc holds B * Kv * n_splits * G * 128 floats, part_ml
@@ -364,8 +368,8 @@ extern "C" int repro_paged_attend(const void* q, const void* k_pool,
                                   void* part_ml, void* counters, int B, int Kv, int G,
                                   int P, int page, int n_pages, int n_splits, int pps,
                                   float scale, void* stream) {
-  if (B < 0 || Kv <= 0 || G < 1 || G > kMaxG || P < 1 || page < 1 || page > 128 ||
-      n_pages < 1 || n_splits < 1 || pps < 1 ||
+  if (B < 0 || Kv <= 0 || G < 1 || G > kMaxG || P < 1 || page < 1 ||
+      static_cast<long long>(page) * n_pages >= (1LL << 31) || n_pages < 1 || n_splits < 1 || pps < 1 ||
       static_cast<long long>(n_splits - 1) * pps >= n_pages ||
       static_cast<long long>(n_splits) * pps < n_pages)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,29 +1,43 @@
-"""Storage layout of parameter leaves (the trivial-mesh part of
-``repro.dist.spec``).
+"""Storage layout of parameter leaves (counterpart of ``repro.dist.spec``:
+the trivial mesh and data-parallel meshes, ``tp == 1``).
 
 Every parameter leaf is classified into one of three storage *kinds*:
 
   * ``DIST`` — large / compressible (``meta.compress`` and at least
-    ``compress_min_size`` elements): materialization moves its fp32
-    master copy as byte planes through :mod:`repro_torch.transport`.
+    ``compress_min_size`` elements): the fp32 master copy lives as flat
+    shards, flattened and zero-padded so the flat dim splits evenly over
+    the ``dshards = dp * pods`` ranks. Materialization is a compressed
+    all-gather through :mod:`repro_torch.transport`, whose backward
+    reduce-scatters the gradient back onto the shards.
   * ``TP_SMALL`` — small but TP-sheared (only on meshes with ``tp > 1``).
   * ``REPL`` — small replicated leaves (biases, norm scales, and weights
-    under ``compress_min_size``): stored and used as they are.
+    under ``compress_min_size``): stored and used as they are, on every
+    rank.
 
 Kind assignment depends only on the logical shape, the
 :class:`~repro_torch.models.meta.ParamMeta` and ``compress_min_size``,
 never on the mesh geometry, exactly as in the reference.
 
-The port runs on one device, the trivial mesh (``tp == 1 and
-dshards == 1``): storage *is* the logical tensor and materialization of a
-``DIST`` leaf is the straight-through format truncation (per use, or once
-under weight-stationary serving, :func:`placed_leaf`). Sharded layouts
-raise ``NotImplementedError`` until the data-parallel slice.
+On the trivial mesh (``tp == 1 and dshards == 1``) storage *is* the
+logical tensor and materialization of a ``DIST`` leaf is the
+straight-through format truncation (per use, or once under
+weight-stationary serving, :func:`placed_leaf`).
+
+On a data-parallel mesh each rank is one process and holds its own shard:
+:func:`tree_to_storage` lays a leaf out as the reference does (the whole
+padded flat array), and :func:`local_shard` / :func:`tree_to_local` take
+rank ``r``'s block, what the reference's ``leaf_partition_spec`` selects
+for ``shard_map``. The reference's ``dist/shard.py`` (its ``shard_map``
+version shim) has no counterpart here: each rank's process *is* the shard.
+``tp > 1`` raises ``NotImplementedError`` (the FSDP×TP slice, ROADMAP
+Queue 1 item 6.1).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import torch
 
 from repro_torch.models.meta import COMPRESS_MIN_SIZE, ParamMeta
 from repro_torch.transport import policy_for
@@ -49,6 +63,18 @@ class MeshCfg:
     @property
     def dshards(self) -> int:
         return self.dp * self.pods
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        if self.pods > 1:
+            return (self.pods, self.dp, self.tp)
+        return (self.dp, self.tp)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        if self.pods > 1:
+            return ("pod", "data", "model")
+        return ("data", "model")
 
     @property
     def trivial(self) -> bool:
@@ -121,19 +147,53 @@ def build_leaf_spec(
     )
 
 
-def _require_trivial(mesh_cfg: MeshCfg) -> None:
-    if not mesh_cfg.trivial:
+def _require_no_tp(mesh_cfg: MeshCfg) -> None:
+    if mesh_cfg.tp > 1:
         raise NotImplementedError(
-            f"only the trivial mesh is ported (got tp={mesh_cfg.tp}, "
-            f"dshards={mesh_cfg.dshards})"
+            f"tensor parallelism is not ported (got tp={mesh_cfg.tp}; the "
+            "FSDP×TP slice, ROADMAP Queue 1 item 6.1)"
         )
 
 
+def storage_shape(spec: LeafSpec, mesh_cfg: MeshCfg) -> tuple[int, ...]:
+    """Shape of the whole storage array of a leaf (all ranks' shards)."""
+    _require_no_tp(mesh_cfg)
+    lead = (spec.reps,) if spec.stacked else ()
+    if mesh_cfg.trivial or spec.kind == REPL:
+        return lead + spec.logical
+    return lead + (spec.pad_rep,)
+
+
 def leaf_to_storage(x, spec: LeafSpec, mesh_cfg: MeshCfg):
-    """Lay one logical leaf out in storage form (the identity on the
-    trivial mesh)."""
-    _require_trivial(mesh_cfg)
-    return x
+    """Lay one logical leaf out in storage form: the identity on the
+    trivial mesh and for ``REPL`` leaves; a ``DIST`` leaf flattened and
+    zero-padded to ``pad_rep`` (per layer repetition when stacked)."""
+    _require_no_tp(mesh_cfg)
+    if mesh_cfg.trivial or spec.kind == REPL:
+        return x
+    lead = (spec.reps,) if spec.stacked else ()
+    flat = x.reshape(lead + (-1,))
+    pad = spec.pad_rep - flat.shape[-1]
+    return torch.nn.functional.pad(flat, (0, pad)) if pad else flat.contiguous()
+
+
+def local_shard(x, spec: LeafSpec, mesh_cfg: MeshCfg, rank: int):
+    """Rank ``rank``'s block of a storage array (what the reference's
+    ``leaf_partition_spec`` selects): a ``DIST`` leaf's ``pad_rep /
+    dshards`` flat elements at ``rank``'s offset (per repetition), any
+    other leaf whole."""
+    _require_no_tp(mesh_cfg)
+    if mesh_cfg.trivial or spec.kind != DIST:
+        return x
+    if not 0 <= rank < mesh_cfg.dshards:
+        raise ValueError(f"rank {rank} outside the {mesh_cfg.dshards} data shards")
+    per = spec.pad_rep // mesh_cfg.dshards
+    return x[..., rank * per:(rank + 1) * per].contiguous()
+
+
+def tree_to_local(storage, spec_tree, mesh_cfg: MeshCfg, rank: int):
+    """Rank ``rank``'s shards of a whole storage tree."""
+    return tree_map(lambda x, s: local_shard(x, s, mesh_cfg, rank), storage, spec_tree)
 
 
 def materialize_leaf(
@@ -141,17 +201,29 @@ def materialize_leaf(
     spec: LeafSpec,
     mesh_cfg: MeshCfg,
     round_to,
+    grad_round_to: int | None = None,
     *,
     key=None,
+    group=None,
 ):
-    """Storage -> logical weights: ``DIST`` leaves go through the
-    straight-through pack∘unpack at ``round_to`` (an int or a
-    :class:`~repro_torch.transport.CompressionPolicy`); the rest are used
-    as stored."""
-    _require_trivial(mesh_cfg)
-    if spec.kind == DIST:
-        return _T.quantize(x, policy_for(round_to), key)
-    return x
+    """Rank-local storage -> logical weights at ``round_to`` (an int or a
+    :class:`~repro_torch.transport.CompressionPolicy`). On the trivial mesh
+    a ``DIST`` leaf goes through the straight-through pack∘unpack; on a
+    data-parallel mesh its flat shard goes through the compressed
+    all-gather over ``group`` (the FSDP group; ``None`` is the default
+    group), whose backward reduce-scatters the gradient, and the padding
+    is sliced off. The rest are used as stored."""
+    _require_no_tp(mesh_cfg)
+    policy = policy_for(round_to, grad_round_to)
+    if spec.kind != DIST:
+        return x
+    if mesh_cfg.trivial:
+        return _T.quantize(x, policy, key)
+    full = _T.all_gather(x.reshape(-1), group, policy, 0, key)
+    n = spec.n_local
+    if n != full.shape[0]:
+        full = full[:n]
+    return full.reshape(spec.local_logical)
 
 
 def build_spec_tree(params, metas, mesh_cfg: MeshCfg):
@@ -188,10 +260,12 @@ def dist_elems_per_group(spec_tree, mesh_cfg: MeshCfg, num_groups: int) -> list[
 
 
 def tree_to_storage(params, spec_tree, mesh_cfg: MeshCfg):
-    """Lay the LM tree out in storage form (the identity on the trivial
-    mesh: storage is the logical tensors themselves)."""
-    _require_trivial(mesh_cfg)
-    return params
+    """Lay a parameter tree out in storage form (the identity on the
+    trivial mesh: storage is the logical tensors themselves)."""
+    _require_no_tp(mesh_cfg)
+    if mesh_cfg.trivial:
+        return params
+    return tree_map(lambda x, s: leaf_to_storage(x, s, mesh_cfg), params, spec_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +277,10 @@ def placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg, round_to):
     """Run the leaf's transfer ONCE, giving resident logical weights
     (stacked leaves keep their repetition dim, and go through the kernels
     as one tensor). Decode steps built with ``weight_stationary=True``
-    then move no weights at all."""
-    _require_trivial(mesh_cfg)
+    then move no weights at all (the trivial mesh only)."""
+    if not mesh_cfg.trivial:
+        raise NotImplementedError("weight-stationary placement on a sharded mesh is not "
+                                  "ported (the FSDP×TP slice, ROADMAP Queue 1 item 6.1)")
     if spec.kind == DIST:
         return _T.quantize(x, policy_for(round_to))
     return x

@@ -30,7 +30,7 @@ UNIT_ROWS = 64  # query rows a work item holds: 64 / Gc positions x Gc heads
 KEY_TILE = 64   # keys the kernel takes a step
 # CTAs resident at once on an H100: 132 SMs x 2 (the kernel's occupancy).
 # A constant, so that the work list, and with it the bits of the result,
-# depend on the shapes alone.
+# depend on one sequence's shape alone (not on the card, nor on the batch).
 SLOTS = 264
 
 
@@ -42,9 +42,12 @@ def flash_work(B: int, H: int, Kv: int, Sq: int, Sk: int, q_offset: int,
     at ``64 / Gc`` positions each; unit ``u`` is ``((b * H / Gc + hg) *
     nqb + qb)`` with ``nqb = Sq / (64 / Gc)``. Its unmasked keys are the
     first ``min(Sk, q_offset + (qb + 1) * 64 / Gc)``, in ``n`` 64-key tiles.
-    A unit whose ``n`` exceeds ``kmax = ceil(total tiles / slots)`` is cut
-    into ``ceil(n / kmax)`` near-equal pieces of consecutive tiles, each
-    with its own partial slot. Returns ``(Gc, items, merges, n_parts)``:
+    A unit whose ``n`` exceeds ``kmax = ceil(tiles of one batch row /
+    slots)`` (the tiles of its ``H / Gc`` head groups; no ``B`` in it) is
+    cut into ``ceil(n / kmax)`` near-equal pieces of consecutive tiles,
+    each with its own partial slot. So a row's items, pieces and merge
+    order are the same alone or in any batch, and its bits do not depend
+    on the other rows. Returns ``(Gc, items, merges, n_parts)``:
     ``items`` are ``(unit, first tile, end tile, slot, merge)``, longest
     first, with slot and merge -1 for a unit of one piece; ``merges`` are
     ``(first slot, pieces)``, a split unit's slots being consecutive."""
@@ -52,7 +55,7 @@ def flash_work(B: int, H: int, Kv: int, Sq: int, Sk: int, q_offset: int,
     bq = UNIT_ROWS // Gc
     nqb, groups = Sq // bq, B * (H // Gc)
     need = [-(-min(Sk, q_offset + (qb + 1) * bq) // KEY_TILE) for qb in range(nqb)]
-    kmax = max(1, -(-sum(need) * groups // slots))
+    kmax = max(1, -(-sum(need) * (H // Gc) // slots))
     items, merges, n_parts = [], [], 0
     for unit in range(groups * nqb):
         n = need[unit % nqb]

@@ -8,9 +8,12 @@ accumulator, rows at or past ``lengths[b]`` scored ``-1e30``, output
 over pages (flash-decoding): one CTA per (slot, kv head, split of
 contiguous logical pages) writes a partial ``(m, l, acc)``, and the last
 split of a (slot, kv head) to finish merges the partials in split order;
-fp32 FMAs on the CUDA cores. :func:`paged_splits` picks the splits on the
-host from the shapes and the SM count; the partials and the zeroed merge
-counters live in a per-stream ``workspace``.
+fp32 FMAs on the CUDA cores. :func:`paged_splits` cuts the splits at fixed
+logical row ranges, from the page size alone, so a slot's partials and
+their merge order are the same whatever the batch, the table width or the
+card. A page of more than 128 rows is walked in 32-row chunks of its pool
+row like any other. The partials and the zeroed merge counters live in a
+per-stream ``workspace``.
 On a CPU tensor the wrapper runs the plain version ``ref.paged_attend_ref``;
 on a CUDA tensor it launches the kernel or raises.
 
@@ -30,18 +33,19 @@ from repro_torch.kernels.build import check_launch, library, workspace
 
 HEAD_DIM = 128  # the one head width the kernel takes (as the flash kernel)
 MAX_G = 16      # query heads per kv head the kernel holds
-MAX_PAGE = 128  # rows per page the kernel takes
-CTAS_PER_SM = 2  # the split kernel's occupancy (shared memory: 107 KB a CTA)
+# logical rows a split covers (at least one page): split s takes pages
+# [s * pps, (s + 1) * pps) with pps = max(1, SPLIT_ROWS // page)
+SPLIT_ROWS = 64
 
 
-def paged_splits(B: int, Kv: int, n_pages: int, sm_count: int) -> tuple[int, int]:
-    """``(n_splits, pages_per_split)`` of the split over pages: as many
-    splits as one wave of ``CTAS_PER_SM`` CTAs an SM holds over the ``B *
-    Kv * n_splits`` grid (a second, partial wave would double the time), at
-    most one split a page. Split ``s`` takes logical pages ``[s * pps, (s +
-    1) * pps)``; every split holds at least one page of the table."""
-    want = CTAS_PER_SM * sm_count // max(B * Kv, 1)
-    pps = -(-n_pages // max(1, min(n_pages, want)))
+def paged_splits(n_pages: int, page: int) -> tuple[int, int]:
+    """``(n_splits, pages_per_split)`` of the split over pages, from the
+    table width and the page size alone. Split ``s`` takes logical pages
+    ``[s * pps, (s + 1) * pps)`` with ``pps = max(1, SPLIT_ROWS // page)``;
+    every split holds at least one page of the table. A slot's live pages
+    fall in the same splits whatever the batch, the table width (splits
+    past its length are empty and weigh 0 in the merge) or the card."""
+    pps = max(1, SPLIT_ROWS // page)
     return -(-n_pages // pps), pps
 
 
@@ -75,8 +79,9 @@ def paged_attend(
                          f"{page_table.dtype}/{lengths.dtype}")
     if hd != HEAD_DIM:
         raise ValueError(f"paged_attend kernel takes head_dim {HEAD_DIM}, got {hd}")
-    if not 1 <= page <= MAX_PAGE:
-        raise ValueError(f"page_size must be in 1..{MAX_PAGE}, got {page}")
+    if page < 1 or page * page_table.shape[1] >= 1 << 31:
+        raise ValueError(f"page_size must be >= 1 with page * n_pages < 2**31, got page "
+                         f"{page} and {page_table.shape[1]} pages")
     if not 1 <= G <= MAX_G:
         raise ValueError(f"paged_attend kernel takes 1..{MAX_G} query heads per kv "
                          f"head, got {G}")
@@ -92,8 +97,7 @@ def paged_attend(
     out = torch.empty_like(q)
     if B:
         n_pages = page_table.shape[1]
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_splits, pps = paged_splits(B, Kv, n_pages, sms)
+        n_splits, pps = paged_splits(n_pages, page)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         counters = workspace("paged_attend.counters", q.device, stream, B * Kv, torch.int32)
         parts = B * Kv * n_splits * G if n_splits > 1 else 0

@@ -12,7 +12,16 @@ Default: the reduced networks on synthetic 32×32 ImageNet-like data;
 ``--full-width`` runs the published configuration (224×224, 200 classes,
 paper init) with the default ``compress_min_size``.
 
+``--devices N`` (N > 1) trains data-parallel, as the reference's
+``--devices`` does on N fake devices: N gloo ranks, processes spawned on
+``--device`` (several may share one card), each holding its shards of the
+``DIST`` weights and its slice of every batch; ``--grad-round-to`` packs
+the gradient reduce-scatter (``--grad-mode`` nearest or truncate;
+stochastic is not ported). The figures are rank 0's, printed by this
+process.
+
 Run:  PYTHONPATH=src python -m repro_torch.launch.awp_cnn_repro --net alexnet --steps 150
+      PYTHONPATH=src python -m repro_torch.launch.awp_cnn_repro --devices 2 --device cpu
 """
 from __future__ import annotations
 
@@ -24,7 +33,8 @@ import numpy as np
 from repro_torch import fp32_math, resolve_device
 from repro_torch import random as jr
 from repro_torch.data.pipeline import SyntheticImageNet
-from repro_torch.dist.spec import MeshCfg
+from repro_torch.dist.spec import MeshCfg, tree_to_local
+from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
 from repro_torch.models.cnn import ALEXNET, RESNET34, VGG_A, init_cnn, reduced_cnn
 from repro_torch.optim.sgd import SGDConfig, init_momentum, lr_at
 from repro_torch.plan import PrecisionPlan
@@ -45,21 +55,27 @@ NETS = {"alexnet": ALEXNET, "vgg": VGG_A, "resnet": RESNET34}
 LINK_BW = 7.9e9
 
 
-def _init(cfg, mesh_cfg, seed, device):
+def _init(cfg, mesh_cfg, seed, device, rank=0):
+    """Weights from ``seed`` (the same on every rank), laid out in storage
+    form, and the rank's shards of them."""
     params, metas, groups_info = init_cnn(cfg, seed, device=device)
     spec_tree = build_cnn_spec_tree(params, metas, mesh_cfg)
-    return cnn_to_storage(params, spec_tree, mesh_cfg), spec_tree, groups_info
+    storage = cnn_to_storage(params, spec_tree, mesh_cfg)
+    if not mesh_cfg.trivial:
+        storage = tree_to_local(storage, spec_tree, mesh_cfg, rank)
+    return storage, spec_tree, groups_info
 
 
-def tune_threshold(cfg, data, mesh_cfg, batch, lr0, *, device, monitor_steps=25):
+def tune_threshold(cfg, data, mesh_cfg, batch, lr0, *, device, monitor_steps=25,
+                   mesh=None, rank=0):
     """Paper §V-A: the mean per-batch l2-norm change rate over a short fp32
     monitoring window (its later half) is the threshold T."""
-    storage, spec_tree, groups_info = _init(cfg, mesh_cfg, 7, device)
+    storage, spec_tree, groups_info = _init(cfg, mesh_cfg, 7, device, rank)
     _, num_groups = groups_info
     opt = SGDConfig(lr=lr0, momentum=0.9, weight_decay=5e-4)
     step = make_cnn_train_step(
         cfg, mesh_cfg, spec_tree, groups_info, opt,
-        plan=PrecisionPlan.build(num_groups, round_to=4),
+        plan=PrecisionPlan.build(num_groups, round_to=4), mesh=mesh,
     )
     mom = init_momentum(storage)
     deltas, prev = [], None
@@ -76,13 +92,15 @@ def tune_threshold(cfg, data, mesh_cfg, batch, lr0, *, device, monitor_steps=25)
 
 
 def run_policy(policy, cfg, data, mesh_cfg, steps, batch, lr0, t_thresh, *,
-               device, seed=0):
-    storage, spec_tree, groups_info = _init(cfg, mesh_cfg, seed, device)
+               device, seed=0, grad_round_to=None, grad_mode="nearest", mesh=None,
+               rank=0):
+    storage, spec_tree, groups_info = _init(cfg, mesh_cfg, seed, device, rank)
     _, num_groups = groups_info
     opt = SGDConfig(lr=lr0, momentum=0.9, weight_decay=5e-4, lr_decay_every=0)
     rt0 = int(policy.split(":")[1]) if policy.startswith("oracle:") else 4
     plan = PrecisionPlan.build(
         num_groups, round_to=rt0,
+        grad_round_to=grad_round_to, grad_mode=grad_mode,
         schedule="awp" if policy == "awp" else "static",
         awp_threshold=t_thresh, awp_interval=10,
     )
@@ -90,7 +108,7 @@ def run_policy(policy, cfg, data, mesh_cfg, steps, batch, lr0, t_thresh, *,
     def builder(round_tos):
         return make_cnn_train_step(
             cfg, mesh_cfg, spec_tree, groups_info, opt,
-            plan=plan.with_round_tos(round_tos),
+            plan=plan.with_round_tos(round_tos), mesh=mesh,
         )
 
     trainer = Trainer(
@@ -104,7 +122,7 @@ def run_policy(policy, cfg, data, mesh_cfg, steps, batch, lr0, t_thresh, *,
         if rts not in evaluators:
             evaluators[rts] = make_cnn_eval(
                 cfg, mesh_cfg, spec_tree, groups_info,
-                plan=plan.with_round_tos(rts),
+                plan=plan.with_round_tos(rts), mesh=mesh,
             )
         imgs, labels = data.validation(256)
         return float(evaluators[rts](storage, imgs, labels))
@@ -131,6 +149,42 @@ def run_policy(policy, cfg, data, mesh_cfg, steps, batch, lr0, t_thresh, *,
     return s
 
 
+POLICIES = ("baseline", "oracle:2", "awp")
+
+
+def _setup(args):
+    """(cfg, mesh_cfg) of the run: the reduced networks compress every
+    leaf of at least 256 elements (1 KiB), as the reference's example."""
+    dp = max(args.devices, 1)
+    if args.full_width:
+        return NETS[args.net], MeshCfg(dp=dp)
+    return reduced_cnn(NETS[args.net], num_classes=20, in_hw=32), MeshCfg(
+        dp=dp, compress_min_size=256)
+
+
+def run_all(rank, args, device):
+    """Tune T, then train the three policies; returns the results (rank
+    0's on a data-parallel mesh: every rank holds the same loss, norms and
+    wire figures)."""
+    fp32_math()
+    device = resolve_device(device)
+    cfg, mesh_cfg = _setup(args)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    data = SyntheticImageNet(
+        num_classes=cfg.num_classes, hw=cfg.in_hw, device=str(device)
+    )
+    t_thresh = tune_threshold(cfg, data, mesh_cfg, args.batch, args.lr, device=device,
+                              mesh=mesh, rank=rank)
+    results = {"t_thresh": t_thresh, "cfg_name": cfg.name, "policies": {}}
+    for policy in POLICIES:
+        results["policies"][policy] = run_policy(
+            policy, cfg, data, mesh_cfg, args.steps, args.batch, args.lr, t_thresh,
+            device=device, grad_round_to=args.grad_round_to, grad_mode=args.grad_mode,
+            mesh=mesh, rank=rank,
+        )
+    return results if rank == 0 else None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--net", choices=sorted(NETS), default="alexnet")
@@ -139,33 +193,32 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.02)
     ap.add_argument("--full-width", action="store_true",
                     help="published widths (224x224, 200 classes, paper init)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="data-parallel gloo ranks on --device (0 = single)")
+    ap.add_argument("--grad-round-to", type=int, default=None,
+                    help="compress the gradient reduce-scatter (devices > 1)")
+    ap.add_argument("--grad-mode", default="nearest",
+                    choices=["truncate", "nearest", "stochastic"],
+                    help="gradient rounding (stochastic is not ported)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
 
-    fp32_math()
-    device = resolve_device(args.device)
-    if args.full_width:
-        cfg = NETS[args.net]
-        mesh_cfg = MeshCfg()
-    else:
-        cfg = reduced_cnn(NETS[args.net], num_classes=20, in_hw=32)
-        # mini-nets have small weight tensors: compress everything >= 1 KiB
-        mesh_cfg = MeshCfg(compress_min_size=256)
-    data = SyntheticImageNet(
-        num_classes=cfg.num_classes, hw=cfg.in_hw, device=str(device)
-    )
-    t_thresh = tune_threshold(cfg, data, mesh_cfg, args.batch, args.lr, device=device)
-    print(f"   tuned T = {t_thresh:.2e} (paper procedure §V-A)")
-
-    results = {}
-    for policy in ("baseline", "oracle:2", "awp"):
-        print(f"== {cfg.name} / {policy} ==", flush=True)
-        r = run_policy(
-            policy, cfg, data, mesh_cfg, args.steps, args.batch, args.lr,
-            t_thresh, device=device,
+    if args.grad_mode == "stochastic":
+        raise NotImplementedError(
+            "--grad-mode stochastic: stochastic rounding is not ported (it needs a "
+            "bit-exact jax.random.randint; ROADMAP Queue 1 item 6.3)"
         )
-        results[policy] = r
+    device = resolve_device(args.device)
+    if args.devices > 1:
+        run = spawn_ranks(run_all, args.devices, args, str(device))[0]
+    else:
+        run = run_all(0, args, str(device))
+    print(f"   tuned T = {run['t_thresh']:.2e} (paper procedure §V-A)")
+
+    results = run["policies"]
+    for policy, r in results.items():
+        print(f"== {run['cfg_name']} / {policy} ==", flush=True)
         print(
             f"   final loss {r['final_loss']:.3f}  "
             f"top5err {r['curve'][-1]['top5_err']:.3f}  "

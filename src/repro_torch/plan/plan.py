@@ -1,14 +1,17 @@
 """PrecisionPlan — the declarative precision plan (counterpart of
-``repro.plan.plan``, the subset the one-device paths use).
+``repro.plan.plan``, the subset the one-device and data-parallel paths
+use).
 
 A plan holds one :class:`~repro_torch.transport.CompressionPolicy` per
-weight precision group, an optional ``activations`` policy (the CNN's
-stage-boundary quantize), an optional ``host_device`` policy (the serve
-engine's token staging; defaults to the weight entries) and a schedule
-source (``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
-hyper-parameters).
+weight precision group, an optional ``gradients`` policy (the backward
+reduce-scatter's format, folded into the weight policies' grad fields), an
+optional ``activations`` policy (the CNN's stage-boundary quantize), an
+optional ``host_device`` policy (the serve engine's token staging;
+defaults to the weight entries), ``chunks`` (the weight gather's plane
+blocks) and a schedule source (``static`` — the paper's oracle — or
+``awp``, with Algorithm 1's hyper-parameters).
 :meth:`PrecisionPlan.wire_table` is the per-entry byte account of one
-step on one device, from the policy formulas.
+step, from the policy formulas.
 
 Plan JSON loads across packages: :meth:`PrecisionPlan.to_json_dict`
 writes the reference's other fields at their defaults, and
@@ -42,12 +45,10 @@ VALID_SCHEDULES = ("static", "awp")
 # The reference plan's fields this port has no code for, at the values
 # that leave a one-device CNN run unchanged.
 UNPORTED_DEFAULTS = {
-    "gradients": None,
     "seq_boundary": None,
     "kv_migration": None,
     "weight_publish": None,
     "seq_parallel": False,
-    "chunks": 1,
     "dtype": "f32",
     "int8_kv": False,
     "accum_steps": 1,
@@ -113,9 +114,11 @@ class PrecisionPlan:
     """Declarative precision plan (see module docstring)."""
 
     weights: tuple[CompressionPolicy, ...] = (CompressionPolicy(),)
+    gradients: CompressionPolicy | None = None
     activations: CompressionPolicy | None = None
     host_device: CompressionPolicy | None = None
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
+    chunks: int = 1
 
     def __post_init__(self):
         ws = self.weights
@@ -125,12 +128,14 @@ class PrecisionPlan:
         if not ws or any(w is None for w in ws):
             raise ValueError("plan needs at least one weights entry")
         object.__setattr__(self, "weights", ws)
-        object.__setattr__(self, "activations", _coerce_policy(self.activations))
-        object.__setattr__(self, "host_device", _coerce_policy(self.host_device))
+        for name in ("gradients", "activations", "host_device"):
+            object.__setattr__(self, name, _coerce_policy(getattr(self, name)))
         if isinstance(self.schedule, Mapping):
             object.__setattr__(self, "schedule", Schedule(**self.schedule))
         if not isinstance(self.schedule, Schedule):
             raise ValueError("schedule must be a Schedule")
+        if not isinstance(self.chunks, int) or self.chunks < 1:
+            raise ValueError("chunks must be an int >= 1")
         # activation-path stochastic rounding has no PRNG plumbing
         a = self.activations
         if a is not None and "stochastic" in (a.mode, a.grad_mode):
@@ -180,8 +185,21 @@ class PrecisionPlan:
         )
 
     def weight_policies(self) -> tuple[CompressionPolicy, ...]:
-        """The per-group policies the transport runs."""
-        return self.weights
+        """The fully resolved per-group policies the transport runs: the
+        weight entries with the ``gradients`` entry folded into their grad
+        fields and the plan's ``chunks`` applied."""
+        out = []
+        for w in self.weights:
+            if self.gradients is not None:
+                w = dataclasses.replace(
+                    w,
+                    grad_round_to=self.gradients.round_to,
+                    grad_mode=self.gradients.mode,
+                )
+            if self.chunks != w.chunks:
+                w = dataclasses.replace(w, chunks=self.chunks)
+            out.append(w)
+        return tuple(out)
 
     def host_device_policies(self) -> tuple[CompressionPolicy, ...]:
         """Policies of the host<->device boundary (the paper's weight
@@ -208,7 +226,7 @@ class PrecisionPlan:
         (the step would need a PRNG key). Width-independent on purpose,
         as in the reference: ``with_round_tos`` never flips it."""
         return any(
-            "stochastic" in (p.mode, p.grad_mode) for p in self.weights
+            "stochastic" in (p.mode, p.grad_mode) for p in self.weight_policies()
         )
 
     def awp_config(self) -> AWPConfig | None:
@@ -217,33 +235,39 @@ class PrecisionPlan:
         return self.schedule.awp_config()
 
     # -- per-entry wire accounting ---------------------------------------
-    def wire_table(self, dist_elems_per_group, gather_axis_size: int = 1) -> dict:
-        """Per-traffic-class wire bytes of ONE step on one device: the
-        paper's host→device model, every ``DIST`` weight moved once at its
-        group's width (``CompressionPolicy.host_device_bytes``). The keys
-        are the reference's; the classes a one-device step does not move
-        report 0.
+    def wire_table(self, dist_elems_per_group, gather_axis_size: int = 1, *,
+                   training: bool = True) -> dict:
+        """Per-traffic-class wire bytes of ONE step, from the policy
+        formulas. The keys are the reference's; classes a step does not
+        move report 0.
 
-        ``dist_elems_per_group`` — compressed element count per precision
-        group (see ``repro_torch.train.cnn_step.cnn_dist_elems``).
-        ``gather_axis_size`` — FSDP shards; only 1 is ported.
+        ``dist_elems_per_group`` — global compressed element count per
+        precision group (see ``repro_torch.train.cnn_step.cnn_dist_elems``).
+        ``gather_axis_size`` — FSDP shards; ``<= 1`` selects the paper's
+        host→device staging model (every ``DIST`` weight moved once at its
+        group's width), ``> 1`` the per-device all-gather bytes of the
+        weights (``all_gather_wire_bytes``) and, when ``training``, the
+        reduce-scatter bytes of their gradients
+        (``reduce_scatter_wire_bytes``).
         """
-        if int(gather_axis_size) > 1:
-            raise NotImplementedError(
-                "sharded wire accounting is not ported (one device only)"
-            )
+        pols = self.weight_policies()
         elems = list(dist_elems_per_group)
-        if len(elems) != len(self.weights):
+        if len(elems) != len(pols):
             raise ValueError(
                 f"{len(elems)} group element counts for "
-                f"{len(self.weights)} weight entries"
+                f"{len(pols)} weight entries"
             )
+        n = int(gather_axis_size)
         table = {k: 0 for k in TRAFFIC_CLASSES}
-        table["host_device"] = sum(
-            pol.host_device_bytes(e)
-            for pol, e in zip(self.host_device_policies(), elems)
-        )
-        table["total"] = table["host_device"]
+        if n > 1:
+            for pol, e in zip(pols, elems):
+                table["weights"] += pol.all_gather_wire_bytes(e // n, n)
+                if training:
+                    table["gradients"] += pol.reduce_scatter_wire_bytes(e // n, n)
+        else:
+            for pol, e in zip(self.host_device_policies(), elems):
+                table["host_device"] += pol.host_device_bytes(e)
+        table["total"] = sum(table[k] for k in TRAFFIC_CLASSES)
         return table
 
     # -- serialization ---------------------------------------------------
@@ -255,9 +279,11 @@ class PrecisionPlan:
 
         ours = {
             "weights": [pol(w) for w in self.weights],
+            "gradients": pol(self.gradients),
             "activations": pol(self.activations),
             "host_device": pol(self.host_device),
             "schedule": dataclasses.asdict(self.schedule),
+            "chunks": self.chunks,
         }
         d = {"version": 1}
         for k in JSON_FIELDS:
@@ -304,15 +330,25 @@ class PrecisionPlan:
         *,
         mode: str = "truncate",
         impl: str = "auto",
+        grad_round_to: int | None = None,
+        grad_mode: str = "nearest",
         act_round_to: int = 4,
         act_mode: str = "nearest",
+        chunks: int = 1,
         schedule: str = "static",
         awp_threshold: float = -2e-3,
         awp_interval: int = 100,
         awp_initial_bits: int = 8,
     ) -> "PrecisionPlan":
-        """The CLI flag → plan builder the launcher uses (the reference's
+        """The CLI flag → plan builder the launchers use (the reference's
         ``build`` restricted to the flags of the CNN path)."""
+        gradients = None
+        if grad_round_to is not None and (
+            grad_round_to != 4 or grad_mode != "nearest"
+        ):
+            gradients = CompressionPolicy(
+                round_to=int(grad_round_to), mode=grad_mode, impl=impl
+            )
         activations = None
         if act_round_to < FP32_BYTES:
             activations = CompressionPolicy(
@@ -326,7 +362,9 @@ class PrecisionPlan:
             weights=(CompressionPolicy(
                 round_to=int(round_to), mode=mode, impl=impl
             ),) * num_groups,
+            gradients=gradients,
             activations=activations,
+            chunks=chunks,
             schedule=Schedule(
                 source=schedule,
                 awp_threshold=awp_threshold,

@@ -8,9 +8,14 @@ the format changes of a run (at most ``3 × num_groups``: AWP only widens).
 
 A :class:`~repro_torch.plan.PrecisionPlan` drives the loop: its schedule
 source selects between the static oracle and AWP, and its
-:meth:`~repro_torch.plan.PrecisionPlan.wire_table` is the per-step wire
-log. (The reference's pre-plan ``policy=`` strings are not ported: every
-caller passes a plan.)
+:meth:`~repro_torch.plan.PrecisionPlan.wire_table` is the per-step
+analytic wire log. Across data-parallel ranks (``gather_axis_size > 1``)
+each step also gets a measured log: ``ring_wire_bytes`` of the collectives
+that :mod:`repro_torch.dist.comm` recorded during the step, per traffic
+class, a count independent of the plan's formulas; the step's
+``wire_bytes`` is then the measured total of the plan's classes. (The
+reference's pre-plan ``policy=`` strings are not ported: every caller
+passes a plan.)
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core.awp import AWPController
+from repro_torch.dist import comm
 from repro_torch.plan import PrecisionPlan
+from repro_torch.plan.plan import TRAFFIC_CLASSES
 
 
 @dataclasses.dataclass
@@ -32,8 +39,14 @@ class StepRecord:
     wire_bytes: int
     recompiled: bool  # first step at these formats
     wall_s: float  # host clock around the step, ending in the loss sync
-    # per-traffic-class split of wire_bytes
+    # per-traffic-class split of the plan's wire_table
     wire_by_entry: dict
+    # measured per-traffic-class bytes (dist.comm's log of the step), with
+    # the fp32 psums the plan does not price ("grad_sync", "metrics");
+    # None on one device
+    measured_by_entry: dict | None = None
+    # host clock of the step's device <-> host staging for gloo
+    stage_s: float = 0.0
 
 
 class Trainer:
@@ -88,22 +101,32 @@ class Trainer:
         rts = self.current_round_tos()
         recompiled = rts not in self._cache
         fn = self._step_fn(rts)
+        first = len(comm.LOG)
         t0 = time.perf_counter()
         storage, opt_state, metrics = fn(storage, opt_state, batch, lr, *extra)
         loss = float(metrics["loss"])
+        wall_s = time.perf_counter() - t0
         if self.awp:
             norms = metrics["group_norms_sq"].detach().cpu().numpy()
             self.controller.update(np.asarray(norms))
         entries = self.wire_entries(rts)
+        measured, stage_s, wire = None, 0.0, entries["total"]
+        if self.gather_n > 1:
+            calls = comm.LOG[first:]
+            measured = comm.wire_by_traffic(calls)
+            stage_s = sum(c.stage_s for c in calls)
+            wire = sum(measured.get(k, 0) for k in TRAFFIC_CLASSES)
         self.records.append(
             StepRecord(
                 step=len(self.records),
                 loss=loss,
                 round_tos=rts,
-                wire_bytes=entries["total"],
+                wire_bytes=wire,
                 recompiled=recompiled,
-                wall_s=time.perf_counter() - t0,
+                wall_s=wall_s,
                 wire_by_entry=entries,
+                measured_by_entry=measured,
+                stage_s=stage_s,
             )
         )
         return storage, opt_state, metrics
@@ -127,10 +150,12 @@ class Trainer:
             "wire_reduction": 1 - total_wire / base_wire if base_wire else 0.0,
             "bits_history": self.bits_history,
         }
-        by_entry: dict[str, int] = {}
-        for r in self.records:
-            for k, v in r.wire_by_entry.items():
-                if k != "total":
-                    by_entry[k] = by_entry.get(k, 0) + v
-        out["wire_by_entry"] = by_entry
+        for key in ("wire_by_entry", "measured_by_entry"):
+            by_entry: dict[str, int] = {}
+            for r in self.records:
+                for k, v in (getattr(r, key) or {}).items():
+                    if k != "total":
+                        by_entry[k] = by_entry.get(k, 0) + v
+            if key == "wire_by_entry" or self.gather_n > 1:
+                out[key] = by_entry
         return out

@@ -1,21 +1,25 @@
 """CompressionPolicy — the wire format of one precision group (counterpart
-of ``repro.transport.policy``, the part the one-device paths read).
+of ``repro.transport.policy``, the parts the one-device and data-parallel
+paths read).
 
-  * ``round_to``      — bytes kept per fp32 weight on the transfer path
+  * ``round_to``      — bytes kept per fp32 weight on the gather path
                         (paper §III: 1=fp8e7, 2=bf16, 3=bf24, 4=fp32),
   * ``mode``          — rounding applied before truncation on that path,
+  * ``grad_round_to`` / ``grad_mode`` — the same for the backward
+                        reduce-scatter (4 = the paper's uncompressed fp32),
   * ``impl``          — kernel dispatch: ``auto`` picks the CUDA kernels
                         for CUDA tensors and the plain PyTorch versions
                         otherwise; ``cuda`` forces the kernels, ``ref``
                         the plain versions,
-  * ``grad_round_to`` / ``grad_mode`` — the format of the reference's
-                        gradient collectives; kept so that a policy's
-                        JSON has the reference's fields (one device moves
-                        no gradients),
-  * ``chunks``        — the reference's plane-block gather split; only 1
-                        (no split) is ported.
+  * ``chunks``        — >1 splits the weight gather into that many plane
+                        blocks, each packed, gathered and unpacked on its
+                        own, re-interleaved to the unchunked layout.
 
 A policy is frozen and hashable: the trainer's step cache keys on it.
+Wire-byte arithmetic lives only here, derived from :func:`ring_wire_bytes`:
+the plan's ``wire_table`` and the trainer's measured log (the same
+formula applied to the sizes that :mod:`repro_torch.dist.comm` records)
+both read it.
 """
 from __future__ import annotations
 
@@ -25,6 +29,26 @@ VALID_ROUND_TO = (1, 2, 3, 4)
 VALID_MODES = ("truncate", "nearest", "stochastic")
 VALID_IMPLS = ("auto", "cuda", "ref")
 FP32_BYTES = 4
+
+
+def ring_wire_bytes(kind: str, payload_bytes: float, group_size: int) -> float:
+    """Per-device wire bytes of one ring-algorithm collective.
+
+    ``payload_bytes`` is the *output* size for all-gather / all-to-all,
+    the *input* size for all-reduce / reduce-scatter, and the transferred
+    size for collective-permute.
+    """
+    n = max(int(group_size), 1)
+    kind = kind.replace("-start", "")
+    if kind == "all-gather":
+        return payload_bytes * (n - 1) / n
+    if kind == "all-reduce":
+        return 2.0 * payload_bytes * (n - 1) / n
+    if kind in ("reduce-scatter", "all-to-all"):
+        return payload_bytes * (n - 1) / n
+    if kind == "collective-permute":
+        return float(payload_bytes)
+    raise ValueError(f"unknown collective kind {kind!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,15 +75,34 @@ class CompressionPolicy:
             raise ValueError(f"impl must be in {VALID_IMPLS}")
         if self.chunks < 1:
             raise ValueError("chunks must be >= 1")
-        if self.chunks != 1:
-            raise NotImplementedError("chunked gathers are not ported")
 
     # -- format properties ------------------------------------------------
     @property
     def compresses(self) -> bool:
         return self.round_to < FP32_BYTES
 
+    @property
+    def compresses_grads(self) -> bool:
+        return self.grad_round_to < FP32_BYTES
+
+    @property
+    def bytes_per_element(self) -> int:
+        """Wire bytes per fp32 element on the weight path."""
+        return self.round_to
+
     # -- canonical byte accounting ---------------------------------------
+    def all_gather_wire_bytes(self, s_local: int, axis_size: int) -> int:
+        """Bytes received per device for one compressed all-gather of a
+        shard of ``s_local`` fp32 elements over ``axis_size`` devices."""
+        payload = axis_size * s_local * self.round_to
+        return round(ring_wire_bytes("all-gather", payload, axis_size))
+
+    def reduce_scatter_wire_bytes(self, s_local: int, axis_size: int) -> int:
+        """Bytes received per device for one (compressed) reduce-scatter
+        producing an ``s_local``-element shard."""
+        payload = axis_size * s_local * self.grad_round_to
+        return round(ring_wire_bytes("reduce-scatter", payload, axis_size))
+
     def host_device_bytes(self, elems: int) -> int:
         """Paper's host->device model: every weight moves once per batch."""
         return elems * self.round_to
@@ -85,9 +128,18 @@ class CompressionPolicy:
         return n_tokens * self.token_wire_width(vocab_size)
 
 
-def policy_for(round_to, **overrides) -> CompressionPolicy:
+def policy_for(
+    round_to, grad_round_to: int | None = None, **overrides
+) -> CompressionPolicy:
     """Coerce an int ``round_to`` or an existing policy into a
     CompressionPolicy, optionally overriding fields."""
     if isinstance(round_to, CompressionPolicy):
-        return dataclasses.replace(round_to, **overrides) if overrides else round_to
-    return CompressionPolicy(round_to=int(round_to), **overrides)
+        pol = round_to
+        if grad_round_to is not None and grad_round_to != pol.grad_round_to:
+            overrides = {"grad_round_to": grad_round_to, **overrides}
+        return dataclasses.replace(pol, **overrides) if overrides else pol
+    return CompressionPolicy(
+        round_to=int(round_to),
+        grad_round_to=4 if grad_round_to is None else int(grad_round_to),
+        **overrides,
+    )

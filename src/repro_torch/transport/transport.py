@@ -1,23 +1,45 @@
-"""Single-device compression transport: pack / unpack / straight-through
-quantize (the trivial-mesh part of ``repro.transport.transport``).
+"""The compression transport: pack -> collective -> unpack pipelines
+(counterpart of ``repro.transport.transport``; the weight and gradient
+paths of data-parallel training and the trivial-mesh quantize).
 
-On one device the paper's weight path is: cut the fp32 master weights to
-their top ``round_to`` bytes as MSB-first planes (Bitpack), move the
-planes, rebuild fp32 (Bitunpack). :func:`quantize` runs exactly that,
-through the CUDA kernels for CUDA tensors (``impl="auto"``), with a
-straight-through gradient: the format is not differentiated, like the
-paper's fp32 master-weight update.
+  * :func:`all_gather` — weight path. fp32 shard -> byte planes (Bitpack)
+    -> plane all-gather over a process group -> Bitunpack. A
+    ``torch.autograd.Function`` whose backward is the (optionally
+    compressed) reduce-scatter, so a train step just calls it and gets the
+    paper's weight / gradient motion.
+  * :func:`reduce_scatter` — gradient path: pack the block destined for
+    each peer, ``all_to_all`` the planes, unpack and sum locally in fp32
+    (``grad_round_to < 4``), or the plain fp32 reduce-scatter (4, the
+    paper's setting). Any rank and any scatter axis.
+  * :func:`quantize` — single-device format truncation (pack∘unpack) with
+    a straight-through gradient: what the compute side sees when there is
+    no collective to ride on.
 
-Planes are always exact-shape ``(round_to, *w.shape)`` u8.
+Bitpack and Bitunpack run the CUDA kernels for CUDA tensors
+(``impl="auto"``) in truncate mode; nearest rounding stays on the plain
+version, as in the reference's ``resolve_impl``. Planes are always
+exact-shape ``(round_to, *w.shape)`` u8. The collectives are
+:mod:`repro_torch.dist.comm`'s (gloo; every call logged with its traffic
+class). The reference's activation path (``seq_gather``, ``seq_scatter``,
+``all_reduce``) comes with the FSDP×TP slice.
+
+The chunked path (``policy.chunks > 1``) splits a flat gather into
+independent pack -> all-gather -> unpack block pipelines and re-interleaves
+the blocks to the exact layout of the unchunked gather.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist import comm
 from repro_torch.kernels.ops import bitpack, bitunpack, resolve_impl
-from repro_torch.transport.policy import CompressionPolicy
+from repro_torch.transport.policy import CompressionPolicy, policy_for
 
-__all__ = ["pack_planes", "quantize", "resolve_impl", "unpack_planes"]
+__all__ = [
+    "Transport", "all_gather", "pack_planes", "quantize", "reduce_scatter",
+    "resolve_impl", "unpack_planes",
+]
 
 
 def pack_planes(
@@ -36,6 +58,87 @@ def pack_planes(
 def unpack_planes(planes: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """uint8 byte planes ``(round_to, *shape)`` -> fp32 ``shape``."""
     return bitunpack(planes, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# forward implementations
+# ---------------------------------------------------------------------------
+
+
+def _packed_all_gather(x, group, round_to, mode, impl, axis: int, key=None):
+    """Compressed all-gather of an arbitrary-rank fp32 tensor along
+    ``axis``: pack, gather the planes (their data axis is one further
+    along), unpack."""
+    axis = axis % x.ndim  # planes prepend a dim: negatives must resolve first
+    planes = pack_planes(x.to(torch.float32), round_to, mode=mode, impl=impl, key=key)
+    planes_g = comm.all_gather(planes, group, axis=axis + 1, traffic="weights")
+    return unpack_planes(planes_g, impl=impl).to(x.dtype)
+
+
+def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None):
+    """Compressed reduce-scatter of an arbitrary-rank tensor along
+    ``axis``: the scatter dim is split into per-peer blocks here, each
+    block is packed, the planes ride one ``all_to_all``, and the unpacked
+    contributions are summed locally in fp32 (in rank order). Only the
+    scatter dim must divide by the group size."""
+    axis = axis % g.ndim
+    size = dist.get_world_size(group)
+    length = g.shape[axis]
+    if length % size:
+        raise ValueError(
+            f"scatter dim {axis} of shape {tuple(g.shape)} not divisible by "
+            f"axis size {size}"
+        )
+    gm = g.to(torch.float32).movedim(axis, 0)
+    gm = gm.reshape((size, length // size) + tuple(gm.shape[1:])).contiguous()
+    planes = pack_planes(gm, round_to, mode=mode, impl=impl, key=key)
+    # (round_to, size, loc, ...): block j of dim 1 goes to rank j, and after
+    # the exchange block j holds rank j's contribution to this rank's block
+    planes_x = comm.all_to_all(planes, group, axis=1, traffic="gradients")
+    contribs = unpack_planes(planes_x, impl=impl)
+    out = torch.sum(contribs, dim=0)  # fp32 accumulation
+    return out.movedim(0, axis).to(g.dtype)
+
+
+def _all_gather_impl(w, group, policy: CompressionPolicy, axis: int, key=None):
+    if not policy.compresses:
+        return comm.all_gather(w, group, axis=axis, traffic="weights")
+    if (
+        policy.chunks > 1
+        and axis == 0
+        and w.ndim == 1
+        and w.shape[0] % policy.chunks == 0
+    ):
+        return _chunked_all_gather(w, group, policy, key)
+    return _packed_all_gather(w, group, policy.round_to, policy.mode, policy.impl, axis,
+                              key=key)
+
+
+def _chunked_all_gather(w, group, policy: CompressionPolicy, key=None):
+    """Gather in ``policy.chunks`` independent plane blocks, re-interleaved
+    to the unchunked layout exactly."""
+    if key is not None:
+        raise NotImplementedError("stochastic rounding is not ported yet")
+    n_chunks = policy.chunks
+    loc = w.shape[0] // n_chunks
+    gathered = []
+    for c in range(n_chunks):
+        planes = pack_planes(w[c * loc:(c + 1) * loc], policy.round_to, mode=policy.mode,
+                             impl=policy.impl)
+        planes_g = comm.all_gather(planes, group, axis=1, traffic="weights")
+        gathered.append(unpack_planes(planes_g, impl=policy.impl))
+    # gathered[c] = concat_d shard_d[block c]; the full gather is
+    # concat_d concat_c shard_d[block c]: transpose (chunk, device) out
+    n_dev = dist.get_world_size(group)
+    stacked = torch.stack(gathered, 0).reshape(n_chunks, n_dev, loc)
+    return stacked.transpose(0, 1).reshape(-1)
+
+
+def _reduce_scatter_impl(g, group, policy: CompressionPolicy, axis: int, key=None):
+    if not policy.compresses_grads:
+        return comm.reduce_scatter(g, group, axis=axis, traffic="gradients")
+    return _packed_reduce_scatter(g, group, policy.grad_round_to, policy.grad_mode,
+                                  policy.impl, axis, key=key)
 
 
 def _quantize_impl(w, policy: CompressionPolicy, key=None):
@@ -63,3 +166,88 @@ def quantize(w: torch.Tensor, policy: CompressionPolicy, key=None) -> torch.Tens
         # rt=4 keeps every byte: rounding is a no-op regardless of mode
         return w
     return _Quantize.apply(w, policy, key)
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry points
+# ---------------------------------------------------------------------------
+
+
+class _AllGather(torch.autograd.Function):
+    """Compressed all-gather forward, reduce-scatter backward (the format
+    is not differentiated: straight-through, like the paper's fp32
+    master-weight update)."""
+
+    @staticmethod
+    def forward(ctx, w_local, group, policy, axis, key):
+        ctx.group, ctx.policy, ctx.axis = group, policy, axis
+        if key is not None:
+            raise NotImplementedError("stochastic rounding is not ported yet")
+        return _all_gather_impl(w_local, group, policy, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_impl(g, ctx.group, ctx.policy, ctx.axis),
+                None, None, None, None)
+
+
+def all_gather(
+    w_local: torch.Tensor,
+    group,
+    policy: CompressionPolicy,
+    axis: int = 0,
+    key=None,
+) -> torch.Tensor:
+    """Compressed all-gather over the process group ``group`` with a
+    reduce-scatter backward.
+
+    The forward moves ``policy.round_to`` of every fp32 byte; the backward
+    reduce-scatters the cotangent at ``policy.grad_round_to`` (4 =
+    uncompressed, paper-faithful)."""
+    return _AllGather.apply(w_local, group, policy, axis, key)
+
+
+def reduce_scatter(
+    g: torch.Tensor,
+    group,
+    policy: CompressionPolicy,
+    axis: int = 0,
+    key=None,
+) -> torch.Tensor:
+    """Compressed reduce-scatter along ``axis`` (default 0: the flat
+    gradient path, ``(S,)`` -> ``(S / n,)``) at ``policy.grad_round_to``
+    bytes; rounding defaults to *nearest* (gradient sums are
+    bias-sensitive)."""
+    if key is not None:
+        raise NotImplementedError("stochastic rounding is not ported yet")
+    return _reduce_scatter_impl(g, group, policy, axis)
+
+
+# ---------------------------------------------------------------------------
+# object API
+# ---------------------------------------------------------------------------
+
+
+class Transport:
+    """Pack -> collective -> unpack pipeline bound to one process group
+    (the reference binds a set of mesh axes)::
+
+        t = Transport(fsdp_group)
+        w_full = t.all_gather(w_shard, policy)        # differentiable
+        g_shard = t.reduce_scatter(g_full, policy)    # any rank, axis=...
+    """
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def all_gather(self, w, policy, *, axis: int = 0, key=None):
+        return all_gather(w, self.group, policy_for(policy), axis, key)
+
+    def reduce_scatter(self, g, policy, *, axis: int = 0, key=None):
+        return reduce_scatter(g, self.group, policy_for(policy), axis, key)
+
+    def quantize(self, w, policy, *, key=None):
+        return quantize(w, policy_for(policy), key)
+
+    def axis_size(self) -> int:
+        return dist.get_world_size(self.group)

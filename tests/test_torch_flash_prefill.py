@@ -132,15 +132,15 @@ def test_work_list_covers_every_unmasked_tile_once(shape):
     tile lies past Sk or wholly above the diagonal, the units cover every
     (b, head, position) once, a split unit's pieces are near-equal runs of
     consecutive tiles on consecutive partial slots, no item holds more
-    than ``ceil(total tiles / SLOTS)`` tiles unless its unit is whole, and
-    the items come longest first."""
+    than ``ceil(tiles of one batch row / SLOTS)`` tiles unless its unit is
+    whole, and the items come longest first."""
     B, H, Kv, Sq, Sk, off = shape
     Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, off)
     assert Gc in (1, 2, 4) and (H // Kv) % Gc == 0
     bq = 64 // Gc
     units = B * (H // Gc) * (Sq // bq)
     need = [-(-min(Sk, off + (u % (Sq // bq) + 1) * bq) // KEY_TILE) for u in range(units)]
-    kmax = max(1, -(-sum(need) // SLOTS))
+    kmax = max(1, -(-sum(need) // B // SLOTS))  # every row has the same tiles
     seen = {}
     for unit, lo, hi, slot, merge in items:
         _, _, pos = _unit_rows(unit, Gc, Sq, H)
@@ -169,6 +169,33 @@ def test_work_list_covers_every_unmasked_tile_once(shape):
     assert sorted(slots) == list(range(n_parts))
     lengths = [hi - lo for _, lo, hi, _, _ in items]
     assert lengths == sorted(lengths, reverse=True)
+
+
+def _row_work(B, H, Kv, Sq, Sk, off, b):
+    """Row ``b``'s items as ``(unit within the row, first tile, end tile,
+    pieces of its unit)`` in list order, and its merges' piece counts."""
+    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, Sk, off)
+    per_row = (H // Gc) * (Sq // (64 // Gc))
+    pieces = lambda merge: 1 if merge < 0 else merges[merge][1]  # noqa: E731
+    mine = [(u - b * per_row, lo, hi, pieces(m)) for u, lo, hi, _, m in items
+            if u // per_row == b]
+    return mine, sorted(n for _, _, _, n in mine if n > 1)
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 512, 512, 0), (16, 8, 256, 256, 0),
+                                   (16, 8, 128, 512, 384), (4, 2, 128, 384, 256)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_a_rows_work_list_does_not_depend_on_the_batch(shape):
+    """A row's items, their tile ranges and pieces, and so its merge order,
+    are the same alone and as any row of a batch of 2 or 4: the piece size
+    comes from one row's tiles, never from B. (Phase 7's static run
+    prefills 512-token prompts at B=2, the engine at B=1.)"""
+    H, Kv, Sq, Sk, off = shape
+    alone = _row_work(1, H, Kv, Sq, Sk, off, 0)
+    assert alone[0]
+    for B in (2, 4):
+        for b in range(B):
+            assert _row_work(B, H, Kv, Sq, Sk, off, b) == alone, (B, b)
 
 
 def _pieces_and_merge(q, k, v, q_offset, slots):
@@ -317,3 +344,31 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         flash_prefill(flat[1:].view(q.shape), k, v)
     assert flash_prefill.launches == launches
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bf16_on_card(cuda_device):
+    """bf16 is not built (ROADMAP item 6.4): a bf16 input raises, with no
+    silent fallback to the plain version."""
+    q, k, v = (torch.zeros(s, device=cuda_device, dtype=torch.bfloat16) for s in
+               ((1, 2, 128, 128), (1, 1, 128, 128), (1, 1, 128, 128)))
+    launches = flash_prefill.launches
+    with pytest.raises(ValueError, match="float32"):
+        flash_prefill(q, k, v)
+    assert flash_prefill.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(16, 8, 512, 512, 0), (16, 8, 256, 256, 0),
+                                  (16, 8, 128, 512, 384)], ids=lambda c: "x".join(map(str, c)))
+def test_a_row_alone_and_in_a_batch_gives_the_same_bits_on_card(cuda_device, case):
+    """A row's output is bit-equal alone and inside batches of 2 and 4."""
+    H, Kv, Sq, Sk, off = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(4, H, Kv, Sq, Sk, 128, seed=7))
+    alone = [flash_prefill(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                           v[b:b + 1].contiguous(), q_offset=off) for b in range(4)]
+    for B in (2, 4):
+        batch = flash_prefill(q[:B].contiguous(), k[:B].contiguous(), v[:B].contiguous(),
+                              q_offset=off)
+        for b in range(B):
+            assert torch.equal(batch[b], alone[b][0]), (B, b)

@@ -16,6 +16,8 @@ card the kernel is within ``KERNEL_TOL`` = 2e-6 of the plain version
 (another summation order again: per-row dots, shuffle-tree sums; 6.0e-7
 seen on an H100).
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro.kernels.paged_attention import paged_attend as j_paged_attend
 from repro.kernels.paged_attention import paged_attend_ref as j_paged_attend_ref
 from repro.models import attention as ja
 from repro_torch.convert import convert_paged_cache
+from repro_torch.kernels import paged_attend as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attend import paged_attend, paged_splits
 from repro_torch.models import attention as ta
@@ -137,29 +140,45 @@ def test_wrapper_rejects_mismatched_shapes():
 # ---------------------------------------------------------------------------
 
 # (B, Kv, table width, SM count): the main path's decode (132 SMs), B=16 at
-# 64 pages, the shared-prefix run's 3 slots, one slot, a table of one page,
-# a batch wider than the card, and a small card
-SPLIT_SHAPES = [(2, 8, 9, 132), (16, 8, 64, 132), (3, 8, 7, 132), (1, 8, 66, 132),
-                (4, 8, 1, 132), (64, 8, 40, 132), (2, 2, 100, 8), (5, 1, 3, 16)]
+# (n_pages, page): the decode shape (9 pages of 64), B=16's 64 pages,
+# the shared-prefix run's 7, a table of one page, pages of 8 and of 5
+# rows (several a split), and pages of 192 and 256 rows (over 128)
+SPLIT_SHAPES = [(9, 64), (64, 64), (7, 64), (1, 64), (100, 8), (3, 5), (40, 192), (9, 256)]
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "-".join(map(str, s)))
 def test_splits_cover_every_page_once(shape):
-    """Every (slot, page) pair is walked by exactly one split, no split
-    reaches past the table, none is empty of table pages, none holds more
-    than ``pps = ceil(n_pages / n_splits)`` pages, and a split grid is one
-    wave of two CTAs an SM that fills at least half of it where the table
-    has pages enough."""
-    B, Kv, n_pages, sms = shape
-    n_splits, pps = paged_splits(B, Kv, n_pages, sms)
+    """Every page is walked by exactly one split, in split order; no split
+    reaches past the table or is empty of table pages; a split holds
+    ``pps = max(1, SPLIT_ROWS // page)`` pages (the last one fewer), so it
+    covers a fixed range of logical rows."""
+    n_pages, page = shape
+    n_splits, pps = paged_splits(n_pages, page)
     pages = [p for s in range(n_splits) for p in range(s * pps, min((s + 1) * pps, n_pages))]
     assert pages == list(range(n_pages))  # each once, in split order
     assert all(s * pps < n_pages for s in range(n_splits))
-    assert pps == -(-n_pages // n_splits)
-    if n_splits > 1:
-        assert min(sms, B * Kv * n_pages) <= B * Kv * n_splits <= 2 * sms
-    else:  # the slots' kv heads alone fill more than half the wave, or one page
-        assert B * Kv > sms or n_pages == 1
+    assert pps == max(1, pa.SPLIT_ROWS // page)
+    assert (n_splits - 1) * pps < n_pages <= n_splits * pps
+
+
+@pytest.mark.parametrize("page", [8, 64, 256])
+def test_a_slots_splits_do_not_depend_on_the_batch_or_the_table(page):
+    """The splits come from the table width and the page size alone (no
+    batch, kv heads or SM count in the signature), so a slot's live pages
+    fall in the same splits, in the same order, at B = 1, 2 and 4 and in a
+    table twice as wide: the kernel's partials for it are the same."""
+    assert list(inspect.signature(paged_splits).parameters) == ["n_pages", "page"]
+    live = 5  # the slot's live pages
+
+    def live_splits(n_pages):
+        n_splits, pps = paged_splits(n_pages, page)
+        return [tuple(range(s * pps, min((s + 1) * pps, live))) for s in range(n_splits)
+                if s * pps < live]
+
+    want = live_splits(live)
+    for B in (1, 2, 4):  # the wrapper passes no B; the grid is B * Kv copies of this
+        assert live_splits(live) == want
+    assert live_splits(2 * live) == live_splits(9 * live) == want
 
 
 def _split_merge(q, k_pool, v_pool, table, lengths, n_splits, pps):
@@ -207,9 +226,8 @@ def test_split_merge_algebra_matches_plain_version(case):
     B, Kv, G, page, n_pages, phys, seed, lengths = case
     args = _port(_setup(B, Kv, G, page, n_pages, phys, seed=seed, lengths=lengths))
     want = ref.paged_attend_ref(*args)
-    for sms in (1, 4, 64):
-        n_splits, pps = paged_splits(B, Kv, n_pages, sms)
-        got = _split_merge(*args, n_splits, pps)
+    for pps in (1, 2, 4, paged_splits(n_pages, page)[1]):
+        got = _split_merge(*args, -(-n_pages // pps), pps)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
 
 
@@ -353,6 +371,8 @@ SPLIT_CASES = [
     (3, 8, 2, 64, 20, 61, 83, (65, 1, 0)),
     (16, 8, 2, 64, 64, 1025, 89, (1408, 1409) * 8),
     (2, 8, 2, 16, 40, 81, 97, (300, 0)),
+    (2, 8, 2, 192, 4, 9, 103, (700, 193)),   # pages over 128 rows: chunks of one
+    (2, 8, 2, 256, 3, 7, 107, (768, 257)),   # pool row, the last one partial
 ]
 
 
@@ -406,6 +426,45 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         paged_attend(q.double(), kp.double(), vp.double(), table, lengths)
     with pytest.raises(ValueError, match="contiguous"):
         paged_attend(q.transpose(1, 2), kp, vp, table, lengths)
-    big = _port(_setup(1, 1, 1, 129, 1, 2, seed=5), cuda_device)
+    # a table whose rows would overflow the kernel's int32 row index
+    kp1 = torch.zeros((1, 1 << 16, 1, 128), device=cuda_device)
+    wide = torch.zeros((1, 1 << 15), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="page_size"):
-        paged_attend(*big)
+        paged_attend(q[:1, :1, :1].contiguous(), kp1, kp1, wide, lengths[:1])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_bf16_on_card(cuda_device):
+    """bf16 is not built (ROADMAP item 6.4): a bf16 input raises, with no
+    silent fallback to the plain version."""
+    q, kp, vp, table, lengths = _port(_setup(2, 2, 2, 8, 3, 12, seed=3), cuda_device)
+    launches = paged_attend.launches
+    with pytest.raises(ValueError, match="float32"):
+        paged_attend(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table, lengths)
+    assert paged_attend.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [64, 256])
+def test_a_row_alone_and_in_a_batch_gives_the_same_bits_on_card(cuda_device, page):
+    """A slot's output is bit-equal alone, inside batches of 2 and 4 and
+    inside a table twice as wide (unused entries at a trash row): its
+    splits and merge order depend on the page size alone."""
+    n_pages = 2048 // page
+    args = _port(_setup(4, 8, 2, page, n_pages, 4 * n_pages + 1, seed=109,
+                        lengths=(1500, 700, 2048, 65)), cuda_device)
+    q, kp, vp, table, lengths = args
+    alone = [paged_attend(q[b:b + 1].contiguous(), kp, vp, table[b:b + 1].contiguous(),
+                          lengths[b:b + 1].contiguous()) for b in range(4)]
+    for B in (2, 4):
+        batch = paged_attend(q[:B].contiguous(), kp, vp, table[:B].contiguous(),
+                             lengths[:B].contiguous())
+        for b in range(B):
+            assert torch.equal(batch[b], alone[b][0]), (B, b)
+    trash = torch.full_like(table, kp.shape[0] - 1)
+    wider = paged_attend(q, kp, vp, torch.cat([table, trash], 1).contiguous(), lengths)
+    for b in range(4):
+        assert torch.equal(wider[b], alone[b][0]), b
+    err = float((wider - ref.paged_attend_ref(*args)).abs().max())
+    torch.cuda.synchronize()
+    assert err <= KERNEL_TOL, err

@@ -447,3 +447,26 @@ def test_bench_serve_paged_bytes(setup):
     assert res["pages_peak"] == bench["pages_peak"]
     assert (wire["prefill_misses"], wire["prefill_hits"]) == \
         (bench["prefill_compiles"], bench["prefill_bucket_hits"])
+
+
+@pytest.mark.cuda
+def test_paged_launcher_takes_pages_over_128_rows_on_card():
+    """``launch.serve --paged --page-size 256`` at full width serves on the
+    card (the kernel walks a 256-row page in 32-row chunks of its pool row)
+    and gives page 64's greedy streams.
+
+        PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -m cuda tests/test_torch_paged_serve.py
+    """
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from repro_torch.kernels.paged_attend import paged_attend
+
+    args = ["--arch", "qwen3-1.7b", "--prompt-lens", "256,200", "--gen", "8", "--paged",
+            "--device", "cuda"]
+    launches = paged_attend.launches
+    big = launch.main(args + ["--page-size", "256"])
+    assert paged_attend.launches > launches  # the decode steps went through the kernel
+    small = launch.main(args + ["--page-size", "64"])
+    assert sorted(big) == sorted(small) == [0, 1]
+    for rid in big:
+        assert big[rid].tokens == small[rid].tokens, rid

@@ -55,10 +55,12 @@ def _plans(mod):
         build(9, round_to=1, schedule="awp", awp_threshold=-1e-3, awp_interval=7),
         build(4, round_to=3, act_round_to=2),
         mod(weights=({"round_to": 1}, {"round_to": 4, "mode": "nearest"})),
+        build(9, round_to=2, grad_round_to=2),
+        build(9, round_to=1, grad_round_to=3, grad_mode="truncate", chunks=2),
     ]
 
 
-@pytest.mark.parametrize("idx", range(4))
+@pytest.mark.parametrize("idx", range(6))
 def test_plan_json_loads_across_packages(idx):
     tp, jp = _plans(PrecisionPlan)[idx], _plans(JPlan)[idx]
     assert tp.to_json() == jp.to_json()
@@ -67,21 +69,24 @@ def test_plan_json_loads_across_packages(idx):
     assert tp.needs_rng == jp.needs_rng
 
 
-@pytest.mark.parametrize("idx", range(4))
+@pytest.mark.parametrize("idx", range(6))
 def test_wire_table_equal(idx):
+    """The host→device table (one device) and the sharded all-gather /
+    reduce-scatter table (2, 4 and 8 shards; training and not) equal the
+    reference's."""
     tp, jp = _plans(PrecisionPlan)[idx], _plans(JPlan)[idx]
     elems = [88_936_448 // 9 * (i + 1) for i in range(tp.num_weight_groups)]
     for rts in ([1] * tp.num_weight_groups, [2, 3] * 5):
         rts = rts[: tp.num_weight_groups]
-        a = tp.with_round_tos(rts).wire_table(elems, 1)
-        b = jp.with_round_tos(rts).wire_table(elems, 1)
-        assert a == b
-    with pytest.raises(NotImplementedError):
-        tp.wire_table(elems, 2)
+        for n in (1, 2, 4, 8):
+            for training in (True, False):
+                a = tp.with_round_tos(rts).wire_table(elems, n, training=training)
+                b = jp.with_round_tos(rts).wire_table(elems, n, training=training)
+                assert a == b, (n, training)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(grad_round_to=2), dict(chunks=2), dict(seq_parallel=True),
+    dict(int8_kv=True), dict(env_overrides={"attn_chunk": 64}), dict(seq_parallel=True),
     dict(accum_steps=2), dict(dtype="bf16"),
 ])
 def test_unported_plan_fields_raise(kw):

@@ -6,9 +6,12 @@
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that two versions of the kernels can be timed in one
 run on one card, in turns (A, B, B, A). The shapes are ``chip_smoke.py``'s
-timed rows: flash at B=1, H=16, Kv=8, S = 128 / 512 / 2048; paged decode at
-phase 9's shape (warm, and with the L2 cold over ``COLD_COPIES`` copies of
-the pools) and at B=16, 4096 tokens. Each is timed eagerly with CUDA events
+timed rows: flash at B=1, H=16, Kv=8, S = 128 / 512 / 2048, and at B=2,
+S=512 (phase 7's static prefill); paged decode at phase 9's shape (warm,
+and with the L2 cold over ``COLD_COPIES`` copies of the pools) and at B=16,
+4096 tokens. ``--split-rows R`` sets ``paged_attend.SPLIT_ROWS`` (the
+logical rows a split of the paged kernel covers) before timing, so that
+one checkout's choices of R can be timed side by side. Each is timed eagerly with CUDA events
 (``time_cuda``, which reads the host's dispatch wherever that is slower
 than the kernel) and in a CUDA graph (``time_graph``, the device time).
 Prints the card's name and power limit, then one JSON line of
@@ -29,6 +32,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--split-rows", type=int, default=0,
+                    help="paged_attend.SPLIT_ROWS to time (default: the checkout's)")
     args = ap.parse_args()
 
     # the timed package first: chip_smoke puts this checkout's src on the path
@@ -37,7 +42,11 @@ def main() -> int:
 
     from repro_torch import fp32_math
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels import paged_attend as paged_module
     from repro_torch.kernels.paged_attend import paged_attend
+
+    if args.split_rows:
+        paged_module.SPLIT_ROWS = args.split_rows
 
     sys.path.insert(1, ROOT)
     import chip_smoke as cs
@@ -51,13 +60,14 @@ def main() -> int:
     device = torch.device("cuda", 0)
     us = {}
     gen = torch.Generator(device=device).manual_seed(6)
-    for S in cs.FLASH_TIMED:
-        q = torch.randn((1, 16, S, 128), generator=gen, device=device)
-        k = torch.randn((1, 8, S, 128), generator=gen, device=device)
-        v = torch.randn((1, 8, S, 128), generator=gen, device=device)
+    for B, S in [(1, S) for S in cs.FLASH_TIMED] + [(2, 512)]:
+        q = torch.randn((B, 16, S, 128), generator=gen, device=device)
+        k = torch.randn((B, 8, S, 128), generator=gen, device=device)
+        v = torch.randn((B, 8, S, 128), generator=gen, device=device)
         fn = lambda: flash_prefill(q, k, v)  # noqa: E731
-        us[f"flash S={S} eager"] = cs.time_cuda(torch, fn) * 1e3
-        us[f"flash S={S} graph"] = cs.time_graph(torch, [fn], reps=10) * 1e3
+        name = f"flash S={S}" if B == 1 else f"flash B={B} S={S}"
+        us[f"{name} eager"] = cs.time_cuda(torch, fn) * 1e3
+        us[f"{name} graph"] = cs.time_graph(torch, [fn], reps=10) * 1e3
     gen = torch.Generator(device=device).manual_seed(8)
     for label, (B, Kv, G, page, width, P, lengths) in cs.PAGED_TIMED:
         a = cs.paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
@@ -69,7 +79,8 @@ def main() -> int:
                             for _ in range(cs.COLD_COPIES - 1)]
             us[f"paged {label} graph cold"] = cs.time_graph(
                 torch, [lambda c=c: paged_attend(*c) for c in copies]) * 1e3
-    print(json.dumps({"label": args.label, "device": torch.cuda.get_device_name(0),
+    print(json.dumps({"label": args.label, "split_rows": getattr(paged_module, "SPLIT_ROWS", None),
+                      "device": torch.cuda.get_device_name(0),
                       "us": {k: round(t, 2) for k, t in us.items()}}))
     return 0
 
