@@ -143,6 +143,38 @@ Phases, each printing its own lines:
      ``torch.profiler`` trace of one more step on rank 0 with the device's
      idle share, beside the card's name and power limit.
 
+ 13. main path — FSDP×TP training of full-width qwen3-1.7b (phase 11's
+     weights from seed 0 and settings: remat on, ``synthetic_lm_batch`` at
+     batch 8 x seq 128, lr 0.05) on a 2×2 mesh: 4 gloo ranks on the one
+     card (``spawn_ranks``), each with 4 of the 8 sequences, its model
+     rank's TP half of every matrix and a quarter of the ``DIST`` weights,
+     built in turn behind a barrier. Through ``Trainer`` and
+     ``make_train_step(mesh=...)``, all at ``oracle:2``: two steps with fp32
+     gradients and activations, one ``seq_parallel``, one ``act_round_to``
+     2 and one ``grad_round_to`` 2 (both truncate, so that their planes go
+     through the kernels). Each rank checks (a) at step 0 every ``DIST``
+     leaf's gathered and unpacked weights bit-equal to ``quantize_ref`` of
+     its TP slice of the whole leaf, (b) its Bitpack, Bitunpack and
+     ``l2norm_sq`` launches (zeroed before, read after) as its leaves and
+     TP boundaries require, the first launch at each (length, round_to)
+     and the first monitor call at each of its shard lengths held to the
+     plain versions, (c) the measured wire per class equal to
+     ``step_wire_table`` (the plan's ``wire_table`` with the step's TP
+     boundaries and the remat backward's collectives) at every step, the
+     unpriced ``grad_sync``, ``metrics`` and ``loss`` printed beside it, and
+     (d) the ``seq_parallel`` step's loss and Σw² within 1e-6 relative of
+     the psum layout's step from the same state (whether the bits match is
+     printed); then (e) the three uncompressed steps' losses and Σw²
+     within ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL`` of phase 11's one-device
+     step run from the same weights in this process after the ranks exit,
+     and every rank's change of each leaf block after two and three steps,
+     Σ(w − w₀)², within ``TP_MOVE_RTOL`` of the same block of that run's,
+     and (f) the compressed steps' losses within the reference's bar
+     (``|lc − l1| < 0.05 + 0.05·|l1|``). Prints step ms, the gloo staging
+     share, the wire per class a rank and a ``torch.profiler`` trace of one
+     more uncompressed step on rank 0 (staging copies, GEMMs, other
+     kernels, idle share), beside the card's name and power limit.
+
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -1414,6 +1446,42 @@ def watch_monitor(torch, seen, every):
     return lambda: setattr(ops, "_l2norm_kernel", kernel)
 
 
+def watch_monitor_lengths(torch, seen):
+    """Route the AWP monitor's kernel calls through a recorder that keeps a
+    copy of the input and output of the first call at each length in
+    ``seen`` (a rank's shards of every monitored leaf); the keys stay in
+    ``seen`` once checked. Returns the undo function."""
+    from repro_torch.kernels import ops
+
+    kernel = ops._l2norm_kernel
+
+    def recorded(w):
+        out = kernel(w)
+        if w.numel() not in seen:
+            seen[w.numel()] = (w.clone(), out.clone())
+        return out
+
+    ops._l2norm_kernel = recorded
+    return lambda: setattr(ops, "_l2norm_kernel", kernel)
+
+
+def check_seen_monitor(seen, errs):
+    """The plain version on each recorded monitor call's own input, within
+    ``L2_RTOL`` relative; appends the absolute errors to ``errs``, frees
+    the copies and keeps the keys."""
+    from repro_torch.kernels import ref
+
+    for n, rec in seen.items():
+        if rec is None:
+            continue
+        w, out = rec
+        p, k = float(ref.l2norm_sq_ref(w)), float(out)
+        check(abs(k - p) <= L2_RTOL * abs(p), f"monitor call on the main path, n={n}: "
+                                               f"kernel {k!r}, plain {p!r}")
+        errs.append(abs(k - p))
+        seen[n] = None
+
+
 def watch_packing(torch, seen):
     """Route the materialization's Bitpack and Bitunpack launches through
     recorders that keep a copy of the input and output of the first launch
@@ -1935,6 +2003,418 @@ def dp_train_path(torch, device, *, cfg=None, batch=64, min_size=None):
             "norm_gap": norm_gap}
 
 # ---------------------------------------------------------------------------
+# phase 13: full-width qwen3-1.7b FSDP×TP training on a 2×2 mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+TP_DP, TP_TP = 2, 2  # the mesh: 2 data ranks × 2 model ranks
+# (label, PrecisionPlan.build keywords) of the phase's steps, in order, all at
+# round_to 2: fp32 gradients and uncompressed activations twice, the
+# sequence-parallel layout, then the TP-region activations and the gradient
+# reduce-scatter packed at round_to 2 in truncate mode (so that their planes
+# go through Bitpack and Bitunpack: nearest rounding runs the plain version,
+# by the reference's rule).
+TP_STEPS = (
+    ("oracle:2", {}),
+    ("oracle:2", {}),
+    ("seq_parallel", {"seq_parallel": True}),
+    ("act_round_to 2", {"act_round_to": 2, "act_mode": "truncate"}),
+    ("grad_round_to 2", {"grad_round_to": 2, "grad_mode": "truncate"}),
+)
+TP_UNCOMPRESSED = 3  # steps 0-2 move no rounded activation or gradient
+# (d): the sequence-parallel step against the psum layout's on the same state
+TP_SEQ_RTOL = 1e-6
+# (e): steps 0-2 against one device's steps from the same weights and batches,
+# relative. The gaps seen on an H100 were 9.3e-7 (losses) and 1.7e-7 (Σw²),
+# in the CPU rehearsal 0 and 1.5e-7: each bound is about 10x the larger.
+TP_LOSS_RTOL = 1e-5
+TP_NORM_RTOL = 2e-6
+# (e): each rank's change of every leaf block, Σ(w − w₀)² after these many
+# steps (the psum layout's two, then the sequence-parallel one), against the
+# same block of one device's change, relative. Losses and Σw² alone miss a
+# gradient fault: in the CPU rehearsal a skipped model-group or FSDP-group
+# sum of the replicated gradients kept both within 6.1e-7, and moved these
+# sums by 0.64-0.66. Without a fault the gap was 3.5e-4 on an H100 and
+# 2.0e-5 in the CPU rehearsal: the bound is about 14x the larger.
+TP_MOVED = (2, 3)
+TP_MOVE_RTOL = 5e-3
+
+
+def update_sums(spec_tree, storage, start, mesh_cfg=None, rank=0):
+    """Σ(w − w₀)² in fp64 of every leaf (spec-tree order) between
+    ``start`` and ``storage``: a rank's blocks as they are, or, given a
+    sharded ``mesh_cfg``, rank ``rank``'s block of one device's whole
+    leaves (``leaf_to_local`` of the change)."""
+    from repro_torch.dist.spec import leaf_to_local
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    def moved(s, x, x0):
+        d = x - x0
+        if mesh_cfg is not None:
+            d = leaf_to_local(d, s, mesh_cfg, rank)
+        return float((d.double() ** 2).sum())
+
+    return tree_leaves(tree_map(moved, spec_tree, storage, start))
+
+
+def watch_gathers(seen, ptrs, expected):
+    """Route the LM step's ``materialize_leaf`` through a recorder that,
+    while ``seen["on"]``, holds each ``DIST`` leaf's gathered and unpacked
+    weights (first time a step meets each (leaf, repetition), by the
+    storage's address in ``ptrs``) to ``expected``: the high 16 bits of
+    the rank's ``quantize_ref`` of its TP slice of the whole leaf, on the
+    host; the low 16 bits must be zero. Returns the undo function."""
+    import torch
+
+    from repro_torch.train import step as tstep
+
+    mat = tstep.materialize_leaf
+
+    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, *, key=None, group=None):
+        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, key=key, group=group)
+        at = ptrs.get(x.data_ptr()) if seen["on"] and spec.kind == "dist" else None
+        if at is not None and at not in seen["done"]:
+            leaf, rep = at
+            want = expected[leaf][rep] if spec.stacked else expected[leaf]
+            want = want.to(out.device, torch.int32).reshape(-1) << 16
+            if not torch.equal(out.detach().reshape(-1).view(torch.int32), want):
+                seen["bad"].append(at)
+            seen["done"].add(at)
+        return out
+
+    tstep.materialize_leaf = recorded
+    return lambda: setattr(tstep, "materialize_leaf", mat)
+
+
+def _tp_rank(rank, device_name, cfg, batch, seq, lr):
+    """One rank of phase 13 (a process of a gloo group of 4): its blocks of
+    the weights, phase 13's steps through ``Trainer``, checks (a)-(d) on
+    its own view; returns its measurements."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group, tp_slice
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import Trainer
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    fp32_math()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh_cfg = MeshCfg(tp=TP_TP, dp=TP_DP)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    model_rank = rank % TP_TP
+    expected = []  # per DIST leaf: high halves of quantize_ref(TP slice), on the host
+
+    def visit(x, s):
+        if s.kind == DIST:
+            q = ref.quantize_ref(tp_slice(x, s, mesh_cfg, model_rank), 2)
+            expected.append((q.view(torch.int32) >> 16).to(torch.int16).cpu())
+
+    t0 = time.perf_counter()
+    spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device, rank=rank, visit=visit)
+    sync()
+    setup_s = time.perf_counter() - t0
+    nrt = cfg.num_groups + 1
+    elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
+    dist_leaves = [(x, s) for x, s in zip(tree_leaves(storage), tree_leaves(spec_tree))
+                   if s.kind == DIST]
+    ptrs = {}
+    for i, (x, s) in enumerate(dist_leaves):
+        for r in range(s.reps):
+            ptrs[(x[r] if s.stacked else x).data_ptr()] = (i, r)
+    group_dist = [s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+    top_dist = [s for k, s in spec_tree.items() if k != "groups" and s.kind == DIST]
+    per_forward = sum(s.reps for s in group_dist) + len(top_dist)
+    recomputed = sum(s.reps for s in group_dist) if cfg.remat else 0
+    boundaries = tstep.tp_boundaries(cfg)
+    act_elems = (batch // TP_DP) * seq * cfg.d_model
+    loss_elems = (batch // TP_DP) * seq  # the loss's two sums over the model group
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    plans = {label: PrecisionPlan.build(nrt, round_to=2, **kw) for label, kw in TP_STEPS}
+
+    def trainer_for(plan):
+        return Trainer(lambda rts: tstep.make_train_step(
+            cfg, mesh_cfg, mesh, spec_tree, opt, shapes, plan=plan.with_round_tos(rts)),
+            nrt, plan=plan, dist_elems_per_group=elems, gather_axis_size=TP_DP)
+
+    trainers = {label: trainer_for(plan) for label, plan in plans.items()}
+    seen = {"on": False, "done": set(), "bad": []}
+    packs = {}
+    unwatch = watch_gathers(seen, ptrs, expected)
+    unwatch_packing = watch_packing(torch, packs) if on_card else (lambda: None)
+    monitor, monitor_errs = {}, []
+    unwatch_monitor = watch_monitor_lengths(torch, monitor) if on_card else (lambda: None)
+    saved, records, norms, moved = None, [], [], []
+    start = tree_map(lambda x: x.clone(), storage)  # (e)
+    sync()
+    zero_counts()
+    for i, (label, _) in enumerate(TP_STEPS):
+        if i in TP_MOVED:
+            moved.append(update_sums(spec_tree, storage, start))
+            if i == TP_MOVED[-1]:
+                del start
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+        if label == "seq_parallel":  # (d): the state it starts from, on the host
+            saved = [[x.to("cpu", copy=True) for x in tree_leaves(t)] for t in (storage, mom)]
+        seen["on"] = i == 0
+        storage, mom, m = trainers[label].run_step(
+            storage, mom, {"tokens": tokens, "labels": labels}, lr)
+        seen["on"] = False
+        records.append(trainers[label].records[-1])
+        norms.append(m["group_norms_sq"].cpu().numpy())
+        if i == 0:  # (a)
+            want = sum(s.reps for _, s in dist_leaves)
+            check(len(seen["done"]) == want, f"rank {rank}: step 0 met "
+                  f"{len(seen['done'])} of its {want} DIST (leaf, repetition) gathers")
+            check(not seen["bad"], f"rank {rank} step 0: gathered weights of (leaf, rep) "
+                                   f"{seen['bad'][:5]} differ from quantize_ref of the TP slice")
+            expected.clear()
+        if on_card:
+            check_seen_packing(torch, packs)
+            check_seen_monitor(monitor, monitor_errs)
+    sync()
+    got = counts()
+    unwatch()
+    unwatch_packing()
+    unwatch_monitor()
+
+    # (c): measured wire == the plan's table with the step's TP boundaries
+    tables = []
+    for i, ((label, _), r) in enumerate(zip(TP_STEPS, records)):
+        table = tstep.step_wire_table(plans[label].with_round_tos(r.round_tos), cfg,
+                                      spec_tree, mesh_cfg, (batch, seq))
+        tables.append(table)
+        for k in tstep.COLLECTIVE_CLASSES:
+            check(r.measured_by_entry.get(k, 0) == table[k],
+                  f"rank {rank} step {i} ({label}): measured {k} "
+                  f"{r.measured_by_entry.get(k, 0)} B != table {table[k]} B")
+    # (b): launches as the leaves and the TP boundaries require
+    n_steps = len(TP_STEPS)
+    mats = n_steps * (per_forward + recomputed)  # every step gathers at round_to 2
+    # act2 step: a packed reduce-scatter and all-gather per all-reduce (the
+    # remat backward's included) and per loss sum
+    act = 2 * (boundaries + tstep.remat_tp_collectives(cfg)[1]) + 2 * 2
+    grads = per_forward  # grad2 step: one packed block exchange per gathered leaf
+    packed = mats + act + grads
+    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
+            "l2norm_sq": len(dist_leaves) * n_steps}
+    if not on_card:
+        want = {k: 0 for k in want}
+    check(got == want, f"rank {rank}: launches {got}, expected {want}")
+    if on_card:
+        pads = {s.pad_rep for _, s in dist_leaves}
+        packs_n = {p // TP_DP for p in pads} | pads | {act_elems, act_elems // TP_TP,
+                                                       loss_elems, loss_elems // TP_TP}
+        unpacks_n = pads | {act_elems, loss_elems}
+        keys = ({("bitpack", n, 2) for n in packs_n}
+                | {("bitunpack", n, 2) for n in unpacks_n})
+        check(set(packs) == keys, f"rank {rank}: packing launches checked {sorted(packs)}, "
+                                  f"expected {sorted(keys)}")
+        lengths = {x.numel() for x, _ in dist_leaves}
+        check(set(monitor) == lengths, f"rank {rank}: monitor calls checked at lengths "
+                                       f"{sorted(monitor)}, expected {sorted(lengths)}")
+
+    # (d): the psum layout's step from the state the sequence-parallel step took
+    for x, h in zip(tree_leaves(storage), saved[0]):
+        x.copy_(h)
+    for x, h in zip(tree_leaves(mom), saved[1]):
+        x.copy_(h)
+    del saved
+    i = [label for label, _ in TP_STEPS].index("seq_parallel")
+    tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+    step = tstep.make_train_step(cfg, mesh_cfg, mesh, spec_tree, opt, shapes,
+                                 plan=plans["oracle:2"])
+    _, _, m = step(storage, mom, {"tokens": tokens, "labels": labels}, lr)
+    psum = {"loss": float(m["loss"]), "norms": m["group_norms_sq"].cpu().numpy()}
+
+    profiled = {}
+    if on_card:  # one more uncompressed step, profiled on rank 0
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, 10_000, device=device)
+        b = {"tokens": tokens, "labels": labels}
+        run = lambda: float(step(storage, mom, b, lr)[2]["loss"])  # noqa: E731
+        if rank == 0:
+            by_name = profile(torch, run, "oracle:2 FSDP×TP step, rank 0")
+            busy = sum(by_name.values())
+            copies = sum(ms for k, ms in by_name.items() if "memcpy" in k.lower())
+            gemms = sum(ms for k, ms in by_name.items()
+                        if "gemm" in k.lower() or "cutlass" in k.lower())
+            profiled = {"busy_ms": busy, "copies_ms": copies, "gemm_ms": gemms,
+                        "other_ms": busy - copies - gemms}
+            say(f"   profile FSDP×TP step, rank 0: staging copies {copies:.2f} ms, GEMMs "
+                f"{gemms:.2f} ms, other kernels {busy - copies - gemms:.2f} ms")
+        else:
+            run()
+    return {
+        "records": [{"loss": r.loss, "wall_s": r.wall_s, "stage_s": r.stage_s,
+                     "first": r.recompiled, "measured": r.measured_by_entry, "table": t}
+                    for r, t in zip(records, tables)],
+        "norms": norms, "moved": moved, "psum": psum, "launches": got, "packs": sorted(packs),
+        "monitor_lengths": sorted(monitor), "monitor_err": max(monitor_errs, default=0.0),
+        "profile": profiled, "setup_s": setup_s, "elems": elems, "boundaries": boundaries,
+        "act_elems": act_elems, "n_dist": len(dist_leaves), "per_forward": per_forward,
+        "recomputed": recomputed, "remat": tstep.remat_tp_collectives(cfg),
+    }
+
+
+def _one_device_lm(torch, device, cfg, batch, seq, lr):
+    """Phase 13's steps on one device (phase 11's step) from the same
+    weights and batches, all at ``oracle:2``: losses and Σw² per group,
+    and after ``TP_MOVED`` steps each rank's ``update_sums`` of the
+    change."""
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.dist.spec import MeshCfg, build_spec_tree
+    from repro_torch.launch.train import setup
+    from repro_torch.models.init import init_params
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    mesh_cfg, tp_cfg = MeshCfg(), MeshCfg(tp=TP_TP, dp=TP_DP)
+    tp_spec = build_spec_tree(*init_params(cfg, device="meta", tp=TP_TP), tp_cfg)
+    spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device)
+    start = tree_map(lambda x: x.clone(), storage)
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(cfg, mesh_cfg, None, spec_tree, opt,
+                           {"tokens": (batch, seq), "labels": (batch, seq)},
+                           plan=PrecisionPlan.build(cfg.num_groups + 1, round_to=2))
+    losses, norms, moved = [], [], []
+    for i in range(len(TP_STEPS)):
+        if i in TP_MOVED:
+            moved.append([update_sums(tp_spec, storage, start, tp_cfg, r)
+                          for r in range(TP_DP * TP_TP)])
+            if i == TP_MOVED[-1]:
+                del start
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+        storage, mom, m = step(storage, mom, {"tokens": tokens, "labels": labels}, lr)
+        losses.append(float(m["loss"]))
+        norms.append(m["group_norms_sq"].cpu().numpy())
+    return {"losses": losses, "norms": norms, "moved": moved,
+            "leaves": [f"{s.kind} {s.logical}" for s in tree_leaves(tp_spec)]}
+
+
+def tp_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR):
+    """Full-width qwen3-1.7b (phase 11's weights and settings) trained on a
+    ``TP_DP`` × ``TP_TP`` mesh of gloo ranks on ``device``, each a spawned
+    process with its FSDP slice of the batch and its blocks of the
+    weights: ``TP_STEPS`` through ``Trainer``. Each rank checks (a) the
+    gathered weights of step 0 against ``quantize_ref`` of its TP slice of
+    the whole leaves, (b) its launch counts, (c) its measured wire against
+    ``step_wire_table`` and (d) the sequence-parallel step against the
+    psum layout's; here (e) the uncompressed steps against one device and
+    (f) the compressed ones against the reference's bar. Launch counts,
+    packing records and the profile are read on a card only, so the phase
+    rehearses on the CPU at a reduced config. Returns the measurements;
+    raises on a failed check."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    ranks = TP_DP * TP_TP
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        say(f"   {ranks} ranks on one card: {smi}")
+    t0 = time.perf_counter()
+    # the card's machine has 8 cores: 2 a rank for the staging copies
+    outs = spawn_ranks(_tp_rank, ranks, str(device), cfg, batch, seq, lr,
+                       threads=2 if on_card else 1, timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    one = _one_device_lm(torch, device, cfg, batch, seq, lr)
+
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        check([x["loss"] for x in o["records"]] == [x["loss"] for x in r0["records"]],
+              f"rank {r}'s losses differ from rank 0's")
+        check(all(np.array_equal(a, b) for a, b in zip(o["norms"], r0["norms"])),
+              f"rank {r}'s Σw² differ from rank 0's")
+    losses = [x["loss"] for x in r0["records"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    check([x["first"] for x in r0["records"]] == [True, False, True, True, True],
+          f"first-at-format marks {[x['first'] for x in r0['records']]}")
+    # (d)
+    i_seq = [label for label, _ in TP_STEPS].index("seq_parallel")
+    seq_loss, seq_norms = losses[i_seq], r0["norms"][i_seq]
+    psum = r0["psum"]
+    seq_gap = max([abs(seq_loss - psum["loss"]) / abs(psum["loss"])]
+                  + list(np.abs(seq_norms - psum["norms"]) / np.abs(psum["norms"])))
+    seq_bits = seq_loss == psum["loss"] and np.array_equal(seq_norms, psum["norms"])
+    check(seq_gap <= TP_SEQ_RTOL, f"sequence-parallel step {seq_loss!r} / {seq_norms} against "
+                                  f"the psum layout's {psum}: relative gap {seq_gap:.3e}")
+    # (e)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses[:TP_UNCOMPRESSED], one["losses"][:TP_UNCOMPRESSED]))
+    norm_gap = max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in
+                   zip(r0["norms"][:TP_UNCOMPRESSED], one["norms"][:TP_UNCOMPRESSED]))
+    check(loss_gap <= TP_LOSS_RTOL, f"losses {losses} vs one device {one['losses']}: "
+                                    f"relative gap {loss_gap:.3e} > {TP_LOSS_RTOL}")
+    check(norm_gap <= TP_NORM_RTOL,
+          f"Σw² relative gap {norm_gap:.3e} > {TP_NORM_RTOL} against one device")
+    move_gap, worst = 0.0, None
+    for r, o in enumerate(outs):
+        for n, got, want in zip(TP_MOVED, o["moved"], one["moved"]):
+            for j, (a, b) in enumerate(zip(got, want[r], strict=True)):
+                check(abs(a - b) <= TP_MOVE_RTOL * b, f"rank {r}, leaf {j} "
+                      f"({one['leaves'][j]}): Σ(w − w₀)² after {n} steps {a!r} against one "
+                      f"device's block {b!r}")
+                gap = abs(a - b) / b if b else 0.0
+                if gap > move_gap:
+                    move_gap, worst = gap, f"rank {r}, leaf {j} ({one['leaves'][j]}), {n} steps"
+    # (f): the reference's bar (scenario_dist_train.py) for the compressed steps
+    for i in range(TP_UNCOMPRESSED, len(TP_STEPS)):
+        lc, l1 = losses[i], one["losses"][i]
+        check(abs(lc - l1) < 0.05 + 0.05 * abs(l1), f"step {i} ({TP_STEPS[i][0]}): loss "
+                                                    f"{lc} against one device's {l1}")
+    for i, ((label, _), x) in enumerate(zip(TP_STEPS, r0["records"])):
+        shown = ", ".join(f"{k} {x['measured'].get(k, 0)}" for k in
+                          ("weights", "gradients", "activations", "seq_boundary"))
+        other = ", ".join(f"{k} {v}" for k, v in x["measured"].items()
+                          if k in ("grad_sync", "metrics", "loss"))
+        say(f"   step {i} {label:15s} loss {x['loss']:.6g} (one device {one['losses'][i]:.6g}); "
+            f"wire B a rank: {shown} (== table); not priced: {other}; "
+            f"{x['wall_s'] * 1e3:.1f} ms, gloo staging {x['stage_s'] * 1e3:.1f} ms "
+            f"({x['stage_s'] / x['wall_s']:.0%}){'  (first at these formats)' if x['first'] else ''}")
+    say(f"   table: wire_table(elems={r0['elems']}, 2, tp={TP_TP}, act_elems={r0['act_elems']}, "
+        f"act_collectives={r0['boundaries']}) + the remat backward's {r0['recomputed']} "
+        f"gathers of group leaves and (enters, exits) {r0['remat']} (step_wire_table)")
+    say(f"   (d) sequence-parallel step against the psum layout on the same state: within "
+        f"{seq_gap:.3e} relative (bound {TP_SEQ_RTOL}); bits {'equal' if seq_bits else 'differ'}")
+    say(f"   (e) steps 0-{TP_UNCOMPRESSED - 1} against one device: losses within {loss_gap:.3e} "
+        f"(bound {TP_LOSS_RTOL}), Σw² within {norm_gap:.3e} (bound {TP_NORM_RTOL}), every "
+        f"rank's leaf blocks' Σ(w − w₀)² after {list(TP_MOVED)} steps within {move_gap:.3e} "
+        f"(bound {TP_MOVE_RTOL}; at {worst}), relative; "
+        f"(f) compressed steps {losses[TP_UNCOMPRESSED:]} against one device's "
+        f"{one['losses'][TP_UNCOMPRESSED:]}")
+    say(f"   launches per rank: {[o['launches'] for o in outs]} ({r0['n_dist']} DIST leaves, "
+        f"{r0['per_forward']} + {r0['recomputed']} gathers a step, {r0['boundaries']} TP "
+        f"boundaries + {r0['remat']} in the remat backward); packing checked at {len(r0['packs'])} (kernel, length, round_to)")
+    monitor_err = max(o["monitor_err"] for o in outs)
+    say(f"   monitor calls on the main path within {monitor_err:.3e} of the plain version at "
+        f"every rank's shard lengths (rank 0: {r0['monitor_lengths']})")
+    warm = r0["records"][1:]
+    say(f"   step ms on rank 0: {[round(x['wall_s'] * 1e3, 1) for x in r0['records']]}; gloo "
+        f"staging share after the first {sum(x['stage_s'] for x in warm) / sum(x['wall_s'] for x in warm):.1%}; "
+        f"set-up {[round(o['setup_s'], 1) for o in outs]} s; ranks' processes {ranks_s:.1f} s")
+    launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    return {"ranks": outs, "one": one, "launches": launches, "monitor_err": monitor_err,
+            "loss_gap": loss_gap, "norm_gap": norm_gap, "move_gap": move_gap,
+            "seq_gap": seq_gap, "seq_bits": seq_bits}
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2043,6 +2523,15 @@ def main() -> int:
     for k in ("bitpack", "bitunpack"):
         served[k] += dp["launches"][k]
 
+    say(f"phase 13: main path — full-width qwen3-1.7b FSDP×TP training on a {TP_DP}×{TP_TP} mesh "
+        f"of gloo ranks, batch {LM_BATCH} ({LM_BATCH // TP_DP} a data rank) x seq {LM_SEQ}, "
+        f"steps {[label for label, _ in TP_STEPS]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = tp_train_path(torch, device)
+    for k in ("bitpack", "bitunpack"):
+        served[k] += tp["launches"][k]
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -2077,8 +2566,8 @@ def main() -> int:
         "name": "l2norm_sq", "route": "cuda", "source": "src/repro_torch/csrc/l2norm.cu",
         "replaces": "src/repro/kernels/l2norm.py:31",
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
-                     + dp["launches"]["l2norm_sq"]),
-        "max_abs_err": max(l2_err, lm["monitor_err"]),
+                     + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]),
+        "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.cnn import CNNConfig
+from repro_torch.models.init import eff_vocab
 
 
 def _fc_rows(w: np.ndarray, hw: int, ch: int) -> np.ndarray:
@@ -44,9 +45,10 @@ def _fc_rows(w: np.ndarray, hw: int, ch: int) -> np.ndarray:
     return w.reshape(hw, hw, ch, out).transpose(2, 0, 1, 3).reshape(-1, out)
 
 
-def convert_lm_params(cfg, params, *, device="cuda"):
-    """Reference-layout numpy LM params -> port params (an exact copy,
-    tensors on ``device``). ``cfg`` is checked against the tree's shapes."""
+def convert_lm_params(cfg, params, *, device="cuda", tp: int = 1):
+    """Reference-layout numpy LM params (``init_params(cfg, key, tp)``'s)
+    -> port params (an exact copy, tensors on ``device``). ``cfg`` and
+    ``tp`` are checked against the tree's shapes."""
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
@@ -57,7 +59,7 @@ def convert_lm_params(cfg, params, *, device="cuda"):
 
     if len(params["groups"]) != cfg.num_groups:
         raise ValueError(f"{len(params['groups'])} groups, config has {cfg.num_groups}")
-    if tuple(np.shape(params["embed"])) != (cfg.vocab_size, cfg.d_model):
+    if tuple(np.shape(params["embed"])) != (eff_vocab(cfg, tp), cfg.d_model):
         raise ValueError(f"embed {np.shape(params['embed'])} does not match {cfg.name}")
     out = {k: walk(v) for k, v in params.items() if k != "groups"}
     return {"groups": [walk(g) for g in params["groups"]], **out}

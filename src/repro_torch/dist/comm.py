@@ -1,7 +1,8 @@
 """Collectives over one ``torch.distributed`` process group: the port's
 stand-in for the ``lax`` collectives that ``repro.transport.transport``
-calls inside ``shard_map`` (a tiled ``all_gather``, ``all_to_all``,
-``psum_scatter`` and ``psum``).
+and ``repro.core.collectives`` call inside ``shard_map`` (a tiled
+``all_gather`` and ``psum_scatter`` along any axis, ``all_to_all``,
+``psum`` and ``pmax``).
 
 Each rank is one process; ``group`` is a process group of them (``None``
 is the default group, as everywhere in ``torch.distributed``). Blocks go
@@ -18,7 +19,12 @@ reaction to an error, and its host-clock seconds are logged beside the
 call (it is not the cost NVLink would show).
 
 Log: every call appends a :class:`CommRecord` (kind, traffic class,
-payload bytes, staging seconds) to :data:`LOG`. The payload is what
+payload bytes, staging seconds) to :data:`LOG`. The traffic classes are
+the plan's (``weights``, ``gradients``, ``activations`` — the TP-region
+all-reduces — and ``seq_boundary`` — the sequence-parallel gather and
+scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
+step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums)
+and ``relayout`` (the lossless sequence split and merge). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output
 of an all-gather or all-to-all, the input of a reduce-scatter or
 all-reduce), so :func:`wire_by_traffic` of the log is a measured count of
@@ -44,8 +50,7 @@ _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
 @dataclasses.dataclass(frozen=True)
 class CommRecord:
     kind: str          # "all-gather" | "all-to-all" | "reduce-scatter" | "all-reduce"
-    traffic: str       # the plan's traffic class ("weights", "gradients") or
-                       # "grad_sync" / "metrics" (the step's fp32 psums)
+    traffic: str       # the traffic class (see the module docstring)
     nbytes: int        # payload, as ring_wire_bytes reads it
     group_size: int
     stage_s: float     # host clock of the device <-> host copies (0 on the CPU)
@@ -87,6 +92,9 @@ def _to_device(x: torch.Tensor, device: torch.device):
 
 def _log(kind, traffic, nbytes, n, stage_s):
     LOG.append(CommRecord(kind, traffic, int(nbytes), n, stage_s))
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def all_gather(x: torch.Tensor, group=None, *, axis: int = 0, traffic: str) -> torch.Tensor:
@@ -143,13 +151,13 @@ def reduce_scatter(x: torch.Tensor, group=None, *, axis: int = 0,
     return out
 
 
-def all_reduce(x: torch.Tensor, group=None, *, traffic: str) -> torch.Tensor:
-    """Sum over the group (``lax.psum``); returns a new tensor, equal on
-    every rank."""
+def all_reduce(x: torch.Tensor, group=None, *, traffic: str, op: str = "sum") -> torch.Tensor:
+    """Sum (``lax.psum``) or, with ``op="max"``, maximum (``lax.pmax``)
+    over the group; returns a new tensor, equal on every rank."""
     n = dist.get_world_size(group)
     host, s_in = _to_host(x)
     host = host.clone() if host.data_ptr() == x.data_ptr() else host
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(host, op=_OPS[op], group=group)
     out, s_out = _to_device(host, x.device)
     _log("all-reduce", traffic, x.numel() * x.element_size(), n, s_in + s_out)
     return out

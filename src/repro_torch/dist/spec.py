@@ -1,36 +1,45 @@
-"""Storage layout of parameter leaves (counterpart of ``repro.dist.spec``:
-the trivial mesh and data-parallel meshes, ``tp == 1``).
+"""Storage layout of parameter leaves on the FSDP×TP mesh (counterpart of
+``repro.dist.spec``).
 
 Every parameter leaf is classified into one of three storage *kinds*:
 
   * ``DIST`` — large / compressible (``meta.compress`` and at least
     ``compress_min_size`` elements): the fp32 master copy lives as flat
-    shards, flattened and zero-padded so the flat dim splits evenly over
-    the ``dshards = dp * pods`` ranks. Materialization is a compressed
-    all-gather through :mod:`repro_torch.transport`, whose backward
-    reduce-scatters the gradient back onto the shards.
-  * ``TP_SMALL`` — small but TP-sheared (only on meshes with ``tp > 1``).
+    shards, TP-sliced first (a leading ``tp`` dim when ``meta.tp_dim`` is
+    set), then flattened and zero-padded so the flat dim splits evenly
+    over the ``dshards = dp * pods`` FSDP ranks. Materialization is a
+    compressed all-gather over the rank's FSDP group through
+    :mod:`repro_torch.transport`, whose backward reduce-scatters the
+    gradient back onto the shards.
+  * ``TP_SMALL`` — small but TP-sheared (only on meshes with ``tp > 1``):
+    stored as stacked per-rank slices, whole on every FSDP rank.
   * ``REPL`` — small replicated leaves (biases, norm scales, and weights
     under ``compress_min_size``): stored and used as they are, on every
     rank.
 
 Kind assignment depends only on the logical shape, the
 :class:`~repro_torch.models.meta.ParamMeta` and ``compress_min_size``,
-never on the mesh geometry, exactly as in the reference.
+never on the mesh geometry, exactly as in the reference. ``DIST`` storage
+order is TP slice first, then flatten, then zero-pad; stacked leaves keep
+the layer-repetition dim outside: ``(reps, tp, pad_rep)``. When
+``tp_units < tp`` (kv-head replication) consecutive model ranks share a
+unit and ``repl_factor`` records the multiplicity, which the AWP monitor
+divides back out.
 
 On the trivial mesh (``tp == 1 and dshards == 1``) storage *is* the
 logical tensor and materialization of a ``DIST`` leaf is the
 straight-through format truncation (per use, or once under
 weight-stationary serving, :func:`placed_leaf`).
 
-On a data-parallel mesh each rank is one process and holds its own shard:
-:func:`tree_to_storage` lays a leaf out as the reference does (the whole
-padded flat array), and :func:`local_shard` / :func:`tree_to_local` take
-rank ``r``'s block, what the reference's ``leaf_partition_spec`` selects
-for ``shard_map``. The reference's ``dist/shard.py`` (its ``shard_map``
-version shim) has no counterpart here: each rank's process *is* the shard.
-``tp > 1`` raises ``NotImplementedError`` (the FSDP×TP slice, ROADMAP
-Queue 1 item 6.1).
+On a sharded mesh each rank is one process and holds its own block:
+:func:`tree_to_storage` lays a leaf out as the reference does (all ranks'
+blocks), and :func:`local_shard` / :func:`tree_to_local` take the block
+of the rank at mesh coordinates (pod, data, model), what the reference's
+``leaf_partition_spec`` selects for ``shard_map``. A rank is numbered in
+mesh order, ``((pod * dp) + data) * tp + model``, as the reference's
+``jax.make_mesh`` lays devices out. The reference's ``dist/shard.py``
+(its ``shard_map`` version shim) has no counterpart here: each rank's
+process *is* the shard.
 """
 from __future__ import annotations
 
@@ -147,53 +156,107 @@ def build_leaf_spec(
     )
 
 
-def _require_no_tp(mesh_cfg: MeshCfg) -> None:
-    if mesh_cfg.tp > 1:
-        raise NotImplementedError(
-            f"tensor parallelism is not ported (got tp={mesh_cfg.tp}; the "
-            "FSDP×TP slice, ROADMAP Queue 1 item 6.1)"
-        )
+def mesh_coords(mesh_cfg: MeshCfg, rank: int) -> tuple[int, int]:
+    """``(fsdp index, model index)`` of global rank ``rank`` in mesh order:
+    the FSDP index is ``pod * dp + data``, the rank's place in its gather
+    group."""
+    if not 0 <= rank < mesh_cfg.dshards * mesh_cfg.tp:
+        raise ValueError(f"rank {rank} outside the {mesh_cfg.shape} mesh")
+    return rank // mesh_cfg.tp, rank % mesh_cfg.tp
 
 
 def storage_shape(spec: LeafSpec, mesh_cfg: MeshCfg) -> tuple[int, ...]:
-    """Shape of the whole storage array of a leaf (all ranks' shards)."""
-    _require_no_tp(mesh_cfg)
+    """Shape of the whole storage array of a leaf (all ranks' blocks)."""
     lead = (spec.reps,) if spec.stacked else ()
     if mesh_cfg.trivial or spec.kind == REPL:
         return lead + spec.logical
+    if spec.kind == TP_SMALL:
+        return lead + (mesh_cfg.tp,) + spec.local_logical
+    if spec.meta.tp_dim is not None:
+        return lead + (mesh_cfg.tp, spec.pad_rep)
     return lead + (spec.pad_rep,)
+
+
+def _tp_slice(x, spec: LeafSpec, rank: int, tp: int):
+    """Model rank ``rank``'s TP-local logical slice of an unstacked
+    logical leaf (a view)."""
+    meta = spec.meta
+    if meta.tp_dim is None or tp == 1:
+        return x
+    start = meta.tp_slice_index(rank, spec.logical, tp)
+    return x.narrow(meta.tp_dim, start, spec.local_logical[meta.tp_dim])
+
+
+def tp_slice(x, spec: LeafSpec, mesh_cfg: MeshCfg, model_rank: int):
+    """Model rank ``model_rank``'s TP-local logical slice of a logical leaf
+    (per repetition when stacked): what that rank's materialized weights
+    hold. A view of an unstacked leaf, a copy of a stacked one."""
+    if spec.meta.tp_dim is None or mesh_cfg.tp == 1:
+        return x
+    if spec.stacked:
+        return torch.stack([_tp_slice(x[i], spec, model_rank, mesh_cfg.tp)
+                            for i in range(spec.reps)])
+    return _tp_slice(x, spec, model_rank, mesh_cfg.tp)
 
 
 def leaf_to_storage(x, spec: LeafSpec, mesh_cfg: MeshCfg):
     """Lay one logical leaf out in storage form: the identity on the
-    trivial mesh and for ``REPL`` leaves; a ``DIST`` leaf flattened and
+    trivial mesh and for ``REPL`` leaves; a ``TP_SMALL`` leaf as its
+    stacked per-rank slices; a ``DIST`` leaf TP-sliced, flattened and
     zero-padded to ``pad_rep`` (per layer repetition when stacked)."""
-    _require_no_tp(mesh_cfg)
     if mesh_cfg.trivial or spec.kind == REPL:
         return x
-    lead = (spec.reps,) if spec.stacked else ()
-    flat = x.reshape(lead + (-1,))
-    pad = spec.pad_rep - flat.shape[-1]
-    return torch.nn.functional.pad(flat, (0, pad)) if pad else flat.contiguous()
+    tp = mesh_cfg.tp
+
+    def flat_pad(sl):
+        flat = sl.reshape(-1)
+        pad = spec.pad_rep - flat.shape[0]
+        return torch.nn.functional.pad(flat, (0, pad)) if pad else flat.contiguous()
+
+    def one(rep_x):
+        if spec.kind == TP_SMALL:
+            return torch.stack([_tp_slice(rep_x, spec, r, tp) for r in range(tp)])
+        if spec.meta.tp_dim is not None:
+            return torch.stack([flat_pad(_tp_slice(rep_x, spec, r, tp)) for r in range(tp)])
+        return flat_pad(rep_x)
+
+    if spec.stacked:
+        return torch.stack([one(x[i]) for i in range(spec.reps)])
+    return one(x)
 
 
 def local_shard(x, spec: LeafSpec, mesh_cfg: MeshCfg, rank: int):
-    """Rank ``rank``'s block of a storage array (what the reference's
-    ``leaf_partition_spec`` selects): a ``DIST`` leaf's ``pad_rep /
-    dshards`` flat elements at ``rank``'s offset (per repetition), any
-    other leaf whole."""
-    _require_no_tp(mesh_cfg)
-    if mesh_cfg.trivial or spec.kind != DIST:
+    """Global rank ``rank``'s block of a storage array (what the
+    reference's ``leaf_partition_spec`` selects), a copy: a ``DIST``
+    leaf's ``pad_rep / dshards`` flat elements at the rank's FSDP offset
+    (per repetition), of its model rank's slice when TP-sliced (the
+    ``tp`` dim kept, at size 1); a ``TP_SMALL`` leaf's model-rank slice
+    (size-1 ``tp`` dim); a ``REPL`` leaf whole. The trivial mesh's storage
+    is returned as it is."""
+    if mesh_cfg.trivial:
         return x
-    if not 0 <= rank < mesh_cfg.dshards:
-        raise ValueError(f"rank {rank} outside the {mesh_cfg.dshards} data shards")
+    if spec.kind == REPL:
+        return x.clone()
+    f, m = mesh_coords(mesh_cfg, rank)
+    lead = 1 if spec.stacked else 0
+    if spec.kind == TP_SMALL:
+        return x.narrow(lead, m, 1).clone()
+    if spec.meta.tp_dim is not None:
+        x = x.narrow(lead, m, 1)
     per = spec.pad_rep // mesh_cfg.dshards
-    return x[..., rank * per:(rank + 1) * per].contiguous()
+    return x[..., f * per:(f + 1) * per].clone()
 
 
 def tree_to_local(storage, spec_tree, mesh_cfg: MeshCfg, rank: int):
-    """Rank ``rank``'s shards of a whole storage tree."""
+    """Rank ``rank``'s blocks of a whole storage tree."""
     return tree_map(lambda x, s: local_shard(x, s, mesh_cfg, rank), storage, spec_tree)
+
+
+def leaf_to_local(x, spec: LeafSpec, mesh_cfg: MeshCfg, rank: int):
+    """Rank ``rank``'s block of one logical leaf (``leaf_to_storage``, then
+    ``local_shard``), so a caller can lay a model out one leaf at a time
+    and free each whole leaf before the next."""
+    return local_shard(leaf_to_storage(x, spec, mesh_cfg), spec, mesh_cfg, rank)
 
 
 def materialize_leaf(
@@ -206,20 +269,28 @@ def materialize_leaf(
     key=None,
     group=None,
 ):
-    """Rank-local storage -> logical weights at ``round_to`` (an int or a
-    :class:`~repro_torch.transport.CompressionPolicy`). On the trivial mesh
-    a ``DIST`` leaf goes through the straight-through pack∘unpack; on a
-    data-parallel mesh its flat shard goes through the compressed
-    all-gather over ``group`` (the FSDP group; ``None`` is the default
-    group), whose backward reduce-scatters the gradient, and the padding
-    is sliced off. The rest are used as stored."""
-    _require_no_tp(mesh_cfg)
+    """Rank-local storage -> TP-local logical weights at ``round_to`` (an
+    int or a :class:`~repro_torch.transport.CompressionPolicy`), for one
+    layer repetition (``x`` carries no repetition dim). On the trivial
+    mesh a ``DIST`` leaf goes through the straight-through pack∘unpack;
+    on a sharded mesh its flat shard goes through the compressed
+    all-gather over ``group`` (the rank's FSDP group; ``None`` is the
+    default group), whose backward reduce-scatters the gradient, and the
+    padding is sliced off (with one FSDP rank: the straight-through
+    quantize). A ``TP_SMALL`` block drops its size-1 ``tp`` dim; the rest
+    are used as stored."""
     policy = policy_for(round_to, grad_round_to)
-    if spec.kind != DIST:
-        return x
     if mesh_cfg.trivial:
-        return _T.quantize(x, policy, key)
-    full = _T.all_gather(x.reshape(-1), group, policy, 0, key)
+        return _T.quantize(x, policy, key) if spec.kind == DIST else x
+    if spec.kind == REPL:
+        return x
+    if spec.kind == TP_SMALL:
+        return x[0]
+    flat = x.reshape(-1)
+    if mesh_cfg.dshards > 1:
+        full = _T.all_gather(flat, group, policy, 0, key)
+    else:
+        full = _T.quantize(flat, policy, key)
     n = spec.n_local
     if n != full.shape[0]:
         full = full[:n]
@@ -242,10 +313,11 @@ def build_spec_tree(params, metas, mesh_cfg: MeshCfg):
 
 
 def dist_elems_per_group(spec_tree, mesh_cfg: MeshCfg, num_groups: int) -> list[int]:
-    """Compressed (``DIST``) element count per precision group — the
-    geometry :meth:`~repro_torch.plan.PrecisionPlan.wire_table` multiplies
-    by a policy's bytes/element. The last group covers the top-level
-    leaves (embedding / head), matching the ``round_tos`` layout."""
+    """Compressed (``DIST``) element count per precision group (of one
+    model rank's slices) — the geometry
+    :meth:`~repro_torch.plan.PrecisionPlan.wire_table` multiplies by a
+    policy's bytes/element. The last group covers the top-level leaves
+    (embedding / head), matching the ``round_tos`` layout."""
     elems = [0] * num_groups
 
     def visit(idx, leaves):
@@ -262,7 +334,6 @@ def dist_elems_per_group(spec_tree, mesh_cfg: MeshCfg, num_groups: int) -> list[
 def tree_to_storage(params, spec_tree, mesh_cfg: MeshCfg):
     """Lay a parameter tree out in storage form (the identity on the
     trivial mesh: storage is the logical tensors themselves)."""
-    _require_no_tp(mesh_cfg)
     if mesh_cfg.trivial:
         return params
     return tree_map(lambda x, s: leaf_to_storage(x, s, mesh_cfg), params, spec_tree)
@@ -280,7 +351,7 @@ def placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg, round_to):
     then move no weights at all (the trivial mesh only)."""
     if not mesh_cfg.trivial:
         raise NotImplementedError("weight-stationary placement on a sharded mesh is not "
-                                  "ported (the FSDP×TP slice, ROADMAP Queue 1 item 6.1)")
+                                  "ported (serving at tp > 1, ROADMAP Queue 1 item 7.1)")
     if spec.kind == DIST:
         return _T.quantize(x, policy_for(round_to))
     return x

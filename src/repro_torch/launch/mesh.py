@@ -2,19 +2,25 @@
 
 The reference builds a ``jax.sharding.Mesh`` over devices; here each rank
 is one process of an initialised ``torch.distributed`` process group, and
-the mesh is a ``DeviceMesh`` over those ranks. Only data parallelism is
-ported (``tp == 1``): the mesh's axes are ``("data",)`` or ``("pod",
-"data")``, and the weight gather runs over the flattened pod × data group.
-:func:`spawn_ranks` starts the ranks: processes on one machine that meet
-in a gloo group through a ``FileStore`` in a temporary directory (several
-may share one card). Nothing here runs at import.
+:func:`make_mesh_from_cfg` gives a :class:`Mesh`: a ``DeviceMesh`` over
+those ranks with the reference's axes (``("data", "model")`` or ``("pod",
+"data", "model")``) and the two process groups a step needs — the rank's
+model group (its TP peers, the same pod and data index) and its FSDP
+group (pod × data at its model index: the weight gather's and the
+gradient reduce-scatter's group). Ranks are numbered in mesh order, as
+``dist.spec.mesh_coords`` reads them. :func:`spawn_ranks` starts the
+ranks: processes on one machine that meet in a gloo group through a
+``FileStore`` in a temporary directory (several may share one card).
+Nothing here runs at import.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
 import tempfile
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -31,40 +37,59 @@ def mesh_cfg_for(*, multi_pod: bool = False) -> MeshCfg:
     return MULTI_POD if multi_pod else SINGLE_POD
 
 
-def make_mesh_from_cfg(mesh_cfg: MeshCfg) -> DeviceMesh | None:
-    """``None`` on the trivial mesh; otherwise a ``DeviceMesh`` over the
-    ranks of the default process group, shaped ``(pods, dp)`` or ``(dp,)``
-    with axes ``("pod", "data")`` or ``("data",)``. Its device type is
-    ``cpu``: the gloo collectives move host memory (``dist.comm``). Every
-    rank calls this, in the same order."""
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ranks' mesh and this rank's groups. ``fsdp`` is ``None`` (the
+    default group) when the gather spans every rank (``tp == 1``);
+    ``model`` is ``None`` when there is no model axis (``tp == 1``)."""
+
+    cfg: MeshCfg
+    device_mesh: DeviceMesh
+    fsdp: Any = None
+    model: Any = None
+
+
+def make_mesh_from_cfg(mesh_cfg: MeshCfg) -> Mesh | None:
+    """``None`` on the trivial mesh; otherwise the :class:`Mesh` over the
+    ranks of the default process group. Its ``DeviceMesh`` is shaped
+    ``mesh_cfg.shape`` with axes ``mesh_cfg.axis_names`` (the model axis
+    dropped at ``tp == 1``); its device type is ``cpu``: the gloo
+    collectives move host memory (``dist.comm``). At ``tp > 1`` the
+    model group is the mesh's ``model`` dimension and the FSDP group its
+    ``data`` dimension (with pods, ``pod`` × ``data`` flattened). Every
+    rank calls this, in the same order (the groups are made
+    collectively)."""
     if mesh_cfg.trivial:
         return None
-    if mesh_cfg.tp > 1:
-        raise NotImplementedError(
-            f"tensor parallelism is not ported (got tp={mesh_cfg.tp}; the FSDP×TP "
-            "slice, ROADMAP Queue 1 item 6.1)"
-        )
     if not dist.is_initialized():
         raise RuntimeError("make_mesh_from_cfg needs an initialised torch.distributed "
                            "process group (one rank a process)")
     world = dist.get_world_size()
-    if world != mesh_cfg.dshards:
-        raise ValueError(f"mesh {mesh_cfg.shape} needs {mesh_cfg.dshards} ranks, the "
-                         f"process group has {world}")
-    shape = mesh_cfg.shape[:-1]  # tp == 1: drop the model axis
-    names = mesh_cfg.axis_names[:-1]
-    ranks = torch.arange(world).reshape(shape)
-    return DeviceMesh("cpu", ranks, mesh_dim_names=names)
+    want = mesh_cfg.dshards * mesh_cfg.tp
+    if world != want:
+        raise ValueError(f"mesh {mesh_cfg.shape} needs {want} ranks, the process group "
+                         f"has {world}")
+    shape, names = mesh_cfg.shape, mesh_cfg.axis_names
+    if mesh_cfg.tp == 1:
+        shape, names = shape[:-1], names[:-1]
+    device_mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape), mesh_dim_names=names)
+    if mesh_cfg.tp == 1:
+        return Mesh(mesh_cfg, device_mesh)
+    fsdp_mesh = device_mesh["data"] if mesh_cfg.pods == 1 else device_mesh["pod", "data"]._flatten()
+    return Mesh(mesh_cfg, device_mesh, fsdp=fsdp_mesh.get_group(),
+                model=device_mesh.get_group("model"))
 
 
-def fsdp_group(mesh: DeviceMesh | None):
-    """The weight gather's process group: the flattened pod × data group.
-    With ``tp == 1`` that is every rank of the mesh, which spans the
-    default group, so the default group (``None``) is it; the trivial
-    mesh has none either."""
-    if mesh is not None and mesh.mesh.numel() != dist.get_world_size():
-        raise ValueError("the mesh must span the default process group")
-    return None
+def fsdp_group(mesh: Mesh | None):
+    """The weight gather's process group: the flattened pod × data group
+    at this rank's model index (``None``, the default group, when that is
+    every rank, and on the trivial mesh)."""
+    return None if mesh is None else mesh.fsdp
+
+
+def model_group(mesh: Mesh | None):
+    """This rank's TP peers (``None``: no model axis)."""
+    return None if mesh is None else mesh.model
 
 
 def _rank_main(rank, fn, nprocs, tmp, args, threads, timeout_s):

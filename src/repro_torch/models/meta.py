@@ -53,6 +53,15 @@ class ParamMeta:
         out[dim] = per
         return tuple(out)
 
+    def tp_slice_index(self, rank: int, shape: tuple[int, ...], tp: int) -> int:
+        """Start offset (in elements along tp_dim) of ``rank``'s slice."""
+        dim = self.tp_dim
+        units = self.tp_units or shape[dim]
+        unit_w = shape[dim] // units
+        if units % tp == 0:
+            return rank * (units // tp) * unit_w
+        return (rank * units // tp) * unit_w
+
 
 # RMSNorm scales applied before a TP-region enter (token-partial grads
 # under the sequence-parallel layout)

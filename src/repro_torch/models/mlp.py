@@ -6,8 +6,9 @@ import torch.nn.functional as F
 
 
 def swiglu(x: torch.Tensor, w: dict, env) -> torch.Tensor:
-    """Column-parallel gate/up, row-parallel down (one model-axis psum in
-    the reference; the identity at tp = 1)."""
+    """Column-parallel gate/up, row-parallel down: ``env.enter`` /
+    ``env.exit`` carry the region's model-group collectives (the identity
+    with no model axis)."""
     xin = env.enter(x)
     g = F.silu(xin @ w["w_gate"])
     u = xin @ w["w_up"]

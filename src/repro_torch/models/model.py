@@ -1,5 +1,9 @@
 """Model assembly: embedding -> layer groups -> head / loss (counterpart
-of ``repro.models.model``, the ``attn`` pattern).
+of ``repro.models.model``, the ``attn`` pattern). Under tensor
+parallelism (``env.model_group``) every weight a function sees is the
+rank's TP slice: heads, ``d_ff`` and the vocabulary are split over the
+model group, and ``env``'s boundaries carry the collectives. Prefill and
+decode run on one rank only (serving at tp > 1 is not ported).
 
 Every forward routes through :func:`run_group`, whose loop over a group's
 layer repetitions materializes each layer's weights through the caller's
@@ -13,7 +17,9 @@ repetition, materialization included, in
 ``torch.utils.checkpoint.checkpoint`` (as the reference wraps its scan
 body in ``jax.checkpoint``): the backward keeps only the layer inputs and
 runs the repetition again, so its weights are packed and unpacked a
-second time there.
+second time there. The recomputation stops once it has every tensor the
+backward saved (early stop, pinned), so the layer's last TP-region exit is
+not run again (``train.step.remat_tp_collectives``).
 
 Caches are stacked per group (leading repetition dim) and updated in
 place; the returned caches are the same tensors. The serve engine's
@@ -26,7 +32,7 @@ import functools
 from typing import Any, Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
@@ -110,7 +116,11 @@ def run_group(
     remat = cfg.remat and mode == "train"
     for rep in range(cfg.layers_per_group // len(cfg.pattern)):
         if remat:
-            x = checkpoint(body, x, rep, use_reentrant=False)
+            # early stop pinned: the recomputation ends once the backward has
+            # every tensor it saved, so a layer's last TP-region exit (whose
+            # output nothing in the layer reads) is not run again
+            with set_checkpoint_early_stop(True):
+                x = checkpoint(body, x, rep, use_reentrant=False)
         else:
             x = body(x, rep)
     return x, caches
@@ -128,12 +138,19 @@ def _index(tree, i):
 
 
 def _embed(params, batch, cfg: ModelConfig, env: Env, mat_top):
-    table = mat_top("embed")  # (V, d)
-    return embed_lookup_vp(batch["tokens"], table, 0, env)
+    """Vocab-parallel token embedding in the env's activation layout:
+    each model rank looks up its vocabulary slice, and ``env.exit`` sums
+    the rows over the model group (under ``seq_parallel`` a
+    reduce-scatter onto this rank's sequence shard)."""
+    table = mat_top("embed")  # (V / tp, d)
+    vocab_start = env.model_rank() * table.shape[0]
+    return embed_lookup_vp(batch["tokens"], table, vocab_start, env)
 
 
 def _logits(x, params, cfg: ModelConfig, env: Env, mat_top):
-    """Final norm + logits entry (vocab-sharded in the reference at tp > 1)."""
+    """Final norm + vocab-parallel logits entry: ``env.enter`` takes the
+    activations into the region (gathering the sequence shards under
+    ``seq_parallel``); the logits are ``(B, S, V / tp)``."""
     x = rms_norm(x, mat_top("final_norm"), cfg.norm_eps)
     if cfg.tie_embeddings:
         return env.enter(x) @ mat_top("embed").T
@@ -152,7 +169,8 @@ def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
         x, _ = run_group(x, gp, cfg, env, mode="train",
                          mat_fn=functools.partial(mat_group, g))
     logits = _logits(x, params, cfg, env, mat_top)
-    nll_sum, count = lm_loss(logits, batch["labels"], env, 0, cfg.vocab_size)
+    vocab_start = env.model_rank() * logits.shape[-1]
+    nll_sum, count = lm_loss(logits, batch["labels"], env, vocab_start, cfg.vocab_size)
     return nll_sum, {"nll_sum": nll_sum, "token_count": count, "aux": 0.0}
 
 

@@ -1,17 +1,20 @@
 """PrecisionPlan — the declarative precision plan (counterpart of
-``repro.plan.plan``, the subset the one-device and data-parallel paths
-use).
+``repro.plan.plan``, the subset the one-device, data-parallel and
+FSDP×TP training paths use).
 
 A plan holds one :class:`~repro_torch.transport.CompressionPolicy` per
 weight precision group, an optional ``gradients`` policy (the backward
 reduce-scatter's format, folded into the weight policies' grad fields), an
-optional ``activations`` policy (the CNN's stage-boundary quantize), an
+optional ``activations`` policy (the LM's TP-region all-reduces; the
+CNN's stage-boundary quantize), an optional ``seq_boundary`` policy (the
+sequence-parallel gather / scatter pair; defaults to ``activations``), an
 optional ``host_device`` policy (the serve engine's token staging;
-defaults to the weight entries), ``chunks`` (the weight gather's plane
-blocks) and a schedule source (``static`` — the paper's oracle — or
-``awp``, with Algorithm 1's hyper-parameters).
-:meth:`PrecisionPlan.wire_table` is the per-entry byte account of one
-step, from the policy formulas.
+defaults to the weight entries), the layout (``seq_parallel``, ``chunks``
+— the weight gather's plane blocks — and ``env_overrides``, the
+``Env`` knobs ``attn_chunk`` and ``causal_skip``) and a schedule source
+(``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
+hyper-parameters). :meth:`PrecisionPlan.wire_table` is the per-entry
+byte account of one step, from the policy formulas.
 
 Plan JSON loads across packages: :meth:`PrecisionPlan.to_json_dict`
 writes the reference's other fields at their defaults, and
@@ -42,17 +45,17 @@ TRAFFIC_CLASSES = (
     "kv_migration", "weight_publish",
 )
 VALID_SCHEDULES = ("static", "awp")
+# Env knobs a plan may override (the reference's list has mlstm_chunk too,
+# for the xLSTM family, which is not ported)
+ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip")
 # The reference plan's fields this port has no code for, at the values
-# that leave a one-device CNN run unchanged.
+# that leave a run unchanged.
 UNPORTED_DEFAULTS = {
-    "seq_boundary": None,
     "kv_migration": None,
     "weight_publish": None,
-    "seq_parallel": False,
     "dtype": "f32",
     "int8_kv": False,
     "accum_steps": 1,
-    "env_overrides": {},
     "sampling": {"temperature": 0.0, "top_p": 1.0, "top_k": 0, "seed": 0},
     "spec_draft": "",
     "spec_k": 4,
@@ -116,9 +119,12 @@ class PrecisionPlan:
     weights: tuple[CompressionPolicy, ...] = (CompressionPolicy(),)
     gradients: CompressionPolicy | None = None
     activations: CompressionPolicy | None = None
+    seq_boundary: CompressionPolicy | None = None
     host_device: CompressionPolicy | None = None
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
+    seq_parallel: bool = False
     chunks: int = 1
+    env_overrides: tuple[tuple[str, object], ...] = ()
 
     def __post_init__(self):
         ws = self.weights
@@ -128,7 +134,7 @@ class PrecisionPlan:
         if not ws or any(w is None for w in ws):
             raise ValueError("plan needs at least one weights entry")
         object.__setattr__(self, "weights", ws)
-        for name in ("gradients", "activations", "host_device"):
+        for name in ("gradients", "activations", "seq_boundary", "host_device"):
             object.__setattr__(self, name, _coerce_policy(getattr(self, name)))
         if isinstance(self.schedule, Mapping):
             object.__setattr__(self, "schedule", Schedule(**self.schedule))
@@ -136,13 +142,26 @@ class PrecisionPlan:
             raise ValueError("schedule must be a Schedule")
         if not isinstance(self.chunks, int) or self.chunks < 1:
             raise ValueError("chunks must be an int >= 1")
+        if isinstance(self.env_overrides, Mapping):
+            object.__setattr__(self, "env_overrides",
+                               tuple(sorted(self.env_overrides.items())))
+        object.__setattr__(self, "env_overrides",
+                           tuple(tuple(kv) for kv in self.env_overrides))
+        for k, _ in self.env_overrides:
+            if k == "mlstm_chunk":
+                raise NotImplementedError(
+                    "env override mlstm_chunk: the xLSTM family is not ported "
+                    "(ROADMAP Queue 1 item 11)")
+            if k not in ENV_OVERRIDE_KEYS:
+                raise ValueError(f"unknown env override {k!r} (allowed: {ENV_OVERRIDE_KEYS})")
         # activation-path stochastic rounding has no PRNG plumbing
-        a = self.activations
-        if a is not None and "stochastic" in (a.mode, a.grad_mode):
-            raise ValueError(
-                "activations policy cannot use stochastic rounding; "
-                "use mode='nearest'"
-            )
+        for name in ("activations", "seq_boundary"):
+            a = getattr(self, name)
+            if a is not None and "stochastic" in (a.mode, a.grad_mode):
+                raise ValueError(
+                    f"{name} policy cannot use stochastic rounding; "
+                    "use mode='nearest'"
+                )
 
     # -- resolution ------------------------------------------------------
     @property
@@ -201,6 +220,11 @@ class PrecisionPlan:
             out.append(w)
         return tuple(out)
 
+    def seq_policy(self) -> CompressionPolicy | None:
+        """The sequence-parallel pair's policy: ``seq_boundary``, else
+        ``activations``."""
+        return self.seq_boundary if self.seq_boundary is not None else self.activations
+
     def host_device_policies(self) -> tuple[CompressionPolicy, ...]:
         """Policies of the host<->device boundary (the paper's weight
         staging model and the serve engine's token staging): the
@@ -213,12 +237,24 @@ class PrecisionPlan:
     def compute_dtype(self) -> torch.dtype:
         return torch.float32  # the plan's dtype field is "f32" (only that is ported)
 
-    def make_env(self, mesh_cfg):
-        """Build the execution :class:`~repro_torch.models.env.Env` (the
-        trivial mesh only: ``Env`` raises for tp > 1)."""
+    def make_env(self, mesh_cfg, mesh=None):
+        """Build the execution :class:`~repro_torch.models.env.Env`: the
+        model and FSDP groups of ``mesh`` (``launch.mesh.make_mesh_from_cfg``'s;
+        needed at ``tp > 1``), the activation and seq-boundary policies,
+        the layout and the env overrides."""
+        from repro_torch.launch.mesh import fsdp_group, model_group
         from repro_torch.models.env import Env
 
-        return Env(tp=mesh_cfg.tp, dtype=self.compute_dtype)
+        return Env(
+            model_group=model_group(mesh),
+            fsdp_group=fsdp_group(mesh),
+            tp=mesh_cfg.tp,
+            dtype=self.compute_dtype,
+            act_policy=self.activations,
+            seq_policy=self.seq_boundary,
+            seq_parallel=self.seq_parallel,
+            **dict(self.env_overrides),
+        )
 
     @property
     def needs_rng(self) -> bool:
@@ -236,7 +272,8 @@ class PrecisionPlan:
 
     # -- per-entry wire accounting ---------------------------------------
     def wire_table(self, dist_elems_per_group, gather_axis_size: int = 1, *,
-                   training: bool = True) -> dict:
+                   training: bool = True, tp: int = 1, act_elems: int = 0,
+                   act_collectives: int = 0) -> dict:
         """Per-traffic-class wire bytes of ONE step, from the policy
         formulas. The keys are the reference's; classes a step does not
         move report 0.
@@ -249,6 +286,12 @@ class PrecisionPlan:
         weights (``all_gather_wire_bytes``) and, when ``training``, the
         reduce-scatter bytes of their gradients
         (``reduce_scatter_wire_bytes``).
+        ``act_elems`` × ``act_collectives`` — gathered activation element
+        count and number of TP-region boundaries a step (at ``tp > 1``):
+        the ``seq_boundary`` row under ``seq_parallel`` (pairs,
+        ``seq_pair_wire_bytes``), else the ``activations`` row
+        (all-reduces, ``all_reduce_wire_bytes``); both at the policy's
+        forward width.
         """
         pols = self.weight_policies()
         elems = list(dist_elems_per_group)
@@ -267,6 +310,13 @@ class PrecisionPlan:
         else:
             for pol, e in zip(self.host_device_policies(), elems):
                 table["host_device"] += pol.host_device_bytes(e)
+        if act_collectives and act_elems and tp > 1:
+            act = self.activations or CompressionPolicy()
+            seq = self.seq_policy() or CompressionPolicy()
+            if self.seq_parallel:
+                table["seq_boundary"] = act_collectives * seq.seq_pair_wire_bytes(act_elems, tp)
+            else:
+                table["activations"] = act_collectives * act.all_reduce_wire_bytes(act_elems, tp)
         table["total"] = sum(table[k] for k in TRAFFIC_CLASSES)
         return table
 
@@ -281,9 +331,12 @@ class PrecisionPlan:
             "weights": [pol(w) for w in self.weights],
             "gradients": pol(self.gradients),
             "activations": pol(self.activations),
+            "seq_boundary": pol(self.seq_boundary),
             "host_device": pol(self.host_device),
             "schedule": dataclasses.asdict(self.schedule),
+            "seq_parallel": self.seq_parallel,
             "chunks": self.chunks,
+            "env_overrides": dict(self.env_overrides),
         }
         d = {"version": 1}
         for k in JSON_FIELDS:
@@ -334,14 +387,17 @@ class PrecisionPlan:
         grad_mode: str = "nearest",
         act_round_to: int = 4,
         act_mode: str = "nearest",
+        seq_parallel: bool = False,
         chunks: int = 1,
         schedule: str = "static",
         awp_threshold: float = -2e-3,
         awp_interval: int = 100,
         awp_initial_bits: int = 8,
+        env_overrides=(),
     ) -> "PrecisionPlan":
         """The CLI flag → plan builder the launchers use (the reference's
-        ``build`` restricted to the flags of the CNN path)."""
+        ``build`` without the flags of unported fields: ``dtype``,
+        ``int8_kv``, ``accum_steps``)."""
         gradients = None
         if grad_round_to is not None and (
             grad_round_to != 4 or grad_mode != "nearest"
@@ -364,7 +420,9 @@ class PrecisionPlan:
             ),) * num_groups,
             gradients=gradients,
             activations=activations,
+            seq_parallel=seq_parallel,
             chunks=chunks,
+            env_overrides=env_overrides,
             schedule=Schedule(
                 source=schedule,
                 awp_threshold=awp_threshold,

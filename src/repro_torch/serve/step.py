@@ -47,7 +47,8 @@ def _serve_plan(cfg, plan, *, caller):
 def _one_device(mesh, mesh_cfg: MeshCfg, caller: str):
     if mesh is not None or not mesh_cfg.trivial:
         raise NotImplementedError(
-            f"{caller}: only one device is ported (mesh=None, trivial MeshCfg)"
+            f"{caller}: only one device is ported (mesh=None, trivial MeshCfg; serving "
+            "at tp > 1 is ROADMAP Queue 1 item 7.1)"
         )
 
 

@@ -9,11 +9,14 @@ the format changes of a run (at most ``3 × num_groups``: AWP only widens).
 A :class:`~repro_torch.plan.PrecisionPlan` drives the loop: its schedule
 source selects between the static oracle and AWP, and its
 :meth:`~repro_torch.plan.PrecisionPlan.wire_table` is the per-step
-analytic wire log. Across data-parallel ranks (``gather_axis_size > 1``)
-each step also gets a measured log: ``ring_wire_bytes`` of the collectives
-that :mod:`repro_torch.dist.comm` recorded during the step, per traffic
-class, a count independent of the plan's formulas; the step's
-``wire_bytes`` is then the measured total of the plan's classes. (The
+analytic wire log, and a step's ``wire_bytes`` is its total, as in the
+reference. Across ranks (``gather_axis_size > 1``) each step also gets a
+measured log: ``ring_wire_bytes`` of the collectives that
+:mod:`repro_torch.dist.comm` recorded during the step, per traffic class
+(``weights``, ``gradients``, ``activations``, ``seq_boundary`` and the
+classes no plan entry prices: ``grad_sync``, ``metrics``, ``loss``), a
+count independent of the plan's formulas, with the seconds the step spent
+staging tensors between the device and the host for gloo. (The
 reference's pre-plan ``policy=`` strings are not ported: every caller
 passes a plan.)
 """
@@ -28,7 +31,6 @@ import numpy as np
 from repro_torch.core.awp import AWPController
 from repro_torch.dist import comm
 from repro_torch.plan import PrecisionPlan
-from repro_torch.plan.plan import TRAFFIC_CLASSES
 
 
 @dataclasses.dataclass
@@ -42,8 +44,8 @@ class StepRecord:
     # per-traffic-class split of the plan's wire_table
     wire_by_entry: dict
     # measured per-traffic-class bytes (dist.comm's log of the step), with
-    # the fp32 psums the plan does not price ("grad_sync", "metrics");
-    # None on one device
+    # the classes the plan does not price ("grad_sync", "metrics", "loss");
+    # None on one device (no collective)
     measured_by_entry: dict | None = None
     # host clock of the step's device <-> host staging for gloo
     stage_s: float = 0.0
@@ -110,18 +112,17 @@ class Trainer:
             norms = metrics["group_norms_sq"].detach().cpu().numpy()
             self.controller.update(np.asarray(norms))
         entries = self.wire_entries(rts)
-        measured, stage_s, wire = None, 0.0, entries["total"]
-        if self.gather_n > 1:
-            calls = comm.LOG[first:]
+        measured, stage_s = None, 0.0
+        calls = comm.LOG[first:]
+        if self.gather_n > 1 or calls:
             measured = comm.wire_by_traffic(calls)
             stage_s = sum(c.stage_s for c in calls)
-            wire = sum(measured.get(k, 0) for k in TRAFFIC_CLASSES)
         self.records.append(
             StepRecord(
                 step=len(self.records),
                 loss=loss,
                 round_tos=rts,
-                wire_bytes=wire,
+                wire_bytes=entries["total"],
                 recompiled=recompiled,
                 wall_s=wall_s,
                 wire_by_entry=entries,
@@ -156,6 +157,7 @@ class Trainer:
                 for k, v in (getattr(r, key) or {}).items():
                     if k != "total":
                         by_entry[k] = by_entry.get(k, 0) + v
-            if key == "wire_by_entry" or self.gather_n > 1:
+            if key == "wire_by_entry" or any(r.measured_by_entry is not None
+                                             for r in self.records):
                 out[key] = by_entry
         return out

@@ -1,6 +1,6 @@
 """CompressionPolicy — the wire format of one precision group (counterpart
-of ``repro.transport.policy``, the parts the one-device and data-parallel
-paths read).
+of ``repro.transport.policy``, the parts the one-device, data-parallel
+and tensor-parallel paths read).
 
   * ``round_to``      — bytes kept per fp32 weight on the gather path
                         (paper §III: 1=fp8e7, 2=bf16, 3=bf24, 4=fp32),
@@ -102,6 +102,48 @@ class CompressionPolicy:
         producing an ``s_local``-element shard."""
         payload = axis_size * s_local * self.grad_round_to
         return round(ring_wire_bytes("reduce-scatter", payload, axis_size))
+
+    # -- activation path (TP axis): forward collectives move (round_to,
+    # mode) planes, cotangent collectives (grad_round_to, grad_mode) ---
+    def _act_width(self, grad: bool) -> int:
+        return self.grad_round_to if grad else self.round_to
+
+    def seq_gather_wire_bytes(self, elems_out: int, axis_size: int, *,
+                              grad: bool = False) -> int:
+        """Bytes received per device for one ``seq_gather`` producing
+        ``elems_out`` gathered elements (``grad``: the ``seq_scatter``
+        backward's cotangent gather)."""
+        payload = elems_out * self._act_width(grad)
+        return round(ring_wire_bytes("all-gather", payload, axis_size))
+
+    def seq_scatter_wire_bytes(self, elems_in: int, axis_size: int, *,
+                               grad: bool = False) -> int:
+        """Bytes received per device for one ``seq_scatter`` of
+        ``elems_in`` input elements (``grad``: the ``seq_gather``
+        backward's cotangent reduce-scatter)."""
+        payload = elems_in * self._act_width(grad)
+        return round(ring_wire_bytes("reduce-scatter", payload, axis_size))
+
+    def seq_pair_wire_bytes(self, elems: int, axis_size: int, *, grad: bool = False) -> int:
+        """One sequence-parallel boundary pair (``seq_gather`` into the
+        region + ``seq_scatter`` out of it) in one direction; ``elems`` is
+        the full (gathered) activation element count."""
+        return self.seq_gather_wire_bytes(elems, axis_size, grad=grad) + \
+            self.seq_scatter_wire_bytes(elems, axis_size, grad=grad)
+
+    def all_reduce_wire_bytes(self, elems: int, axis_size: int,
+                              uncompressed_bytes: int = FP32_BYTES, *,
+                              grad: bool = False) -> int:
+        """One TP-region all-reduce of ``elems`` activation elements
+        (``grad``: the cotangent all-reduce). Compressed: the packed
+        reduce-scatter + all-gather, both at the selected width;
+        uncompressed: the ring all-reduce at ``uncompressed_bytes`` an
+        element."""
+        if self._act_width(grad) < FP32_BYTES:
+            return self.seq_scatter_wire_bytes(elems, axis_size, grad=grad) + \
+                self.seq_gather_wire_bytes(elems, axis_size, grad=grad)
+        payload = elems * uncompressed_bytes
+        return round(ring_wire_bytes("all-reduce", payload, axis_size))
 
     def host_device_bytes(self, elems: int) -> int:
         """Paper's host->device model: every weight moves once per batch."""

@@ -11,6 +11,16 @@ paths of data-parallel training and the trivial-mesh quantize).
     each peer, ``all_to_all`` the planes, unpack and sum locally in fp32
     (``grad_round_to < 4``), or the plain fp32 reduce-scatter (4, the
     paper's setting). Any rank and any scatter axis.
+  * :func:`seq_gather` / :func:`seq_scatter` — activation path (TP axis).
+    The sequence-parallel conjugate pair: compressed all-gather along the
+    sequence dim with a compressed reduce-scatter backward, and vice
+    versa; forwards at the policy's ``round_to`` / ``mode``, backwards at
+    its ``grad_round_to`` / ``grad_mode``.
+  * :func:`all_reduce` — compressed all-reduce, decomposed into a packed
+    reduce-scatter and a packed all-gather along the rightmost divisible
+    dim (:func:`pick_split_axis`). Not differentiable: it is the forward
+    and cotangent mover inside the TP-region Functions of
+    :mod:`repro_torch.core.collectives`.
   * :func:`quantize` — single-device format truncation (pack∘unpack) with
     a straight-through gradient: what the compute side sees when there is
     no collective to ride on.
@@ -20,8 +30,8 @@ Bitpack and Bitunpack run the CUDA kernels for CUDA tensors
 version, as in the reference's ``resolve_impl``. Planes are always
 exact-shape ``(round_to, *w.shape)`` u8. The collectives are
 :mod:`repro_torch.dist.comm`'s (gloo; every call logged with its traffic
-class). The reference's activation path (``seq_gather``, ``seq_scatter``,
-``all_reduce``) comes with the FSDP×TP slice.
+class: ``weights`` and ``gradients`` on the weight path, ``activations``
+or ``seq_boundary`` on the activation path, as the caller says).
 
 The chunked path (``policy.chunks > 1``) splits a flat gather into
 independent pack -> all-gather -> unpack block pipelines and re-interleaves
@@ -34,11 +44,11 @@ import torch.distributed as dist
 
 from repro_torch.dist import comm
 from repro_torch.kernels.ops import bitpack, bitunpack, resolve_impl
-from repro_torch.transport.policy import CompressionPolicy, policy_for
+from repro_torch.transport.policy import FP32_BYTES, CompressionPolicy, policy_for
 
 __all__ = [
-    "Transport", "all_gather", "pack_planes", "quantize", "reduce_scatter",
-    "resolve_impl", "unpack_planes",
+    "Transport", "all_gather", "all_reduce", "pack_planes", "pick_split_axis", "quantize",
+    "reduce_scatter", "resolve_impl", "seq_gather", "seq_scatter", "unpack_planes",
 ]
 
 
@@ -65,17 +75,19 @@ def unpack_planes(planes: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _packed_all_gather(x, group, round_to, mode, impl, axis: int, key=None):
-    """Compressed all-gather of an arbitrary-rank fp32 tensor along
-    ``axis``: pack, gather the planes (their data axis is one further
-    along), unpack."""
+def _packed_all_gather(x, group, round_to, mode, impl, axis: int, key=None, *,
+                       traffic="weights"):
+    """Compressed all-gather of an arbitrary-rank tensor along ``axis``:
+    pack (non-fp32 inputs cast to fp32 exactly), gather the planes (their
+    data axis is one further along), unpack, cast back."""
     axis = axis % x.ndim  # planes prepend a dim: negatives must resolve first
     planes = pack_planes(x.to(torch.float32), round_to, mode=mode, impl=impl, key=key)
-    planes_g = comm.all_gather(planes, group, axis=axis + 1, traffic="weights")
+    planes_g = comm.all_gather(planes, group, axis=axis + 1, traffic=traffic)
     return unpack_planes(planes_g, impl=impl).to(x.dtype)
 
 
-def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None):
+def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None, *,
+                           traffic="gradients"):
     """Compressed reduce-scatter of an arbitrary-rank tensor along
     ``axis``: the scatter dim is split into per-peer blocks here, each
     block is packed, the planes ride one ``all_to_all``, and the unpacked
@@ -94,7 +106,7 @@ def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None):
     planes = pack_planes(gm, round_to, mode=mode, impl=impl, key=key)
     # (round_to, size, loc, ...): block j of dim 1 goes to rank j, and after
     # the exchange block j holds rank j's contribution to this rank's block
-    planes_x = comm.all_to_all(planes, group, axis=1, traffic="gradients")
+    planes_x = comm.all_to_all(planes, group, axis=1, traffic=traffic)
     contribs = unpack_planes(planes_x, impl=impl)
     out = torch.sum(contribs, dim=0)  # fp32 accumulation
     return out.movedim(0, axis).to(g.dtype)
@@ -139,6 +151,43 @@ def _reduce_scatter_impl(g, group, policy: CompressionPolicy, axis: int, key=Non
         return comm.reduce_scatter(g, group, axis=axis, traffic="gradients")
     return _packed_reduce_scatter(g, group, policy.grad_round_to, policy.grad_mode,
                                   policy.impl, axis, key=key)
+
+
+def _seq_gather_impl(x, group, policy: CompressionPolicy, axis: int):
+    if not policy.compresses:
+        return comm.all_gather(x, group, axis=axis, traffic="seq_boundary")
+    return _packed_all_gather(x, group, policy.round_to, policy.mode, policy.impl, axis,
+                              traffic="seq_boundary")
+
+
+def _seq_scatter_impl(x, group, policy: CompressionPolicy, axis: int):
+    # forward activation path: the policy's *forward* format fields
+    if not policy.compresses:
+        return comm.reduce_scatter(x, group, axis=axis, traffic="seq_boundary")
+    return _packed_reduce_scatter(x, group, policy.round_to, policy.mode, policy.impl, axis,
+                                  traffic="seq_boundary")
+
+
+def pick_split_axis(shape, size: int) -> int | None:
+    """Rightmost dim divisible by ``size`` — the axis the compressed
+    all-reduce splits along (rightmost, so that the per-peer blocks stay
+    contiguous in the activation layout (B, S, d)). None = no divisible
+    dim; the caller falls back to an uncompressed all-reduce."""
+    for a in reversed(range(len(shape))):
+        if shape[a] >= size and shape[a] % size == 0:
+            return a
+    return None
+
+
+def _all_reduce_impl(x, group, policy: CompressionPolicy, use_grad_format: bool,
+                     traffic: str):
+    rt = policy.grad_round_to if use_grad_format else policy.round_to
+    mode = policy.grad_mode if use_grad_format else policy.mode
+    axis = None if rt >= FP32_BYTES else pick_split_axis(x.shape, dist.get_world_size(group))
+    if axis is None:
+        return comm.all_reduce(x, group, traffic=traffic)
+    part = _packed_reduce_scatter(x, group, rt, mode, policy.impl, axis, traffic=traffic)
+    return _packed_all_gather(part, group, rt, mode, policy.impl, axis, traffic=traffic)
 
 
 def _quantize_impl(w, policy: CompressionPolicy, key=None):
@@ -223,6 +272,76 @@ def reduce_scatter(
     return _reduce_scatter_impl(g, group, policy, axis)
 
 
+# -- activation path (TP axis) ----------------------------------------------
+
+
+class _SeqGather(torch.autograd.Function):
+    """Sequence-parallel enter: (compressed) all-gather of activation
+    shards along ``axis``, (compressed) reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, policy, axis):
+        ctx.group, ctx.policy, ctx.axis = group, policy, axis
+        return _seq_gather_impl(x, group, policy, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        pol = ctx.policy
+        if not pol.compresses_grads:
+            out = comm.reduce_scatter(g, ctx.group, axis=ctx.axis, traffic="seq_boundary")
+        else:
+            out = _packed_reduce_scatter(g, ctx.group, pol.grad_round_to, pol.grad_mode,
+                                         pol.impl, ctx.axis, traffic="seq_boundary")
+        return out, None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Sequence-parallel exit: (compressed) reduce-scatter of partial
+    activations along ``axis``, (compressed) all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, policy, axis):
+        ctx.group, ctx.policy, ctx.axis = group, policy, axis
+        return _seq_scatter_impl(x, group, policy, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        pol = ctx.policy
+        if not pol.compresses_grads:
+            out = comm.all_gather(g, ctx.group, axis=ctx.axis, traffic="seq_boundary")
+        else:
+            out = _packed_all_gather(g, ctx.group, pol.grad_round_to, pol.grad_mode,
+                                     pol.impl, ctx.axis, traffic="seq_boundary")
+        return out, None, None, None
+
+
+def seq_gather(x: torch.Tensor, group, policy: CompressionPolicy, axis: int = 1):
+    """Sequence-parallel enter over ``group``: the forward moves
+    ``policy.round_to`` of every fp32 byte, the cotangent's reduce-scatter
+    ``policy.grad_round_to``. Dtype-preserving."""
+    return _SeqGather.apply(x, group, policy, axis)
+
+
+def seq_scatter(x: torch.Tensor, group, policy: CompressionPolicy, axis: int = 1):
+    """Sequence-parallel exit over ``group``: each peer's block packed at
+    ``policy.round_to`` (contributions summed in fp32 after unpacking —
+    planes are never added); the cotangent all-gathers at
+    ``policy.grad_round_to``."""
+    return _SeqScatter.apply(x, group, policy, axis)
+
+
+def all_reduce(x: torch.Tensor, group, policy: CompressionPolicy, *,
+               use_grad_format: bool = False, traffic: str = "activations"):
+    """Compressed all-reduce over ``group``: a packed reduce-scatter and a
+    packed all-gather along the rightmost divisible dim
+    (:func:`pick_split_axis`); an uncompressed width (4) or a shape with
+    no divisible dim falls back to a plain all-reduce (the reference's
+    rule). ``use_grad_format=True`` selects the policy's grad fields
+    (cotangent psums). Not differentiable on purpose: it moves data inside
+    the TP-region Functions, whose transposes are pinned."""
+    return _all_reduce_impl(x, group, policy, use_grad_format, traffic)
+
+
 # ---------------------------------------------------------------------------
 # object API
 # ---------------------------------------------------------------------------
@@ -235,6 +354,9 @@ class Transport:
         t = Transport(fsdp_group)
         w_full = t.all_gather(w_shard, policy)        # differentiable
         g_shard = t.reduce_scatter(g_full, policy)    # any rank, axis=...
+
+    The activation path is called as functions (``seq_gather``,
+    ``seq_scatter``, ``all_reduce``) by :mod:`repro_torch.core.collectives`.
     """
 
     def __init__(self, group=None):

@@ -469,22 +469,32 @@ def test_ring_and_policy_wire_bytes_equal_reference():
 
 def test_mesh_configs_match_reference():
     """``mesh_cfg_for`` gives the reference's production geometries; the
-    trivial mesh has no ``DeviceMesh``; ``tp > 1`` is refused (item 6.1)."""
+    trivial mesh has no ``DeviceMesh``; a sharded one needs the ranks'
+    process group; ``local_shard`` at tp 2 takes the rank's block."""
     import dataclasses
 
     from repro.launch.mesh import mesh_cfg_for as j_mesh_cfg_for
-    from repro_torch.dist.spec import MeshCfg, local_shard
+    from repro_torch.dist.spec import MeshCfg, build_leaf_spec, leaf_to_storage, local_shard
     from repro_torch.launch.mesh import make_mesh_from_cfg, mesh_cfg_for
+    from repro_torch.models.meta import ParamMeta
 
     for multi in (False, True):
         t, j = mesh_cfg_for(multi_pod=multi), j_mesh_cfg_for(multi_pod=multi)
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert (t.shape, t.axis_names, t.dshards) == (j.shape, j.axis_names, j.dshards)
     assert make_mesh_from_cfg(MeshCfg()) is None
-    with pytest.raises(NotImplementedError, match="6.1"):
-        make_mesh_from_cfg(MeshCfg(tp=2))
-    with pytest.raises(NotImplementedError, match="6.1"):
-        local_shard(torch.zeros(4), None, MeshCfg(tp=2, dp=2), 0)
+    with pytest.raises(RuntimeError, match="initialised"):
+        make_mesh_from_cfg(MeshCfg(tp=2))  # FSDP×TP meshes: tests/test_torch_tp.py
+    # a TP-sliced DIST leaf at tp 2 × dp 2: rank (data f, model m) holds
+    # half of model rank m's slice, flat, at f's offset
+    mcfg = MeshCfg(tp=2, dp=2, compress_min_size=4)
+    spec = build_leaf_spec((4, 6), ParamMeta(tp_dim=1), mcfg)
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    storage = leaf_to_storage(x, spec, mcfg)
+    for r in range(4):
+        f, m = divmod(r, 2)
+        want = x[:, 3 * m:3 * m + 3].reshape(-1)[6 * f:6 * f + 6]
+        assert torch.equal(local_shard(storage, spec, mcfg, r), want[None])
 
 
 @pytest.mark.parametrize("kw", [

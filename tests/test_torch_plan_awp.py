@@ -10,6 +10,7 @@ from repro.core.awp import oracle_round_to as j_oracle
 from repro.plan import PrecisionPlan as JPlan
 from repro_torch.core.awp import AWPConfig, AWPController, oracle_round_to
 from repro_torch.core.formats import TransferFormat, bits_to_bytes
+from repro_torch.dist.spec import MeshCfg
 from repro_torch.plan import PrecisionPlan
 from repro_torch.transport import CompressionPolicy
 
@@ -86,14 +87,37 @@ def test_wire_table_equal(idx):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(int8_kv=True), dict(env_overrides={"attn_chunk": 64}), dict(seq_parallel=True),
+    dict(int8_kv=True), dict(env_overrides={"mlstm_chunk": 64}),
+    dict(sampling={"temperature": 0.5, "top_p": 1.0, "top_k": 0, "seed": 0}),
     dict(accum_steps=2), dict(dtype="bf16"),
 ])
 def test_unported_plan_fields_raise(kw):
     """A reference plan that sets a field the port has no code for is
-    refused, not silently run at the default."""
+    refused, not silently run at the default (``mlstm_chunk``: an env
+    override of the unported xLSTM family)."""
+    d = JPlan.build(9, round_to=2).to_json_dict()
+    d.update(kw)
     with pytest.raises(NotImplementedError):
-        PrecisionPlan.from_json(JPlan.build(9, round_to=2, **kw).to_json())
+        PrecisionPlan.from_json(JPlan.from_json_dict(d).to_json())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(seq_parallel=True), dict(env_overrides={"attn_chunk": 64, "causal_skip": False}),
+    dict(act_round_to=2, seq_parallel=True),
+], ids=["seq_parallel", "env_overrides", "act-seq"])
+def test_layout_plan_fields_load_and_save_as_the_reference(kw):
+    """The layout fields the FSDP×TP slice ported (``seq_parallel``,
+    ``env_overrides``, and ``seq_boundary`` beside ``activations``) load
+    from the reference's JSON and save to it, and reach the ``Env``."""
+    j = JPlan.build(9, round_to=2, **kw)
+    d = j.to_json_dict()
+    d["seq_boundary"] = {"round_to": 3, "grad_round_to": 3, "mode": "nearest",
+                         "grad_mode": "nearest", "impl": "auto", "chunks": 1}
+    t = PrecisionPlan.from_json_dict(d)
+    assert t.to_json_dict() == JPlan.from_json_dict(d).to_json_dict()
+    env = t.make_env(MeshCfg())
+    assert (env.seq_parallel, env.seq_policy.round_to) == (j.seq_parallel, 3)
+    assert env.attn_chunk == dict(j.env_overrides).get("attn_chunk", 1024)
 
 
 def test_alexnet_wire_bytes_at_each_width():

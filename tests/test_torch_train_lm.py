@@ -333,6 +333,16 @@ def _raises_mesh_object(s):
                           plan=PrecisionPlan.build(3))
 
 
+@pytest.mark.parametrize("case", [_raises_mesh, _raises_mesh_object],
+                         ids=lambda f: f.__name__[len("_raises_"):])
+def test_step_needs_the_mesh_of_its_cfg(setup, case):
+    """A sharded ``MeshCfg`` runs (``tests/test_torch_tp.py``) with the
+    mesh ``launch.mesh.make_mesh_from_cfg`` gives for it; without one, or
+    with a mesh object on the trivial mesh, the factory refuses."""
+    with pytest.raises(ValueError, match="mesh"):
+        case(setup)
+
+
 def _raises_stochastic(s):
     plan = PrecisionPlan(weights=(CompressionPolicy(round_to=2, mode="stochastic"),) * 3)
     tstep.make_train_step(s["tcfg"], s["tmesh"], None, s["tspec"], SGDConfig(), {}, plan=plan)
@@ -342,8 +352,8 @@ def _raises_accum(s):
     PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "accum_steps": 2})
 
 
-@pytest.mark.parametrize("case", [_raises_mesh, _raises_mesh_object, _raises_stochastic,
-                                  _raises_accum], ids=lambda f: f.__name__[len("_raises_"):])
+@pytest.mark.parametrize("case", [_raises_stochastic, _raises_accum],
+                         ids=lambda f: f.__name__[len("_raises_"):])
 def test_unported_step_options_raise(setup, case):
     with pytest.raises(NotImplementedError):
         case(setup)
@@ -424,9 +434,8 @@ def test_launcher_twin_prints_the_reference_awp_line(verify_runs, capsys, tmp_pa
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x1"], ["--bf16"], ["--grad-round-to", "2"], ["--grad-mode", "stochastic"],
-    ["--act-round-to", "2"], ["--seq-parallel"], ["--chunks", "2"], ["--accum", "2"],
-    ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"],
+    ["--bf16"], ["--grad-mode", "stochastic"], ["--accum", "2"], ["--ckpt", "x"], ["--resume"],
+    ["--data-dir", "x"],
 ], ids=lambda f: f[0])
 def test_launcher_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError):
@@ -434,13 +443,53 @@ def test_launcher_unported_flags_raise(flags):
                       *flags])
 
 
+# (flags, the traffic class that must move) of the flags the FSDP×TP slice
+# ported: each runs on a small mesh of gloo ranks (2 processes)
+PORTED_FLAGS = (
+    (["--mesh", "2x1"], "gradients"),
+    (["--mesh", "2x1", "--grad-round-to", "2", "--grad-mode", "truncate"], "gradients"),
+    (["--mesh", "1x2", "--act-round-to", "2"], "activations"),
+    (["--mesh", "1x2", "--seq-parallel"], "seq_boundary"),
+    (["--mesh", "2x1", "--chunks", "2"], "weights"),
+)
+
+
+@pytest.fixture(scope="module")
+def one_device_step(setup):
+    """The 1x1 launcher's first loss at the ported flags' batch."""
+    return tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
+                         "--seq", "16", "--batch", "4", "--policy", "oracle:2"])
+
+
+@pytest.mark.parametrize("flags,moves", PORTED_FLAGS,
+                         ids=["--mesh", "--grad-round-to", "--act-round-to", "--seq-parallel",
+                              "--chunks"])
+def test_launcher_ported_flags_run(flags, moves, one_device_step, capsys):
+    """The flags that raised before the FSDP×TP slice run on two ranks:
+    the measured wire equals ``step_wire_table`` (the launcher exits
+    otherwise), the flag's class moves, and the first loss is the one
+    device's within rtol 1e-5 (rounded activations: 1e-3)."""
+    s = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
+                      "--seq", "16", "--batch", "4", "--policy", "oracle:2", *flags])
+    assert "[OK against step_wire_table]" in capsys.readouterr().out
+    assert s["measured"][0][moves] > 0
+    rtol = 1e-3 if "--act-round-to" in flags else 1e-5
+    np.testing.assert_allclose(s["losses"][0], one_device_step["losses"][0], rtol=rtol)
+
+
 def test_launcher_plan_file(tmp_path, capsys):
-    ok, bad = tmp_path / "ok.json", tmp_path / "bad.json"
+    ok, act, bad = tmp_path / "ok.json", tmp_path / "act.json", tmp_path / "bad.json"
     ok.write_text(PrecisionPlan.build(3, round_to=2).to_json())
-    bad.write_text(PrecisionPlan.build(3, round_to=2, act_round_to=2).to_json())
+    act.write_text(PrecisionPlan.build(3, round_to=2, act_round_to=2).to_json())
+    bad.write_text(PrecisionPlan(weights=(CompressionPolicy(round_to=2),) * 3,
+                                 host_device=CompressionPolicy(round_to=2)).to_json())
     s = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                       "--plan", str(ok)])
     assert s["wire_reduction"] == 0.5
+    # the activation policy runs (one device: no TP region, the same step)
+    a = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
+                      "--plan", str(act)])
+    assert a["losses"] == s["losses"] and a["wire_reduction"] == 0.5
     with pytest.raises(NotImplementedError):
         tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                       "--plan", str(bad)])
