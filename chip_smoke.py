@@ -175,6 +175,40 @@ Phases, each printing its own lines:
      more uncompressed step on rank 0 (staging copies, GEMMs, other
      kernels, idle share), beside the card's name and power limit.
 
+ 14. main path — full-width qwen3-1.7b served at tp 2 (phase 7's weights
+     from seed 0, ``PrecisionPlan.build(round_to=2)``) as gloo ranks on the
+     one card, each building its blocks in turn. (a) A 1×2 mesh, phase 7's
+     requests and slots: static, engine, weight-stationary engine, paged
+     engine (page 64); then, with the TP-region all-reduces packed at
+     ``act_round_to`` 2 (truncate, so that the planes go through the
+     kernels), the 512-, 384- and 256-token prompts: static runs of one
+     request each, the engine at 1 slot (held to them exactly) and at 2
+     slots (which may leave them only where a batch-1 run's top-2 logit gap
+     is below the run's ``near_tie``: see ``TPS_RUNS_A``). (b) A
+     weight-stationary 2×2 mesh: phase 7's 512- and 256-token prompts at
+     ``TPS_B_GEN`` tokens, one slot a data rank: static, then the engine (the placement gathers once, every
+     admission prefill gathers over the FSDP group). Each rank checks its
+     launches (zeroed before and read after each run: Bitpack/Bitunpack
+     once per ``DIST`` leaf per materialization and twice per packed
+     all-reduce, flash 28 per prefill of a multiple of 128, ``paged_attend``
+     28 per paged decode step), its wire per forward per class against
+     ``serve_wire_table`` (57 TP-region exits a forward; no weights in a
+     weight-stationary decode step; the placement one forward's gathers),
+     its ``host_device`` bytes against ``serve_host_device_bytes``, and the
+     first launch of each kernel at each new shape (flash at H 8 / Kv 4,
+     ``paged_attend`` at Kv 4, Bitpack/Bitunpack at the TP slices' lengths)
+     against its plain version. Here: engine streams equal to the static
+     streams of the same mesh and plan (but for that 2-slot run's
+     allowance); the fp32 streams equal to phase 7's
+     one-device streams (a divergence prints one device's top-2 logit gap
+     there and fails unless it is below the logit bound); the 512-token
+     admission's logits within ``TPS_LOGIT_RTOL`` × max |logit| of phase 7's;
+     the logits' hashes and streams equal on every rank. Prints admission
+     and decode ms, tokens/s, the memory peak per rank, the gloo staging
+     share, bytes per traffic class per forward, and a ``torch.profiler``
+     trace of one 512-token admission and one warm decode step on rank 0 at
+     1×2, beside the card's name and power limit.
+
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -315,15 +349,15 @@ def time_graph(torch, fns, reps=2):
     return ms
 
 
-def time_qwen3_packing(torch, device):
+def time_qwen3_packing(torch, device, lengths=(*QWEN3_LAYER, QWEN3_EMBED)):
     """Bitpack and Bitunpack at qwen3-1.7b's per-layer lengths and its
-    embed, round_to 2 (the oracle:2 format), L2 cold: each times a
-    rotation over enough copies that one pass touches >= 100 MB."""
+    embed (or ``lengths``), round_to 2 (the oracle:2 format), L2 cold: each
+    times a rotation over enough copies that one pass touches >= 100 MB."""
     from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bitunpack import bitunpack
 
     gen = torch.Generator(device=device).manual_seed(3)
-    for n in (*QWEN3_LAYER, QWEN3_EMBED):
+    for n in lengths:
         nbytes = 6 * n  # 4 B read and 2 B written an element, either way
         copies = max(1, -(-100_000_000 // nbytes))
         ws = [torch.randn(n, generator=gen, device=device) for _ in range(copies)]
@@ -333,7 +367,7 @@ def time_qwen3_packing(torch, device):
             ("bitpack", [lambda w=w: bitpack(w, 2) for w in ws]),
             ("bitunpack", [lambda p=p: bitunpack(p) for p in planes]),
         ):
-            ms = time_graph(torch, fns, reps=1 if n == QWEN3_EMBED else 2)
+            ms = time_graph(torch, fns, reps=1 if n >= QWEN3_EMBED // 2 else 2)
             say(f"   {name} n={n} round_to=2, L2 cold ({copies} copies): {ms * 1e3:.1f} us "
                 f"({nbytes / ms / 1e6:.0f} GB/s), HBM bound {bound * 1e3:.1f} us "
                 f"({bound / ms:.0%} of it)")
@@ -784,8 +818,9 @@ def check_seen_flash(seen):
 
 def instrument(engine, timings):
     """Host-clock each admission and decode tick of ``engine`` (both end in
-    the d2h copy of the sampled ids, which waits for the device) and hold
-    every logit it samples from to be finite."""
+    the d2h copy of the sampled ids, which waits for the device), hold
+    every logit it samples from to be finite and keep the first logits it
+    samples from (the first admission's) on the host."""
     import torch
 
     admit, tick, sample = engine.admit, engine.decode_tick, engine._sample
@@ -804,20 +839,22 @@ def instrument(engine, timings):
 
     def checked_sample(logits):
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        timings.setdefault("first_logits", logits.detach().cpu())
         return sample(logits)
 
     engine.admit, engine.decode_tick, engine._sample = timed_admit, timed_tick, checked_sample
 
 
-def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req):
+def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None):
     """Greedy decode of one request (batch 1) with each step's top-2 logit
-    gap: what a diverging stream is checked against."""
+    gap: what a diverging stream is checked against (on a mesh, every rank
+    calls this alike)."""
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     S, dev = len(req.prompt_ids), storage["embed"].device
-    pre = make_prefill_step(cfg, mesh_cfg, None, spec_tree, plan=plan,
+    pre = make_prefill_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan,
                             cache_capacity=S + req.max_new)
-    dec = make_decode_step(cfg, mesh_cfg, None, spec_tree, plan=plan)
+    dec = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan)
     logits, caches = pre(storage, {"tokens": torch.tensor([req.prompt_ids], device=dev)})
     toks, gaps = [], []
     for i in range(req.max_new):
@@ -940,7 +977,8 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
             f"memory peak {peak / 2**30:.2f} GiB")
         out[label] = {"wall_s": wall, "tokens": new_tokens, "decode_ms": dec[len(dec) // 2] * 1e3,
                       "admit_ms": by_len, "peak": peak, "engine": engine,
-                      "streams": {k: r.tokens for k, r in results.items()}}
+                      "streams": {k: r.tokens for k, r in results.items()},
+                      "first_logits": timings["first_logits"]}
 
     unwatch()
     # every prefill shape the kernel took was held to the plain version
@@ -2415,6 +2453,430 @@ def tp_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
             "seq_gap": seq_gap, "seq_bits": seq_bits}
 
 # ---------------------------------------------------------------------------
+# phase 14: full-width qwen3-1.7b served at tp > 1 on gloo ranks
+# ---------------------------------------------------------------------------
+
+TPS_TP = 2
+# activations packed at round_to 2 in truncate mode, so that their planes go
+# through Bitpack and Bitunpack (nearest rounding packs on the plain version,
+# by the reference's rule)
+TPS_ACT2 = {"act_round_to": 2, "act_mode": "truncate"}
+# the runs of (a), the 1×2 mesh, in order: ``plan`` the PrecisionPlan.build
+# keywords beside round_to 2, ``engine`` the ServeEngine keywords (a static
+# run without; ``per_request``: one generate_static call a request, batch
+# 1), ``rids`` the requests (default all), ``against`` the static run an
+# engine's streams must equal. A row's GEMM bits depend on the batch's
+# shape (cuBLAS picks its kernel by the row count), and activations
+# truncated to bf16 at every TP-region exit carry a last-bit difference on
+# as a bf16 step: an H100 run's 2-slot engine at act_round_to 2 left the
+# batched static run at token 11 of request 2, where a batch-1 run's top-2
+# logit gap was 3.0e-3 (PERF.md §6, PR 18). So at act_round_to 2 the exact
+# pin is the 1-slot engine against batch-1 static runs, and the 2-slot
+# engine may leave them only where a batch-1 run's top-2 logit gap is below
+# ``near_tie`` (about 3x that reading); the fp32 engines are held exactly
+TPS_RUNS_A = (
+    {"label": "static"},
+    {"label": "engine", "engine": {}, "against": "static"},
+    {"label": "weight-stationary", "engine": {"weight_stationary": True}, "against": "static"},
+    {"label": "paged", "engine": {"paged": True, "page_size": PAGE}, "against": "static"},
+    {"label": "act2 static", "plan": TPS_ACT2, "rids": (0, 2, 3), "per_request": True},
+    {"label": "act2 engine, 1 slot", "plan": TPS_ACT2, "engine": {"max_slots": 1},
+     "rids": (0, 2, 3), "against": "act2 static"},
+    {"label": "act2 engine", "plan": TPS_ACT2, "engine": {}, "rids": (0, 2, 3),
+     "against": "act2 static", "near_tie": 1e-2},
+)
+# (b), the 2×2 mesh: phase 7's 512- and 256-token prompts, one slot a data rank
+TPS_RUNS_B = (
+    {"label": "static"},
+    {"label": "weight-stationary", "engine": {"weight_stationary": True}, "against": "static"},
+)
+TPS_B_RIDS = (0, 3)
+TPS_B_GEN = 4  # cut from 16: the static run gathers the weights every forward
+# the 512-token admission's logits against phase 7's (one device), relative
+# to their largest magnitude: the model group sums each matmul of half the
+# contraction on its own rank, then adds the halves
+TPS_LOGIT_RTOL = 1e-5
+
+
+def static_groups(requests, per_request=False):
+    """The batches ``generate_static`` runs: its prompt-length groups, or
+    one request each."""
+    if per_request:
+        return [[r] for r in requests]
+    groups = {}
+    for r in requests:
+        groups.setdefault(len(r.prompt_ids), []).append(r)
+    return list(groups.values())
+
+
+def static_wire(plan, cfg, spec_tree, mesh_cfg, groups):
+    """The collectives per class that ``generate_static`` moves on a rank by
+    ``serve_wire_table``: per batch of ``groups`` one prefill and ``gen -
+    1`` decode steps over the batch's rows on the rank."""
+    from repro_torch.serve.step import serve_wire_table
+    from repro_torch.train.step import COLLECTIVE_CLASSES
+
+    total = dict.fromkeys(COLLECTIVE_CLASSES, 0)
+    for reqs in groups:
+        S = len(reqs[0].prompt_ids)
+        shard = mesh_cfg.dshards > 1 and len(reqs) % mesh_cfg.dshards == 0
+        rows = len(reqs) // (mesh_cfg.dshards if shard else 1)
+        seq = plan.seq_parallel and S % mesh_cfg.tp == 0
+        gen = max(r.max_new for r in reqs)
+        for tokens, n in ((S, 1), (1, gen - 1)):
+            t = serve_wire_table(plan, cfg, spec_tree, mesh_cfg, rows=rows, tokens=tokens,
+                                 seq_parallel=seq and tokens == S)
+            for k in total:
+                total[k] += n * t[k]
+    return total
+
+
+def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
+    """One rank of phase 14 (a process of a gloo group of ``dp`` × 2): its
+    blocks of phase 7's weights, ``runs`` in turn with launch counts, wire
+    per forward, host<->device bytes and the kernels' first launches at
+    each shape checked on its own view; returns its measurements."""
+    import hashlib
+
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import DIST, MeshCfg
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.serve import check_wire, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine, generate_static
+    from repro_torch.serve.step import serve_wire_table
+    from repro_torch.train.step import COLLECTIVE_CLASSES, tp_boundaries
+    from repro_torch.utils.trees import tree_leaves
+
+    fp32_math()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh_cfg = MeshCfg(tp=TPS_TP, dp=dp)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    t0 = time.perf_counter()
+    _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank)
+    sync()
+    setup_s = time.perf_counter() - t0
+    nrt = cfg.num_groups + 1
+    dist_specs = ([s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+                  + [s for k, s in spec_tree.items() if k != "groups" and s.kind == DIST])
+    per_forward = sum(s.reps for s in dist_specs)
+    per_place = len(dist_specs)
+    exits = tp_boundaries(cfg) // 2
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    cap = max(len(r.prompt_ids) for r in all_requests) + max(r.max_new for r in all_requests)
+    seen_flash, seen_paged, packs = {}, [], {}
+    undo = [watch_flash(torch, seen_flash)]
+    if on_card:
+        undo += [watch_paged(torch, seen_paged, 8 * cfg.num_layers), watch_packing(torch, packs)]
+    out = {"runs": {}, "setup_s": setup_s, "per_forward": per_forward, "exits": exits}
+    for run in runs:
+        label, kw, eng_kw = run["label"], run.get("plan", {}), run.get("engine")
+        requests = [r for r in all_requests if r.rid in run.get("rids", (r.rid,))]
+        plan = PrecisionPlan.build(nrt, round_to=2, **kw)
+        packed_ar = 2 * exits if kw.get("act_round_to", 4) < 4 else 0  # per forward
+        timings, hashes, engine = {"admit": [], "decode": []}, [], None
+        first = len(comm.LOG)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        if eng_kw is None:
+            groups = static_groups(requests, run.get("per_request", False))
+            streams = {}
+            for g in groups:
+                streams.update(generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, g,
+                                               plan=plan))
+        else:
+            engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
+                                 cache_capacity=cap, **{"max_slots": SERVE_SLOTS, **eng_kw})
+            instrument(engine, timings)
+            sample = engine._sample
+
+            def hashed(logits, sample=sample, hashes=hashes):
+                hashes.append(hashlib.sha256(logits.detach().cpu().numpy().tobytes())
+                              .hexdigest())
+                return sample(logits)
+
+            engine._sample = hashed
+            streams = {k: r.tokens for k, r in engine.run(requests).items()}
+        sync()
+        wall = time.perf_counter() - t0
+        got = counts()
+        calls = comm.LOG[first:]
+        stage_s = sum(c.stage_s for c in calls)
+        rec = {"streams": streams, "wall_s": wall, "stage_s": stage_s, "launches": got,
+               "hashes": hashes, "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+        # launches as the run's forwards require
+        if engine is None:
+            forwards = sum(max(r.max_new for r in g) for g in groups)
+            packed = forwards * (per_forward + packed_ar)
+            prefills = [len(g[0].prompt_ids) for g in groups]
+            paged_steps = 0
+        else:
+            summary = engine.wire_summary()
+            analytic = check_wire(engine, plan, requests)  # raises on a mismatch
+            rec["host_device"] = (summary["host_device"], analytic["total"])
+            forwards = summary["admissions"] + summary["decode_steps"]
+            packed = forwards * packed_ar + (
+                summary["admissions"] * per_forward + per_place
+                if engine.weight_stationary else forwards * per_forward)
+            prefills = [-(-len(r.prompt_ids) // PAGE) * PAGE if engine.paged
+                        else len(r.prompt_ids) for r in requests]
+            paged_steps = summary["decode_steps"] if engine.paged else 0
+            # wire per forward == serve_wire_table; the placement == one forward's gathers
+            for r, t in zip(engine.wire_log, engine.wire_tables(), strict=True):
+                for k in COLLECTIVE_CLASSES:
+                    check(r["wire"].get(k, 0) == t[k],
+                          f"rank {rank} {label} step {r['step']} {r['kind']}: measured {k} "
+                          f"{r['wire'].get(k, 0)} B != serve_wire_table {t[k]} B")
+            by_kind = {}
+            for r in engine.wire_log:
+                key = f"{r['kind']} {r['tokens']}" if r["kind"] == "prefill" else "decode"
+                by_kind.setdefault(key, r["wire"])
+            rec["wire_by_forward"] = by_kind
+            if engine.weight_stationary:
+                want_place = serve_wire_table(plan, cfg, spec_tree, mesh_cfg, rows=1,
+                                              tokens=1)["weights"]
+                check(engine.place_wire.get("weights", 0) == want_place,
+                      f"rank {rank} {label}: placement moved {engine.place_wire} B, "
+                      f"one forward's gathers are {want_place} B")
+                check(all(r["wire"].get("weights", 0) == 0 for r in engine.wire_log
+                          if r["kind"] == "decode"), f"rank {rank} {label}: a decode step "
+                                                     "moved weights")
+                rec["place_wire"] = engine.place_wire
+            rec["decode_ms"] = [t * 1e3 for t in timings["decode"]]
+            rec["admit_ms"] = [(S, t * 1e3) for S, t in timings["admit"]]
+            rec["first_logits"] = timings["first_logits"] if rank == 0 else None
+            # where the streams leave the static run's: the token and a batch-1
+            # run's top-2 logit gap there (every rank takes this branch alike)
+            rec["diverged"] = []
+            for r in requests:
+                a, b = streams[r.rid], out["runs"][run["against"]]["streams"][r.rid]
+                if a != b:
+                    t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                    _, gaps = top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                                        mesh=mesh)
+                    rec["diverged"].append((r.rid, t, a[t], b[t], gaps[t]))
+        if engine is None:
+            measured = comm.wire_by_traffic(calls)
+            want_wire = static_wire(plan, cfg, spec_tree, mesh_cfg, groups)
+            for k in COLLECTIVE_CLASSES:
+                check(measured.get(k, 0) == want_wire[k],
+                      f"rank {rank} {label}: measured {k} {measured.get(k, 0)} B != "
+                      f"serve_wire_table {want_wire[k]} B")
+        rec["wire"] = comm.wire_by_traffic(calls)
+        rec["forwards"] = forwards
+        want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0
+                                                      for S in prefills),
+                "paged_attend": cfg.num_layers * paged_steps * on_card,
+                "bitpack": packed * on_card, "bitunpack": packed * on_card, "l2norm_sq": 0}
+        check(got == want, f"rank {rank} {label}: launches {got}, expected {want}")
+        check_seen_flash(seen_flash)
+        if on_card:
+            check_seen_packing(torch, packs)
+        out["runs"][label] = rec
+        del engine
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    for u in undo:
+        u()
+    out["flash_err"] = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
+    out["flash_shapes"] = sorted(seen_flash)
+    out["paged_err"] = check_seen_paged(seen_paged) if seen_paged else 0.0
+    out["packs"] = sorted(packs)
+    if on_card and profiled:  # one 512-token admission and one warm decode step, rank 0
+        plan = PrecisionPlan.build(nrt, round_to=2)
+        engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
+                             max_slots=SERVE_SLOTS, cache_capacity=cap)
+        engine.begin_stream()
+        longest = [r for r in all_requests if len(r.prompt_ids) == max(len(x.prompt_ids)
+                                                                       for x in all_requests)]
+        engine.admit(longest[0])
+
+        def maybe(fn, label):
+            return profile(torch, fn, label) if rank == 0 else fn()
+
+        maybe(lambda: engine.admit(longest[1]),
+              f"admission of a {len(longest[1].prompt_ids)}-token prompt, 1×2 rank 0")
+        engine.decode_tick()
+        maybe(engine.decode_tick, f"decode step ({SERVE_SLOTS} slots), 1×2 rank 0")
+    return out
+
+
+def time_tp_shapes(torch, device):
+    """The attention kernels at a model rank's heads at tp 2 (qwen3-1.7b: 8
+    query heads over 4 kv heads): flash at B=1, S 512 beside fp32 SDPA and
+    the bound, ``paged_attend`` at phase 9's decode shape with Kv 4 beside
+    gather + SDPA and the bound, both in a CUDA graph; then Bitpack and
+    Bitunpack at the TP halves of qwen3's per-layer lengths and embed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attend import paged_attend
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    B, H, Kv, S = 1, 8, 4, 512
+    q = torch.randn((B, H, S, 128), generator=gen, device=device)
+    k = torch.randn((B, Kv, S, 128), generator=gen, device=device)
+    v = torch.randn((B, Kv, S, 128), generator=gen, device=device)
+    err = float((flash_prefill(q, k, v) - ref.flash_prefill_ref(q, k, v)).abs().max())
+    check(err <= FLASH_TOL, f"flash H={H} Kv={Kv} S={S}: max |err| {err:.3e}")
+    ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
+    plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v), iters=5)
+    lib = time_graph(torch, [lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)], reps=10)
+    bound, by = flash_bound(B, H, Kv, S, S, 0)
+    flash = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+             "bound_by": by, "max_abs_err": err}
+    say(f"   flash B={B} H={H} Kv={Kv} S={S}: kernel {ms * 1e3:.1f} us in a CUDA graph, plain "
+        f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us in a CUDA graph, bound "
+        f"{bound * 1e3:.1f} us ({by}, {bound / ms:.0%} of it); max |err| {err:.3e}")
+    Bp, Kvp, G, page, width, P, lengths = 2, 4, 2, 64, 9, 19, (528, 528)
+    args = paged_inputs(torch, device, gen, Bp, Kvp, G, page, width, P, lengths)
+    err = float((paged_attend(*args) - ref.paged_attend_ref(*args)).abs().max())
+    check(err <= PAGED_TOL, f"paged_attend Kv={Kvp}: max |err| {err:.3e}")
+    copies = [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                       for _ in range(COLD_COPIES - 1)]
+    cold = time_graph(torch, [lambda a=a: paged_attend(*a) for a in copies])
+    del copies
+    warm = time_graph(torch, [lambda: paged_attend(*args)], reps=10)
+    plain = time_cuda(torch, lambda: ref.paged_attend_ref(*args), iters=5)
+    lib = time_cuda(torch, lambda: gather_sdpa(torch, *args))
+    bound = paged_bound(Bp, Kvp, G, page, width, lengths)
+    paged = {"ms": cold, "warm_ms": warm, "plain_ms": plain, "gather_sdpa_ms": lib,
+             "bound_ms": bound, "max_abs_err": err}
+    say(f"   paged_attend B={Bp} Kv={Kvp} G={G}, {width} pages of {page}, lengths {lengths[0]}: "
+        f"kernel in a CUDA graph {cold * 1e3:.1f} us with the L2 cold, {warm * 1e3:.1f} us "
+        f"warm, plain {plain * 1e3:.1f} us, gather+sdpa {lib * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.1f} us (bytes, {bound / cold:.0%} of it cold); max |err| {err:.3e}")
+    time_qwen3_packing(torch, device, lengths=(*(n // TPS_TP for n in QWEN3_LAYER),
+                                               QWEN3_EMBED // TPS_TP))
+    return {"flash": flash, "paged": paged}
+
+
+def tp_serve_path(torch, device, phase7, *, cfg=None, b_rids=TPS_B_RIDS, b_gen=TPS_B_GEN):
+    """Full-width qwen3-1.7b (phase 7's weights, plan and requests) served
+    on a 1×2 mesh (a: ``TPS_RUNS_A``) and a weight-stationary 2×2 mesh
+    (b: phase 7's requests ``b_rids`` at ``b_gen`` tokens, ``TPS_RUNS_B``)
+    of gloo ranks on ``device``. Each rank checks its launches, wire and
+    host<->device bytes (:func:`_tp_serve_rank`); here the streams inside
+    each mesh and against phase 7's one-device streams, the admission
+    logits against phase 7's, and the logits' hashes across ranks.
+    Launch counts, packing records and the profile are read on a card
+    only, so the phase rehearses on the CPU at a reduced config. Returns
+    the measurements; raises on a failed check."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.serve import setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import Request
+
+    cfg = cfg or phase7["cfg"]
+    on_card = device.type == "cuda"
+    threads = 2 if on_card else 1
+    one_static, one_logits = phase7["static"], phase7["runs"]["engine"]["first_logits"]
+    bound = TPS_LOGIT_RTOL * float(one_logits.abs().max())
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        say(f"   gloo ranks on one card: {smi}")
+    reqs_a = phase7["requests"]
+    reqs_b = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=b_gen)
+              for r in reqs_a if r.rid in b_rids]
+    out = {}
+    for mesh, dp, reqs, runs in (("1x2", 1, reqs_a, TPS_RUNS_A), ("2x2", 2, reqs_b, TPS_RUNS_B)):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_serve_rank, dp * TPS_TP, str(device), cfg, dp, reqs, runs,
+                            mesh == "1x2", threads=threads, timeout_s=900)
+        ranks_s = time.perf_counter() - t0
+        r0 = ranks[0]["runs"]
+        for r, o in enumerate(ranks):  # every rank samples the same ids from the same bits
+            for label in r0:
+                check(o["runs"][label]["streams"] == r0[label]["streams"],
+                      f"{mesh}: rank {r}'s {label} streams differ from rank 0's")
+                check(o["runs"][label]["hashes"] == r0[label]["hashes"],
+                      f"{mesh}: rank {r}'s {label} logits differ from rank 0's")
+        # streams inside the mesh: every engine as the static run of its plan
+        for run in runs:
+            if "against" in run:
+                tie = run.get("near_tie", 0.0)
+                for rid, t, a, b, gap in r0[run["label"]]["diverged"]:
+                    say(f"   {mesh} {run['label']}: DIVERGED request {rid} at token {t}: {a} "
+                        f"against {run['against']}'s {b}, batch-1 top-2 logit gap {gap:.3e}")
+                    check(gap < tie, f"{mesh} {run['label']}: request {rid} left the static "
+                                     f"run {run['against']} at a top-2 gap {gap:.3e} (bound "
+                                     f"{tie})")
+        # against one device: phase 7's streams (fp32 activations), the admission logits
+        diverged = []
+        for r in reqs:
+            got, want = r0["static"]["streams"][r.rid], one_static[r.rid][:r.max_new]
+            if got != want:
+                t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+                diverged.append((r, t, got[t], want[t]))
+        if diverged:  # one device's top-2 logit gap where a stream left it
+            mesh_cfg1, spec1, storage1 = setup(cfg, seed=0, device=device)
+            plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+            for r, t, a, b in diverged:
+                _, gaps = top2_gaps(torch, cfg, mesh_cfg1, spec1, storage1, plan, r)
+                say(f"   {mesh}: DIVERGED request {r.rid} at token {t}: {a} against one "
+                    f"device's {b}, one device's top-2 logit gap {gaps[t]:.3e}")
+                check(gaps[t] < bound, f"{mesh}: request {r.rid} left one device's stream at "
+                                       f"a top-2 gap {gaps[t]:.3e} >= {bound:.3e}")
+            del storage1
+        label = "engine" if mesh == "1x2" else "weight-stationary"
+        logits = r0[label]["first_logits"]
+        gap = float((logits - one_logits).abs().max())
+        check(gap <= bound, f"{mesh}: the {len(reqs[0].prompt_ids)}-token admission's logits "
+                            f"{gap:.3e} from one device's (bound {bound:.3e})")
+        say(f"   {mesh} ({len(ranks)} ranks, {ranks_s:.1f} s, set-up "
+            f"{[round(o['setup_s'], 1) for o in ranks]} s): engines as their static runs, "
+            f"streams and logits' hashes equal on every rank; "
+            f"{len(reqs) - len(diverged)} of {len(reqs)} equal to one device's; "
+            f"the {len(reqs[0].prompt_ids)}-token admission's logits within {gap:.3e} of one "
+            f"device's (bound {bound:.3e}, {TPS_LOGIT_RTOL} × max |logit|)")
+        for label, rec in r0.items():
+            tokens = sum(len(s) for s in rec["streams"].values())
+            peaks = [round(o["runs"][label]["peak"] / 2**30, 2) for o in ranks]
+            say(f"   {mesh} {label}: {rec['wall_s']:.2f} s, {tokens} tokens, "
+                f"{tokens / rec['wall_s']:.1f} tokens/s, gloo staging "
+                f"{rec['stage_s'] / rec['wall_s']:.1%}, launches {rec['launches']}, "
+                f"memory peak per rank {peaks} GiB")
+            if "decode_ms" in rec:
+                dec = sorted(rec["decode_ms"])
+                by_len = {}
+                for S, t in rec["admit_ms"]:
+                    by_len.setdefault(S, []).append(round(t, 2))
+                say(f"   {mesh} {label}: decode ms/step median {dec[len(dec) // 2]:.2f} (min "
+                    f"{dec[0]:.2f}, max {dec[-1]:.2f}, {len(dec)} steps); admission ms "
+                    f"{dict(sorted(by_len.items()))}; host_device {rec['host_device'][0]} B "
+                    f"== serve_host_device_bytes")
+                say(f"   {mesh} {label}: wire B a rank per forward (== serve_wire_table): "
+                    f"{rec['wire_by_forward']}"
+                    + (f"; placement {rec['place_wire']}" if "place_wire" in rec else ""))
+            else:
+                say(f"   {mesh} {label}: wire B a rank (== serve_wire_table) {rec['wire']}")
+        say(f"   {mesh}: kernels at the new shapes held to their plain versions: flash "
+            f"{ranks[0]['flash_shapes']} within {max(o['flash_err'] for o in ranks):.3e}, "
+            f"paged_attend within {max(o['paged_err'] for o in ranks):.3e}, "
+            f"{len(ranks[0]['packs'])} (kernel, length, round_to) of Bitpack/Bitunpack "
+            "byte- and bit-equal")
+        out[mesh] = ranks
+    launches = {k: sum(o["runs"][label]["launches"][k] for ranks in out.values()
+                       for o in ranks for label in o["runs"]) for k in counts()}
+    errs = {"flash": max(o["flash_err"] for ranks in out.values() for o in ranks),
+            "paged": max(o["paged_err"] for ranks in out.values() for o in ranks)}
+    return {"meshes": out, "launches": launches, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2489,6 +2951,9 @@ def main() -> int:
     serve = serve_path(torch, device)
     served = {k: sum(run[k] for run in serve["launches"].values())
               for k in ("bitpack", "bitunpack", "flash_prefill")}
+    # what phase 14 holds its meshes to: phase 7's one-device streams and logits
+    serve7 = {"cfg": serve["cfg"], "static": serve["static"], "requests": serve["requests"],
+              "runs": {"engine": {"first_logits": serve["runs"]["engine"]["first_logits"]}}}
     say(f"   launches over phase 7's three runs: {served}; flash on the main path within "
         f"{serve['flash_err']:.3e} of its plain version")
 
@@ -2532,6 +2997,19 @@ def main() -> int:
     for k in ("bitpack", "bitunpack"):
         served[k] += tp["launches"][k]
 
+    say(f"phase 14: main path — full-width qwen3-1.7b served at tp {TPS_TP} on gloo ranks: "
+        f"(a) a 1×{TPS_TP} mesh, phase 7's requests, runs {[r['label'] for r in TPS_RUNS_A]}; "
+        f"(b) a 2×{TPS_TP} mesh, prompts "
+        f"{[len(serve7['requests'][i].prompt_ids) for i in TPS_B_RIDS]} +{TPS_B_GEN} tokens, "
+        f"runs {[r['label'] for r in TPS_RUNS_B]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tps = tp_serve_path(torch, device, serve7)
+    for k in served:
+        served[k] += tps["launches"][k]
+    say(f"   the kernels at a model rank's shapes at tp {TPS_TP}:")
+    time_tp_shapes(torch, device)
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -2548,7 +3026,8 @@ def main() -> int:
     kernels.append({
         "name": "flash_prefill", "route": "cuda", "source": "src/repro_torch/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:110",
-        "launches": served["flash_prefill"], "max_abs_err": f512["max_abs_err"],
+        "launches": served["flash_prefill"],
+        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -2556,8 +3035,8 @@ def main() -> int:
     kernels.append({
         "name": "paged_attend", "route": "cuda", "source": "src/repro_torch/csrc/paged_attend.cu",
         "replaces": "src/repro/kernels/paged_attention.py:98",
-        "launches": paged_run["launches"]["paged_attend"],
-        "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"]),
+        "launches": paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"],
+        "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })

@@ -23,8 +23,10 @@ payload bytes, staging seconds) to :data:`LOG`. The traffic classes are
 the plan's (``weights``, ``gradients``, ``activations`` — the TP-region
 all-reduces — and ``seq_boundary`` — the sequence-parallel gather and
 scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
-step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums)
-and ``relayout`` (the lossless sequence split and merge). The payload is what
+step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums),
+``logits`` (a serve step's gather of its vocabulary-sharded, and under a
+sharded batch row-sharded, logits) and ``relayout`` (the lossless
+sequence split and merge). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output
 of an all-gather or all-to-all, the input of a reduce-scatter or
 all-reduce), so :func:`wire_by_traffic` of the log is a measured count of

@@ -29,7 +29,8 @@ divides back out.
 On the trivial mesh (``tp == 1 and dshards == 1``) storage *is* the
 logical tensor and materialization of a ``DIST`` leaf is the
 straight-through format truncation (per use, or once under
-weight-stationary serving, :func:`placed_leaf`).
+weight-stationary serving, :func:`placed_leaf`, which on a sharded mesh
+runs the FSDP gather once).
 
 On a sharded mesh each rank is one process and holds its own block:
 :func:`tree_to_storage` lays a leaf out as the reference does (all ranks'
@@ -344,19 +345,39 @@ def tree_to_storage(params, spec_tree, mesh_cfg: MeshCfg):
 # ---------------------------------------------------------------------------
 
 
-def placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg, round_to):
-    """Run the leaf's transfer ONCE, giving resident logical weights
-    (stacked leaves keep their repetition dim, and go through the kernels
-    as one tensor). Decode steps built with ``weight_stationary=True``
-    then move no weights at all (the trivial mesh only)."""
-    if not mesh_cfg.trivial:
-        raise NotImplementedError("weight-stationary placement on a sharded mesh is not "
-                                  "ported (serving at tp > 1, ROADMAP Queue 1 item 7.1)")
-    if spec.kind == DIST:
-        return _T.quantize(x, policy_for(round_to))
-    return x
+def placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg, round_to, *, group=None):
+    """Run the leaf's transfer ONCE, giving the rank's resident TP-local
+    logical weights (stacked leaves keep their repetition dim, and go
+    through the kernels as one tensor). Decode steps built with
+    ``weight_stationary=True`` then move no weights at all.
+
+    ``x`` is the rank's storage block. On the trivial mesh a ``DIST`` leaf
+    is the straight-through quantize. On a sharded mesh a ``REPL`` leaf
+    stays as it is, a ``TP_SMALL`` leaf drops its size-1 ``tp`` dim, and a
+    ``DIST`` leaf's flat shard (per repetition) is gathered as planes over
+    ``group``, the rank's FSDP group (the ``weights`` class), or quantized
+    where it has one FSDP rank, then cut to ``n_local`` and shaped
+    ``local_logical``."""
+    policy = policy_for(round_to)
+    if mesh_cfg.trivial:
+        return _T.quantize(x, policy) if spec.kind == DIST else x
+    if spec.kind == REPL:
+        return x
+    if spec.kind == TP_SMALL:
+        return x[:, 0] if spec.stacked else x[0]
+    axis = 1 if spec.stacked else 0
+    flat = x.reshape((spec.reps, -1) if spec.stacked else (-1,))
+    if mesh_cfg.dshards > 1:
+        full = _T.all_gather(flat, group, policy, axis)
+    else:
+        full = _T.quantize(flat, policy)
+    n = spec.n_local
+    if n != full.shape[axis]:
+        full = full.narrow(axis, 0, n)
+    lead = (spec.reps,) if spec.stacked else ()
+    return full.reshape(lead + spec.local_logical)
 
 
 def materialize_placed_leaf(x, spec: LeafSpec, mesh_cfg: MeshCfg):
-    """Placed weights are already logical: the identity."""
+    """Placed weights are already TP-local and logical: the identity."""
     return x

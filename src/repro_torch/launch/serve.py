@@ -1,35 +1,49 @@
-"""Serving launcher on one GPU (twin of ``repro.launch.serve``):
-continuous batching over the slotted (default) or block-paged
-(``--paged``) KV cache, with the static one-shot path as the reference
-(``--check-static``).
+"""Serving launcher (twin of ``repro.launch.serve``): continuous batching
+over the slotted (default) or block-paged (``--paged``) KV cache, with the
+static one-shot path as the reference (``--check-static``), on one GPU or
+on an FSDP×TP mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --prompt-lens 512,512,384,256,200 --gen 16 --max-slots 2 \\
-      [--weight-stationary] [--check-static] [--reduced] [--device cpu] \\
+      [--mesh 1x2] [--weight-stationary] [--check-static] [--reduced] [--device cpu] \\
+      [--act-round-to 2] [--seq-parallel] \\
       [--paged [--page-size 64] [--num-pages N] [--no-share-prefix]] \\
       [--shared-prefix N]
 
 Weights are random, from seed 0 (``repro_torch.models.init``); the plan
 is ``PrecisionPlan.build(round_to=2)``, the reference launcher's default
-(bf16 planes). ``--shared-prefix N`` prepends N common tokens to every
-prompt. Runs on ``cuda`` unless ``--device cpu``. The reference
-launcher's speculative, sampling, window, int8-KV, mesh, plan-file,
-precision and checkpoint options are not ported.
+(bf16 planes), with ``--act-round-to`` packing the TP-region all-reduces
+and ``--seq-parallel`` the sequence-parallel prefill layout.
+``--shared-prefix N`` prepends N common tokens to every prompt. ``--mesh``
+is ``DPxTP`` or ``PODSxDPxTP``, parsed as in training: anything but
+``1x1`` runs ``pods × dp × tp`` ranks, processes spawned by
+``repro_torch.launch.mesh.spawn_ranks`` that meet in a gloo group; each
+builds its blocks of the weights in turn with the others waiting (one
+whole model at a time on a shared card) and runs the same engine loop on
+its TP slice. Rank 0 prints the reference launcher's lines and, on a
+mesh, the engine's collectives per traffic class against the plan's
+``serve_wire_table`` (``[OK ...]`` or ``[MISMATCH ...]``). Runs on
+``cuda`` unless ``--device cpu``. The reference launcher's speculative,
+sampling, window, int8-KV, plan-file, chunks and checkpoint options are
+not ported.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 
 from repro_torch import fp32_math, resolve_device
 from repro_torch.configs.registry import ARCHS, get_config, reduced
-from repro_torch.dist.spec import MeshCfg, build_spec_tree, tree_to_storage
-from repro_torch.models.init import init_params
+from repro_torch.dist.spec import MeshCfg
+from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
+from repro_torch.launch.train import parse_mesh, rank_device, setup_storage
 from repro_torch.plan import PrecisionPlan
 from repro_torch.roofline.analysis import serve_host_device_bytes
 from repro_torch.serve.engine import Request, ServeEngine, generate_static
+from repro_torch.train.step import COLLECTIVE_CLASSES
 
 
 def build_requests(prompt_lens, gen: int, vocab_size: int, *,
@@ -47,12 +61,15 @@ def build_requests(prompt_lens, gen: int, vocab_size: int, *,
     ]
 
 
-def setup(cfg, *, seed: int, device, mesh_cfg: MeshCfg | None = None):
-    """``(mesh_cfg, spec_tree, storage)`` for random weights from ``seed``."""
+def setup(cfg, *, seed: int, device, mesh_cfg: MeshCfg | None = None, rank: int = 0,
+          params=None):
+    """``(mesh_cfg, spec_tree, storage)`` for random weights from ``seed``
+    (or ``params``): on a mesh rank ``rank``'s blocks, built in turn
+    (``launch.train.setup_storage``)."""
     mesh_cfg = mesh_cfg or MeshCfg()
-    params, metas = init_params(cfg, seed, device=device)
-    spec_tree = build_spec_tree(params, metas, mesh_cfg)
-    return mesh_cfg, spec_tree, tree_to_storage(params, spec_tree, mesh_cfg)
+    spec_tree, storage = setup_storage(cfg, mesh_cfg, device=device, params=params,
+                                       rank=rank, seed=seed)
+    return mesh_cfg, spec_tree, storage
 
 
 def check_wire(engine: ServeEngine, plan, requests) -> dict:
@@ -71,21 +88,36 @@ def check_wire(engine: ServeEngine, plan, requests) -> dict:
     return analytic
 
 
-def check_streams(results, static_streams, requests) -> None:
-    bad = [r.rid for r in requests if results[r.rid].tokens != static_streams[r.rid]]
+def wire_against_table(engine: ServeEngine) -> tuple[dict, dict]:
+    """``(measured, table)`` per collective class, summed over the engine's
+    forwards: the collectives' log (``wire_log``) and
+    :meth:`ServeEngine.wire_tables`."""
+    got = {k: sum(r["wire"].get(k, 0) for r in engine.wire_log) for k in COLLECTIVE_CLASSES}
+    want = {k: sum(t[k] for t in engine.wire_tables()) for k in COLLECTIVE_CLASSES}
+    return got, want
+
+
+def check_streams(results, static_streams) -> None:
+    bad = [rid for rid in sorted(results) if results[rid].tokens != static_streams[rid]]
     if bad:
         raise SystemExit(f"continuous vs static token streams DIVERGED for requests {bad}")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", default="1x1", help="DPxTP or PODSxDPxTP")
     ap.add_argument("--prompt-lens", default="64,48,64,32",
                     help="comma-separated per-request prompt lengths")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-slots", type=int, default=0,
                     help="KV slots resident in the engine (default min(4, requests))")
+    ap.add_argument("--act-round-to", type=int, default=4,
+                    help="activation wire format of the TP-region all-reduces")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="sequence-parallel prefill activations (decode keeps the psum "
+                         "layout)")
     ap.add_argument("--weight-stationary", action="store_true")
     ap.add_argument("--check-static", action="store_true",
                     help="also run the static reference and require equal streams")
@@ -100,60 +132,99 @@ def main(argv=None):
                     help="disable shared-prefix page interning (--paged)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common tokens to every prompt")
-    args = ap.parse_args(argv)
+    return ap
 
-    device = resolve_device(args.device)
+
+def _serve(rank: int, args, params=None) -> dict:
+    """The static reference (``--check-static``) and the engine run of
+    :func:`main` on rank ``rank`` (the only one on ``1x1``); checks the
+    host<->device bytes and returns plain data."""
     fp32_math()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
-    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    mesh_cfg = parse_mesh(args.mesh)
+    device = rank_device(args, rank, mesh_cfg.dshards * mesh_cfg.tp)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank,
+                                  params=params)
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2, act_round_to=args.act_round_to,
+                               seq_parallel=args.seq_parallel)
     requests = build_requests([int(s) for s in args.prompt_lens.split(",")], args.gen,
                               cfg.vocab_size, shared_prefix=args.shared_prefix)
     lens = [len(r.prompt_ids) for r in requests]
     slots = args.max_slots or min(4, len(requests))
-    cap = max(lens) + args.gen
-
-    static_streams = None
+    out = {"cfg": cfg.name, "device": str(device), "lens": lens, "slots": slots,
+           "mesh": mesh_cfg.shape, "trivial": mesh_cfg.trivial, "static": None}
     if args.check_static:
         t0 = time.perf_counter()
-        static_streams = generate_static(cfg, mesh_cfg, None, spec_tree, storage,
-                                         requests, plan=plan)
-        print(f"static one-shot reference: {len(requests)} requests in "
-              f"{time.perf_counter() - t0:.2f}s")
-    engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
-                         max_slots=slots, cache_capacity=cap,
+        out["static"] = generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests,
+                                        plan=plan)
+        out["static_s"] = time.perf_counter() - t0
+    engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
+                         max_slots=slots, cache_capacity=max(lens) + args.gen,
                          weight_stationary=args.weight_stationary, paged=args.paged,
                          page_size=args.page_size, num_pages=args.num_pages or None,
                          share_prefix=not args.no_share_prefix)
     t0 = time.perf_counter()
     results = engine.run(requests)
-    wall = time.perf_counter() - t0
+    out["wall"] = time.perf_counter() - t0
+    out["results"] = results
+    out["summary"] = engine.wire_summary()
+    out["analytic"] = check_wire(engine, plan, requests)
+    out["wire"] = wire_against_table(engine)
+    out["place_wire"] = engine.place_wire
+    if args.paged:
+        out["residency"], out["audit"] = engine.kv_residency(), engine.pages.audit()
+    return out
+
+
+def main(argv=None, *, params=None):
+    """Run the launcher; returns rank 0's ``{rid: GenResult}``. ``params``
+    replaces the seeded weights (a port LM tree at the mesh's ``tp``)."""
+    args = build_parser().parse_args(argv)
+    mesh_cfg = parse_mesh(args.mesh)
+    if mesh_cfg.trivial:
+        out = _serve(0, args, params)
+    else:
+        world = mesh_cfg.dshards * mesh_cfg.tp
+        resolve_device(args.device)  # a missing card fails here, not in the ranks
+        threads = 1 if args.device == "cpu" else max(1, (os.cpu_count() or 1) // world)
+        out = spawn_ranks(_serve, world, args, params, threads=threads)[0]
+    results, summary, analytic, lens = out["results"], out["summary"], out["analytic"], out["lens"]
+    if out["static"] is not None:
+        print(f"static one-shot reference: {len(results)} requests in {out['static_s']:.2f}s")
     total_new = sum(len(r.tokens) for r in results.values())
-    summary = engine.wire_summary()
-    analytic = check_wire(engine, plan, requests)
-    print(f"{cfg.name} on {device}: {len(requests)} requests, prompts "
-          f"{min(lens)}..{max(lens)}, +{args.gen} tokens, {slots} slots")
+    print(f"{out['cfg']} on {out['device']}, mesh {out['mesh']}: {len(results)} requests, "
+          f"prompts {min(lens)}..{max(lens)}, +{args.gen} tokens, {out['slots']} slots")
     print(f"engine: {summary['steps']} steps ({summary['decode_steps']} decode) in "
-          f"{wall:.2f}s ({total_new / max(wall, 1e-9):.1f} tok/s)")
+          f"{out['wall']:.2f}s ({total_new / max(out['wall'], 1e-9):.1f} tok/s)")
     print(f"host_device wire: {summary['host_device']} B staged at "
           f"{summary['token_width']} B/token == serve_host_device_bytes "
           f"{analytic['total']} B")
+    if not out["trivial"]:
+        got, want = out["wire"]
+        status = "OK" if got == want else "MISMATCH"
+        shown = ", ".join(f"{k} {v} B" for k, v in got.items() if v) or "none"
+        other = ", ".join(f"{k} {v} B" for k, v in summary["wire"].items()
+                          if k not in COLLECTIVE_CLASSES)
+        print(f"measured wire by class (rank 0, the engine's steps): {shown} [{status} "
+              f"against serve_wire_table]; not priced: {other}")
+        if args.weight_stationary:
+            print(f"placement wire (once): {out['place_wire']}")
     if args.paged:
-        res = engine.kv_residency()
-        audit = engine.pages.audit()
+        res, audit = out["residency"], out["audit"]
         print(f"paged KV: page_size={res['page_size']}, {audit['allocs']} page allocs / "
               f"{audit['releases']} releases, peak {res['pages_peak']} pages resident "
               f"({res['kv_bytes_peak']} B at {res['bytes_per_page']} B/page)")
         print(f"paged prefill: {summary['prefill_misses']} bucket lengths first seen, "
               f"{summary['prefill_hits']} seen before; page-table staging "
               f"{summary['page_table']} B")
-    for r in requests[:4]:
-        print(f"  req{r.rid}: {results[r.rid].tokens[:16]}")
-    if static_streams is not None:
-        check_streams(results, static_streams, requests)
-        print(f"check-static: {len(requests)} streams equal to the static reference")
+    for rid in sorted(results)[:4]:
+        print(f"  req{rid}: {results[rid].tokens[:16]}")
+    if out["static"] is not None:
+        check_streams(results, out["static"])
+        print(f"check-static: {len(results)} streams equal to the static reference")
     return results
 
 

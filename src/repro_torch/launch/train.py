@@ -145,8 +145,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def setup(cfg, mesh_cfg: MeshCfg, *, device, params=None, rank: int = 0, visit=None):
-    """``(spec_tree, storage, momentum)`` of rank ``rank``: random weights
-    from seed 0 on ``device``, or ``params`` (a port LM tree at the mesh's
+    """``(spec_tree, storage, momentum)`` of rank ``rank``
+    (:func:`setup_storage`, and zero momentum beside the storage)."""
+    spec_tree, storage = setup_storage(cfg, mesh_cfg, device=device, params=params,
+                                       rank=rank, visit=visit)
+    return spec_tree, storage, init_momentum(storage)
+
+
+def setup_storage(cfg, mesh_cfg: MeshCfg, *, device, params=None, rank: int = 0,
+                  visit=None, seed: int = 0):
+    """``(spec_tree, storage)`` of rank ``rank``: random weights from
+    ``seed`` on ``device``, or ``params`` (a port LM tree at the mesh's
     ``tp``, e.g. converted reference weights). On a mesh the storage is
     the rank's blocks, laid out leaf by leaf from the whole model, which
     the ranks build in turn behind a barrier (one whole model at a time
@@ -155,17 +164,16 @@ def setup(cfg, mesh_cfg: MeshCfg, *, device, params=None, rank: int = 0, visit=N
     shapes, metas = init_params(cfg, device="meta", tp=mesh_cfg.tp)
     if mesh_cfg.trivial:
         if params is None:
-            params, _ = init_params(cfg, 0, device=device)
+            params, _ = init_params(cfg, seed, device=device)
         spec_tree = build_spec_tree(params, metas, mesh_cfg)
-        storage = tree_to_storage(params, spec_tree, mesh_cfg)
-        return spec_tree, storage, init_momentum(storage)
+        return spec_tree, tree_to_storage(params, spec_tree, mesh_cfg)
     spec_tree = build_spec_tree(shapes, metas, mesh_cfg)
     storage = None
     for turn in range(dist.get_world_size()):
         if turn == rank:
             whole = params
             if whole is None:
-                whole, _ = init_params(cfg, 0, device=device, tp=mesh_cfg.tp)
+                whole, _ = init_params(cfg, seed, device=device, tp=mesh_cfg.tp)
 
             def local(s, x):
                 if visit is not None:
@@ -177,10 +185,12 @@ def setup(cfg, mesh_cfg: MeshCfg, *, device, params=None, rank: int = 0, visit=N
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         dist.barrier()
-    return spec_tree, storage, init_momentum(storage)
+    return spec_tree, storage
 
 
-def _rank_device(args, rank: int, world: int) -> torch.device:
+def rank_device(args, rank: int, world: int) -> torch.device:
+    """``args.device``; on the card with several ranks, rank ``rank``'s card
+    (the ranks share the cards in turn)."""
     device = resolve_device(args.device)
     if device.type == "cuda" and world > 1:
         return torch.device("cuda", rank % torch.cuda.device_count())
@@ -197,7 +207,7 @@ def _train(rank: int, args, params=None) -> dict:
         cfg = reduced(cfg)
     mesh_cfg = parse_mesh(args.mesh)
     world = mesh_cfg.dshards * mesh_cfg.tp
-    device = _rank_device(args, rank, world)
+    device = rank_device(args, rank, world)
     mesh = make_mesh_from_cfg(mesh_cfg)
     spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device, params=params, rank=rank)
     nrt = cfg.num_groups + 1

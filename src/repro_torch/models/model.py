@@ -3,7 +3,11 @@ of ``repro.models.model``, the ``attn`` pattern). Under tensor
 parallelism (``env.model_group``) every weight a function sees is the
 rank's TP slice: heads, ``d_ff`` and the vocabulary are split over the
 model group, and ``env``'s boundaries carry the collectives. Prefill and
-decode run on one rank only (serving at tp > 1 is not ported).
+decode run on every rank of the model group alike, each on its heads and
+its vocabulary slice: the logits they return are the rank's ``(B, 1, V /
+tp)`` slice (``serve.step`` gathers them). A decode step has one token,
+nothing to split over the sequence: it runs the replicated psum layout
+under a ``seq_parallel`` env too, as the reference does.
 
 Every forward routes through :func:`run_group`, whose loop over a group's
 layer repetitions materializes each layer's weights through the caller's
@@ -191,7 +195,16 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
             x, gp, cfg, env, mode="prefill",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
         )
-    if "last" in batch:
+    if env.seq_parallel_active:
+        if "last" in batch:
+            raise ValueError("batch['last'] (a page-padded prompt) needs the replicated "
+                             "layout: turn seq_parallel off for padded prompts")
+        # gather each shard's last token (B, tp, d) — the global last token
+        # is the last rank's — and run the logits entry replicated
+        x = env.seq_unshard(x[:, -1:])
+        env = env.without_seq_parallel()
+        x_last = x[:, -1:]
+    elif "last" in batch:
         last = torch.as_tensor(batch["last"], device=x.device).reshape(1)
         x_last = x.index_select(1, last.to(torch.int64))
     else:
@@ -204,7 +217,13 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
     """One-token decode step. ``batch["tokens"]`` (B, 1); ``batch["pos"]``
     is a scalar (uniform batch) or ``(B,)`` (per-slot); the paged engine's
     batches also carry ``batch["page_table"]`` (B, n_pages). Returns
-    (logits (B, 1, V), caches') — the caches are updated in place."""
+    (logits (B, 1, V), caches') — the caches are updated in place.
+
+    One token has no sequence dim to shard: a ``seq_parallel`` env falls
+    back to the replicated psum layout here (the caches are whole
+    sequences either way, so a sequence-parallel prefill hands over to
+    it as it is)."""
+    env = env.without_seq_parallel()
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     pos = batch["pos"]
     page_table = batch.get("page_table")
@@ -223,15 +242,16 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
 
 
 def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
-                per_slot: bool = False, *, device="cpu"):
+                per_slot: bool = False, *, device="cpu", kv_heads: int | None = None):
     """Stacked caches per group: ``groups[g]["p0"]`` is a :class:`KVCache`
     with leading dim = repetitions (``k (R, B, C, Kv, hd)``; ``pos (R,)``,
     or ``(R, B)`` with ``per_slot=True`` — the serve engine's slotted
-    layout, where every slot tracks its own absorbed-token count)."""
+    layout, where every slot tracks its own absorbed-token count). ``Kv``
+    is ``kv_heads``, by default the env's rank-local count."""
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window caches are not ported")
     reps = cfg.layers_per_group // len(cfg.pattern)
-    kv_l = env.heads_local(cfg.num_kv_heads)
+    kv_l = kv_heads or env.heads_local(cfg.num_kv_heads)
     groups = []
     for _ in range(cfg.num_groups):
         entry = {}
@@ -248,17 +268,18 @@ def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
 
 
 def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
-                      page_size: int, dtype, *, device="cpu"):
+                      page_size: int, dtype, *, device="cpu", kv_heads: int | None = None):
     """Paged twin of ``init_caches(per_slot=True)``: every "attn" block
     gets a page pool (:func:`~repro_torch.models.attention.init_paged_cache`,
     ``num_pages`` allocatable rows plus the trash row) instead of per-slot
     contiguous arrays, stacked per group (``k (R, P, page, Kv, hd)``,
-    ``pos (R, B)``). The reference's recurrent kinds keep their slotted
-    state there; the port has only "attn" blocks."""
+    ``pos (R, B)``; ``Kv`` as in :func:`init_caches`). The reference's
+    recurrent kinds keep their slotted state there; the port has only
+    "attn" blocks."""
     if cfg.sliding_window:
         raise ValueError("sliding-window blocks have no paged layout")
     reps = cfg.layers_per_group // len(cfg.pattern)
-    kv_l = env.heads_local(cfg.num_kv_heads)
+    kv_l = kv_heads or env.heads_local(cfg.num_kv_heads)
     groups = []
     for _ in range(cfg.num_groups):
         entry = {}

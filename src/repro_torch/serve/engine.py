@@ -19,12 +19,27 @@ request's token stream is a function of its prompt alone, and equals the
 static one-shot reference (:func:`generate_static`) for the same requests.
 
 ``paged=True`` swaps the contiguous slotted layout for the block-paged
-KV cache: fixed-size pages in one pool (:func:`M.init_paged_caches`), a
-host-side per-slot page table staged every decode step, a refcounted
+KV cache: fixed-size pages in one pool
+(:func:`repro_torch.models.model.init_paged_caches`), a host-side per-slot
+page table staged every decode step, a refcounted
 :class:`PageAllocator` (the page-granular twin of :class:`SlotManager`),
 shared-prefix page interning (a common prompt prefix is resident once)
 and prompts padded to whole pages before prefill. Streams equal the
 contiguous engine's and :func:`generate_static`'s.
+
+On a mesh (``mesh`` from ``launch.mesh.make_mesh_from_cfg``; every rank a
+process running this same engine on its TP slice) the decode step shards
+the slots over the data ranks by the reference's rule (never when paged;
+else when ``max_slots`` splits over ``dshards``), and admission prefills
+run replicated (``shard_batch=False``): each data rank inserts a
+prompt's caches only into the slot it owns, and the page pool holds the
+rank's kv heads behind one host page table. Every step returns the
+gathered global logits on every rank, so every rank samples the same
+ids and runs the same host loop: admissions, retirements, page
+allocations and the collectives they issue are identical and in the same
+order on all ranks. :attr:`ServeEngine.wire_log` records each forward's
+collectives per traffic class (``dist.comm``'s log) and
+:attr:`ServeEngine.place_wire` the placement's.
 
 Not ported (each raises ``NotImplementedError``): speculative decoding
 (``draft=``), sliding windows, int8 KV (contiguous or paged), sampled
@@ -42,18 +57,21 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.spec import MeshCfg
-from repro_torch.models import model as M
+from repro_torch.dist import comm
+from repro_torch.dist.spec import MeshCfg, mesh_coords
 from repro_torch.models.attention import PagedKVCache, check_cache_geometry
 from repro_torch.plan import PrecisionPlan
 from repro_torch.serve.api import Request, SamplingParams, require_greedy
 from repro_torch.serve.step import (
     global_cache_shapes,
+    init_serve_caches,
     make_decode_step,
     make_place_step,
     make_prefill_step,
+    serve_wire_table,
 )
 from repro_torch.transport.hostdev import (
     pack_tokens,
@@ -323,6 +341,8 @@ class ServeEngine:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
         self.cfg = cfg
         self.mesh_cfg = mesh_cfg
+        self.mesh = mesh
+        self.spec_tree = spec_tree
         self.storage = storage
         self.device = storage["embed"].device
         self.plan = plan.broadcast(cfg.num_groups + 1)
@@ -345,26 +365,29 @@ class ServeEngine:
         self._slot_pages: dict[int, list[int]] = {}  # slot -> page row
         self._buckets_seen: set[int] = set()  # the reference's compiled prefills
         self.step_log: list[dict] = []
+        self.wire_log: list[dict] = []
 
         B = self.max_slots
+        self._shard_batch = (
+            not self.paged  # the page pool has no batch dim to shard
+            and mesh_cfg.dshards > 1 and B % mesh_cfg.dshards == 0
+        )
         self._decode = make_decode_step(
-            cfg, mesh_cfg, mesh, spec_tree, plan=self.plan,
+            cfg, mesh_cfg, mesh, spec_tree, plan=self.plan, shard_batch=self._shard_batch,
             weight_stationary=weight_stationary, paged=self.paged,
         )
-        # paged: a page-rounded prefill cache, so any padded bucket length
-        # fits; the tail past the prompt's pages never reaches the pool
-        self._prefill = make_prefill_step(
-            cfg, mesh_cfg, mesh, spec_tree, plan=self.plan,
-            cache_capacity=(self._table_width * self.page_size if self.paged
-                            else self.cache_capacity),
-        )
+        self._prefills: dict[bool, object] = {}  # by seq_parallel (_prefill_for)
         self._weights = storage
+        self.weight_stationary = bool(weight_stationary)
+        self.place_wire: dict[str, int] = {}
         if weight_stationary:
             place = make_place_step(cfg, mesh_cfg, mesh, spec_tree, plan=self.plan)
+            first = len(comm.LOG)
             self._weights = place(storage)
+            self.place_wire = comm.wire_by_traffic(comm.LOG[first:])
         self._cache_dtype = self.plan.compute_dtype
         self._page_bytes = page_bytes(global_cache_shapes(
-            cfg, mesh_cfg, B, self.cache_capacity, self._cache_dtype,
+            cfg, mesh_cfg, B, self.cache_capacity, self._cache_dtype, shard_batch=False,
             paged_pages=self.num_pages, page_size=self.page_size,
         )) if self.paged else 0
 
@@ -384,10 +407,41 @@ class ServeEngine:
         tok = torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1)
         return pack_tokens(tok, self.token_width).cpu().numpy()
 
+    def _prefill_for(self, S: int):
+        """The admission prefill for a prompt of ``S`` tokens (padded, when
+        paged), replicated over the data ranks, with the reference's plan
+        fallbacks: a paged prompt reads its logits at ``last``, which needs
+        the replicated layout, and a length the model group does not divide
+        takes the psum layout (bit-equal to the sequence-parallel one)."""
+        plan = self.plan
+        if self.paged or (plan.seq_parallel and S % self.mesh_cfg.tp):
+            plan = dataclasses.replace(plan, seq_parallel=False)
+        if plan.seq_parallel not in self._prefills:
+            # paged: a page-rounded prefill cache, so any padded bucket length
+            # fits; the tail past the prompt's pages never reaches the pool
+            self._prefills[plan.seq_parallel] = make_prefill_step(
+                self.cfg, self.mesh_cfg, self.mesh, self.spec_tree, plan=plan,
+                cache_capacity=(self._table_width * self.page_size if self.paged
+                                else self.cache_capacity),
+                shard_batch=False,
+            )
+        return self._prefills[plan.seq_parallel], plan.seq_parallel
+
+    def _log_wire(self, kind: str, tokens: int, first: int, **extra) -> None:
+        self.wire_log.append({"step": self._step, "kind": kind, "tokens": tokens, **extra,
+                              "wire": comm.wire_by_traffic(comm.LOG[first:])})
+
     def _insert(self, small, slot: int) -> None:
         """Batch-of-1 prefill caches -> slot ``slot`` of the engine caches,
         in place; the pos leaves are the one rank mismatch: ``(R,)`` from
-        prefill against the engine's ``(R, B)``."""
+        prefill against the engine's ``(R, B)``. With the slots sharded over
+        the data ranks, only the rank that owns the slot writes it, into
+        its local row."""
+        if self._shard_batch:
+            per = self.max_slots // self.mesh_cfg.dshards
+            if slot // per != mesh_coords(self.mesh_cfg, dist.get_rank())[0]:
+                return
+            slot %= per
         for big_g, small_g in zip(self._caches, small):
             for key, big in big_g.items():
                 s = small_g[key]
@@ -414,15 +468,11 @@ class ServeEngine:
                 big.pos[:, slot] = pos_val
 
     def _init_caches(self):
-        env = self.plan.make_env(self.mesh_cfg)
-        if self.paged:
-            return M.init_paged_caches(
-                self.cfg, env, self.max_slots, self.num_pages, self.page_size,
-                self._cache_dtype, device=self.device,
-            )
-        return M.init_caches(
-            self.cfg, env, self.max_slots, self.cache_capacity, self._cache_dtype,
-            per_slot=True, device=self.device,
+        return init_serve_caches(
+            self.cfg, self.mesh_cfg, self.max_slots, self.cache_capacity,
+            self._cache_dtype, shard_batch=self._shard_batch, per_slot=True,
+            paged_pages=self.num_pages if self.paged else None, page_size=self.page_size,
+            device=self.device,
         )
 
     def _validate(self, req: Request):
@@ -463,6 +513,7 @@ class ServeEngine:
         self._step = 0
         self._rec = None
         self.step_log = []
+        self.wire_log = []
 
     def _ensure_rec(self) -> dict:
         """The current step's record: admissions accumulate into it,
@@ -554,6 +605,7 @@ class ServeEngine:
         )  # (w, 1, S) — h2d prompt staging (true length, no pads)
         rec["host_device"] += planes.nbytes
         tokens_dev = unpack_tokens(stage(planes, self.device))
+        first_call = len(comm.LOG)
         if self.paged:
             # pad on the device to whole pages (causal-safe for the
             # attention-only pattern, the one ported); logits are read at S - 1
@@ -561,14 +613,16 @@ class ServeEngine:
             rec["prefill_hits" if Spad in self._buckets_seen else "prefill_misses"] += 1
             self._buckets_seen.add(Spad)
             tokens_dev = torch.nn.functional.pad(tokens_dev, (0, Spad - S))
-            logits, pcaches = self._prefill(self.storage,
-                                            {"tokens": tokens_dev, "last": S - 1})
+            prefill, seq = self._prefill_for(Spad)
+            logits, pcaches = prefill(self.storage, {"tokens": tokens_dev, "last": S - 1})
             phys = torch.tensor(row[len(hits):-(-S // page)], dtype=torch.int64,
                                 device=self.device)
             self._insert_paged(pcaches, slot, phys, len(hits) * page, S)
         else:
-            logits, pcaches = self._prefill(self.storage, {"tokens": tokens_dev})
+            prefill, seq = self._prefill_for(S)
+            logits, pcaches = prefill(self.storage, {"tokens": tokens_dev})
             self._insert(pcaches, slot)
+        self._log_wire("prefill", tokens_dev.shape[1], first_call, seq_parallel=seq)
         del pcaches
         tok_planes = self._sample(logits)  # (w, 1) — d2h first id
         rec["host_device"] += tok_planes.nbytes
@@ -592,7 +646,9 @@ class ServeEngine:
                 rec["host_device"] += self._table.nbytes
                 rec["page_table"] += self._table.nbytes
                 batch["page_table"] = stage(self._table, self.device)
+            first_call = len(comm.LOG)
             logits, self._caches = self._decode(self._weights, self._caches, batch)
+            self._log_wire("decode", 1, first_call)
             out_planes = self._sample(logits)  # (w, B) — d2h sampled ids
             rec["host_device"] += out_planes.nbytes
             sampled = unpack_tokens_host(out_planes)
@@ -664,7 +720,8 @@ class ServeEngine:
     def wire_summary(self) -> dict:
         """Aggregate of :attr:`step_log` in the shape the analytic serve-wire
         model (:func:`repro_torch.roofline.analysis.serve_host_device_bytes`)
-        reproduces."""
+        reproduces; on a mesh also ``wire``, the steps' collectives per
+        traffic class (:attr:`wire_log`, without the placement)."""
         out = {
             "host_device": sum(r["host_device"] for r in self.step_log),
             "decode_steps": sum(1 for r in self.step_log if r["decoded"]),
@@ -676,6 +733,28 @@ class ServeEngine:
             for key in ("page_table", "prefill_hits", "prefill_misses"):
                 out[key] = sum(r[key] for r in self.step_log)
             out["page_table_entries"] = self.max_slots * self._table_width
+        if not self.mesh_cfg.trivial:  # the collectives of the steps, per class
+            wire: dict[str, int] = {}
+            for r in self.wire_log:
+                for k, v in r["wire"].items():
+                    wire[k] = wire.get(k, 0) + v
+            out["wire"] = wire
+        return out
+
+    def wire_tables(self) -> list[dict]:
+        """:func:`~repro_torch.serve.step.serve_wire_table` of each
+        :attr:`wire_log` entry: what its collectives move per class by the
+        plan's formulas (a prefill of its tokens in one row, a decode step
+        over the rank's rows, without weights when weight-stationary)."""
+        rows = self.max_slots // (self.mesh_cfg.dshards if self._shard_batch else 1)
+        out = []
+        for r in self.wire_log:
+            prefill = r["kind"] == "prefill"
+            out.append(serve_wire_table(
+                self.plan, self.cfg, self.spec_tree, self.mesh_cfg,
+                rows=1 if prefill else rows, tokens=r["tokens"],
+                gathers=prefill or not self.weight_stationary,
+                seq_parallel=r.get("seq_parallel", False)))
         return out
 
     def kv_residency(self) -> dict:
@@ -714,7 +793,10 @@ def generate_static(
     """Classic static batching, the engine's reference: requests are
     grouped by prompt length, each group runs one batched prefill and a
     scalar-``pos`` greedy decode loop to the group's longest request;
-    per-request stop conditions truncate the streams afterwards."""
+    per-request stop conditions truncate the streams afterwards. On a mesh
+    a group's rows are sharded over the data ranks when they split evenly,
+    and a length the model group does not divide takes the psum layout,
+    as in the reference."""
     if window is not None:
         raise NotImplementedError("sliding-window serving is not ported")
     for r in requests:
@@ -727,9 +809,14 @@ def generate_static(
     out: dict[int, list[int]] = {}
     for S, reqs in groups.items():
         gen = max(r.max_new for r in reqs)
-        prefill = make_prefill_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan,
-                                    cache_capacity=S + gen)
-        decode = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan)
+        gplan = plan
+        if plan.seq_parallel and S % mesh_cfg.tp:
+            gplan = dataclasses.replace(plan, seq_parallel=False)
+        shard = mesh_cfg.dshards > 1 and len(reqs) % mesh_cfg.dshards == 0
+        prefill = make_prefill_step(cfg, mesh_cfg, mesh, spec_tree, plan=gplan,
+                                    cache_capacity=S + gen, shard_batch=shard)
+        decode = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=gplan,
+                                  shard_batch=shard)
         toks = torch.tensor([r.prompt_ids for r in reqs], dtype=torch.int32, device=device)
         logits, caches = prefill(storage, {"tokens": toks})
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None].to(torch.int32)

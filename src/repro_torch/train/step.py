@@ -120,7 +120,7 @@ def build_wd_mask(spec_tree):
     return tree_map(lambda s: 1.0 if s.meta.compress else 0.0, spec_tree)
 
 
-def _check_mesh(mesh_cfg: MeshCfg, mesh, caller: str):
+def check_mesh(mesh_cfg: MeshCfg, mesh, caller: str):
     """``mesh`` must be ``None`` on one device, else
     ``make_mesh_from_cfg(mesh_cfg)``'s, with an FSDP group of ``dshards``
     ranks."""
@@ -270,6 +270,18 @@ def _rank_rows(x, group, n):
     return x[r * per:(r + 1) * per]
 
 
+def batch_rows(batch: dict, mesh_cfg: MeshCfg, group, shard_batch: bool) -> dict:
+    """A data rank's part of a serve batch (the reference's
+    ``batch_pspecs``): with ``shard_batch`` on more than one FSDP rank, its
+    rows of every leaf with a batch dim; 0-d leaves (a scalar ``pos``, a
+    ``last``) and, without ``shard_batch``, every leaf whole."""
+    n = mesh_cfg.dshards
+    if n <= 1 or not shard_batch:
+        return batch
+    return {k: _rank_rows(v, group, n) if torch.is_tensor(v) and v.ndim else v
+            for k, v in batch.items()}
+
+
 def _rep_specs(storage, spec_tree) -> list:
     """The spec of every leaf of ``_split_reps(storage, ...)``, in its
     order (each stacked leaf's once per repetition)."""
@@ -310,7 +322,7 @@ def make_train_step(
     sequence-parallel precondition reads them); nothing is traced."""
     if opt_cfg is None or batch_shapes is None:
         raise TypeError("make_train_step: opt_cfg and batch_shapes required")
-    _check_mesh(mesh_cfg, mesh, "make_train_step")
+    check_mesh(mesh_cfg, mesh, "make_train_step")
     plan = resolve_plan(cfg, plan=plan, caller="make_train_step")
     if plan.needs_rng:
         raise NotImplementedError(

@@ -329,7 +329,21 @@ def _raises_int8_kv_plan(s):
 
 
 def _raises_mesh(s):
-    tstep.make_decode_step(s["tcfg"], MeshCfg(tp=2), None, s["tspec"], plan=s["tplan"])
+    # a tp = 2 step builds now (tests/test_torch_tp_serve.py); int8 KV is
+    # deferred at every mesh, the sharded one included
+    tstep.global_cache_shapes(s["tcfg"], MeshCfg(tp=2), SLOTS, CAPACITY, torch.int8)
+
+
+def test_mesh_step_needs_the_mesh_groups(setup):
+    """At tp = 2 a serve step without the mesh's process groups
+    (``mesh=None``) is refused with a typed error, not run on one rank."""
+    s = setup
+    for make in (tstep.make_decode_step, tstep.make_place_step):
+        with pytest.raises(ValueError, match="make_mesh_from_cfg"):
+            make(s["tcfg"], MeshCfg(tp=2), None, s["tspec"], plan=s["tplan"])
+    with pytest.raises(ValueError, match="make_mesh_from_cfg"):
+        tstep.make_prefill_step(s["tcfg"], MeshCfg(tp=2), None, s["tspec"], plan=s["tplan"],
+                                cache_capacity=CAPACITY)
 
 
 @pytest.mark.parametrize("case", [
