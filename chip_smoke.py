@@ -209,6 +209,38 @@ Phases, each printing its own lines:
      trace of one 512-token admission and one warm decode step on rank 0 at
      1×2, beside the card's name and power limit.
 
+ 15. main path — full-width qwen3-1.7b (phase 7's weights from seed 0 and
+     plan, rebuilt) served with the features of its later slice, one card:
+     (a) phase 7's prompts as sampled requests (temperature 0.8, top-p 0.95,
+     top-k 40, seeds ``FEAT_SEEDS``, the last the largest uint32): static,
+     contiguous engine, paged engine (page 64), held exactly; (b) phase 7's
+     greedy requests with int8 KV: static, contiguous and paged engines,
+     held exactly, with the first decode logits of the 512-token admission
+     within ``INT8_LOGIT_RTOL`` of fp32's and the paged KV bytes a token
+     equal to ``serve_paged_kv_bytes(int8_kv=True)`` (59,136 B at full
+     width), then (a)'s requests with int8 KV statically, for (e); (c)
+     (a)'s requests through the speculative engine (``FEAT_SPEC_K``
+     proposals) with the target as its own draft and with the tiny draft
+     (seed 1), then self on the paged engine: streams equal to (a)'s
+     engine's, and every self-draft rejection, only where the draw lies
+     within ``FEAT_NEAR_TIE`` × cw[-1] of a boundary in a batch-1 static
+     run, host_device equal to ``serve_spec_decode_bytes``; (d) a
+     ``FEAT_WINDOW``-token window: the static run (linear cache, window
+     mask) against the ring engine, exactly; (e) (a)'s requests with int8
+     KV on a 1×2 mesh of two gloo ranks (phase 14's rank function): the
+     engine equal to the 1×2 static run, both to (b)'s one-device run
+     under the near-tie rule, hashes and streams equal on both ranks. The
+     sampler's rows are checked alone against a batch of 8 on the card.
+     Every run checks its launches (Bitpack/Bitunpack once per ``DIST``
+     leaf per materialization, the draft's prefills and micro steps
+     included; flash 28 per prefill of a multiple of 128 — a windowed
+     prefill too, since a serve prefill attends without the window, as
+     in the reference; ``paged_attend`` 28 per fp32 paged decode step and
+     none for an int8 pool or a verify block) and holds the first launch at
+     each new shape to its plain version. Prints times, tokens/s, rounds,
+     acceptance, memory peaks and KV bytes beside the card's name and
+     power limit.
+
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -837,12 +869,18 @@ def instrument(engine, timings):
         if active:
             timings["decode"].append(time.perf_counter() - t0)
 
-    def checked_sample(logits):
+    def checked_sample(logits, *sampling):
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         timings.setdefault("first_logits", logits.detach().cpu())
-        return sample(logits)
+        return sample(logits, *sampling)
 
+    def checked_verify_sample(logits):
+        check(bool(torch.isfinite(logits).all()), "non-finite verify logits")
+        return verify_sample(logits)
+
+    verify_sample = engine._verify_sample
     engine.admit, engine.decode_tick, engine._sample = timed_admit, timed_tick, checked_sample
+    engine._verify_sample = checked_verify_sample
 
 
 def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None):
@@ -2588,20 +2626,23 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
         t0 = time.perf_counter()
         if eng_kw is None:
             groups = static_groups(requests, run.get("per_request", False))
-            streams = {}
+            streams, rows = {}, {}
+            unkeep = keep_sampled_logits(rows) if run.get("keep_logits") and rank == 0 else None
             for g in groups:
                 streams.update(generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, g,
                                                plan=plan))
+            if unkeep is not None:
+                unkeep()
         else:
             engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
                                  cache_capacity=cap, **{"max_slots": SERVE_SLOTS, **eng_kw})
             instrument(engine, timings)
             sample = engine._sample
 
-            def hashed(logits, sample=sample, hashes=hashes):
+            def hashed(logits, *sampling, sample=sample, hashes=hashes):
                 hashes.append(hashlib.sha256(logits.detach().cpu().numpy().tobytes())
                               .hexdigest())
-                return sample(logits)
+                return sample(logits, *sampling)
 
             engine._sample = hashed
             streams = {k: r.tokens for k, r in engine.run(requests).items()}
@@ -2612,6 +2653,8 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
         stage_s = sum(c.stage_s for c in calls)
         rec = {"streams": streams, "wall_s": wall, "stage_s": stage_s, "launches": got,
                "hashes": hashes, "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+        if eng_kw is None and run.get("keep_logits") and rank == 0:
+            rec["logits"] = rows
         # launches as the run's forwards require
         if engine is None:
             forwards = sum(max(r.max_new for r in g) for g in groups)
@@ -2877,6 +2920,514 @@ def tp_serve_path(torch, device, phase7, *, cfg=None, b_rids=TPS_B_RIDS, b_gen=T
 
 
 # ---------------------------------------------------------------------------
+# phase 15: full-width qwen3-1.7b served with sampled requests, int8 KV,
+# speculative decoding and a sliding window
+# ---------------------------------------------------------------------------
+
+# (a)'s sampling: phase 7's prompts at temperature 0.8, top-p 0.95, top-k 40,
+# request i at seed 100 + i but request 4 at the largest uint32 seed
+FEAT_SAMPLING = dict(temperature=0.8, top_p=0.95, top_k=40)
+FEAT_SEEDS = (100, 101, 102, 103, 2**32 - 1)
+FEAT_SPEC_K = 3
+FEAT_WINDOW = 256  # (d): the 512- and 384-token prompts ring
+# a stream of (c) or (e) may leave the one it is held to only where that
+# run's draw lies within this share of cw[-1] of a cumulative boundary:
+# a row's GEMM bits depend on the batch's row count on the card (PERF.md §6)
+FEAT_NEAR_TIE = 1e-4
+INT8_LOGIT_RTOL = 0.05  # scenario_perf_levers.py's bar for int8 decode logits
+
+
+def keep_sampled_logits(store):
+    """Route ``generate_static``'s sampler through a recorder that keeps, on
+    the host, every logits row it samples from, by ``(seed, step)`` (phase
+    15's seeds name its requests). Returns the undo function."""
+    import numpy as np
+
+    from repro_torch.serve import engine as E
+
+    sample = E.sample_tokens
+
+    def kept(logits, vocab, temperature, top_p, top_k, seed, step):
+        rows = logits.detach().float().cpu().numpy()
+        for row, s, n in zip(rows, np.asarray(seed).tolist(), np.asarray(step).tolist()):
+            store[(int(s), int(n))] = row[:vocab].copy()
+        return sample(logits, vocab, temperature, top_p, top_k, seed, step)
+
+    E.sample_tokens = kept
+    return lambda: setattr(E, "sample_tokens", sample)
+
+
+def sampled_requests(requests):
+    """``requests`` with (a)'s sampling, request i at ``FEAT_SEEDS[i]``."""
+    from repro_torch.plan import SamplingParams
+    from repro_torch.serve.engine import Request
+
+    return [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=r.max_new,
+                    sampling=SamplingParams(**FEAT_SAMPLING, seed=FEAT_SEEDS[i]))
+            for i, r in enumerate(requests)]
+
+
+def draw_distance(torch, logits_row, vocab, s, step):
+    """How far the sampler's draw for ``logits_row`` (request sampling
+    ``s``, emitted index ``step``) lies from its nearest cumulative
+    boundary, as a share of ``cw[-1]`` (the sampler's own ops); greedy:
+    the top-2 logit gap over max |logit|."""
+    from repro_torch.serve.sampling import uniform_for
+
+    lg = logits_row[:vocab].double()
+    if s.greedy:
+        top = torch.topk(lg, 2).values
+        return float((top[0] - top[1]) / lg.abs().max())
+    scaled = lg.float() / max(s.temperature, 1e-6)
+    ranked = torch.sort(scaled, descending=True, stable=True).values
+    e = torch.exp(ranked - ranked.max())
+    probs = e / e.double().sum().float()
+    keep = torch.arange(vocab, device=lg.device) < (s.top_k or vocab)
+    keep &= (torch.cumsum(probs.double(), 0).float() - probs) < s.top_p
+    cw = torch.cumsum((probs * keep).double(), 0)
+    target = float(uniform_for([s.seed & 0xFFFFFFFF], [step])[0]) * float(cw[-1])
+    return float((cw - target).abs().min() / cw[-1])
+
+
+def static_trace(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None):
+    """One request alone (batch 1) through the static path, keeping each
+    step's logits row and the draw's distance to its nearest boundary:
+    what a diverging stream is held against."""
+    from repro_torch.serve.sampling import sample_tokens
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    S, dev, s = len(req.prompt_ids), storage["embed"].device, req.sampling
+    pre = make_prefill_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan,
+                            cache_capacity=S + req.max_new)
+    dec = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan)
+    logits, caches = pre(storage, {"tokens": torch.tensor([req.prompt_ids], device=dev)})
+    toks, dists, rows = [], [], []
+    for i in range(req.max_new):
+        row = logits[0, -1]
+        rows.append(row.cpu())
+        dists.append(draw_distance(torch, row, cfg.vocab_size, s, i))
+        tok = sample_tokens(logits[:, -1], cfg.vocab_size, [s.temperature], [s.top_p],
+                            [s.top_k], [s.seed & 0xFFFFFFFF], [i])
+        toks.append(int(tok[0]))
+        if i + 1 < req.max_new:
+            feed = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+            pos = torch.tensor(S + i, dtype=torch.int32, device=dev)
+            logits, caches = dec(storage, caches, {"tokens": feed, "pos": pos})
+    return toks, dists, rows
+
+
+def engine_logits(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, **kw):
+    """The logits rows one request samples from in a 1-slot engine."""
+    from repro_torch.serve.engine import ServeEngine
+
+    rows = []
+    engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan, max_slots=1,
+                         cache_capacity=len(req.prompt_ids) + req.max_new, **kw)
+    sample = engine._sample
+
+    def kept(logits, *sampling):
+        rows.append(logits[0, -1].cpu())
+        return sample(logits, *sampling)
+
+    engine._sample = kept
+    engine.run([req])
+    return rows
+
+
+def diverged_at(got, want):
+    """The first index where two streams part (None when equal)."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def hold_streams(torch, label, got, want, requests, setup, plan, *, near_tie=0.0,
+                 what="the reference run"):
+    """``got`` against ``want`` request by request. A divergence prints its
+    position, the draw's distance to its nearest boundary in a batch-1
+    static run (top-2 gap for greedy) and the logits' max difference
+    between a 1-slot engine and that run there; it fails unless the
+    distance is below ``near_tie``. Returns the printed cases."""
+    cfg, mesh_cfg, spec_tree, storage = setup
+    cases = []
+    for r in requests:
+        t = diverged_at(got[r.rid], want[r.rid])
+        if t is None:
+            continue
+        _, dists, rows = static_trace(torch, cfg, mesh_cfg, spec_tree, storage, plan, r)
+        erows = engine_logits(torch, cfg, mesh_cfg, spec_tree, storage, plan, r)
+        gap = float((erows[t] - rows[t]).abs().max()) if t < len(erows) else float("nan")
+        say(f"   {label}: DIVERGED request {r.rid} (prompt {len(r.prompt_ids)}) at token {t}: "
+            f"{got[r.rid][t]} against {what}'s {want[r.rid][t]}; the draw {dists[t]:.3e} of "
+            f"cw[-1] from a boundary (batch-1 static), logits max |1-slot engine - static| "
+            f"{gap:.3e}")
+        cases.append((r.rid, t, dists[t]))
+        check(dists[t] < near_tie, f"{label}: request {r.rid} left {what} at token {t}, "
+                                   f"draw {dists[t]:.3e} from a boundary (bound {near_tie})")
+    return cases
+
+
+def check_sampler_rows(torch, device, vocab):
+    """The sampler on the card at qwen3's vocabulary: each of 8 rows gives
+    the same id alone as in the batch, twice."""
+    from repro_torch.serve.sampling import sample_tokens
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    lg = torch.randn((8, vocab), generator=gen, device=device) * 3
+    args = ([0.8, 0.0, 1.5, 0.5, 0.8, 0.8, 1.0, 0.3], [0.95, 1, 0.5, 1, 0.95, 1, 0.5, 0.95],
+            [40, 0, 0, 1, 0, 40, 0, 40], [100, 0, 2**32 - 1, 2**31, 7, 8, 9, 10], list(range(8)))
+    batch = sample_tokens(lg, vocab, *args)
+    check(torch.equal(batch, sample_tokens(lg, vocab, *args)), "sampler: two calls differ")
+    for r in range(8):
+        one = sample_tokens(lg[r:r + 1], vocab, *([a[r]] for a in args))
+        check(int(one[0]) == int(batch[r]), f"sampler row {r}: alone {int(one[0])}, in a batch "
+                                            f"of 8 {int(batch[r])}")
+    two = [a[:2] for a in args]
+
+    def per_call(fn, n=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = per_call(lambda: sample_tokens(lg[:2], vocab, *two))
+    argmax_ms = per_call(lambda: torch.argmax(lg[:2], dim=-1))
+    say(f"   sampler on the card, vocab {vocab}: each of 8 rows the same alone as in the "
+        f"batch, two calls equal; 2 rows {ms:.3f} ms a call against argmax's "
+        f"{argmax_ms:.3f} ms (host clock to a sync)")
+    return {"sampler_ms": ms, "argmax_ms": argmax_ms}
+
+
+def int8_divergences(torch, cfg, requests, got, want, got_rows, want_rows):
+    """(e)'s 1×2 streams against one device's, both with int8 KV. The TP
+    halves' summation order moves K and V by ~1e-7, which moves an int8 code
+    at a rounding midpoint by a whole step (amax / 127), so the near-tie
+    rule of fp32 cannot hold here (PERF.md §6, PR 19). A divergence at token
+    t is allowed where the two runs' logits rows at t are within int8's own
+    bar of each other (relative l2 below ``INT8_LOGIT_RTOL``, the bar int8
+    logits meet against fp32's) and sampling each row with the request's
+    key gives exactly the two tokens seen (the divergence is the logits',
+    not the sampler's or the host loop's). Prints each case; returns them."""
+    from repro_torch.serve.sampling import sample_tokens
+
+    cases = []
+    for r in requests:
+        t = diverged_at(got[r.rid], want[r.rid])
+        if t is None:
+            continue
+        s = r.sampling
+        key = (s.seed & 0xFFFFFFFF, t)
+        a, b = (torch.from_numpy(rows[key]) for rows in (got_rows, want_rows))
+        rel = float((a - b).norm() / b.norm())
+        toks = [int(sample_tokens(x[None], cfg.vocab_size, [s.temperature], [s.top_p],
+                                  [s.top_k], [key[0]], [t])[0]) for x in (a, b)]
+        dist = draw_distance(torch, b, cfg.vocab_size, s, t)
+        say(f"   (e) 1×2: DIVERGED request {r.rid} (prompt {len(r.prompt_ids)}) at token {t}: "
+            f"{got[r.rid][t]} against one device's {want[r.rid][t]}; logits rows "
+            f"{rel:.3e} apart (relative l2; max {float((a - b).abs().max()):.3e}), one "
+            f"device's draw {dist:.3e} of cw[-1] from a boundary; resampled {toks}")
+        check(rel < INT8_LOGIT_RTOL and toks == [got[r.rid][t], want[r.rid][t]],
+              f"(e): request {r.rid} left one device's stream at token {t} with logits "
+              f"{rel:.3e} apart (bound {INT8_LOGIT_RTOL}) and resampled ids {toks}")
+        cases.append((r.rid, t, rel, dist))
+    return cases
+
+
+def dist_per_forward(spec_tree):
+    """Bitpack/Bitunpack launches a forward: each stacked DIST leaf once a
+    layer, each top-level DIST leaf once."""
+    from repro_torch.dist.spec import DIST
+    from repro_torch.utils.trees import tree_leaves
+
+    return (sum(s.reps for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST)
+            + sum(1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST))
+
+
+def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN,
+                  page=PAGE, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, mesh_run=True,
+                  phase9_peak=0):
+    """Full-width qwen3-1.7b (phase 7's weights from seed 0 and plan) served
+    (a) with sampled requests, (b) with int8 KV, (c) with speculative
+    decoding (self and tiny drafts), (d) with a sliding window, and (e) at
+    1×2 with sampled requests and int8 KV. Every run's launches are zeroed
+    before and read after, and the first launch at each new shape is held
+    to its plain version. Launch counts, memory and the sampler's card
+    check are read on a card only, so the phase rehearses on the CPU at a
+    reduced config. Returns the measurements; raises on a failed check."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.serve import check_wire, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import serve_paged_kv_bytes
+    from repro_torch.serve.engine import Request, ServeEngine, generate_static
+    from repro_torch.serve.spec import DraftBundle, build_draft
+
+    cfg = cfg or phase7["cfg"]
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    sync()
+    say(f"   weights from seed 0 in {time.perf_counter() - t0:.2f} s")
+    setup4 = (cfg, mesh_cfg, spec_tree, storage)
+    nrt = cfg.num_groups + 1
+    plan = PrecisionPlan.build(nrt, round_to=2)
+    plan8 = PrecisionPlan.build(nrt, round_to=2, int8_kv=True)
+    greedy = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=gen)
+              for r in phase7["requests"]]
+    sampled = sampled_requests(greedy)
+    cap = max(lens) + gen
+    per_forward = dist_per_forward(spec_tree)
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    out = {}
+    if on_card:
+        out["sampler"] = check_sampler_rows(torch, device, cfg.vocab_size)
+    seen_flash, seen_paged, packs = {}, [], {}
+    undo = [watch_flash(torch, seen_flash)]
+    if on_card:
+        undo += [watch_paged(torch, seen_paged, 8 * cfg.num_layers), watch_packing(torch, packs)]
+
+    def viable(lengths):
+        return cfg.num_layers * sum(flash_ok and S % 128 == 0 for S in lengths)
+
+    def run(label, requests, plan, *, engine=None, draft=None, **kw):
+        """One run (static when ``engine`` is None, else ``ServeEngine(**engine)``)
+        with its launches checked; returns its streams and record."""
+        timings, rec = {"admit": [], "decode": []}, {}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        if engine is None:
+            streams = generate_static(cfg, mesh_cfg, None, spec_tree, storage, requests,
+                                      plan=plan, **kw)
+            groups = static_groups(requests)
+            packed = per_forward * sum(max(r.max_new for r in g) for g in groups)
+            prefills, paged_steps = [len(g[0].prompt_ids) for g in groups], 0
+        else:
+            eng = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
+                              max_slots=SERVE_SLOTS, draft=draft, **engine)
+            instrument(eng, timings)
+            if draft is not None:
+                rec["rejections"] = watch_spec(eng)
+            streams = {k: r.tokens for k, r in eng.run(requests).items()}
+            summary = eng.wire_summary()
+            analytic = check_wire(eng, plan, requests)  # raises on a mismatch
+            rec.update(summary=summary, analytic=analytic["total"])
+            steps = summary.get("spec_rounds", summary["decode_steps"])
+            packed = per_forward * (summary["admissions"] + steps)
+            if draft is not None:  # the draft's prefills and k + 1 micro steps a round
+                packed += dist_per_forward(draft.spec_tree) * (
+                    summary["admissions"] + steps * (spec_k + 1))
+                # its prefills (of the unpadded prompts) take flash by the same rule
+                draft_flash = draft.cfg.num_layers * sum(
+                    on_card and draft.cfg.head_dim % 128 == 0 and len(r.prompt_ids) % 128 == 0
+                    for r in requests)
+            prefills = [-(-len(r.prompt_ids) // page) * page if eng.paged
+                        else len(r.prompt_ids) for r in requests]
+            paged_steps = (steps if eng.paged and not plan.int8_kv and draft is None else 0)
+            if eng.paged:
+                rec["residency"] = eng.kv_residency()
+        sync()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {"flash_prefill": viable(prefills) + (draft_flash if draft is not None else 0),
+                "paged_attend": cfg.num_layers * paged_steps * on_card,
+                "bitpack": packed * on_card, "bitunpack": packed * on_card, "l2norm_sq": 0}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        check_seen_flash(seen_flash)
+        if on_card:
+            check_seen_packing(torch, packs)
+        tokens = sum(len(s) for s in streams.values())
+        dec = sorted(timings["decode"])
+        by_len = {}
+        for S, t in timings["admit"]:
+            by_len.setdefault(S, []).append(round(t * 1e3, 2))
+        eng = None  # its caches go before the next run (instrument's closures: gc)
+        gc.collect()
+        rec.update(streams=streams, wall_s=wall, tokens=tokens, launches=got,
+                   peak=torch.cuda.max_memory_allocated() if on_card else 0,
+                   decode_ms=dec[len(dec) // 2] * 1e3 if dec else None, admit_ms=by_len,
+                   first_logits=timings.get("first_logits"))
+        line = (f"   {label}: {wall:.2f} s, {tokens} tokens, {tokens / wall:.1f} tokens/s, "
+                f"memory peak {rec['peak'] / 2**30:.2f} GiB, launches {got}")
+        if dec:
+            what = "ms a round" if draft is not None else "decode ms/step"
+            line += (f"; {what} median {dec[len(dec) // 2] * 1e3:.2f} (min {dec[0] * 1e3:.2f}, "
+                     f"max {dec[-1] * 1e3:.2f}, {len(dec)}); admission ms {by_len}")
+        if engine is not None:
+            line += f"; host_device {rec['summary']['host_device']} B == the model"
+        say(line)
+        out[label] = rec
+        return streams
+
+    # (a) sampled: static, contiguous engine, paged engine — exact
+    a_static = run("(a) sampled static", sampled, plan)
+    a_engine = run("(a) sampled engine", sampled, plan, engine={"cache_capacity": cap})
+    hold_streams(torch, "(a) sampled engine", a_engine, a_static, sampled, setup4, plan,
+                 what="the static run")
+    a_paged = run("(a) sampled paged engine", sampled, plan,
+                  engine={"cache_capacity": cap, "paged": True, "page_size": page})
+    hold_streams(torch, "(a) sampled paged engine", a_paged, a_engine, sampled, setup4, plan,
+                 what="the contiguous engine")
+    say(f"   (a): engine == static and paged == contiguous for all {len(sampled)} sampled "
+        f"streams (seeds {list(FEAT_SEEDS)})")
+
+    # (b) int8 KV: greedy static, contiguous and paged engines; then (e)'s one-device run
+    b_static = run("(b) int8 static", greedy, plan8)
+    b_engine = run("(b) int8 engine", greedy, plan8, engine={"cache_capacity": cap})
+    hold_streams(torch, "(b) int8 engine", b_engine, b_static, greedy, setup4, plan8,
+                 what="the int8 static run")
+    b_paged = run("(b) int8 paged engine", greedy, plan8,
+                  engine={"cache_capacity": cap, "paged": True, "page_size": page})
+    hold_streams(torch, "(b) int8 paged engine", b_paged, b_engine, greedy, setup4, plan8,
+                 what="the int8 contiguous engine")
+    fp32 = phase7["static"]
+    same = sum(b_static[r.rid] == fp32[r.rid][:gen] for r in greedy)
+    # the 512-token admission's first decode logits: int8 against fp32
+    r0 = greedy[0]
+    rows = {p.int8_kv: static_trace(torch, cfg, mesh_cfg, spec_tree, storage, p,
+                                    Request(rid=0, prompt_ids=r0.prompt_ids, max_new=2))[2][1]
+            for p in (plan, plan8)}
+    rel = float((rows[True] - rows[False]).norm() / rows[False].norm())
+    check(rel < INT8_LOGIT_RTOL, f"(b): int8 decode logits {rel:.3e} from fp32's (relative l2)")
+    res = out["(b) int8 paged engine"]["residency"]
+    want = serve_paged_kv_bytes(cfg, page_size=page, requests=[(len(r.prompt_ids), gen)
+                                                               for r in greedy], int8_kv=True)
+    fp = serve_paged_kv_bytes(cfg, page_size=1, requests=[(1, 0)])["bytes_per_page"]
+    check(res["bytes_per_page"] == want["bytes_per_page"],
+          f"(b): {res['bytes_per_page']} B a page, serve_paged_kv_bytes {want['bytes_per_page']}")
+    say(f"   (b): int8 engine == int8 static, paged == contiguous; {same} of {len(greedy)} "
+        f"streams equal to phase 7's fp32 streams; the {len(r0.prompt_ids)}-token admission's "
+        f"first decode logits {rel:.3e} from fp32's (relative l2, bound {INT8_LOGIT_RTOL}); "
+        f"KV {res['bytes_per_page'] // page} B a token == serve_paged_kv_bytes(int8_kv=True) "
+        f"(fp32: {fp}), peak {res['pages_peak']} pages {res['kv_bytes_peak'] / 1e6:.1f} MB; "
+        f"memory peak {out['(b) int8 paged engine']['peak'] / 2**30:.2f} GiB against phase 9's "
+        f"{phase9_peak / 2**30:.2f} GiB")
+    one_rows = {}
+    unkeep = keep_sampled_logits(one_rows)
+    e_one = run("(b) sampled int8 static (for (e))", sampled, plan8)
+    unkeep()
+
+    # (c) speculative: (a)'s requests, spec_k 3, self and tiny drafts, then self paged
+    drafts = {"self": DraftBundle(cfg, spec_tree, storage),
+              "tiny": build_draft(cfg, mesh_cfg, "tiny", seed=1, device=device)}
+    spec = {}
+    for name, kw in (("self", {}), ("tiny", {}), ("self paged", {"paged": True,
+                                                                 "page_size": page})):
+        label = f"(c) spec {name}"
+        streams = run(label, sampled, plan, engine={"cache_capacity": cap, "spec_k": spec_k,
+                                                    **kw},
+                      draft=drafts[name.split()[0]])
+        s = out[label]["summary"]
+        hold_streams(torch, label, streams, a_engine, sampled, setup4, plan,
+                     near_tie=FEAT_NEAR_TIE, what="(a)'s engine")
+        rej = out[label]["rejections"]
+        if name.startswith("self"):  # a rejection past a request's end is moot
+            by_rid = {r.rid: r for r in sampled}
+            for rid, n, d, t in [x for x in rej if x[2] != x[3] and x[1] < by_rid[x[0]].max_new]:
+                r = by_rid[rid]
+                _, dists, _ = static_trace(torch, cfg, mesh_cfg, spec_tree, storage, plan, r)
+                say(f"   {label}: self-draft proposal rejected, request {rid} token {n}: draft "
+                    f"{d}, target {t}; the draw {dists[n]:.3e} of cw[-1] from a boundary")
+                check(dists[n] < FEAT_NEAR_TIE, f"{label}: a self-draft rejection away from a "
+                                                "boundary")
+        spec[name] = s
+        say(f"   {label}: {s['spec_rounds']} rounds, acceptance {s['acceptance_rate']:.4f}, "
+            f"{s['tokens_per_target_step']:.3f} tokens a target step, host_device "
+            f"{s['host_device']} B == serve_spec_decode_bytes")
+    del drafts
+
+    # (d) window: greedy, static (linear cache, window mask) and the ring engine
+    d_static = run("(d) window static", greedy, plan, window=window)
+    d_engine = run("(d) window engine", greedy, plan,
+                   engine={"cache_capacity": min(cap, window), "window": window})
+    hold_streams(torch, "(d) window engine", d_engine, d_static, greedy, setup4, plan,
+                 what="the windowed static run")
+    rings = [len(r.prompt_ids) for r in greedy if len(r.prompt_ids) + gen > window]
+    say(f"   (d): window {window}, ring of {min(cap, window)}: engine == static; prompts "
+        f"{rings} ring; flash on the prefills by the reference's rule (a serve prefill "
+        f"attends without the window)")
+    for u in undo:
+        u()
+    out["flash_err"] = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
+    out["paged_err"] = check_seen_paged(seen_paged) if seen_paged else 0.0
+    del storage
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (e) 1×2: (a)'s requests with int8 KV, static then the engine
+    if mesh_run:
+        runs = ({"label": "static", "plan": {"int8_kv": True}, "keep_logits": True},
+                {"label": "engine", "plan": {"int8_kv": True}, "engine": {},
+                 "against": "static"})
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), cfg, 1, sampled, runs, False,
+                            threads=2 if on_card else 1, timeout_s=900)
+        r0 = ranks[0]["runs"]
+        for r, o in enumerate(ranks):
+            for label in r0:
+                check(o["runs"][label]["streams"] == r0[label]["streams"],
+                      f"(e): rank {r}'s {label} streams differ from rank 0's")
+                check(o["runs"][label]["hashes"] == r0[label]["hashes"],
+                      f"(e): rank {r}'s {label} logits differ from rank 0's")
+        check(r0["engine"]["streams"] == r0["static"]["streams"] and not r0["engine"]["diverged"],
+              "(e): the 1×2 engine's streams differ from the 1×2 static run's")
+        cases = int8_divergences(torch, cfg, sampled, r0["static"]["streams"], e_one,
+                                 r0["static"]["logits"], one_rows)
+        rec = r0["engine"]
+        dec = sorted(rec["decode_ms"])
+        say(f"   (e) 1×2 ({time.perf_counter() - t0:.1f} s): engine == static, streams and "
+            f"logits' hashes equal on both ranks, {len(sampled) - len(cases)} of {len(sampled)} "
+            f"equal to one device's; engine decode ms/step median {dec[len(dec) // 2]:.2f}, "
+            f"{sum(len(s) for s in rec['streams'].values()) / rec['wall_s']:.1f} tokens/s, "
+            f"launches {rec['launches']}, memory peak per rank "
+            f"{[round(o['runs']['engine']['peak'] / 2**30, 2) for o in ranks]} GiB")
+        out["(e)"] = ranks
+    launches = {k: sum(o["launches"][k] for o in out.values() if isinstance(o, dict)
+                       and "launches" in o) for k in counts()}
+    if mesh_run:
+        launches = {k: v + sum(o["runs"][label]["launches"][k] for o in out["(e)"]
+                               for label in o["runs"]) for k, v in launches.items()}
+    return {"runs": out, "launches": launches, "spec": spec, "int8_rel": rel,
+            "flash_err": out["flash_err"], "paged_err": out["paged_err"]}
+
+
+def watch_spec(engine):
+    """Record every examined proposal of a speculative engine: ``(rid,
+    emitted index, draft id, target id)``, up to and including the first
+    rejection of each slot a round. Returns the list it fills."""
+    seen, last = [], {}
+    propose, verify = engine.draft.propose, engine._verify_sample
+
+    def proposed(*a, **kw):
+        last["drafts"] = propose(*a, **kw)
+        last["nemit"] = engine._nemit.copy()
+        last["active"] = {slot: st.req.rid for slot, st in engine._active.items()}
+        return last["drafts"]
+
+    def verified(logits):
+        planes = verify(logits)
+        from repro_torch.transport.hostdev import unpack_tokens_host
+
+        targets = unpack_tokens_host(planes)
+        for slot, rid in last["active"].items():
+            for j in range(last["drafts"].shape[1]):
+                d, t = int(last["drafts"][slot, j]), int(targets[slot, j])
+                seen.append((rid, int(last["nemit"][slot]) + j, d, t))
+                if d != t:
+                    break
+        return planes
+
+    engine.draft.propose, engine._verify_sample = proposed, verified
+    return seen
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3010,6 +3561,18 @@ def main() -> int:
     say(f"   the kernels at a model rank's shapes at tp {TPS_TP}:")
     time_tp_shapes(torch, device)
 
+    say(f"phase 15: main path — full-width qwen3-1.7b served with (a) sampled requests "
+        f"(seeds {list(FEAT_SEEDS)}), (b) int8 KV, (c) speculative decoding (spec_k "
+        f"{FEAT_SPEC_K}, self and tiny drafts), (d) a {FEAT_WINDOW}-token window, (e) sampled "
+        f"int8 requests at 1×{TPS_TP}; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    feats = features_path(torch, device, serve7,
+                          phase9_peak=paged_run["runs"]["paged engine"]["peak"])
+    for k in served:
+        served[k] += feats["launches"][k]
+    say(f"   launches over phase 15's runs: {feats['launches']}")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -3027,7 +3590,7 @@ def main() -> int:
         "name": "flash_prefill", "route": "cuda", "source": "src/repro_torch/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:110",
         "launches": served["flash_prefill"],
-        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"]),
+        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"], feats["flash_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -3035,8 +3598,10 @@ def main() -> int:
     kernels.append({
         "name": "paged_attend", "route": "cuda", "source": "src/repro_torch/csrc/paged_attend.cu",
         "replaces": "src/repro/kernels/paged_attention.py:98",
-        "launches": paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"],
-        "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"]),
+        "launches": (paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"]
+                     + feats["launches"]["paged_attend"]),
+        "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"],
+                           feats["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })

@@ -17,11 +17,18 @@ them) and returns the port's params on ``device``:
     ``(c, h, w)``;
   * everything else (biases, norm scales, later fc weights) is copied.
 
-``convert_paged_cache`` takes a reference ``PagedKVCache`` whose leaves
-are numpy arrays (pools ``(P, page, Kv, hd)``, ``pos (B,)``, stacked or
-not) and returns the port's :class:`PagedKVCache` with the same values,
-so ``_paged_write`` and ``attend_decode_paged`` can start from identical
-state in both packages.
+``convert_draft`` takes the reference draft's params
+(``repro.serve.spec.build_draft(cfg, mesh_cfg, "tiny")``'s
+``init_params(make_draft_config(cfg), PRNGKey(seed))``, as numpy arrays)
+and returns the port's :class:`~repro_torch.serve.spec.DraftBundle` of
+the same weights.
+
+``convert_cache`` takes a reference cache node whose leaves are numpy
+arrays (``KVCache``, ``QuantKVCache``, ``PagedKVCache`` or
+``PagedQuantKVCache``, stacked or not) and returns the port's node of the
+same class with the same values, so that the attention functions can
+start from identical state in both packages; ``convert_paged_cache`` is
+its paged fp32 case.
 
 The values are moved exactly, so both packages can start a run from the
 same weights (and caches).
@@ -33,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models import attention as A
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.cnn import CNNConfig
 from repro_torch.models.init import eff_vocab
@@ -116,14 +124,43 @@ def convert_cnn_params(cfg: CNNConfig, params, *, device="cuda"):
     return {"layers": out}
 
 
+def convert_draft(cfg, mesh_cfg, params, name: str = "tiny", *, device="cuda"):
+    """Reference-layout numpy params of ``cfg``'s draft (the reference's
+    ``make_draft_config(cfg, name)``) -> the port's ``DraftBundle`` on
+    ``device`` with the same weights."""
+    from repro_torch.serve.spec import build_draft, make_draft_config
+
+    dparams = convert_lm_params(make_draft_config(cfg, name), params, device=device,
+                                tp=mesh_cfg.tp)
+    return build_draft(cfg, mesh_cfg, name, device=device, params=dparams)
+
+
+_CACHE_FIELDS = {
+    "KVCache": ("k", "v", "pos"),
+    "QuantKVCache": ("k", "v", "k_scale", "v_scale", "pos"),
+    "PagedKVCache": ("k", "v", "pos"),
+    "PagedQuantKVCache": ("k", "v", "k_scale", "v_scale", "pos"),
+}
+
+
+def convert_cache(cache, *, device="cuda"):
+    """Reference cache node with numpy leaves -> the port's node of the
+    same class name (an exact copy on ``device``; ``pos`` is int32)."""
+    name = type(cache).__name__
+    if name not in _CACHE_FIELDS:
+        raise TypeError(f"no port counterpart of cache node {name}")
+    leaves = []
+    for f in _CACHE_FIELDS[name]:
+        x = np.asarray(getattr(cache, f))
+        leaves.append(torch.from_numpy((x.astype(np.int32) if f == "pos" else x).copy())
+                      .to(device))
+    return getattr(A, name)(*leaves)
+
+
 def convert_paged_cache(cache, *, device="cuda") -> PagedKVCache:
     """Reference ``PagedKVCache`` with numpy leaves -> the port's (an exact
     copy on ``device``: pools keep their float dtype, ``pos`` is int32)."""
-    k, v, pos = (np.asarray(x) for x in (cache.k, cache.v, cache.pos))
-    if k.shape != v.shape or k.ndim < 4:
-        raise ValueError(f"need pools (..., P, page, Kv, hd); got {k.shape}, {v.shape}")
-    return PagedKVCache(
-        torch.from_numpy(k.copy()).to(device),
-        torch.from_numpy(v.copy()).to(device),
-        torch.from_numpy(pos.astype(np.int32)).to(device),
-    )
+    k, v = np.shape(cache.k), np.shape(cache.v)
+    if k != v or len(k) < 4:
+        raise ValueError(f"need pools (..., P, page, Kv, hd); got {k}, {v}")
+    return convert_cache(cache, device=device)

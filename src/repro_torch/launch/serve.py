@@ -8,12 +8,21 @@ on an FSDP×TP mesh of ranks.
       [--mesh 1x2] [--weight-stationary] [--check-static] [--reduced] [--device cpu] \\
       [--act-round-to 2] [--seq-parallel] \\
       [--paged [--page-size 64] [--num-pages N] [--no-share-prefix]] \\
-      [--shared-prefix N]
+      [--shared-prefix N] [--int8-kv] [--window W] \\
+      [--temperature T [--top-p P] [--top-k K] [--seed S]] \\
+      [--spec-decode [--draft tiny] [--spec-k 4]]
 
 Weights are random, from seed 0 (``repro_torch.models.init``); the plan
 is ``PrecisionPlan.build(round_to=2)``, the reference launcher's default
 (bf16 planes), with ``--act-round-to`` packing the TP-region all-reduces
-and ``--seq-parallel`` the sequence-parallel prefill layout.
+and ``--seq-parallel`` the sequence-parallel prefill layout,
+``--int8-kv`` the int8 KV caches. ``--temperature`` (> 0) switches every
+request to seeded sampling with ``--top-p`` / ``--top-k``, request i at
+seed ``--seed + i``; ``--window W`` serves with a sliding window (cache
+capacity ``min(max prompt + gen, W)``, a ring when the prompts reach it);
+``--spec-decode`` adds speculative decoding with ``--draft`` (``tiny``,
+random weights from seed 1, or an arch name) proposing ``--spec-k`` ids a
+round, and checks the measured wire against ``serve_spec_decode_bytes``.
 ``--shared-prefix N`` prepends N common tokens to every prompt. ``--mesh``
 is ``DPxTP`` or ``PODSxDPxTP``, parsed as in training: anything but
 ``1x1`` runs ``pods × dp × tp`` ranks, processes spawned by
@@ -23,9 +32,9 @@ whole model at a time on a shared card) and runs the same engine loop on
 its TP slice. Rank 0 prints the reference launcher's lines and, on a
 mesh, the engine's collectives per traffic class against the plan's
 ``serve_wire_table`` (``[OK ...]`` or ``[MISMATCH ...]``). Runs on
-``cuda`` unless ``--device cpu``. The reference launcher's speculative,
-sampling, window, int8-KV, plan-file, chunks and checkpoint options are
-not ported.
+``cuda`` unless ``--device cpu``. Speculative decoding and windows on a
+mesh raise ``NotImplementedError`` (ROADMAP item 7.6); the reference
+launcher's plan-file, chunks and checkpoint options are not ported.
 """
 from __future__ import annotations
 
@@ -40,23 +49,35 @@ from repro_torch.configs.registry import ARCHS, get_config, reduced
 from repro_torch.dist.spec import MeshCfg
 from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
 from repro_torch.launch.train import parse_mesh, rank_device, setup_storage
-from repro_torch.plan import PrecisionPlan
-from repro_torch.roofline.analysis import serve_host_device_bytes
+from repro_torch.plan import PrecisionPlan, SamplingParams
+from repro_torch.roofline.analysis import serve_host_device_bytes, serve_spec_decode_bytes
 from repro_torch.serve.engine import Request, ServeEngine, generate_static
+from repro_torch.serve.spec import build_draft, require_one_device
 from repro_torch.train.step import COLLECTIVE_CLASSES
 
 
+def sampling_for(rid: int, temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+                 seed: int = 0) -> SamplingParams:
+    """Request ``rid``'s :class:`SamplingParams`, as the reference launcher
+    builds them: greedy at ``temperature <= 0``, else one shared
+    temperature / top-p / top-k and a seed of its own, ``seed + rid``."""
+    if temperature <= 0:
+        return SamplingParams()
+    return SamplingParams(temperature=temperature, top_p=top_p, top_k=top_k, seed=seed + rid)
+
+
 def build_requests(prompt_lens, gen: int, vocab_size: int, *,
-                   shared_prefix: int = 0) -> list[Request]:
-    """Greedy requests with prompts drawn from ``default_rng(0)``, as the
+                   shared_prefix: int = 0, **sampling) -> list[Request]:
+    """Requests with prompts drawn from ``default_rng(0)``, as the
     reference launcher draws them: first ``shared_prefix`` tokens common to
     every prompt, then each prompt's own ``prompt_lens[i]`` tokens (with no
-    prefix the prompts are the same as without the option)."""
+    prefix the prompts are the same as without the option). ``sampling``
+    is :func:`sampling_for`'s keywords (greedy without them)."""
     rng = np.random.default_rng(0)
     shared = tuple(int(t) for t in rng.integers(0, vocab_size, shared_prefix))
     return [
-        Request(rid=i, max_new=gen, prompt_ids=shared + tuple(
-            int(t) for t in rng.integers(0, vocab_size, S)))
+        Request(rid=i, max_new=gen, sampling=sampling_for(i, **sampling),
+                prompt_ids=shared + tuple(int(t) for t in rng.integers(0, vocab_size, S)))
         for i, S in enumerate(prompt_lens)
     ]
 
@@ -74,14 +95,18 @@ def setup(cfg, *, seed: int, device, mesh_cfg: MeshCfg | None = None, rank: int 
 
 def check_wire(engine: ServeEngine, plan, requests) -> dict:
     """The engine's measured host<->device bytes must equal the analytic
-    serve model for the run's geometry; returns the analytic table."""
+    serve model for the run's geometry (the speculative one with a draft);
+    returns the analytic table."""
     summary = engine.wire_summary()
-    analytic = serve_host_device_bytes(
-        plan, engine.cfg.vocab_size, n_slots=engine.max_slots,
-        prompt_lens=[len(r.prompt_ids) for r in requests],
-        decode_steps=summary["decode_steps"],
-        page_table_entries=summary.get("page_table_entries", 0),
-    )
+    geometry = dict(n_slots=engine.max_slots, prompt_lens=[len(r.prompt_ids) for r in requests],
+                    page_table_entries=summary.get("page_table_entries", 0))
+    if engine.draft is not None:
+        analytic = serve_spec_decode_bytes(plan, engine.cfg.vocab_size,
+                                           spec_rounds=summary["spec_rounds"],
+                                           spec_k=engine.spec_k, **geometry)
+    else:
+        analytic = serve_host_device_bytes(plan, engine.cfg.vocab_size,
+                                           decode_steps=summary["decode_steps"], **geometry)
     if summary["host_device"] != analytic["total"]:
         raise SystemExit(f"measured host_device {summary['host_device']} B != "
                          f"analytic {analytic['total']} B ({analytic})")
@@ -132,6 +157,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable shared-prefix page interning (--paged)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common tokens to every prompt")
+    ap.add_argument("--int8-kv", action="store_true", help="int8 KV caches (fp32 scales)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window decode (one device)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy; > 0 samples every request)")
+    ap.add_argument("--top-p", type=float, default=1.0, help="nucleus cutoff (--temperature)")
+    ap.add_argument("--top-k", type=int, default=0, help="top-k cutoff, 0 = all (--temperature)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base sampling seed; request i uses seed + i")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding (one device): the draft proposes --spec-k "
+                         "ids a slot, the target verifies them in one step")
+    ap.add_argument("--draft", default="tiny",
+                    help="draft model: 'tiny' (the target shrunk, same vocabulary, random "
+                         "weights from seed 1) or an arch name (--spec-decode)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft proposals a round (--spec-decode)")
     return ap
 
 
@@ -149,23 +191,34 @@ def _serve(rank: int, args, params=None) -> dict:
     _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank,
                                   params=params)
     plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2, act_round_to=args.act_round_to,
-                               seq_parallel=args.seq_parallel)
+                               seq_parallel=args.seq_parallel, int8_kv=args.int8_kv)
     requests = build_requests([int(s) for s in args.prompt_lens.split(",")], args.gen,
-                              cfg.vocab_size, shared_prefix=args.shared_prefix)
+                              cfg.vocab_size, shared_prefix=args.shared_prefix,
+                              temperature=args.temperature, top_p=args.top_p,
+                              top_k=args.top_k, seed=args.seed)
     lens = [len(r.prompt_ids) for r in requests]
     slots = args.max_slots or min(4, len(requests))
+    window = args.window or None
+    # a windowed cache rings only at capacity <= window (the engine checks
+    # it): capped at the window, long prompts wrap instead of overflowing
+    cap = max(lens) + args.gen if window is None else min(max(lens) + args.gen, window)
     out = {"cfg": cfg.name, "device": str(device), "lens": lens, "slots": slots,
            "mesh": mesh_cfg.shape, "trivial": mesh_cfg.trivial, "static": None}
     if args.check_static:
         t0 = time.perf_counter()
         out["static"] = generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests,
-                                        plan=plan)
+                                        plan=plan, window=window)
         out["static_s"] = time.perf_counter() - t0
+    draft = None
+    if args.spec_decode:
+        draft = build_draft(cfg, mesh_cfg, args.draft, device=device)
+        out["draft"] = draft.cfg.name
     engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
-                         max_slots=slots, cache_capacity=max(lens) + args.gen,
+                         max_slots=slots, cache_capacity=cap, window=window,
                          weight_stationary=args.weight_stationary, paged=args.paged,
                          page_size=args.page_size, num_pages=args.num_pages or None,
-                         share_prefix=not args.no_share_prefix)
+                         share_prefix=not args.no_share_prefix, draft=draft,
+                         spec_k=args.spec_k if draft is not None else None)
     t0 = time.perf_counter()
     results = engine.run(requests)
     out["wall"] = time.perf_counter() - t0
@@ -184,6 +237,10 @@ def main(argv=None, *, params=None):
     replaces the seeded weights (a port LM tree at the mesh's ``tp``)."""
     args = build_parser().parse_args(argv)
     mesh_cfg = parse_mesh(args.mesh)
+    if args.spec_decode:
+        require_one_device(mesh_cfg, "speculative decoding")
+    if args.window:
+        require_one_device(mesh_cfg, "sliding-window serving")
     if mesh_cfg.trivial:
         out = _serve(0, args, params)
     else:
@@ -199,9 +256,14 @@ def main(argv=None, *, params=None):
           f"prompts {min(lens)}..{max(lens)}, +{args.gen} tokens, {out['slots']} slots")
     print(f"engine: {summary['steps']} steps ({summary['decode_steps']} decode) in "
           f"{out['wall']:.2f}s ({total_new / max(out['wall'], 1e-9):.1f} tok/s)")
+    model = "serve_spec_decode_bytes" if args.spec_decode else "serve_host_device_bytes"
     print(f"host_device wire: {summary['host_device']} B staged at "
-          f"{summary['token_width']} B/token == serve_host_device_bytes "
-          f"{analytic['total']} B")
+          f"{summary['token_width']} B/token == {model} {analytic['total']} B")
+    if args.spec_decode:
+        print(f"spec decode: draft {out['draft']}, {summary['spec_rounds']} rounds, acceptance "
+              f"{summary['acceptance_rate']:.2f}, {summary['tokens_per_target_step']:.2f} "
+              f"emitted tokens/target step (k={summary['spec_k']}), "
+              f"{summary['host_device'] / max(total_new, 1):.2f} B/token")
     if not out["trivial"]:
         got, want = out["wire"]
         status = "OK" if got == want else "MISMATCH"

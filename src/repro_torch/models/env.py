@@ -43,6 +43,7 @@ class Env:
     seq_parallel: bool = False            # sequence-parallel activations
     act_policy: Any = None                # activation CompressionPolicy
     seq_policy: Any = None                # seq-boundary policy (None = act)
+    int8_kv: bool = False                 # int8 KV caches (serving)
 
     def __post_init__(self):
         if self.tp > 1 and self.model_group is None:

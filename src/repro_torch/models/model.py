@@ -26,12 +26,19 @@ backward saved (early stop, pinned), so the layer's last TP-region exit is
 not run again (``train.step.remat_tp_collectives``).
 
 Caches are stacked per group (leading repetition dim) and updated in
-place; the returned caches are the same tensors. The serve engine's
-paged layout (:func:`init_paged_caches`) gives every attention block a
-page pool instead, read through the ``page_table`` a decode step carries.
+place; the returned caches are the same tensors; ``env.int8_kv`` makes
+them int8 with fp32 scales. The serve engine's paged layout
+(:func:`init_paged_caches`) gives every attention block a page pool
+instead, read through the ``page_table`` a decode step carries. A
+decode's ``window_override`` (the serve engine's sliding window, merged
+with the config's ``sliding_window``) masks the attention and makes a
+cache whose capacity is at most the window a ring; a prefill attends
+without it, as the reference's does, and only its cache geometry check
+sees it.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable
 
@@ -40,8 +47,6 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
-    KVCache,
-    PagedKVCache,
     check_cache_geometry,
     init_cache,
     init_paged_cache,
@@ -51,6 +56,15 @@ from repro_torch.models.env import Env
 from repro_torch.models.layers import embed_lookup_vp, rms_norm
 from repro_torch.models.loss import lm_loss
 from repro_torch.models.mlp import swiglu
+
+
+def _window(cfg: ModelConfig, window_override):
+    """The attention window: the config's ``sliding_window`` merged with
+    an override, as the reference's ``apply_block`` merges them."""
+    window = cfg.sliding_window or None
+    if window_override is not None:
+        window = window_override if window is None else min(window, window_override)
+    return window
 
 
 def _channel_mix(x, w, cfg: ModelConfig, env: Env):
@@ -70,6 +84,7 @@ def apply_block(
     *,
     mode: str,
     cache: Any = None,
+    window_override=None,
     pos_offset=0,
     page_table=None,
 ):
@@ -77,12 +92,11 @@ def apply_block(
     third value, the MoE auxiliary loss, has no counterpart here."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported (attn only)")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported")
+    window = _window(cfg, window_override)
     wa = w["attn"]
     xn = rms_norm(x, wa["ln"], cfg.norm_eps)
-    y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, pos_offset=pos_offset,
-                   page_table=page_table)
+    y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, window=window,
+                   pos_offset=pos_offset, page_table=page_table)
     x = x + y
     return x + _channel_mix(x, w, cfg, env), cache
 
@@ -95,7 +109,8 @@ def run_group(
     *,
     mode: str,
     mat_fn: Callable[[str, dict], dict],  # (pattern key, rep storage) -> weights
-    caches: Any = None,      # {p<i>: stacked KVCache | PagedKVCache} or None
+    caches: Any = None,      # {p<i>: stacked cache nodes} or None
+    window_override=None,
     pos_offset=0,
     page_table=None,         # (B, n_pages) int32 — paged decode only
 ):
@@ -111,7 +126,8 @@ def run_group(
             w = mat_fn(key, _index(group_params[key], rep))
             c_in = caches[key].rep(rep) if caches is not None else None
             x, _ = apply_block(
-                kind, x, w, cfg, env, mode=mode, cache=c_in, pos_offset=pos_offset,
+                kind, x, w, cfg, env, mode=mode, cache=c_in,
+                window_override=window_override, pos_offset=pos_offset,
                 page_table=page_table,
             )
             del w  # one layer's materialized weights alive at a time
@@ -179,8 +195,12 @@ def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
 
 
 def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
-                    cache_capacity):
+                    cache_capacity, window_override=None):
     """Prefill: returns (last-token logits (B, 1, V), caches per group).
+    A prompt longer than ``cache_capacity`` keeps its trailing tokens in a
+    ring, which the geometry check allows only under a window (the
+    config's or ``window_override``); the attention itself is the full
+    causal one, as in the reference.
 
     ``batch["last"]`` (an int or a 0-d integer tensor, optional) marks the
     last *real* token when the prompt is right-padded to a page-bucket
@@ -188,7 +208,7 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
     causal-safe for pure-attention patterns, the only ones ported."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     B, S = x.shape[:2]
-    check_cache_geometry(cache_capacity, S)
+    check_cache_geometry(cache_capacity, _window(cfg, window_override), S)
     caches = init_caches(cfg, env, B, cache_capacity, env.dtype, device=x.device)
     for g, gp in enumerate(params["groups"]):
         x, _ = run_group(
@@ -213,11 +233,13 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
     return logits, caches
 
 
-def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
-    """One-token decode step. ``batch["tokens"]`` (B, 1); ``batch["pos"]``
+def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top,
+                   window_override=None):
+    """Decode step. ``batch["tokens"]`` (B, 1), or (B, k + 1) for the
+    speculative verify block over per-slot caches; ``batch["pos"]``
     is a scalar (uniform batch) or ``(B,)`` (per-slot); the paged engine's
     batches also carry ``batch["page_table"]`` (B, n_pages). Returns
-    (logits (B, 1, V), caches') — the caches are updated in place.
+    (logits (B, T, V), caches') — the caches are updated in place.
 
     One token has no sequence dim to shard: a ``seq_parallel`` env falls
     back to the replicated psum layout here (the caches are whole
@@ -231,7 +253,7 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
         x, _ = run_group(
             x, gp, cfg, env, mode="decode",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
-            pos_offset=pos, page_table=page_table,
+            window_override=window_override, pos_offset=pos, page_table=page_table,
         )
     return _logits(x, params, cfg, env, mat_top), caches
 
@@ -241,15 +263,21 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top):
 # ---------------------------------------------------------------------------
 
 
+def _stack(one, reps: int):
+    """A cache node with every leaf repeated ``reps`` times along a new
+    leading dim (fresh storage)."""
+    return type(one)(*(t.expand(reps, *t.shape).clone() for t in (
+        getattr(one, f.name) for f in dataclasses.fields(one))))
+
+
 def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
                 per_slot: bool = False, *, device="cpu", kv_heads: int | None = None):
     """Stacked caches per group: ``groups[g]["p0"]`` is a :class:`KVCache`
-    with leading dim = repetitions (``k (R, B, C, Kv, hd)``; ``pos (R,)``,
-    or ``(R, B)`` with ``per_slot=True`` — the serve engine's slotted
-    layout, where every slot tracks its own absorbed-token count). ``Kv``
-    is ``kv_heads``, by default the env's rank-local count."""
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window caches are not ported")
+    (a :class:`QuantKVCache` under ``env.int8_kv``) with leading dim =
+    repetitions (``k (R, B, C, Kv, hd)``; ``pos (R,)``, or ``(R, B)`` with
+    ``per_slot=True`` — the serve engine's slotted layout, where every
+    slot tracks its own absorbed-token count). ``Kv`` is ``kv_heads``, by
+    default the env's rank-local count."""
     reps = cfg.layers_per_group // len(cfg.pattern)
     kv_l = kv_heads or env.heads_local(cfg.num_kv_heads)
     groups = []
@@ -258,11 +286,10 @@ def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":
                 raise NotImplementedError(f"block kind {kind!r} is not ported")
-            one = init_cache(batch, capacity, kv_l, cfg.head_dim, dtype,
+            one = init_cache(batch, capacity, kv_l, cfg.head_dim,
+                             torch.int8 if env.int8_kv else dtype,
                              per_slot=per_slot, device=device)
-            entry[f"p{pi}"] = KVCache(*(
-                t.expand(reps, *t.shape).clone() for t in (one.k, one.v, one.pos)
-            ))
+            entry[f"p{pi}"] = _stack(one, reps)
         groups.append(entry)
     return groups
 
@@ -287,9 +314,7 @@ def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
             if kind != "attn":
                 raise NotImplementedError(f"block kind {kind!r} is not ported")
             one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
-                                   dtype, device=device)
-            entry[f"p{pi}"] = PagedKVCache(*(
-                t.expand(reps, *t.shape).clone() for t in (one.k, one.v, one.pos)
-            ))
+                                   torch.int8 if env.int8_kv else dtype, device=device)
+            entry[f"p{pi}"] = _stack(one, reps)
         groups.append(entry)
     return groups

@@ -2,7 +2,8 @@
 from repro_torch.plan.plan import (
     TRAFFIC_CLASSES,
     PrecisionPlan,
+    SamplingParams,
     Schedule,
 )
 
-__all__ = ["PrecisionPlan", "Schedule", "TRAFFIC_CLASSES"]
+__all__ = ["PrecisionPlan", "SamplingParams", "Schedule", "TRAFFIC_CLASSES"]

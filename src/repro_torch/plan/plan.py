@@ -1,6 +1,5 @@
 """PrecisionPlan — the declarative precision plan (counterpart of
-``repro.plan.plan``, the subset the one-device, data-parallel and
-FSDP×TP training paths use).
+``repro.plan.plan``, the subset the training and serving paths use).
 
 A plan holds one :class:`~repro_torch.transport.CompressionPolicy` per
 weight precision group, an optional ``gradients`` policy (the backward
@@ -10,17 +9,21 @@ CNN's stage-boundary quantize), an optional ``seq_boundary`` policy (the
 sequence-parallel gather / scatter pair; defaults to ``activations``), an
 optional ``host_device`` policy (the serve engine's token staging;
 defaults to the weight entries), the layout (``seq_parallel``, ``chunks``
-— the weight gather's plane blocks — and ``env_overrides``, the
-``Env`` knobs ``attn_chunk`` and ``causal_skip``) and a schedule source
+— the weight gather's plane blocks — ``int8_kv``, the serve caches' int8
+KV, and ``env_overrides``, the ``Env`` knobs ``attn_chunk`` and
+``causal_skip``), the serving defaults (``sampling``, a
+:class:`SamplingParams`; ``spec_draft`` and ``spec_k``, the speculative
+engine's draft name and proposals a round) and a schedule source
 (``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
 hyper-parameters). :meth:`PrecisionPlan.wire_table` is the per-entry
 byte account of one step, from the policy formulas.
 
 Plan JSON loads across packages: :meth:`PrecisionPlan.to_json_dict`
-writes the reference's other fields at their defaults, and
-:meth:`PrecisionPlan.from_json_dict` accepts them only at those defaults
-(anything else raises ``NotImplementedError``: the port has no code that
-would honour it yet).
+writes the reference's other fields (``kv_migration`` and
+``weight_publish``, the fleet's; ``dtype``; ``accum_steps``) at their
+defaults, and :meth:`PrecisionPlan.from_json_dict` accepts them only at
+those defaults (anything else raises ``NotImplementedError``: the port
+has no code that would honour it yet).
 
 Invalid plans raise :class:`ValueError` at construction.
 """
@@ -54,11 +57,7 @@ UNPORTED_DEFAULTS = {
     "kv_migration": None,
     "weight_publish": None,
     "dtype": "f32",
-    "int8_kv": False,
     "accum_steps": 1,
-    "sampling": {"temperature": 0.0, "top_p": 1.0, "top_k": 0, "seed": 0},
-    "spec_draft": "",
-    "spec_k": 4,
 }
 # the reference's JSON key order
 JSON_FIELDS = (
@@ -67,6 +66,43 @@ JSON_FIELDS = (
     "dtype", "int8_kv", "accum_steps", "env_overrides", "sampling",
     "spec_draft", "spec_k",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling contract (the serve engine's PRNG surface).
+
+    ``temperature == 0`` is greedy: the engine's argmax path. A positive
+    temperature samples from the temperature-scaled softmax restricted to
+    the ``top_k`` highest-probability ids (0 = all) and the smallest prefix
+    of the sorted distribution whose *preceding* cumulative mass stays
+    below ``top_p`` (:func:`repro_torch.serve.sampling.sample_tokens`).
+
+    Determinism: the id sampled for the n-th emitted token of a request
+    (0-based; the prefill's token is n = 0) is a function of ``(logits,
+    seed, n)`` alone, under the key ``fold_in(PRNGKey(seed), n)`` with the
+    seed taken as a uint32, as the reference takes it."""
+
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "temperature", float(self.temperature))
+        object.__setattr__(self, "top_p", float(self.top_p))
+        if self.temperature < 0.0:
+            raise ValueError("temperature must be >= 0")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if not isinstance(self.top_k, int) or self.top_k < 0:
+            raise ValueError("top_k must be an int >= 0")
+        if not isinstance(self.seed, int) or self.seed < 0:
+            raise ValueError("seed must be a non-negative int")
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +160,11 @@ class PrecisionPlan:
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
     seq_parallel: bool = False
     chunks: int = 1
+    int8_kv: bool = False
     env_overrides: tuple[tuple[str, object], ...] = ()
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    spec_draft: str = ""
+    spec_k: int = 4
 
     def __post_init__(self):
         ws = self.weights
@@ -142,6 +182,14 @@ class PrecisionPlan:
             raise ValueError("schedule must be a Schedule")
         if not isinstance(self.chunks, int) or self.chunks < 1:
             raise ValueError("chunks must be an int >= 1")
+        if isinstance(self.sampling, Mapping):
+            object.__setattr__(self, "sampling", SamplingParams(**self.sampling))
+        if not isinstance(self.sampling, SamplingParams):
+            raise ValueError("sampling must be a SamplingParams")
+        if not isinstance(self.spec_draft, str):
+            raise ValueError("spec_draft must be a draft name string")
+        if not isinstance(self.spec_k, int) or self.spec_k < 1:
+            raise ValueError("spec_k must be an int >= 1")
         if isinstance(self.env_overrides, Mapping):
             object.__setattr__(self, "env_overrides",
                                tuple(sorted(self.env_overrides.items())))
@@ -253,6 +301,7 @@ class PrecisionPlan:
             act_policy=self.activations,
             seq_policy=self.seq_boundary,
             seq_parallel=self.seq_parallel,
+            int8_kv=self.int8_kv,
             **dict(self.env_overrides),
         )
 
@@ -336,7 +385,11 @@ class PrecisionPlan:
             "schedule": dataclasses.asdict(self.schedule),
             "seq_parallel": self.seq_parallel,
             "chunks": self.chunks,
+            "int8_kv": self.int8_kv,
             "env_overrides": dict(self.env_overrides),
+            "sampling": dataclasses.asdict(self.sampling),
+            "spec_draft": self.spec_draft,
+            "spec_k": self.spec_k,
         }
         d = {"version": 1}
         for k in JSON_FIELDS:
@@ -389,6 +442,7 @@ class PrecisionPlan:
         act_mode: str = "nearest",
         seq_parallel: bool = False,
         chunks: int = 1,
+        int8_kv: bool = False,
         schedule: str = "static",
         awp_threshold: float = -2e-3,
         awp_interval: int = 100,
@@ -397,7 +451,7 @@ class PrecisionPlan:
     ) -> "PrecisionPlan":
         """The CLI flag → plan builder the launchers use (the reference's
         ``build`` without the flags of unported fields: ``dtype``,
-        ``int8_kv``, ``accum_steps``)."""
+        ``accum_steps``)."""
         gradients = None
         if grad_round_to is not None and (
             grad_round_to != 4 or grad_mode != "nearest"
@@ -422,6 +476,7 @@ class PrecisionPlan:
             activations=activations,
             seq_parallel=seq_parallel,
             chunks=chunks,
+            int8_kv=int8_kv,
             env_overrides=env_overrides,
             schedule=Schedule(
                 source=schedule,

@@ -3,51 +3,20 @@
 One frozen :class:`Request` is accepted by every submit surface
 (``ServeEngine.run`` / ``admit``, :func:`repro_torch.serve.engine.
 generate_static`, the launcher), so a static-vs-engine check compares
-identical request objects. :class:`SamplingParams` has the reference's
-fields; only greedy decoding (``temperature == 0``) is ported, and a
-sampled request raises ``NotImplementedError`` where it is served.
+identical request objects. A request carries its prompt ids, its stop
+conditions and its :class:`~repro_torch.plan.SamplingParams` (greedy, or
+seeded sampling under the reference's key-fold contract,
+:mod:`repro_torch.serve.sampling`). Vision features (cross-attention
+archs, ROADMAP item 11) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+from repro_torch.plan.plan import SamplingParams
+
 __all__ = ["Request", "SamplingParams"]
-
-
-@dataclasses.dataclass(frozen=True)
-class SamplingParams:
-    """Per-request sampling contract; ``temperature == 0`` is greedy."""
-
-    temperature: float = 0.0
-    top_p: float = 1.0
-    top_k: int = 0
-    seed: int = 0
-
-    def __post_init__(self):
-        object.__setattr__(self, "temperature", float(self.temperature))
-        object.__setattr__(self, "top_p", float(self.top_p))
-        if self.temperature < 0.0:
-            raise ValueError("temperature must be >= 0")
-        if not 0.0 < self.top_p <= 1.0:
-            raise ValueError("top_p must be in (0, 1]")
-        if not isinstance(self.top_k, int) or self.top_k < 0:
-            raise ValueError("top_k must be an int >= 0")
-        if not isinstance(self.seed, int) or self.seed < 0:
-            raise ValueError("seed must be a non-negative int")
-
-    @property
-    def greedy(self) -> bool:
-        return self.temperature == 0.0
-
-
-def require_greedy(req: "Request") -> None:
-    """Sampled decoding (the reference's key-fold sampler) is not ported."""
-    if not req.sampling.greedy:
-        raise NotImplementedError(
-            f"request {req.rid}: sampled decoding (temperature "
-            f"{req.sampling.temperature}) is not ported; only greedy"
-        )
 
 
 @dataclasses.dataclass(frozen=True, init=False)

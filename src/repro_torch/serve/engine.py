@@ -1,5 +1,4 @@
-"""Continuous-batching serve engine (counterpart of ``repro.serve.engine``,
-the contiguous slotted layout with greedy decoding).
+"""Continuous-batching serve engine (counterpart of ``repro.serve.engine``).
 
 A request queue drains through a slotted KV cache: ``max_slots`` resident
 requests decode together as one fixed-shape batch, and whenever a slot
@@ -14,9 +13,23 @@ policy as lossless byte planes (:mod:`repro_torch.transport.hostdev`) at
 bytes per step (:attr:`ServeEngine.step_log`); the analytic mirror is
 :func:`repro_torch.roofline.analysis.serve_host_device_bytes`.
 
-Determinism contract: sampling is greedy and slots are independent, so a
-request's token stream is a function of its prompt alone, and equals the
-static one-shot reference (:func:`generate_static`) for the same requests.
+Determinism contract: slots are independent, and a request's n-th
+emitted id is the argmax of its logits (greedy) or the sampler's draw
+under the key ``fold_in(PRNGKey(seed), n)``
+(:mod:`repro_torch.serve.sampling`, row by row), so a request's token
+stream is a function of its prompt and :class:`SamplingParams` alone, and
+equals the static one-shot reference (:func:`generate_static`) for the
+same requests. ``plan.int8_kv`` keeps the KV caches in int8 with fp32
+scales (either layout); ``window`` gives the contiguous layout a sliding
+window, whose caches ring when ``cache_capacity <= window``.
+
+``draft=`` (a :class:`~repro_torch.serve.spec.DraftBundle`) adds
+speculative decoding: each decode step becomes a round in which the draft
+proposes ``spec_k`` ids a slot and one ``(slots, spec_k + 1)`` verify
+step of the target keeps the longest prefix it reproduces
+(:meth:`ServeEngine._spec_tick`); streams equal the non-speculative
+engine's, and ``wire_summary`` adds the rounds, the acceptance rate and
+the tokens a target step.
 
 ``paged=True`` swaps the contiguous slotted layout for the block-paged
 KV cache: fixed-size pages in one pool
@@ -41,12 +54,12 @@ order on all ranks. :attr:`ServeEngine.wire_log` records each forward's
 collectives per traffic class (``dist.comm``'s log) and
 :attr:`ServeEngine.place_wire` the placement's.
 
-Not ported (each raises ``NotImplementedError``): speculative decoding
-(``draft=``), sliding windows, int8 KV (contiguous or paged), sampled
-requests, and the fleet's migration admission (``admit_pages``). The
-reference compiles one prefill per prompt length (per page-bucket length
-when paged); PyTorch runs eagerly, so one prefill step serves every
-length. The paged engine still counts bucket lengths seen before
+Not ported: speculative decoding and sliding windows on a mesh raise
+``NotImplementedError`` (ROADMAP item 7.6); the fleet's migration
+admission (``admit_pages`` / ``install_pages``) and weight swaps
+(``swap_weights``) are absent (item 10). The reference compiles one
+prefill per prompt length (per page-bucket length when paged); PyTorch
+runs eagerly, so one prefill step serves every length. The paged engine still counts bucket lengths seen before
 (``prefill_hits``) and not (``prefill_misses``), as the reference counts
 its compiles, so that ``wire_summary`` equals the reference's.
 """
@@ -62,15 +75,25 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import comm
 from repro_torch.dist.spec import MeshCfg, mesh_coords
-from repro_torch.models.attention import PagedKVCache, check_cache_geometry
+from repro_torch.models.attention import PAGED, check_cache_geometry, leaves
 from repro_torch.plan import PrecisionPlan
-from repro_torch.serve.api import Request, SamplingParams, require_greedy
+from repro_torch.serve.api import Request, SamplingParams
+from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.spec import (
+    DraftBundle,
+    DraftRunner,
+    check_spec_arch,
+    insert_slot,
+    require_one_device,
+    rollback_caches,
+)
 from repro_torch.serve.step import (
     global_cache_shapes,
     init_serve_caches,
     make_decode_step,
     make_place_step,
     make_prefill_step,
+    make_verify_step,
     serve_wire_table,
 )
 from repro_torch.transport.hostdev import (
@@ -278,13 +301,14 @@ class PageAllocator:
 
 def page_bytes(caches) -> int:
     """Bytes ONE page occupies summed over every paged pool (all groups ×
-    repetitions × K/V). Works on the ``global_cache_shapes`` tree of meta
-    tensors or on live caches (the reference's ``_page_pool_bytes``)."""
+    repetitions × K/V, and the scale planes of int8 pools). Works on the
+    ``global_cache_shapes`` tree of meta tensors or on live caches (the
+    reference's ``_page_pool_bytes``)."""
     per_page = 0
     for group in caches:
         for node in group.values():
-            if isinstance(node, PagedKVCache):
-                for leaf in (node.k, node.v):  # stacked (R, P, page, ...)
+            if isinstance(node, PAGED):
+                for leaf in leaves(node):  # stacked (R, P, page, ...)
                     per_page += leaf.numel() * leaf.element_size() // leaf.shape[1]
     return per_page
 
@@ -299,8 +323,12 @@ class ServeEngine:
     ``prompt_len + max_new`` per request (validated at submit).
     ``paged=True`` selects the paged layout: ``page_size`` tokens a page,
     ``num_pages`` allocatable pages (default ``max_slots`` × the table
-    width, ``ceil(cache_capacity / page_size)``), ``share_prefix``
-    interning of whole prompt pages."""
+    width, ``ceil((cache_capacity + spec_k) / page_size)``, ``spec_k``
+    only with a draft), ``share_prefix`` interning of whole prompt pages.
+    ``window`` is the decode's sliding window (contiguous layout, one
+    device); ``draft`` a :class:`~repro_torch.serve.spec.DraftBundle` for
+    speculative decoding with ``spec_k`` proposals a round (default the
+    plan's), on one device."""
 
     def __init__(
         self,
@@ -319,7 +347,7 @@ class ServeEngine:
         page_size: int = 64,
         num_pages: int | None = None,
         share_prefix: bool = True,
-        draft=None,
+        draft: DraftBundle | None = None,
         spec_k: int | None = None,
     ):
         self.paged = bool(paged)
@@ -333,10 +361,10 @@ class ServeEngine:
                     "resident — sliding-window (ring) serving stays on the "
                     "contiguous layout"
                 )
-        if draft is not None or spec_k is not None:
-            raise NotImplementedError("speculative decoding is not ported")
         if window is not None:
-            raise NotImplementedError("sliding-window serving is not ported")
+            require_one_device(mesh_cfg, "sliding-window serving")
+        if draft is not None:
+            require_one_device(mesh_cfg, "speculative decoding")
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
         self.cfg = cfg
@@ -348,12 +376,27 @@ class ServeEngine:
         self.plan = plan.broadcast(cfg.num_groups + 1)
         self.max_slots = int(max_slots)
         self.cache_capacity = int(cache_capacity)
+        self.window = window
+        self.spec_k = int(spec_k) if spec_k is not None else self.plan.spec_k
+        if draft is not None:
+            check_spec_arch(cfg, window=window)
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft.cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size} — draft ids must be target ids"
+                )
         self.token_width = self.plan.host_device_policies()[0].token_wire_width(
             cfg.vocab_size
         )
         self.slots = SlotManager(self.max_slots)
-        # page-table width: the capacity rounded up to whole pages
-        self._table_width = -(-self.cache_capacity // self.page_size)
+        # page-table width: the capacity rounded up to whole pages; under
+        # speculative decoding the verify block can write up to spec_k
+        # positions past a finished stream, so the table is widened until
+        # such writes land in trash entries, never a live page
+        spec_pad = self.spec_k if draft is not None else 0
+        self._table_width = -(-(self.cache_capacity + spec_pad) // self.page_size)
         self.num_pages = (
             int(num_pages) if num_pages is not None
             else self.max_slots * self._table_width
@@ -374,7 +417,7 @@ class ServeEngine:
         )
         self._decode = make_decode_step(
             cfg, mesh_cfg, mesh, spec_tree, plan=self.plan, shard_batch=self._shard_batch,
-            weight_stationary=weight_stationary, paged=self.paged,
+            window_override=window, weight_stationary=weight_stationary, paged=self.paged,
         )
         self._prefills: dict[bool, object] = {}  # by seq_parallel (_prefill_for)
         self._weights = storage
@@ -388,8 +431,23 @@ class ServeEngine:
         self._cache_dtype = self.plan.compute_dtype
         self._page_bytes = page_bytes(global_cache_shapes(
             cfg, mesh_cfg, B, self.cache_capacity, self._cache_dtype, shard_batch=False,
-            paged_pages=self.num_pages, page_size=self.page_size,
+            int8_kv=self.plan.int8_kv, paged_pages=self.num_pages, page_size=self.page_size,
         )) if self.paged else 0
+        self.draft = None
+        self._verify = None
+        if draft is not None:
+            self._verify = make_verify_step(
+                cfg, mesh_cfg, mesh, spec_tree, plan=self.plan, shard_batch=self._shard_batch,
+                weight_stationary=weight_stationary, paged=self.paged,
+            )
+            # the draft keeps contiguous per-slot caches with spec_k spare
+            # positions (its last micro step absorbs the last proposal
+            # before the rollback)
+            self.draft = DraftRunner(
+                draft, mesh_cfg, mesh, plan=self.plan, max_slots=B,
+                capacity=self.cache_capacity + self.spec_k, spec_k=self.spec_k,
+                token_width=self.token_width, device=self.device,
+            )
 
         # streaming state (populated by begin_stream; run() wraps it)
         self._caches = None
@@ -399,12 +457,56 @@ class ServeEngine:
         self._results: dict[int, GenResult] = {}
         self._step = 0
         self._rec: dict | None = None
+        self._reset_sampling_state()
+
+    def _reset_sampling_state(self) -> None:
+        """Per-slot :class:`SamplingParams` mirrors fed to the sampler.
+        Ballast rows (free or retired slots) are greedy with seed 0: their
+        draws are discarded, and the sampler's rows do not touch each
+        other."""
+        B = self.max_slots
+        self._temp = np.zeros((B,), np.float32)
+        self._top_p = np.ones((B,), np.float32)
+        self._top_k = np.zeros((B,), np.int32)
+        self._seed = np.zeros((B,), np.uint32)
+        self._nemit = np.zeros((B,), np.int32)  # emitted-token counts
+
+    def _set_sampling_slot(self, slot: int, s: SamplingParams) -> None:
+        self._temp[slot] = s.temperature
+        self._top_p[slot] = s.top_p
+        self._top_k[slot] = s.top_k
+        self._seed[slot] = s.seed & 0xFFFFFFFF  # a uint32, as the reference's key takes it
+        self._nemit[slot] = 0
+
+    def _clear_sampling_slot(self, slot: int) -> None:
+        self._set_sampling_slot(slot, SamplingParams())
 
     # -- device-side plumbing --------------------------------------------
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy ids of the last position, packed on the device and
-        brought to the host: ``(width, B)`` u8 planes (the d2h crossing)."""
-        tok = torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1)
+    def _sample(self, logits: torch.Tensor, sampling=None) -> np.ndarray:
+        """Ids of the last position, packed on the device and brought to
+        the host: ``(width, B)`` u8 planes (the d2h crossing). Greedy
+        argmax when ``sampling`` is None, else
+        :func:`~repro_torch.serve.sampling.sample_tokens` with ``sampling =
+        (temperature, top_p, top_k, seed, step)`` a row each."""
+        if sampling is None:
+            tok = torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1)
+        else:
+            tok = sample_tokens(logits[:, -1], self.cfg.vocab_size, *sampling)
+        return pack_tokens(tok, self.token_width).cpu().numpy()
+
+    def _verify_sample(self, logits: torch.Tensor) -> np.ndarray:
+        """``(width, B, T)`` planes of the target's samples over the verify
+        block: block position j is the candidate of emitted index
+        ``nemit + j`` and is keyed so, the keys of T successive decode
+        steps (greedy rows take the argmax)."""
+        T = logits.shape[1]
+
+        def bt(a):
+            return np.repeat(a[:, None], T, axis=1)
+
+        steps = self._nemit[:, None] + np.arange(T, dtype=np.int32)
+        tok = sample_tokens(logits, self.cfg.vocab_size, bt(self._temp), bt(self._top_p),
+                            bt(self._top_k), bt(self._seed), steps)
         return pack_tokens(tok, self.token_width).cpu().numpy()
 
     def _prefill_for(self, S: int):
@@ -423,7 +525,7 @@ class ServeEngine:
                 self.cfg, self.mesh_cfg, self.mesh, self.spec_tree, plan=plan,
                 cache_capacity=(self._table_width * self.page_size if self.paged
                                 else self.cache_capacity),
-                shard_batch=False,
+                shard_batch=False, window_override=self.window,
             )
         return self._prefills[plan.seq_parallel], plan.seq_parallel
 
@@ -442,12 +544,7 @@ class ServeEngine:
             if slot // per != mesh_coords(self.mesh_cfg, dist.get_rank())[0]:
                 return
             slot %= per
-        for big_g, small_g in zip(self._caches, small):
-            for key, big in big_g.items():
-                s = small_g[key]
-                big.k[:, slot] = s.k[:, 0]
-                big.v[:, slot] = s.v[:, 0]
-                big.pos[:, slot] = s.pos
+        insert_slot(self._caches, small, slot)
 
     def _insert_paged(self, small, slot: int, phys: torch.Tensor, start: int,
                       pos_val: int) -> None:
@@ -460,7 +557,7 @@ class ServeEngine:
         for big_g, small_g in zip(self._caches, small):
             for key, big in big_g.items():
                 s = small_g[key]
-                for b_leaf, s_leaf in ((big.k, s.k), (big.v, s.v)):
+                for b_leaf, s_leaf in zip(leaves(big), leaves(s)):
                     seg = s_leaf[:, 0, start:start + n_new * page]  # (R, n_new·page, ...)
                     b_leaf[:, phys] = seg.reshape(
                         s_leaf.shape[0], n_new, page, *s_leaf.shape[3:]
@@ -471,17 +568,19 @@ class ServeEngine:
         return init_serve_caches(
             self.cfg, self.mesh_cfg, self.max_slots, self.cache_capacity,
             self._cache_dtype, shard_batch=self._shard_batch, per_slot=True,
+            int8_kv=self.plan.int8_kv,
             paged_pages=self.num_pages if self.paged else None, page_size=self.page_size,
             device=self.device,
         )
 
     def _validate(self, req: Request):
-        require_greedy(req)
         if max(req.prompt_ids) >= self.cfg.vocab_size or min(req.prompt_ids) < 0:
             raise ValueError(f"request {req.rid}: prompt id out of vocab")
         need = len(req.prompt_ids) + req.max_new
+        # the geometry rules live with the cache constructors: a linear
+        # cache holds the request; rings only at capacity <= window
         check_cache_geometry(
-            self.cache_capacity, need, label=f"request {req.rid}: prompt+gen ",
+            self.cache_capacity, self.window, need, label=f"request {req.rid}: prompt+gen ",
         )
         if self.paged:
             need_pages = -(-need // self.page_size)
@@ -508,6 +607,9 @@ class ServeEngine:
         self._caches = self._init_caches()
         self._next_tok = np.zeros((B,), np.int32)  # per-slot feed tokens
         self._pos_host = np.zeros((B,), np.int32)  # absorbed-token counts
+        self._reset_sampling_state()
+        if self.draft is not None:
+            self.draft.reset()
         self._active = {}
         self._results = {}
         self._step = 0
@@ -526,6 +628,9 @@ class ServeEngine:
                 # stays 0; kept so that the record equals the reference's
                 self._rec.update(page_table=0, prefill_hits=0,
                                  prefill_misses=0, kv_migration=0)
+            if self.draft is not None:
+                self._rec.update(spec_rounds=0, spec_proposed=0,
+                                 spec_accepted=0, spec_emitted=0)
         return self._rec
 
     @property
@@ -584,6 +689,8 @@ class ServeEngine:
         st = _ReqState(req, slot, self._step)
         self._next_tok[slot] = first
         self._pos_host[slot] = len(req.prompt_ids)
+        self._set_sampling_slot(slot, req.sampling)
+        self._nemit[slot] = 1  # the prefill's id is emitted index 0
         rec["admitted"] += 1
         if st.emit(first):
             self._results[req.rid] = self._retire(st, self._step)
@@ -605,6 +712,10 @@ class ServeEngine:
         )  # (w, 1, S) — h2d prompt staging (true length, no pads)
         rec["host_device"] += planes.nbytes
         tokens_dev = unpack_tokens(stage(planes, self.device))
+        if self.draft is not None:
+            # the draft mirrors the slot from the same staged prompt: one
+            # priced h2d crossing covers both prefills
+            self.draft.prefill_insert(tokens_dev, slot)
         first_call = len(comm.LOG)
         if self.paged:
             # pad on the device to whole pages (causal-safe for the
@@ -624,7 +735,10 @@ class ServeEngine:
             self._insert(pcaches, slot)
         self._log_wire("prefill", tokens_dev.shape[1], first_call, seq_parallel=seq)
         del pcaches
-        tok_planes = self._sample(logits)  # (w, 1) — d2h first id
+        s = req.sampling
+        sampling = None if s.greedy else (  # the first token is emitted index 0
+            [s.temperature], [s.top_p], [s.top_k], [s.seed & 0xFFFFFFFF], [0])
+        tok_planes = self._sample(logits, sampling)  # (w, 1) — d2h first id
         rec["host_device"] += tok_planes.nbytes
         first = int(unpack_tokens_host(tok_planes)[0])
         self._finish_admission(req, slot, first, rec)
@@ -635,7 +749,9 @@ class ServeEngine:
         record)."""
         rec = self._ensure_rec()
         rec["active"] = len(self._active)
-        if self._active:
+        if self._active and self.draft is not None:
+            self._spec_tick(rec)
+        elif self._active:
             feed_planes = pack_tokens_host(self._next_tok[:, None], self.token_width)
             rec["host_device"] += feed_planes.nbytes  # h2d token staging (w, B, 1)
             tokens_dev = unpack_tokens(stage(feed_planes, self.device))
@@ -649,7 +765,10 @@ class ServeEngine:
             first_call = len(comm.LOG)
             logits, self._caches = self._decode(self._weights, self._caches, batch)
             self._log_wire("decode", 1, first_call)
-            out_planes = self._sample(logits)  # (w, B) — d2h sampled ids
+            sampling = None  # all greedy: the argmax
+            if any(not st.req.sampling.greedy for st in self._active.values()):
+                sampling = (self._temp, self._top_p, self._top_k, self._seed, self._nemit)
+            out_planes = self._sample(logits, sampling)  # (w, B) — d2h sampled ids
             rec["host_device"] += out_planes.nbytes
             sampled = unpack_tokens_host(out_planes)
             self._pos_host += 1  # mirrors cache.pos + 1 (ballast slots too)
@@ -657,12 +776,76 @@ class ServeEngine:
             for slot, st in list(self._active.items()):
                 tok = int(sampled[slot])
                 self._next_tok[slot] = tok
+                self._nemit[slot] += 1
                 if st.emit(tok):
                     self._results[st.req.rid] = self._retire(st, self._step)
                     del self._active[slot]
         self.step_log.append(rec)
         self._step += 1
         self._rec = None
+
+    def _spec_tick(self, rec: dict) -> None:
+        """One speculative round: the draft proposes ``spec_k`` ids a slot,
+        the target verifies all ``k + 1`` block positions in ONE batched
+        step, and the engine keeps the longest prefix the draft reproduced
+        plus the target's own sample at the first divergence. Every
+        emitted id is the target's sample under its request's key, so the
+        streams are the non-speculative engine's.
+
+        Both target and draft advance ``pos`` by ``k + 1`` in their steps;
+        rejected positions are rolled back by re-stamping ``pos`` (in
+        place). Ballast slots are not rolled back: their writes land in
+        trash (clamped pages, dropped writes) or are masked."""
+        w, k = self.token_width, self.spec_k
+        T = k + 1
+        drafts = self.draft.propose(
+            self._next_tok, self._pos_host, self._nemit, self._temp, self._top_p,
+            self._top_k, self._seed, rec)  # (B, k) host int32
+        feed = np.concatenate([self._next_tok[:, None], drafts], axis=1)
+        feed_planes = pack_tokens_host(feed, w)  # (w, B, T)
+        rec["host_device"] += feed_planes.nbytes  # h2d verify block
+        batch = {"tokens": unpack_tokens(stage(feed_planes, self.device)),
+                 "pos": stage(self._pos_host, self.device)}
+        if self.paged:
+            rec["host_device"] += self._table.nbytes
+            rec["page_table"] += self._table.nbytes
+            batch["page_table"] = stage(self._table, self.device)
+        first_call = len(comm.LOG)
+        logits, self._caches = self._verify(self._weights, self._caches, batch)
+        self._log_wire("verify", T, first_call)
+        t_planes = self._verify_sample(logits)  # (w, B, T) — d2h verified ids
+        rec["host_device"] += t_planes.nbytes
+        targets = unpack_tokens_host(t_planes)  # (B, T)
+        self._pos_host += T  # mirrors the step's pos += T (ballast too)
+        rec["decoded"] = len(self._active)
+        rec["spec_rounds"] += 1
+        delta = np.zeros_like(self._pos_host)
+        for slot, st in list(self._active.items()):
+            accepted = considered = 0
+            for j in range(T):
+                tok = int(targets[slot, j])
+                accepted += 1
+                self._next_tok[slot] = tok
+                self._nemit[slot] += 1
+                rec["spec_emitted"] += 1
+                if st.emit(tok):
+                    self._results[st.req.rid] = self._retire(st, self._step)
+                    del self._active[slot]
+                    break
+                if j < k:
+                    # proposals past a finish are moot, not rejected: only
+                    # examined ones count toward the acceptance rate (a
+                    # perfect draft pins it at exactly 1.0)
+                    considered += 1
+                    if int(drafts[slot, j]) != tok:
+                        break  # divergence: the target's sample replaces it
+            rec["spec_proposed"] += considered
+            rec["spec_accepted"] += accepted - 1
+            delta[slot] = T - accepted
+        self._pos_host -= delta
+        delta_dev = torch.from_numpy(delta).to(self.device)
+        rollback_caches(self._caches, delta_dev)
+        self.draft.rollback(delta_dev)
 
     def finish(self) -> dict[int, GenResult]:
         """End-of-stream conservation audits; returns completed results."""
@@ -700,6 +883,7 @@ class ServeEngine:
 
     def _retire(self, st: _ReqState, step: int) -> GenResult:
         self.slots.release(st.slot)
+        self._clear_sampling_slot(st.slot)
         if self.paged:
             for pid in self._slot_pages.pop(st.slot):
                 if self.pages.release(pid):
@@ -733,6 +917,12 @@ class ServeEngine:
             for key in ("page_table", "prefill_hits", "prefill_misses"):
                 out[key] = sum(r[key] for r in self.step_log)
             out["page_table_entries"] = self.max_slots * self._table_width
+        if self.draft is not None:
+            for key in ("spec_rounds", "spec_proposed", "spec_accepted", "spec_emitted"):
+                out[key] = sum(r[key] for r in self.step_log)
+            out["acceptance_rate"] = out["spec_accepted"] / max(out["spec_proposed"], 1)
+            out["tokens_per_target_step"] = out["spec_emitted"] / max(out["spec_rounds"], 1)
+            out["spec_k"] = self.spec_k
         if not self.mesh_cfg.trivial:  # the collectives of the steps, per class
             wire: dict[str, int] = {}
             for r in self.wire_log:
@@ -791,16 +981,21 @@ def generate_static(
     window: int | None = None,
 ) -> dict[int, list[int]]:
     """Classic static batching, the engine's reference: requests are
-    grouped by prompt length, each group runs one batched prefill and a
-    scalar-``pos`` greedy decode loop to the group's longest request;
-    per-request stop conditions truncate the streams afterwards. On a mesh
-    a group's rows are sharded over the data ranks when they split evenly,
+    grouped by prompt length, each group runs one batched prefill into a
+    linear cache of ``S + gen`` and a scalar-``pos`` decode loop to the
+    group's longest request; per-request stop conditions truncate the
+    streams afterwards. All-greedy groups take the argmax; a group with a
+    sampled request samples every row through
+    :func:`~repro_torch.serve.sampling.sample_tokens` (greedy rows take the
+    argmax there too) under the key-fold contract, so sampled streams equal
+    the engine's at the same seeds. ``window`` masks the decode steps'
+    attention (the engine's ring holds the same tokens). On a mesh a
+    group's rows are sharded over the data ranks when they split evenly,
     and a length the model group does not divide takes the psum layout,
-    as in the reference."""
+    as in the reference; a window there raises ``NotImplementedError``
+    (ROADMAP item 7.6)."""
     if window is not None:
-        raise NotImplementedError("sliding-window serving is not ported")
-    for r in requests:
-        require_greedy(r)
+        require_one_device(mesh_cfg, "sliding-window serving")
     plan = plan.broadcast(cfg.num_groups + 1)
     device = storage["embed"].device
     groups: dict[int, list[Request]] = {}
@@ -816,15 +1011,29 @@ def generate_static(
         prefill = make_prefill_step(cfg, mesh_cfg, mesh, spec_tree, plan=gplan,
                                     cache_capacity=S + gen, shard_batch=shard)
         decode = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=gplan,
-                                  shard_batch=shard)
+                                  shard_batch=shard, window_override=window)
+        if all(r.sampling.greedy for r in reqs):
+            def pick(lg, step):
+                return torch.argmax(lg[:, -1, : cfg.vocab_size], dim=-1)
+        else:
+            rows = [r.sampling for r in reqs]
+            temp = np.asarray([p.temperature for p in rows], np.float32)
+            topp = np.asarray([p.top_p for p in rows], np.float32)
+            topk = np.asarray([p.top_k for p in rows], np.int32)
+            seed = np.asarray([p.seed & 0xFFFFFFFF for p in rows], np.uint32)
+
+            def pick(lg, step):
+                return sample_tokens(lg[:, -1], cfg.vocab_size, temp, topp, topk, seed,
+                                     np.full((len(rows),), step, np.int32))
+
         toks = torch.tensor([r.prompt_ids for r in reqs], dtype=torch.int32, device=device)
         logits, caches = prefill(storage, {"tokens": toks})
-        tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+        tok = pick(logits, 0)[:, None].to(torch.int32)
         streams = [tok.cpu().numpy()[:, 0]]
         for i in range(gen - 1):
             pos = torch.tensor(S + i, dtype=torch.int32, device=device)
             logits, caches = decode(storage, caches, {"tokens": tok, "pos": pos})
-            tok = torch.argmax(logits[:, 0, : cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+            tok = pick(logits, i + 1)[:, None].to(torch.int32)
             streams.append(tok.cpu().numpy()[:, 0])
         del caches
         mat = np.stack(streams, axis=1)  # (B, gen)

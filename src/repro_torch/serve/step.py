@@ -8,10 +8,14 @@ FSDP group), unless the decode step is weight-stationary, where
 :func:`make_place_step` ran that transfer once. A
 :class:`~repro_torch.plan.PrecisionPlan` drives every precision choice:
 the weight entries, the ``activations`` / ``seq_boundary`` policies of the
-TP-region collectives, and ``seq_parallel`` for prefill (decode keeps the
-psum layout). Serving is deterministic, so a plan whose forward weight
-path rounds stochastically is rejected (the plan itself refuses a
-stochastic activation path).
+TP-region collectives, ``seq_parallel`` for prefill (decode keeps the
+psum layout) and ``int8_kv``, the caches' int8 KV with per-(slot, local
+kv head) scales. Serving is deterministic, so a plan whose forward
+weight path rounds stochastically is rejected (the plan itself refuses a
+stochastic activation path). :func:`make_verify_step` is the decode step
+at a ``(slots, spec_k + 1)`` token block (speculative decoding), and a
+``window_override`` gives decode a sliding window (a ring when the cache
+capacity is at most the window).
 
 PyTorch runs eagerly: a step is a plain function under ``torch.no_grad``.
 On a mesh (each rank a process, ``mesh`` from
@@ -87,6 +91,7 @@ def init_serve_caches(
     *,
     shard_batch: bool = True,
     per_slot: bool = False,
+    int8_kv: bool = False,
     paged_pages: int | None = None,
     page_size: int | None = None,
     device="cpu",
@@ -94,8 +99,10 @@ def init_serve_caches(
     """Zeroed caches of one rank of the mesh (the counterpart of the
     reference's ``cache_pspecs``: its ``heads_local`` kv heads, and its
     ``batch / dshards`` rows when the batch is sharded; a page pool keeps
-    every slot). ``paged_pages`` + ``page_size`` select
-    ``model.init_paged_caches`` (``capacity`` is then not read)."""
+    every slot). ``int8_kv`` gives int8 KV leaves with fp32 scales per
+    (slot or page row, position, local kv head). ``paged_pages`` +
+    ``page_size`` select ``model.init_paged_caches`` (``capacity`` is then
+    not read)."""
     paged = paged_pages is not None
     if _sharded_rows(mesh_cfg, shard_batch, paged):
         if batch % mesh_cfg.dshards:
@@ -103,10 +110,11 @@ def init_serve_caches(
                              "FSDP ranks")
         batch //= mesh_cfg.dshards
     kv_l = max(1, cfg.num_kv_heads // mesh_cfg.tp)  # Env.heads_local
+    env = Env(int8_kv=int8_kv)
     if paged:
-        return M.init_paged_caches(cfg, Env(), batch, paged_pages, page_size, dtype,
+        return M.init_paged_caches(cfg, env, batch, paged_pages, page_size, dtype,
                                    device=device, kv_heads=kv_l)
-    return M.init_caches(cfg, Env(), batch, capacity, dtype, per_slot=per_slot,
+    return M.init_caches(cfg, env, batch, capacity, dtype, per_slot=per_slot,
                          device=device, kv_heads=kv_l)
 
 
@@ -152,11 +160,14 @@ def make_prefill_step(
     plan: PrecisionPlan | None = None,
     cache_capacity: int,
     shard_batch: bool = True,
+    window_override=None,
 ):
     """``step(storage, batch) -> (last-token logits (B, 1, V), caches)``;
     ``storage`` is the rank's blocks, the caches its own. Under the plan's
     ``seq_parallel`` at ``tp > 1`` the prompt length must split over the
-    model group (``ValueError``)."""
+    model group (``ValueError``). ``window_override`` reaches only the
+    caches' geometry check (a prompt longer than the capacity rings), as in
+    the reference."""
     env, mat_group, mat_top_factory = _step_parts(
         cfg, mesh_cfg, mesh, spec_tree, plan, "make_prefill_step")
 
@@ -168,7 +179,7 @@ def make_prefill_step(
         logits, caches = M.forward_prefill(
             storage, batch, cfg, env,
             mat_group=mat_group, mat_top=mat_top_factory(storage),
-            cache_capacity=cache_capacity,
+            cache_capacity=cache_capacity, window_override=window_override,
         )
         return _gather_logits(logits, env, mesh_cfg, shard_batch), caches
 
@@ -217,10 +228,11 @@ def make_decode_step(
     *,
     plan: PrecisionPlan | None = None,
     shard_batch: bool = True,
+    window_override=None,
     weight_stationary: bool = False,
     paged: bool = False,
 ):
-    """``step(weights, caches, batch) -> (logits (B, 1, V), caches')``;
+    """``step(weights, caches, batch) -> (logits (B, T, V), caches')``;
     ``weights`` is the storage tree, or the placed tree when
     ``weight_stationary``. Per-slot positions (the engine's slotted
     caches) are read from the caches' ``pos`` and the batch's ``pos``.
@@ -243,10 +255,36 @@ def make_decode_step(
         logits, caches = M.forward_decode(
             weights, batch, caches, cfg, env,
             mat_group=mat_group, mat_top=mat_top_factory(weights),
+            window_override=window_override,
         )
         return _gather_logits(logits, env, mesh_cfg, shard_batch), caches
 
     return step
+
+
+def make_verify_step(
+    cfg: ModelConfig,
+    mesh_cfg: MeshCfg,
+    mesh,
+    spec_tree,
+    *,
+    plan: PrecisionPlan | None = None,
+    shard_batch: bool = True,
+    weight_stationary: bool = False,
+    paged: bool = False,
+):
+    """The k-token verify variant of the decode step (speculative
+    decoding): the same step over per-slot caches, fed ``tokens (slots,
+    spec_k + 1)`` — the carried last-emitted token plus the draft's k
+    proposals — so that one batched target forward scores them all. Block
+    position j is written at ``pos + j`` (models/attention.py); the engine
+    rolls back rejected positions by re-stamping ``pos``
+    (:func:`repro_torch.serve.spec.rollback_caches`). PyTorch runs
+    eagerly, so the reference's compile-time ``n_slots`` / ``block`` /
+    ``table_width`` are the batch's shapes here."""
+    return make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan,
+                            shard_batch=shard_batch, weight_stationary=weight_stationary,
+                            paged=paged)
 
 
 def serve_wire_table(plan: PrecisionPlan, cfg: ModelConfig, spec_tree, mesh_cfg: MeshCfg,

@@ -264,11 +264,18 @@ def test_paged_write_matches_reference_bitwise():
 
 
 def test_paged_write_of_a_verify_block_is_not_ported():
+    """The speculative verify block's paged write (T = 2 here), once
+    deferred, now ported: bitwise the reference's, the block tails of slot
+    1 (past its live page) and of the ballast slot 2 in the trash row."""
     k, v, pos, table, kn, vn = _cache_state(43)
+    kb, vb = np.concatenate([kn, vn], axis=1), np.concatenate([vn, kn], axis=1)
+    jc = ja._paged_write(ja.PagedKVCache(jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos)),
+                         jnp.asarray(kb), jnp.asarray(vb), jnp.asarray(table))
     tc = convert_paged_cache(ja.PagedKVCache(k, v, pos), device="cpu")
-    blk = torch.from_numpy(np.concatenate([kn, kn], axis=1))
-    with pytest.raises(NotImplementedError):
-        ta._paged_write(tc, blk, blk, torch.from_numpy(table))
+    ta._paged_write(tc, torch.from_numpy(kb), torch.from_numpy(vb), torch.from_numpy(table))
+    for j, t in ((jc.k, tc.k), (jc.v, tc.v), (jc.pos, tc.pos)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert tc.pos.tolist() == (pos + 2).tolist()
 
 
 def test_dense_paged_decode_matches_reference():
@@ -317,8 +324,12 @@ def test_mha_paged_errors_match_reference():
         ta.mha(x, w, cfg, Env(), mode="decode", cache=cache)
     with pytest.raises(ValueError, match="contiguous"):
         ta.mha(x, w, cfg, Env(), mode="decode", cache=cache, page_table=table, window=4)
-    with pytest.raises(NotImplementedError):
-        ta.init_paged_cache(2, 3, 4, 1, 16, torch.int8)
+    # the int8 pool, once deferred, is ported: the reference's leaves
+    q8 = ta.init_paged_cache(2, 3, 4, 1, 16, torch.int8)
+    j8 = ja.init_paged_cache(2, 3, 4, 1, 16, jnp.int8)
+    assert type(q8).__name__ == type(j8).__name__ == "PagedQuantKVCache"
+    for f in ("k", "v", "k_scale", "v_scale", "pos"):
+        assert tuple(getattr(q8, f).shape) == getattr(j8, f).shape, f
 
 
 # ---------------------------------------------------------------------------

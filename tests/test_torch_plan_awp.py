@@ -87,14 +87,16 @@ def test_wire_table_equal(idx):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(int8_kv=True), dict(env_overrides={"mlstm_chunk": 64}),
-    dict(sampling={"temperature": 0.5, "top_p": 1.0, "top_k": 0, "seed": 0}),
+    dict(kv_migration={"round_to": 2}), dict(env_overrides={"mlstm_chunk": 64}),
+    dict(weight_publish={"round_to": 1}),
     dict(accum_steps=2), dict(dtype="bf16"),
 ])
 def test_unported_plan_fields_raise(kw):
     """A reference plan that sets a field the port has no code for is
     refused, not silently run at the default (``mlstm_chunk``: an env
-    override of the unported xLSTM family)."""
+    override of the unported xLSTM family; ``kv_migration`` and
+    ``weight_publish``: the fleet's). ``int8_kv`` and ``sampling``, once
+    refused here, load (``tests/test_torch_sampling.py``)."""
     d = JPlan.build(9, round_to=2).to_json_dict()
     d.update(kw)
     with pytest.raises(NotImplementedError):
