@@ -240,6 +240,29 @@ Phases, each printing its own lines:
      each new shape to its plain version. Prints times, tokens/s, rounds,
      acceptance, memory peaks and KV bytes beside the card's name and
      power limit.
+ 16. main path — the rest of dense-LM training on full-width qwen3-1.7b
+     (phase 11's weights from seed 0, batch 8 x seq 128, ``oracle:2``),
+     each run from fresh weights: (a) ``accum_steps`` 2 against 1, two
+     steps each, losses within ``ACCUM_TOL``; (b) weights at round_to 2
+     stochastic, two steps with ``PRNGKey(step)``: the embed's and a
+     w_gate's planes under the step's keys drawn on the card equal the
+     plain version's on the host CPU (the embed at ``EMBED_EDGE`` samples),
+     a rerun bit-equal, losses finite; (c) phase 12's AlexNet ranks with
+     stochastic bf16 gradients, two steps twice, bit-equal, against a
+     nearest-rounded run within ``DP16_LOSS_RTOL``; (d) three bf16 steps,
+     the first loss within ``BF16_LOSS_RTOL`` of (a)'s fp32 one. Then the
+     bf16 kernels against their plain versions at phases 6's and 8's shapes
+     (each element within one bf16 step plus the fp32 bar), timed as those
+     phases time the fp32 ones, beside the bf16 bound and bf16 SDPA; and
+     (e) phase 7's requests under a plan with ``"dtype": "bf16"``: static,
+     engine and paged engine (page 64), paged equal to contiguous exactly,
+     the engine equal to static but where a batch-1 run's top-2 logits tie
+     within ``BF16_TIE_STEPS`` bf16 steps, 28 bf16 flash launches a prefill
+     of a multiple of 128 and 28 bf16 ``paged_attend`` a paged decode step
+     counted by the wrappers (and no fp32 attention launch), each path
+     shape held to the plain version, and the first logits against phase
+     7's fp32 ones (relative l2, printed). Prints step times, memory peaks
+     and the card's name and power limit.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -677,8 +700,10 @@ def _small_run(torch, device, cfg, params):
 # ---------------------------------------------------------------------------
 
 # NVIDIA H100 SXM data sheet: 67 TFLOP/s fp32 on the CUDA cores (the kernel
-# runs fp32 FMAs, TF32 off).
+# runs fp32 FMAs, TF32 off), 989 TFLOP/s bf16 on the tensor cores (the
+# bound of the same work on bf16 inputs)
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # (B, H, Kv, Sq, Sk, q_offset): qwen3-1.7b's heads (hd 128), at the timed
 # lengths, phase 7's prefill lengths (512 at B=1 and 2, 384, 256) and a
 # continuation; then the work list's edges: the continuation at B=2 (every
@@ -807,6 +832,8 @@ def counts():
 def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
 
 
 def watch_flash(torch, seen):
@@ -883,10 +910,10 @@ def instrument(engine, timings):
     engine._verify_sample = checked_verify_sample
 
 
-def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None):
+def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None, values=False):
     """Greedy decode of one request (batch 1) with each step's top-2 logit
     gap: what a diverging stream is checked against (on a mesh, every rank
-    calls this alike)."""
+    calls this alike). ``values``: also each step's top logit."""
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     S, dev = len(req.prompt_ids), storage["embed"].device
@@ -894,16 +921,17 @@ def top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, req, mesh=None):
                             cache_capacity=S + req.max_new)
     dec = make_decode_step(cfg, mesh_cfg, mesh, spec_tree, plan=plan)
     logits, caches = pre(storage, {"tokens": torch.tensor([req.prompt_ids], device=dev)})
-    toks, gaps = [], []
+    toks, gaps, tops = [], [], []
     for i in range(req.max_new):
-        top = torch.topk(logits[0, -1, : cfg.vocab_size], 2)
+        top = torch.topk(logits[0, -1, : cfg.vocab_size].float(), 2)
         toks.append(int(top.indices[0]))
         gaps.append(float(top.values[0] - top.values[1]))
+        tops.append(float(top.values[0]))
         if i + 1 < req.max_new:
             tok = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
             pos = torch.tensor(S + i, dtype=torch.int32, device=dev)
             logits, caches = dec(storage, caches, {"tokens": tok, "pos": pos})
-    return toks, gaps
+    return (toks, gaps, tops) if values else (toks, gaps)
 
 
 def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
@@ -1807,8 +1835,8 @@ def watch_materialize(seen):
 
     mat = cnn_step.materialize_leaf
 
-    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, *, key=None, group=None):
-        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, key=key, group=group)
+    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, **kw):
+        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, **kw)
         if seen["on"] and spec.kind == "dist":
             seen["leaves"].append(out.detach().clone())
         return out
@@ -2145,8 +2173,8 @@ def watch_gathers(seen, ptrs, expected):
 
     mat = tstep.materialize_leaf
 
-    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, *, key=None, group=None):
-        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, key=key, group=group)
+    def recorded(x, spec, mesh_cfg, round_to, grad_round_to=None, **kw):
+        out = mat(x, spec, mesh_cfg, round_to, grad_round_to, **kw)
         at = ptrs.get(x.data_ptr()) if seen["on"] and spec.kind == "dist" else None
         if at is not None and at not in seen["done"]:
             leaf, rep = at
@@ -3428,6 +3456,503 @@ def watch_spec(engine):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the rest of dense-LM training (accumulation, stochastic
+# rounding, bf16 compute) and bf16 serving
+# ---------------------------------------------------------------------------
+
+LM16_STEPS = 2  # (a) and (b): steps a run
+BF16_STEPS = 3  # (d)
+# (a): accum_steps 2 against 1 from the same weights and batches, absolute
+# loss gaps at steps 0 and 1: scenario_perf_levers.py's bars (its CPU test,
+# tests/test_torch_lm_extras.py)
+ACCUM_TOL = (2e-4, 2e-3)
+# (b): the embed's stochastic planes, drawn on the card, held on the host
+# CPU at its first and last EMBED_EDGE elements and EMBED_EDGE more drawn
+# across the leaf (an element's noise depends on its flat index alone, and
+# the host's int64 threefry over all 311 M elements would take minutes);
+# the w_gate leaf is held whole
+EMBED_EDGE = 1 << 20
+# (c): phase 12's ranks and widths with stochastic bf16 gradients, held to
+# a run with nearest-rounded ones (the reference is not on the card; its
+# parity, losses within rtol 1e-4 and the noise bit-exact, is
+# tests/test_torch_dist.py's): the first loss, before any update, equal;
+# the second within 1e-2 relative (another rounding of the gradients:
+# 4.3e-4 apart in the CPU rehearsal at reduced width and lr 0.01)
+DP16_LOSS_RTOL = 1e-2
+# (d): the bf16 step-0 loss against the fp32 one on the same weights and
+# batch: 8-bit activations at every one of 28 layers (the CPU test saw
+# 8.5e-5 at reduced width)
+BF16_LOSS_RTOL = 1e-2
+# (e): a bf16 engine stream may leave the bf16 static run's, and the paged
+# engine's the contiguous one's, only where a batch-1 greedy decode's top-2
+# logits there are within this many bf16 steps of each other: bf16 GEMMs
+# round every output to 8 bits, so what moves an fp32 value by its last
+# bits (cuBLAS's row bits depend on the batch's row count; paged_attend and
+# the dense decode sum in another order; a page-padded prefill) moves a
+# bf16 one by a step, and a tie at that resolution goes either way
+BF16_TIE_STEPS = 2
+
+
+def bf16_step(torch, x):
+    """One bf16 step (the spacing of bf16 numbers) at each value of ``x``."""
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), torch.frexp(x.float())[1] - 8)
+
+
+def bf16_gap(torch, got, want, tol):
+    """``(max |got - want|, elements beyond one bf16 step of want plus
+    tol, elements that differ at all)``: both versions compute in fp32 and
+    round once, so they may part by a step; ``tol`` (the fp32 kernel's own
+    bar) covers values near 0, where the fp32 sums' order moves a value by
+    more than its own bf16 step."""
+    gap = (got.float() - want.float()).abs()
+    beyond = int((gap > bf16_step(torch, want) + tol).sum())
+    return float(gap.max()), beyond, int((got != want).sum())
+
+
+def counts_bf16():
+    w = _wrappers()
+    return {"flash_prefill_bf16": w["flash_prefill"].launches_bf16,
+            "paged_attend_bf16": w["paged_attend"].launches_bf16}
+
+
+def _lm_run(torch, device, cfg, plan, steps, batch, seq, lr, *, keep=False,
+            profile_last=False):
+    """Fresh full-width weights (seed 0) and ``steps`` steps of
+    ``make_train_step`` at ``plan`` (key ``PRNGKey(step)`` where the plan
+    needs one), each timed on the host clock to its loss sync. Returns the
+    losses, step ms, the memory peak and the launch counts (and with
+    ``keep`` the state); ``profile_last``: one more step, under
+    ``torch.profiler`` (not counted)."""
+    from repro_torch import random as tr
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.train.step import make_train_step
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    spec_tree, storage, mom = setup(cfg, MeshCfg(), device=device)
+    step = make_train_step(cfg, MeshCfg(), None, spec_tree,
+                           SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4),
+                           {"tokens": (batch, seq), "labels": (batch, seq)}, plan=plan)
+    losses, ms = [], []
+    zero_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+        key = (tr.PRNGKey(i),) if plan.needs_rng else ()
+        sync()
+        t0 = time.perf_counter()
+        storage, mom, m = step(storage, mom, {"tokens": tokens, "labels": labels}, lr, *key)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "ms": ms, "launches": counts(),
+           "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+    if profile_last:
+        tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, steps, device=device)
+        profile(torch, lambda: float(step(storage, mom, {"tokens": tokens, "labels": labels},
+                                          lr)[2]["loss"]), f"{cfg.name} {plan.dtype} train step")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    if keep:
+        out.update(spec_tree=spec_tree, storage=storage)
+    return out
+
+
+def _check_stochastic_planes(torch, device, cfg, storage, spec_tree, plan, key):
+    """The planes of the embed and layer 0's w_gate under the keys the
+    step gives them at ``key``, drawn on the card and by the plain version
+    on the host CPU: byte-equal (the embed at a sample, ``EMBED_EDGE``).
+    Drawn leaf by leaf, each freed before the next."""
+    from repro_torch import random as tr
+    from repro_torch.kernels import ref
+    from repro_torch.train.step import fold_sites
+
+    sites = fold_sites(cfg, spec_tree, plan.weight_policies())
+    rep = None if cfg.scan_layers or cfg.remat else 0  # one traced body a group
+    leaves = {"embed": (storage["embed"], sites[("top", "embed", 0)]),
+              "w_gate": (storage["groups"][0]["p0"]["mix"]["w_gate"][0],
+                         sites[("group", 0, rep, "p0", ("mix", "w_gate"))])}
+    rt = plan.weights[0].round_to
+    checked = {}
+    for name, (w, i) in leaves.items():
+        k = tr.fold_in(key, i)
+        planes = ref.bitpack_ref(w, rt, mode="stochastic", key=k).reshape(rt, -1)
+        again = ref.bitpack_ref(w, rt, mode="stochastic", key=k).reshape(rt, -1)
+        check(torch.equal(planes, again), f"{name}: two draws of one key differ")
+        del again
+        flat = w.reshape(-1)
+        n = flat.numel()
+        if n > 4 * EMBED_EDGE:
+            gen = torch.Generator().manual_seed(16)
+            idx = torch.cat([torch.arange(EMBED_EDGE), torch.arange(n - EMBED_EDGE, n),
+                             torch.randint(0, n, (EMBED_EDGE,), generator=gen)])
+        else:
+            idx = torch.arange(n)
+        host = ref.bitpack_ref(flat[idx.to(device)].cpu(), rt, mode="stochastic", key=k,
+                               index=idx)
+        check(torch.equal(planes[:, idx.to(device)].cpu(), host),
+              f"{name}: the card's stochastic planes differ from the host's")
+        checked[name] = (n, idx.numel())
+        del planes, host
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return checked
+
+
+def _dp16_rank(rank, device_name, cfg, batch, lr, min_size):
+    """One rank of phase 16 (c): phase 12's AlexNet shards, two steps with
+    stochastic bf16 gradients (keys ``PRNGKey(1000 + step)``), the same two
+    again from the same state, and two with nearest-rounded gradients.
+    Returns the losses and the weights' bits."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch import random as jr
+    from repro_torch.data.pipeline import SyntheticImageNet
+    from repro_torch.dist.spec import MeshCfg, tree_to_local
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.optim.sgd import SGDConfig, init_momentum
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train.cnn_step import (
+        build_cnn_spec_tree, cnn_to_storage, make_cnn_train_step,
+    )
+    from repro_torch.utils.trees import tree_leaves
+
+    fp32_math()
+    torch.backends.cudnn.deterministic = True  # two runs must give the same bits
+    torch.backends.cudnn.benchmark = False
+    device = torch.device(device_name)
+    n = torch.distributed.get_world_size()
+    mesh_cfg = MeshCfg(dp=n, compress_min_size=min_size)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    params, metas, gi = init_cnn(cfg, 0, device=device)
+    spec = build_cnn_spec_tree(params, metas, mesh_cfg)
+    start = tree_to_local(cnn_to_storage(params, spec, mesh_cfg), spec, mesh_cfg, rank)
+    start = [x.clone() for x in tree_leaves(start)]
+    del params
+    data = SyntheticImageNet(num_classes=cfg.num_classes, hw=cfg.in_hw, device=device_name)
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=5e-4)
+    out = {}
+    zero_counts()
+    for label, mode in (("stochastic", "stochastic"), ("again", "stochastic"),
+                        ("nearest", "nearest")):
+        plan = PrecisionPlan.build(gi[1], round_to=2, grad_round_to=2, grad_mode=mode)
+        step = make_cnn_train_step(cfg, mesh_cfg, spec, gi, opt, plan=plan, mesh=mesh)
+        it = iter([x.clone() for x in start])
+        storage = {"layers": {a: {b: next(it) for b in leafs}
+                              for a, leafs in spec["layers"].items()}}
+        mom, losses = init_momentum(storage), []
+        for i in range(2):
+            imgs, labels = data.batch(batch, i)
+            storage, mom, m = step(storage, mom, {"images": imgs, "labels": labels}, lr,
+                                   jr.PRNGKey(1000 + i))
+            losses.append(float(m["loss"]))
+        out[label] = {"losses": losses,
+                      "bits": [x.detach().view(torch.int32).cpu() for x in tree_leaves(storage)]}
+    out["launches"] = counts()
+    return out
+
+
+def lm_features_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+                     phase11_ms=None, dp_cfg=None, dp_batch=64, dp_min_size=None):
+    """Phase 16 (a)-(d): gradient accumulation, stochastic weights and
+    gradients, and bf16 training of full-width qwen3-1.7b (and phase 12's
+    AlexNet ranks for (c)). Returns the measurements; raises on a failed
+    check. Launch counts and memory peaks are read on a card only, so the
+    phase rehearses on the CPU at reduced configs."""
+    from repro_torch import random as tr
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.cnn import ALEXNET
+    from repro_torch.models.meta import COMPRESS_MIN_SIZE
+    from repro_torch.plan import PrecisionPlan
+
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    nrt = cfg.num_groups + 1
+    out = {}
+
+    # (a) accumulation
+    runs = {a: _lm_run(torch, device, cfg, PrecisionPlan.build(nrt, round_to=2, accum_steps=a),
+                       LM16_STEPS, batch, seq, lr) for a in (1, 2)}
+    gaps = [abs(x - y) for x, y in zip(runs[1]["losses"], runs[2]["losses"])]
+    check(all(g < t for g, t in zip(gaps, ACCUM_TOL)),
+          f"(a) accum 2 losses {runs[2]['losses']} vs accum 1 {runs[1]['losses']}: gaps {gaps}")
+    for a, r in runs.items():
+        check(not on_card or r["launches"]["bitpack"] > 0, f"(a) accum {a}: no Bitpack launch")
+        say(f"   (a) accum_steps {a}: losses {r['losses']}, step ms "
+            f"{[round(x, 1) for x in r['ms']]}, memory peak {r['peak'] / 2**30:.2f} GiB, "
+            f"launches {r['launches']}")
+    say(f"   (a) accum 2 against 1: loss gaps {[f'{g:.3e}' for g in gaps]} (bounds {ACCUM_TOL})")
+    out["accum"] = runs
+
+    # (b) stochastic weights
+    plan = PrecisionPlan.build(nrt, round_to=2, mode="stochastic")
+    first = _lm_run(torch, device, cfg, plan, LM16_STEPS, batch, seq, lr, keep=True)
+    checked = {}
+    for i in range(LM16_STEPS):
+        checked = _check_stochastic_planes(torch, device, cfg, first["storage"],
+                                           first["spec_tree"], plan, tr.PRNGKey(i))
+    digest = [x.view(torch.int32).sum().item() for x in
+              (first["storage"]["embed"], first["storage"]["head"])]
+    del first["storage"]
+    rerun = _lm_run(torch, device, cfg, plan, LM16_STEPS, batch, seq, lr, keep=True)
+    check(rerun["losses"] == first["losses"], f"(b) a rerun's losses {rerun['losses']} "
+                                              f"differ from {first['losses']}")
+    check(digest == [x.view(torch.int32).sum().item() for x in
+                     (rerun["storage"]["embed"], rerun["storage"]["head"])],
+          "(b) a rerun's weights differ")
+    del rerun["storage"]
+    say(f"   (b) stochastic round_to 2: losses {first['losses']} (a rerun bit-equal), step ms "
+        f"{[round(x, 1) for x in first['ms']]}, memory peak {first['peak'] / 2**30:.2f} GiB; "
+        f"planes drawn on the card equal the host's for {checked} (elements, held) at "
+        f"{LM16_STEPS} keys; launches {first['launches']}")
+    out["stochastic"] = first
+
+    # (c) stochastic gradients across ranks
+    dcfg = dp_config(dp_cfg or ALEXNET)
+    dlr = 1e-8 if dcfg.paper_init else 0.01
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_dp16_rank, DP_RANKS, str(device), dcfg, dp_batch, dlr,
+                        dp_min_size or COMPRESS_MIN_SIZE, threads=4 if on_card else 1)
+    dp_s = time.perf_counter() - t0
+    for r, o in enumerate(ranks):
+        check(o["again"]["losses"] == o["stochastic"]["losses"],
+              f"(c) rank {r}: two stochastic runs' losses differ")
+        check(all(torch.equal(a, b) for a, b in zip(o["again"]["bits"], o["stochastic"]["bits"])),
+              f"(c) rank {r}: two stochastic runs' weights differ")
+        check(o["stochastic"]["losses"] == ranks[0]["stochastic"]["losses"],
+              f"(c) rank {r}'s losses differ from rank 0's")
+    ls, ln = ranks[0]["stochastic"]["losses"], ranks[0]["nearest"]["losses"]
+    check(ls[0] == ln[0], f"(c) first losses {ls[0]!r} and {ln[0]!r} (no update yet) differ")
+    rel = abs(ls[1] - ln[1]) / abs(ln[1])
+    check(rel <= DP16_LOSS_RTOL, f"(c) second loss {ls[1]} vs nearest {ln[1]}: {rel:.3e}")
+    say(f"   (c) {DP_RANKS} ranks, stochastic bf16 gradients: losses {ls} (two runs bit-equal, "
+        f"weights too), nearest {ln} (second step within {rel:.3e}, bound {DP16_LOSS_RTOL}); "
+        f"launches per rank {[o['launches'] for o in ranks]}; {dp_s:.1f} s")
+    out["dp"] = {"losses": ls, "nearest": ln, "launches": {
+        k: sum(o["launches"][k] for o in ranks) for k in ranks[0]["launches"]}}
+
+    # (d) bf16 training
+    bf = _lm_run(torch, device, cfg, PrecisionPlan.build(nrt, round_to=2, dtype="bf16"),
+                 BF16_STEPS, batch, seq, lr, profile_last=on_card)
+    fp32_loss = runs[1]["losses"][0]  # (a)'s accum 1: the same plan in fp32, same weights
+    rel = abs(bf["losses"][0] - fp32_loss) / abs(fp32_loss)
+    check(rel <= BF16_LOSS_RTOL, f"(d) bf16 step-0 loss {bf['losses'][0]} vs fp32 {fp32_loss}")
+    warm = sorted(bf["ms"][1:])
+    say(f"   (d) bf16: losses {bf['losses']}; step-0 loss against fp32's {fp32_loss!r}: "
+        f"{rel:.3e} (bound {BF16_LOSS_RTOL}); step ms {[round(x, 1) for x in bf['ms']]} "
+        f"(warm median {warm[len(warm) // 2]:.1f}"
+        + (f" against phase 11's fp32 {phase11_ms:.1f})" if phase11_ms else ")")
+        + f", memory peak {bf['peak'] / 2**30:.2f} GiB, launches {bf['launches']}")
+    out["bf16"] = bf
+    out["launches"] = {k: sum(r["launches"][k] for r in
+                              [*runs.values(), first, rerun, bf]) + out["dp"]["launches"][k]
+                       for k in bf["launches"]}
+    return out
+
+
+def check_bf16_kernels(torch, device):
+    """(e): the bf16 kernels against their plain versions at phase 6's and
+    phase 8's shapes (bf16 unit normals): within one bf16 step plus the
+    fp32 bar; times flash at S 512 and paged_attend at the decode shape as
+    phases 6 and 8 time the fp32 ones, with the bf16 library calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attend import paged_attend
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    bf = torch.bfloat16
+    out = {"flash_err": 0.0, "paged_err": 0.0, "differ": 0, "elements": 0}
+    for B, H, Kv, Sq, Sk, off in FLASH_SHAPES:
+        q, k, v = (torch.randn(s, generator=gen, device=device).to(bf) for s in
+                   ((B, H, Sq, 128), (B, Kv, Sk, 128), (B, Kv, Sk, 128)))
+        got = flash_prefill(q, k, v, q_offset=off)
+        block = 128 if Sq % 128 == 0 and Sk % 128 == 0 else 64
+        want = ref.flash_prefill_ref(q, k, v, q_offset=off, block_q=block, block_k=block)
+        err, beyond, differ = bf16_gap(torch, got, want, FLASH_TOL)
+        check(beyond == 0 and got.dtype == bf,
+              f"bf16 flash B={B} H={H} Sq={Sq} Sk={Sk}: {beyond} elements beyond one step")
+        out["flash_err"] = max(out["flash_err"], err)
+        out["differ"] += differ
+        out["elements"] += got.numel()
+        if (B, H, Sq, Sk, off) == (1, 16, 512, 512, 0):
+            ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
+            plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v), iters=5)
+            lib = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            rows = [min(off + r + 1, Sk) for r in range(Sq)]
+            t_ops = 4 * 128 * B * H * sum(rows) / BF16_FLOP_PER_S * 1e3
+            t_bytes = 2 * 128 * (2 * B * H * Sq + 2 * B * Kv * Sk) / HBM_BYTES_PER_S * 1e3
+            bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            out["flash"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                            "bound_by": by}
+            say(f"   bf16 flash S=512: kernel {ms * 1e3:.1f} us in a CUDA graph, plain "
+                f"{plain * 1e3:.1f} us, bf16 sdpa {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+                f"({by}, {bound / ms:.0%} of it)")
+    for B, Kv, G, page, width, P, lengths in PAGED_CASES:
+        q, kp, vp, table, lens = paged_inputs(torch, device, gen, B, Kv, G, page, width, P,
+                                              lengths)
+        q, kp, vp = q.to(bf), kp.to(bf), vp.to(bf)
+        got = paged_attend(q, kp, vp, table, lens)
+        want = ref.paged_attend_ref(q, kp, vp, table, lens)
+        err, beyond, differ = bf16_gap(torch, got, want, PAGED_TOL)
+        check(beyond == 0 and got.dtype == bf,
+              f"bf16 paged_attend B={B} page={page} lengths {lengths}: {beyond} beyond one step")
+        out["paged_err"] = max(out["paged_err"], err)
+        out["differ"] += differ
+        out["elements"] += got.numel()
+    label, (B, Kv, G, page, width, P, lengths) = PAGED_TIMED[0]
+    args = paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
+    args = (args[0].to(bf), args[1].to(bf), args[2].to(bf), *args[3:])
+    copies = [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                       for _ in range(COLD_COPIES - 1)]
+    cold = time_graph(torch, [lambda a=a: paged_attend(*a) for a in copies])
+    del copies
+    plain = time_cuda(torch, lambda: ref.paged_attend_ref(*args), iters=5)
+    lib = time_cuda(torch, lambda: gather_sdpa(torch, *args))
+    bound = paged_bound(B, Kv, G, page, width, lengths) / 2  # 2 B an element
+    out["paged"] = {"ms": cold, "plain_ms": plain, "library_ms": lib, "bound_ms": bound}
+    say(f"   bf16 paged_attend {label}: kernel {cold * 1e3:.1f} us in a CUDA graph with the L2 "
+        f"cold, plain {plain * 1e3:.1f} us, gather + bf16 sdpa {lib * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.2f} us (bytes, {bound / cold:.0%} of it)")
+    say(f"   bf16 kernels at phases 6 and 8's shapes: every element within one bf16 step of "
+        f"the plain version (plus the fp32 bars); {out['differ']} of {out['elements']} differ "
+        f"at all; max |err| flash {out['flash_err']:.3e}, paged {out['paged_err']:.3e}")
+    return out
+
+
+def bf16_serve_path(torch, device, phase7, *, cfg=None, page=PAGE):
+    """Phase 16 (e): phase 7's requests on phase 7's weights (seed 0)
+    under a plan with ``"dtype": "bf16"`` at round_to 2: the static run,
+    the engine and the paged engine. Engine equals static and paged equals
+    contiguous exactly; launches of the bf16 kernels counted by their
+    wrappers (28 flash a prefill of a multiple of 128, 28 paged_attend a
+    paged decode step) and none of the fp32 ones; each launch's first
+    shape held to the plain version within one bf16 step; the first
+    logits against phase 7's fp32 ones (relative l2, printed). Launch
+    counts are read on a card only, so the phase rehearses on the CPU."""
+    from repro_torch.launch.serve import setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine, generate_static
+
+    cfg = cfg or phase7["cfg"]
+    on_card = device.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    plan = PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "dtype": "bf16"}) \
+        .broadcast(cfg.num_groups + 1)
+    requests = phase7["requests"]
+    lens = [len(r.prompt_ids) for r in requests]
+    gen = requests[0].max_new
+    cap = max(lens) + gen
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    seen_f, seen_p = {}, []
+    unwatch_f = watch_flash(torch, seen_f)
+    unwatch_p = watch_paged(torch, seen_p, 8 * cfg.num_layers)
+    zero_counts()
+    static = generate_static(cfg, mesh_cfg, None, spec_tree, storage, requests, plan=plan)
+    launches = {"static": counts_bf16()}
+    fp32_counts = counts()  # Bitpack / Bitunpack of the weights
+    runs = {}
+    for label, kw in (("engine", {}), ("paged engine", {"paged": True, "page_size": page})):
+        timings = {"admit": [], "decode": []}
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
+                             max_slots=SERVE_SLOTS, cache_capacity=cap, **kw)
+        instrument(engine, timings)
+        results = engine.run(requests)
+        wall = time.perf_counter() - t0
+        launches[label] = counts_bf16()
+        fp32 = counts()
+        fp32_counts = {k: fp32_counts[k] + v for k, v in fp32.items()}
+        summary = engine.wire_summary()
+        runs[label] = {k: r.tokens for k, r in results.items()}
+        dec = sorted(timings["decode"])
+        check(fp32["flash_prefill"] == fp32["paged_attend"] == 0,
+              f"{label}: fp32 attention launches {fp32}")
+        viable = [S % 128 == 0 for S in lens] if not kw else \
+            [(-(-S // page) * page) % 128 == 0 for S in lens]
+        want = {"flash_prefill_bf16": cfg.num_layers * sum(viable) * flash_ok,
+                "paged_attend_bf16": cfg.num_layers * summary["decode_steps"] * on_card
+                if kw else 0}
+        check(launches[label] == want, f"{label}: bf16 launches {launches[label]}, "
+                                       f"expected {want}")
+        first = timings["first_logits"].float()
+        ref32 = phase7["runs"]["engine"]["first_logits"].float()
+        rel = float(torch.linalg.vector_norm(first - ref32) / torch.linalg.vector_norm(ref32))
+        runs[label + " stats"] = {"decode_ms": dec[len(dec) // 2] * 1e3, "rel": rel,
+                                  "wall": wall, "decode_steps": summary["decode_steps"]}
+        say(f"   (e) bf16 {label}: {summary['decode_steps']} decode steps, {wall:.2f} s, "
+            f"decode ms/step median {dec[len(dec) // 2] * 1e3:.2f}; launches "
+            f"{launches[label]}; first logits against phase 7's fp32 ones: relative l2 "
+            f"{rel:.3e}")
+        if on_card and not kw:  # a warm bf16 decode step, as phase 7 profiles fp32's
+            engine.begin_stream()
+            engine.admit(requests[0])
+            engine.admit(requests[1])
+            profile(torch, engine.decode_tick, "bf16 decode step (2 slots)")
+            zero_counts()
+    unwatch_f()
+    unwatch_p()
+    batch1 = {}
+    for label, got_runs, want_runs in (("engine", runs["engine"], static),
+                                       ("paged engine", runs["paged engine"], runs["engine"])):
+        for r in requests:
+            got, want = got_runs[r.rid], want_runs[r.rid]
+            if got == want:
+                continue
+            if r.rid not in batch1:
+                batch1[r.rid] = top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                                          values=True)
+            toks, gaps, tops = batch1[r.rid]
+            # the first token where the two streams or the batch-1 run part
+            t = next(i for i, abc in enumerate(zip(got, want, toks)) if len(set(abc)) > 1)
+            step = 2.0 ** (math.floor(math.log2(abs(tops[t]))) - 7) if tops[t] else 0.0
+            say(f"   (e) {label}: request {r.rid} parts at token {t}: {got[t]} against "
+                f"{want[t]} (batch-1 greedy {toks[t]}), batch-1 top-2 gap {gaps[t]:.4g} at "
+                f"top logit {tops[t]:.4g} ({gaps[t] / step if step else 0:.1f} bf16 steps)")
+            check(gaps[t] <= BF16_TIE_STEPS * step,
+                  f"(e) {label}: request {r.rid} parts at token {t} at a top-2 gap of "
+                  f"{gaps[t]:.4g} > {BF16_TIE_STEPS} bf16 steps")
+    want_static = cfg.num_layers * len({S for S in lens if S % 128 == 0}) * flash_ok
+    check(launches["static"]["flash_prefill_bf16"] == want_static,
+          f"(e) static: bf16 flash launches {launches['static']}, expected {want_static}")
+    from repro_torch.kernels import ref
+
+    errs = {"flash": 0.0, "paged": 0.0}
+    for key, rec in seen_f.items():
+        (q, k, v), off = rec["inputs"], key[2]
+        err, beyond, differ = bf16_gap(torch, rec["out"], ref.flash_prefill_ref(
+            q, k, v, q_offset=off), FLASH_TOL)
+        check(beyond == 0, f"(e) bf16 flash on the path q {key[0]}: {beyond} beyond a step")
+        errs["flash"] = max(errs["flash"], err)
+        say(f"   (e) bf16 flash on the path, q {key[0]} k {key[1]}: max |err| {err:.3e}, "
+            f"{differ} of {rec['out'].numel()} elements differ")
+    for key, rec in seen_p:
+        err, beyond, differ = bf16_gap(torch, rec["out"], ref.paged_attend_ref(*rec["inputs"]),
+                                       PAGED_TOL)
+        check(beyond == 0, f"(e) bf16 paged_attend on the path {key}: {beyond} beyond a step")
+        errs["paged"] = max(errs["paged"], err)
+    if seen_p:
+        say(f"   (e) bf16 paged_attend on the path: {len(seen_p)} launches held, max |err| "
+            f"{errs['paged']:.3e}")
+    total = {k: sum(v[k] for v in launches.values()) for k in launches["static"]}
+    return {"runs": runs, "launches": {**fp32_counts, **total}, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3573,6 +4098,24 @@ def main() -> int:
         served[k] += feats["launches"][k]
     say(f"   launches over phase 15's runs: {feats['launches']}")
 
+    say(f"phase 16: main path — full-width qwen3-1.7b training at batch {LM_BATCH} x seq "
+        f"{LM_SEQ}: (a) accum_steps 2 against 1, (b) stochastic weights at round_to 2, (c) "
+        f"{DP_RANKS} AlexNet ranks with stochastic gradients, (d) bf16 compute; (e) phase 7's "
+        f"requests served under a bf16 plan (static, engine, paged engine at page {PAGE}); "
+        f"{smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    warm11 = sorted(r.wall_s for r in lm["awp"].records + lm["oracle"].records
+                    if not r.recompiled)
+    lmf = lm_features_path(torch, device, phase11_ms=warm11[len(warm11) // 2] * 1e3)
+    bfk = check_bf16_kernels(torch, device)
+    bfs = bf16_serve_path(torch, device, serve7)
+    for k in served:
+        served[k] += lmf["launches"][k] + bfs["launches"][k]
+    say(f"   launches over phase 16's runs: training {lmf['launches']}, bf16 serving "
+        f"{bfs['launches']}; phase 16 took {time.perf_counter() - t16:.1f} s")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -3610,10 +4153,31 @@ def main() -> int:
         "name": "l2norm_sq", "route": "cuda", "source": "src/repro_torch/csrc/l2norm.cu",
         "replaces": "src/repro/kernels/l2norm.py:31",
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
-                     + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]),
+                     + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
+                     + lmf["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
+    })
+    kernels.append({
+        "name": "flash_prefill_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:110",
+        "launches": bfs["launches"]["flash_prefill_bf16"],
+        "max_abs_err": max(bfk["flash_err"], bfs["errs"]["flash"]),
+        "ms": bfk["flash"]["ms"], "plain_ms": bfk["flash"]["plain_ms"],
+        "bound_ms": bfk["flash"]["bound_ms"], "bound_by": bfk["flash"]["bound_by"],
+        "library_ms": bfk["flash"]["library_ms"],
+    })
+    kernels.append({
+        "name": "paged_attend_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attend.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:98",
+        "launches": bfs["launches"]["paged_attend_bf16"],
+        "max_abs_err": max(bfk["paged_err"], bfs["errs"]["paged"]),
+        "ms": bfk["paged"]["ms"], "plain_ms": bfk["paged"]["plain_ms"],
+        "bound_ms": bfk["paged"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call reads through a page table
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

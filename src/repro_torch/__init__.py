@@ -7,8 +7,10 @@ Every kernel that ``repro`` wrote in Pallas for the TPU is a CUDA kernel
 written by hand here (``csrc/``), with a plain PyTorch version beside it
 that the CPU tests run.
 
-All float math is fp32: :func:`fp32_math` turns TF32 off for both
-matrix products and cuDNN convolutions, and every entry point calls it.
+All float math is fp32 unless a plan asks for bf16 compute:
+:func:`fp32_math` turns TF32 off for both matrix products and cuDNN
+convolutions, and the reduced-precision reduction of bf16 products off
+(bf16 GEMMs sum in fp32, as XLA's do); every entry point calls it.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ import torch
 
 def fp32_math() -> None:
     """Full-fp32 products and convolutions (TF32 off on both paths;
-    the cuDNN flag defaults to True)."""
+    the cuDNN flag defaults to True), and bf16 products summed in fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device) -> torch.device:

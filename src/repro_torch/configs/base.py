@@ -4,7 +4,9 @@ dense-attention fields).
 ``ModelConfig`` describes one decoder: widths, the attention flavour, and
 the precision-group layout that AWP and the ADT transfer read. The port
 runs the ``attn`` block pattern only; the reference's MoE, recurrent,
-cross-attention and audio fields come with their slice.
+cross-attention and audio fields come with their slice. ``InputShape``
+and ``INPUT_SHAPES`` are the assigned workload geometries
+(``configs.shapes`` gives their input stand-ins).
 """
 from __future__ import annotations
 
@@ -12,6 +14,25 @@ import dataclasses
 from typing import Literal
 
 ArchType = Literal["dense"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned (workload) input geometry."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+    window: int | None = None  # decode window override for long-context
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode", window=4_096),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +61,10 @@ class ModelConfig:
 
     # --- AWP ----------------------------------------------------------------
     num_precision_groups: int = 4    # AWP group granularity (paper: block level)
+    # the reference scans a group's layers (one traced body a group); the
+    # port runs them as a loop, and the flag decides only whether the
+    # layers of a group share their stochastic-rounding keys (train.step)
+    scan_layers: bool = True
     remat: bool = True               # activation checkpointing per layer (train)
 
     def __post_init__(self):

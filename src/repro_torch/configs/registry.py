@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import qwen3_1_7b
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in [qwen3_1_7b.CONFIG]}
 # the reference's other --arch ids, whose families are not ported yet
@@ -30,10 +30,16 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-def reduced(cfg: ModelConfig) -> ModelConfig:
+def get_shape(name: str) -> InputShape:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]
+
+
+def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference shrinks it:
-    2 layers, d_model <= 256, <= 4 heads, d_ff <= 512, vocab <= 512, and
-    no activation checkpointing."""
+    2 layers (or ``layers``), d_model <= 256, <= 4 heads, d_ff <= 512,
+    vocab <= 512, no layer scan and no activation checkpointing."""
     num_heads = min(cfg.num_heads, 4)
     num_kv = max(1, min(cfg.num_kv_heads, num_heads))
     while num_heads % num_kv:
@@ -41,7 +47,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     d_model = min(cfg.d_model, 256)
     return dataclasses.replace(
         cfg,
-        num_layers=2,
+        num_layers=2 if layers is None else layers,
         d_model=d_model,
         num_heads=num_heads,
         num_kv_heads=num_kv,
@@ -50,5 +56,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=None if cfg.sliding_window is None else 32,
         num_precision_groups=min(cfg.num_precision_groups, 2),
+        scan_layers=False,
         remat=False,
     )

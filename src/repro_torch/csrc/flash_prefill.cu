@@ -1,5 +1,5 @@
 // Flash prefill attention for Hopper: causal online-softmax GQA attention
-// in fp32 on the CUDA cores.
+// in fp32 arithmetic on the CUDA cores, on fp32 or bf16 tensors.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py::flash_prefill
 // (body _flash_kernel, tile update _flash_tile, mask _tile_mask). It
@@ -12,7 +12,21 @@
 // GQA: q head h reads kv head h / G, G = H / Kv.
 //
 // Layout: q (B, H, Sq, 128), k/v (B, Kv, Sk, 128), out (B, H, Sq, 128), all
-// contiguous fp32.
+// contiguous, all fp32 or all bf16.
+//
+// bf16 (a serve prefill under a bf16 plan; the reference's kernel takes it
+// with fp32 accumulation and writes q's dtype): the kernel is a template on
+// the element type, and the bf16 one widens every element of Q, K and V
+// exactly (__bfloat162float) as it stores it into the same fp32 tiles, so
+// everything after the loads, p . v with p in fp32 included (the reference
+// multiplies p as fp32), is the fp32 kernel's arithmetic; the output is
+// rounded once, with __float2bfloat16_rn. Its loads are plain loads and
+// stores, not cp.async (a tile is converted on its way in), so they no
+// longer overlap the compute: a simple kernel that is right. Bound: the
+// larger of the operations at 989 TFLOP/s (bf16 tensor cores; this kernel
+// runs fp32 FMAs, so it stays far from it) and the bytes at 3.35 TB/s, at
+// 2 B an element. The fp32 instantiation is the fp32 kernel as it was, bit
+// for bit.
 //
 // Bound: operations. At the serving shapes (Sq = Sk = 512, H = 16, hd =
 // 128) the causal work is ~1.1 GFLOP against ~13 MB of q/k/v/o. The port
@@ -65,6 +79,8 @@
 // the launch, so a refused launch is seen by the caller.
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -80,6 +96,34 @@ constexpr int kMaxDevices = 64;
 constexpr size_t kSmemBytes =
     sizeof(float) * (3 * kRowsQ * kHd + kBK * kRowsQ + kRowsQ);
 
+// four consecutive elements as fp32 (bf16 widened exactly), and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits)));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
+  return make_float4(bf16_bits_to_float(u.x & 0xffffu), bf16_bits_to_float(u.x >> 16),
+                     bf16_bits_to_float(u.y & 0xffffu), bf16_bits_to_float(u.y >> 16));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+}
+
 __device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
@@ -92,6 +136,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one float4 column of a tile row: a cp.async for fp32, a widening load and
+// store for bf16 (4 elements, 8 B)
+template <typename T>
+__device__ __forceinline__ void tile_load(float4* dst, const T* src) {
+  if constexpr (std::is_same<T, float>::value)
+    cp_async16(dst, reinterpret_cast<const float4*>(src));
+  else
+    *dst = load4(src);
 }
 
 // max / sum over the 8 lanes that share a row (lane bits 0-2)
@@ -128,35 +182,37 @@ struct Unit {
 };
 
 // 64 rows of K from key row k0, swizzled: row r's float4 column c at
-// r * 32 + (c ^ (r & 7)); 16 copies a thread, a warp per two 512 B rows
-__device__ __forceinline__ void load_k(float4* __restrict__ Ks, const float* __restrict__ kg,
+// r * 32 + (c ^ (r & 7)); 16 copies a thread, a warp per two rows
+template <typename T>
+__device__ __forceinline__ void load_k(float4* __restrict__ Ks, const T* __restrict__ kg,
                                        int k0) {
 #pragma unroll
   for (int it = 0; it < kBK * kHd4 / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kHd4;
     const int c = idx % kHd4;
-    cp_async16(Ks + r * kHd4 + (c ^ (r & 7)),
-               reinterpret_cast<const float4*>(kg + static_cast<size_t>(k0 + r) * kHd) + c);
+    tile_load(Ks + r * kHd4 + (c ^ (r & 7)), kg + static_cast<size_t>(k0 + r) * kHd + 4 * c);
   }
 }
 
 // 64 rows of V from key row k0, plain layout
-__device__ __forceinline__ void load_v(float4* __restrict__ Vs, const float* __restrict__ vg,
+template <typename T>
+__device__ __forceinline__ void load_v(float4* __restrict__ Vs, const T* __restrict__ vg,
                                        int k0) {
 #pragma unroll
   for (int it = 0; it < kBK * kHd4 / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
-    cp_async16(Vs + idx, reinterpret_cast<const float4*>(vg + static_cast<size_t>(k0) * kHd) + idx);
+    tile_load(Vs + idx, vg + static_cast<size_t>(k0) * kHd + 4 * idx);
   }
 }
 
 // items[i] = (unit, first tile | end tile << 16, partial slot or -1, merge
 // index); merges[j] = (first slot, pieces, 0, 0); counters[j] is 0 on entry
 // and left 0.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
+flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
                      const int4* __restrict__ items, const int4* __restrict__ merges,
                      int* __restrict__ counters, float* __restrict__ part_acc,
                      float* __restrict__ part_ml, int H, int Kv, int Gc, int Sq, int Sk,
@@ -183,8 +239,8 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ry = 2 * warp + lane / 16;
   const int cx = lane % 16;
 
-  const float* kg = k + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
-  const float* vg = v + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
+  const T* kg = k + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
+  const T* vg = v + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
 
   // group 1: Q and K_0; group 2: V_0
 #pragma unroll
@@ -192,7 +248,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kHd4;
     const int c = idx % kHd4;
-    cp_async16(Qs + idx, reinterpret_cast<const float4*>(q + u.row(r, H, Sq)) + c);
+    tile_load(Qs + idx, q + u.row(r, H, Sq) + 4 * c);
   }
   if (nt > 0) load_k(Ks, kg, kt0 * kBK);
   cp_async_commit();
@@ -320,10 +376,11 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float den = fmaxf(rowv[8 * ry + i], 1e-30f);
-      float4* orow = reinterpret_cast<float4*>(out + u.row(8 * ry + i, H, Sq));
-      orow[cx] = make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
-      orow[cx + 16] =
-          make_float4(acc[i][4] / den, acc[i][5] / den, acc[i][6] / den, acc[i][7] / den);
+      T* orow = out + u.row(8 * ry + i, H, Sq);
+      store4(orow + 4 * cx,
+             make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den));
+      store4(orow + 4 * (cx + 16),
+             make_float4(acc[i][4] / den, acc[i][5] / den, acc[i][6] / den, acc[i][7] / den));
     }
     return;
   }
@@ -378,18 +435,56 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   const float den = fmaxf(lt, 1e-30f);
-  float4* orow = reinterpret_cast<float4*>(out + u.row(rho, H, Sq)) + c0;
+  T* orow = out + u.row(rho, H, Sq) + 4 * c0;
 #pragma unroll
   for (int j = 0; j < 16; ++j)
-    orow[j] = make_float4(a[j].x / den, a[j].y / den, a[j].z / den, a[j].w / den);
+    store4(orow + 4 * j, make_float4(a[j].x / den, a[j].y / den, a[j].z / den, a[j].w / den));
   if (threadIdx.x == 0) counters[item.w] = 0;  // as it was found
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, const void* items,
+           int n_items, const void* merges, void* counters, void* part_acc, void* part_ml,
+           int B, int H, int Kv, int Gc, int Sq, int Sk, int q_offset, float scale,
+           void* stream) {
+  if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv || Sq % 64 || Sk % 64 || q_offset < 0 ||
+      (Gc != 1 && Gc != 2 && Gc != 4) || (H / Kv) % Gc || n_items < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items == 0) return 0;
+  // The shared-memory opt-in is an attribute of each device and each
+  // instantiation: set it once on every device the kernel runs on (the
+  // wrapper makes q's device current).
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[dev] = true;
+  }
+  flash_prefill_kernel<T><<<n_items, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), static_cast<const int4*>(items),
+      static_cast<const int4*>(merges), static_cast<int*>(counters),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, Kv, Gc, Sq, Sk,
+      q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, H, Sq, 128), k / v (B, Kv, Sk, 128), out (B, H, Sq, 128): contiguous
-// fp32 on the current device, 16-byte aligned. Sq and Sk multiples of 64,
-// H a multiple of Kv, q_offset >= 0 (all checked by the Python wrapper).
+// on the current device, 16-byte aligned, all fp32 (repro_flash_prefill) or
+// all bf16 (repro_flash_prefill_bf16). Sq and Sk multiples of 64, H a
+// multiple of Kv, q_offset >= 0 (all checked by the Python wrapper).
 // Causal only: the one mask the serving path asks for. items (n_items
 // int4) and merges (int4) on the device, from the wrapper's work list for
 // Gc query heads a unit; counters (one int a merge) all 0, left 0;
@@ -399,33 +494,15 @@ extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
                                    const void* merges, void* counters, void* part_acc,
                                    void* part_ml, int B, int H, int Kv, int Gc, int Sq,
                                    int Sk, int q_offset, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv || Sq % 64 || Sk % 64 || q_offset < 0 ||
-      (Gc != 1 && Gc != 2 && Gc != 4) || (H / Kv) % Gc || n_items < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_items == 0) return 0;
-  // The shared-memory opt-in is an attribute of each device: set it once on
-  // every device the kernel runs on (the wrapper makes q's device current).
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_prefill_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_prefill_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
-  }
-  flash_prefill_kernel<<<n_items, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<const int4*>(items), static_cast<const int4*>(merges),
-      static_cast<int*>(counters), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), H, Kv, Gc, Sq, Sk, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(q, k, v, out, items, n_items, merges, counters, part_acc, part_ml,
+                       B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream);
+}
+
+extern "C" int repro_flash_prefill_bf16(const void* q, const void* k, const void* v,
+                                        void* out, const void* items, int n_items,
+                                        const void* merges, void* counters, void* part_acc,
+                                        void* part_ml, int B, int H, int Kv, int Gc, int Sq,
+                                        int Sk, int q_offset, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, items, n_items, merges, counters, part_acc,
+                               part_ml, B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream);
 }

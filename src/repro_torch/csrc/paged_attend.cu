@@ -1,5 +1,6 @@
 // Paged decode attention for Hopper: one query token per slot reads its
-// keys and values through a page table, fp32 on the CUDA cores.
+// keys and values through a page table, fp32 arithmetic on the CUDA cores,
+// on fp32 or bf16 tensors.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py::paged_attend
 // (body _paged_kernel, page update _page_update, mask _page_valid). It
@@ -14,7 +15,19 @@
 //
 // Layout: q (B, Kv, G, 128), pools (P, page, Kv, 128), page_table
 // (B, n_pages) int32, lengths (B,) int32, out (B, Kv, G, 128); all
-// contiguous, fp32 where float.
+// contiguous; q, the pools and out all fp32 or all bf16.
+//
+// bf16 (the serve engine's pools under a bf16 plan; the reference's kernel
+// takes them with fp32 accumulation and writes q's dtype): the kernel is a
+// template on the element type. K and V ride the ring as bf16 (a 16 B copy
+// is 8 of them, the tile rows padded by 8 so that copies stay aligned),
+// every element is widened with __bfloat162float as it is read (exact), q
+// is widened once into the fp32 tile, and every sum, p . v included, runs
+// in fp32 as on fp32 inputs: p stays fp32, as the reference multiplies it.
+// The output is rounded once, with __float2bfloat16_rn. The fp32
+// instantiation is the fp32 kernel as it was, bit for bit. Bound: bytes,
+// as in fp32, of which bf16 moves half (K and V of the valid rows, q and
+// out at 2 B an element).
 //
 // Bound: bytes. A K row and a V row (1 KB) serve G scores and G output
 // updates (512 FLOPs each), G / 2 FLOPs per byte against the card's ~20
@@ -66,6 +79,8 @@
 // allocates the partials and the counters.
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,18 +89,53 @@ constexpr int kHd = 128;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;                  // K / V rows a chunk of the ring
-constexpr int kStride = kHd + 4;           // padded row of the K / V tiles
 constexpr int kStages = 3;                 // chunks in the ring
 constexpr int kMaxG = 16;                  // query heads per kv head
 constexpr int kGPerWarp = kMaxG / kWarps;  // query heads one warp owns
 constexpr float kNegInf = -1e30f;          // as the reference: exp() gives 0
-constexpr int kCopies = kRows * (kHd / 4) / kThreads;  // 16 B copies a thread, K or V
-constexpr int kStageFloats = 2 * kRows * kStride;      // K chunk, then V chunk
-constexpr size_t kSmemBytes =
-    sizeof(float) * (static_cast<size_t>(kStages) * kStageFloats + kMaxG * kHd);
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// The element type's geometry: kVec elements a 16 B copy, tile rows padded
+// by one copy (fp32: 128 + 4, the fp32 kernel's own stride).
+template <typename T>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kStride = kHd + kVec;                       // padded K / V row
+  static constexpr int kCopies = kRows * (kHd / kVec) / kThreads;  // 16 B copies a thread
+  static constexpr int kStageElems = 2 * kRows * kStride;          // K chunk, then V chunk
+  static constexpr size_t kSmemBytes =
+      sizeof(T) * static_cast<size_t>(kStages) * kStageElems + sizeof(float) * kMaxG * kHd;
+};
+
+// four consecutive elements as fp32 (bf16 widened exactly)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits)));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
+  return make_float4(bf16_bits_to_float(u.x & 0xffffu), bf16_bits_to_float(u.x >> 16),
+                     bf16_bits_to_float(u.y & 0xffffu), bf16_bits_to_float(u.y >> 16));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -116,22 +166,24 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Start the copies of n (<= kRows) consecutive logical rows from row_lo
 // into a ring stage: K rows, then V rows. Every table entry these rows use
 // was checked to be a pool row.
+template <typename T>
 __device__ __forceinline__ void load_chunk(
-    float* __restrict__ stage, const float* __restrict__ k_pool,
-    const float* __restrict__ v_pool, const int* __restrict__ table_row, int row_lo,
+    T* __restrict__ stage, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int* __restrict__ table_row, int row_lo,
     int n, int page, size_t row_stride, int kvh) {
+  using G = Tile<T>;
 #pragma unroll
-  for (int it = 0; it < kCopies; ++it) {
+  for (int it = 0; it < G::kCopies; ++it) {
     const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / (kHd / 4);
-    const int c = (idx % (kHd / 4)) * 4;
+    const int r = idx / (kHd / G::kVec);
+    const int c = (idx % (kHd / G::kVec)) * G::kVec;
     if (r < n) {
       const int row = row_lo + r;
       const int phys = table_row[row / page];
       const size_t src =
           (static_cast<size_t>(phys) * page + row % page) * row_stride + kvh * kHd + c;
-      cp_async16(stage + r * kStride + c, k_pool + src);
-      cp_async16(stage + (kRows + r) * kStride + c, v_pool + src);
+      cp_async16(stage + r * G::kStride + c, k_pool + src);
+      cp_async16(stage + (kRows + r) * G::kStride + c, v_pool + src);
     }
   }
 }
@@ -139,17 +191,19 @@ __device__ __forceinline__ void load_chunk(
 // One CTA per (slot b, kv head, split s): blockIdx.x = (b * Kv + kvh) *
 // n_splits + s, which is also the index of its partial. counters[b * Kv +
 // kvh] is 0 on entry and left 0.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool,
+paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                    const T* __restrict__ v_pool,
                     const int* __restrict__ page_table,
-                    const int* __restrict__ lengths, float* __restrict__ out,
+                    const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int* __restrict__ counters, int Kv, int G, int P, int page,
                     int n_pages, int n_splits, int pps, float scale) {
+  using Geo = Tile<T>;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* Qs = ring + kStages * kStageFloats;
+  T* ring = reinterpret_cast<T*>(smem4);
+  float* Qs = reinterpret_cast<float*>(ring + kStages * Geo::kStageElems);  // fp32 q
   __shared__ int last;
 
   const int bk = blockIdx.x / n_splits;  // b * Kv + kvh
@@ -192,16 +246,21 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
   const int n_rows = p1 > p0 && !bad ? (p1 - p0) * page : 0;
   const int n_chunks = (n_rows + kRows - 1) / kRows;
   if (n_chunks > 0) {
-    // q rides in the first group with chunk 0
-    const float* qg = q + static_cast<size_t>(bk) * G * kHd;
-    for (int i = threadIdx.x; i < G * (kHd / 4); i += kThreads)
-      cp_async16(Qs + 4 * i, qg + 4 * i);
+    // fp32 q rides in the first group with chunk 0; bf16 q is widened into
+    // the tile here (the loop's first barrier publishes it)
+    const T* qg = q + static_cast<size_t>(bk) * G * kHd;
+    for (int i = threadIdx.x; i < G * (kHd / 4); i += kThreads) {
+      if constexpr (std::is_same<T, float>::value)
+        cp_async16(Qs + 4 * i, qg + 4 * i);
+      else
+        store4(Qs + 4 * i, load4(qg + 4 * i));
+    }
 #pragma unroll
     for (int t = 0; t < kStages - 1; ++t) {
       if (t < n_chunks) {
         const int n = n_rows - t * kRows < kRows ? n_rows - t * kRows : kRows;
-        load_chunk(ring + t * kStageFloats, k_pool, v_pool, table_row, r0 + t * kRows, n,
-                   page, row_stride, kvh);
+        load_chunk(ring + t * Geo::kStageElems, k_pool, v_pool, table_row, r0 + t * kRows,
+                   n, page, row_stride, kvh);
       }
       cp_async_commit();
     }
@@ -213,13 +272,13 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
     const int tn = t + kStages - 1;
     if (tn < n_chunks) {
       const int nn = n_rows - tn * kRows < kRows ? n_rows - tn * kRows : kRows;
-      load_chunk(ring + (tn % kStages) * kStageFloats, k_pool, v_pool, table_row,
+      load_chunk(ring + (tn % kStages) * Geo::kStageElems, k_pool, v_pool, table_row,
                  r0 + tn * kRows, nn, page, row_stride, kvh);
     }
     cp_async_commit();  // possibly empty: one group per trip keeps the count
 
-    const float* Ks = ring + (t % kStages) * kStageFloats;
-    const float* Vs = Ks + kRows * kStride;
+    const T* Ks = ring + (t % kStages) * Geo::kStageElems;
+    const T* Vs = Ks + kRows * Geo::kStride;
     const int row0 = r0 + t * kRows;  // logical row of the chunk's row 0
     const int n = n_rows - t * kRows < kRows ? n_rows - t * kRows : kRows;
     const bool present = lane < n;
@@ -231,13 +290,13 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
       // lane r scores row r of the chunk
       float s = kNegInf;
       if (present) {
-        const float* kr = Ks + lane * kStride;
+        const T* kr = Ks + lane * Geo::kStride;
         const float* qr = Qs + g * kHd;
         float dot = 0.f;
 #pragma unroll 8
         for (int d = 0; d < kHd; d += 4) {
-          const float4 kv4 = *reinterpret_cast<const float4*>(kr + d);
-          const float4 q4 = *reinterpret_cast<const float4*>(qr + d);
+          const float4 kv4 = load4(kr + d);
+          const float4 q4 = load4(qr + d);
           dot = fmaf(q4.x, kv4.x, dot);
           dot = fmaf(q4.y, kv4.y, dot);
           dot = fmaf(q4.z, kv4.z, dot);
@@ -260,7 +319,7 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
       // lane c accumulates output columns 4c .. 4c+3 over the chunk's rows
       for (int r = 0; r < n; ++r) {
         const float pr = __shfl_sync(0xffffffffu, p, r);
-        const float4 v4 = *reinterpret_cast<const float4*>(Vs + r * kStride + 4 * lane);
+        const float4 v4 = load4(Vs + r * Geo::kStride + 4 * lane);
         a.x = fmaf(pr, v4.x, a.x);
         a.y = fmaf(pr, v4.y, a.y);
         a.z = fmaf(pr, v4.z, a.z);
@@ -271,7 +330,7 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
   }
   cp_async_wait<0>();  // no copy outlives the CTA
 
-  float* og = out + static_cast<size_t>(bk) * G * kHd;
+  T* og = out + static_cast<size_t>(bk) * G * kHd;
   if (n_splits == 1) {  // the whole table in one split: write the output
 #pragma unroll
     for (int i = 0; i < kGPerWarp; ++i) {
@@ -280,7 +339,7 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
       const float den = fmaxf(l[i], 1e-30f);
       float4 o = make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den, acc[i].w / den);
       if (bad) o = make_float4(kNaN, kNaN, kNaN, kNaN);
-      *reinterpret_cast<float4*>(og + g * kHd + 4 * lane) = o;
+      store4(og + g * kHd + 4 * lane, o);
     }
     return;
   }
@@ -346,18 +405,59 @@ paged_attend_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
     const float den = fmaxf(lt, 1e-30f);
     float4 o = make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
     if (nan) o = make_float4(kNaN, kNaN, kNaN, kNaN);
-    *reinterpret_cast<float4*>(og + g * kHd + 4 * lane) = o;
+    store4(og + g * kHd + 4 * lane, o);
   }
   if (threadIdx.x == 0) counters[bk] = 0;  // as it was found
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* page_table,
+           const void* lengths, void* out, void* part_acc, void* part_ml, void* counters,
+           int B, int Kv, int G, int P, int page, int n_pages, int n_splits, int pps,
+           float scale, void* stream) {
+  if (B < 0 || Kv <= 0 || G < 1 || G > kMaxG || P < 1 || page < 1 ||
+      static_cast<long long>(page) * n_pages >= (1LL << 31) || n_pages < 1 || n_splits < 1 || pps < 1 ||
+      static_cast<long long>(n_splits - 1) * pps >= n_pages ||
+      static_cast<long long>(n_splits) * pps < n_pages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  // The shared-memory opt-in is an attribute of each device and each
+  // instantiation: set it once on every device the kernel runs on (the
+  // wrapper makes q's device current).
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(paged_attend_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Tile<T>::kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(paged_attend_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[dev] = true;
+  }
+  paged_attend_kernel<T><<<B * Kv * n_splits, kThreads, Tile<T>::kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int*>(page_table),
+      static_cast<const int*>(lengths), static_cast<T*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<int*>(counters), Kv, G, P, page, n_pages, n_splits, pps, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, Kv, G, 128), k_pool / v_pool (P, page, Kv, 128), page_table
 // (B, n_pages) int32, lengths (B,) int32, out (B, Kv, G, 128): contiguous on
-// the current device, float tensors 16-byte aligned; 1 <= G <= 16,
-// page >= 1, n_pages >= 1, page * n_pages < 2^31 (all checked by the Python
-// wrapper).
+// the current device, float tensors 16-byte aligned, q, the pools and out
+// fp32 (repro_paged_attend) or bf16 (repro_paged_attend_bf16); 1 <= G <=
+// 16, page >= 1, n_pages >= 1, page * n_pages < 2^31 (all checked by the
+// Python wrapper).
 // Split s covers logical pages [s * pps, (s + 1) * pps), and the splits
 // cover the table: (n_splits - 1) * pps < n_pages <= n_splits * pps. With
 // n_splits > 1, part_acc holds B * Kv * n_splits * G * 128 floats, part_ml
@@ -368,36 +468,17 @@ extern "C" int repro_paged_attend(const void* q, const void* k_pool,
                                   void* part_ml, void* counters, int B, int Kv, int G,
                                   int P, int page, int n_pages, int n_splits, int pps,
                                   float scale, void* stream) {
-  if (B < 0 || Kv <= 0 || G < 1 || G > kMaxG || P < 1 || page < 1 ||
-      static_cast<long long>(page) * n_pages >= (1LL << 31) || n_pages < 1 || n_splits < 1 || pps < 1 ||
-      static_cast<long long>(n_splits - 1) * pps >= n_pages ||
-      static_cast<long long>(n_splits) * pps < n_pages)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // The shared-memory opt-in is an attribute of each device: set it once on
-  // every device the kernel runs on (the wrapper makes q's device current).
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(paged_attend_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(paged_attend_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
-  }
-  paged_attend_kernel<<<B * Kv * n_splits, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(page_table),
-      static_cast<const int*>(lengths), static_cast<float*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-      static_cast<int*>(counters), Kv, G, P, page, n_pages, n_splits, pps, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(q, k_pool, v_pool, page_table, lengths, out, part_acc, part_ml,
+                       counters, B, Kv, G, P, page, n_pages, n_splits, pps, scale, stream);
+}
+
+extern "C" int repro_paged_attend_bf16(const void* q, const void* k_pool,
+                                       const void* v_pool, const void* page_table,
+                                       const void* lengths, void* out, void* part_acc,
+                                       void* part_ml, void* counters, int B, int Kv, int G,
+                                       int P, int page, int n_pages, int n_splits, int pps,
+                                       float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, lengths, out, part_acc,
+                               part_ml, counters, B, Kv, G, P, page, n_pages, n_splits,
+                               pps, scale, stream);
 }

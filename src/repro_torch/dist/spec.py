@@ -269,6 +269,7 @@ def materialize_leaf(
     *,
     key=None,
     group=None,
+    index=None,
 ):
     """Rank-local storage -> TP-local logical weights at ``round_to`` (an
     int or a :class:`~repro_torch.transport.CompressionPolicy`), for one
@@ -279,19 +280,23 @@ def materialize_leaf(
     default group), whose backward reduce-scatters the gradient, and the
     padding is sliced off (with one FSDP rank: the straight-through
     quantize). A ``TP_SMALL`` block drops its size-1 ``tp`` dim; the rest
-    are used as stored."""
+    are used as stored. ``key`` feeds stochastic rounding; ``index`` (a
+    ``DIST`` leaf whose layout is not the reference's) the flat index of
+    each element's noise: laid out as ``x`` on the trivial mesh, else
+    ``(forward, backward)`` as :func:`~repro_torch.transport.transport.all_gather`
+    takes it."""
     policy = policy_for(round_to, grad_round_to)
     if mesh_cfg.trivial:
-        return _T.quantize(x, policy, key) if spec.kind == DIST else x
+        return _T.quantize(x, policy, key, index) if spec.kind == DIST else x
     if spec.kind == REPL:
         return x
     if spec.kind == TP_SMALL:
         return x[0]
     flat = x.reshape(-1)
     if mesh_cfg.dshards > 1:
-        full = _T.all_gather(flat, group, policy, 0, key)
+        full = _T.all_gather(flat, group, policy, 0, key, index)
     else:
-        full = _T.quantize(flat, policy, key)
+        full = _T.quantize(flat, policy, key, None if index is None else index[0])
     n = spec.n_local
     if n != full.shape[0]:
         full = full[:n]

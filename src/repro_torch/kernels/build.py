@@ -58,6 +58,9 @@ _SIGNATURES = {
     # (w, partials, max_parts, out, n, stream)
     "repro_l2norm_sq": [_P, _P, _I, _P, ctypes.c_longlong, _P],
 }
+# the bf16 instantiations of the attention kernels take the fp32 ones' arguments
+_SIGNATURES["repro_flash_prefill_bf16"] = _SIGNATURES["repro_flash_prefill"]
+_SIGNATURES["repro_paged_attend_bf16"] = _SIGNATURES["repro_paged_attend"]
 
 _LIB: ctypes.CDLL | None = None
 # (name, device, stream) -> a kernel's workspace

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.kernels.flash_prefill.flash_prefill``: causal
 online-softmax GQA attention with ``q_offset``, fp32 running max, sum and
-accumulator, masked scores ``-1e30``, output ``acc / max(l, 1e-30)``. The
-kernel is ``csrc/flash_prefill.cu``: fp32 FMAs on the CUDA cores over a
+accumulator, masked scores ``-1e30``, output ``acc / max(l, 1e-30)`` in
+q's dtype, for fp32 or bf16 q, k and v (all of one type; bf16 inputs are
+taken as their exact fp32 values). The kernel is
+``csrc/flash_prefill.cu``, one instantiation a type: fp32 FMAs on the CUDA
+cores over a
 work list that :func:`flash_work` builds on the host, each item 64 query
 rows of ``Gc`` heads sharing a kv head and a range of their unmasked
 64-key tiles; a long unit's tiles are cut into pieces whose partials the
@@ -11,7 +14,8 @@ unit's last piece to finish merges in a fixed order. On a CPU tensor the
 wrapper runs the plain version ``ref.flash_prefill_ref``; on a CUDA
 tensor it launches the kernel or raises.
 
-``flash_prefill.launches`` counts kernel launches (never plain-version
+``flash_prefill.launches`` counts launches of the fp32 kernel,
+``flash_prefill.launches_bf16`` of the bf16 one (never plain-version
 calls).
 """
 from __future__ import annotations
@@ -104,9 +108,10 @@ def flash_prefill(
         return ref.flash_prefill_ref(q, k, v, q_offset=int(q_offset))
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on cuda or cpu, got {q.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError(f"flash_prefill kernel takes float32 only, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise ValueError(f"flash_prefill kernel takes q/k/v all float32 or all bfloat16, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if hd != HEAD_DIM:
         raise ValueError(f"flash_prefill kernel takes head_dim {HEAD_DIM}, got {hd}")
     if Sq % TILE or Sk % TILE:
@@ -115,8 +120,8 @@ def flash_prefill(
         raise ValueError(f"Sk={Sk} must be below {KEY_TILE << 16}")
     if not all(t.is_contiguous() and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs contiguous q/k/v on one device")
-    # every load and store is a float4: a view at an odd storage offset
-    # would fault on the card, so refuse it here
+    # loads and stores are 16 B (fp32) or 8 B (bf16): a view at an odd
+    # storage offset would fault on the card, so refuse it here
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs q/k/v 16-byte aligned")
     out = torch.empty_like(q)
@@ -128,16 +133,23 @@ def flash_prefill(
         # partials: acc (n_parts, 64, 128), then m and l (n_parts, 2, 64)
         scratch = workspace("flash_prefill.partials", q.device, stream,
                             n_parts * UNIT_ROWS * (hd + 2), torch.float32)
+        bf16 = q.dtype == torch.bfloat16
+        lib = library()
+        fn = lib.repro_flash_prefill_bf16 if bf16 else lib.repro_flash_prefill
         with torch.cuda.device(q.device):
-            rc = library().repro_flash_prefill(
+            rc = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 items.data_ptr(), items.shape[0], merges.data_ptr(), counters.data_ptr(),
                 scratch.data_ptr(), scratch.data_ptr() + 4 * n_parts * UNIT_ROWS * hd,
                 B, H, Kv, Gc, Sq, Sk, int(q_offset), hd ** -0.5, stream,
             )
         check_launch(rc, "flash_prefill")
-        flash_prefill.launches += 1
+        if bf16:
+            flash_prefill.launches_bf16 += 1
+        else:
+            flash_prefill.launches += 1
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.launches_bf16 = 0

@@ -37,11 +37,12 @@ def resolve_impl(impl: str, mode: str, device: torch.device) -> str:
 
 def bitpack(
     w: torch.Tensor, round_to: int, *, impl: str = "auto",
-    mode: str = "truncate", key=None,
+    mode: str = "truncate", key=None, index=None,
 ) -> torch.Tensor:
-    """fp32 (any shape) -> ``(round_to, *w.shape)`` u8 planes."""
+    """fp32 (any shape) -> ``(round_to, *w.shape)`` u8 planes (``key`` and
+    ``index``: stochastic rounding's, :func:`~repro_torch.kernels.ref.bitpack_ref`)."""
     if resolve_impl(impl, mode, w.device) == "ref":
-        return ref.bitpack_ref(w, round_to, mode=mode, key=key)
+        return ref.bitpack_ref(w, round_to, mode=mode, key=key, index=index)
     return _bitpack_kernel(w.contiguous(), round_to)
 
 

@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.paged_attention.paged_attend``: one decode
 token per slot attends over its KV pages, read from the pools through the
 page table; online softmax across pages with an fp32 running max, sum and
 accumulator, rows at or past ``lengths[b]`` scored ``-1e30``, output
-``acc / max(l, 1e-30)``. The kernel is ``csrc/paged_attend.cu``, split
+``acc / max(l, 1e-30)`` in q's dtype, for fp32 or bf16 q and pools (all
+of one type; bf16 inputs are taken as their exact fp32 values). The
+kernel is ``csrc/paged_attend.cu``, split
 over pages (flash-decoding): one CTA per (slot, kv head, split of
 contiguous logical pages) writes a partial ``(m, l, acc)``, and the last
 split of a (slot, kv head) to finish merges the partials in split order;
@@ -21,7 +23,8 @@ Every table entry the slot's live pages use must be a pool row (the
 engine points unused entries at its trash row); the kernel writes NaN for
 a slot whose walk meets an entry outside ``[0, P)``.
 
-``paged_attend.launches`` counts kernel launches (never plain-version
+``paged_attend.launches`` counts launches of the fp32 kernel,
+``paged_attend.launches_bf16`` of the bf16 one (never plain-version
 calls).
 """
 from __future__ import annotations
@@ -71,9 +74,10 @@ def paged_attend(
         return ref.paged_attend_ref(q, k_pool, v_pool, page_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attend runs on cuda or cpu, got {q.device}")
-    if any(t.dtype != torch.float32 for t in (q, k_pool, v_pool)):
-        raise ValueError(f"paged_attend kernel takes float32 only, got "
-                         f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_pool.dtype != q.dtype or \
+            v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_attend kernel takes q and the pools all float32 or all "
+                         f"bfloat16, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"page_table and lengths must be int32, got "
                          f"{page_table.dtype}/{lengths.dtype}")
@@ -90,8 +94,8 @@ def paged_attend(
     tensors = (q, k_pool, v_pool, page_table, lengths)
     if not all(t.is_contiguous() and t.device == q.device for t in tensors):
         raise ValueError("paged_attend kernel needs contiguous inputs on one device")
-    # q and the pools are read as float4s: a view at an odd storage offset
-    # would fault on the card, so refuse it here
+    # q and the pools are read 16 B at a time: a view at an odd storage
+    # offset would fault on the card, so refuse it here
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_attend kernel needs q and the pools 16-byte aligned")
     out = torch.empty_like(q)
@@ -104,16 +108,23 @@ def paged_attend(
         # partials: acc (parts, 128), then m and l (parts each)
         scratch = workspace("paged_attend.partials", q.device, stream, parts * (hd + 2),
                             torch.float32)
+        bf16 = q.dtype == torch.bfloat16
+        lib = library()
+        fn = lib.repro_paged_attend_bf16 if bf16 else lib.repro_paged_attend
         with torch.cuda.device(q.device):
-            rc = library().repro_paged_attend(
+            rc = fn(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), scratch.data_ptr() + 4 * parts * hd, counters.data_ptr(),
                 B, Kv, G, P, page, n_pages, n_splits, pps, hd ** -0.5, stream,
             )
         check_launch(rc, "paged_attend")
-        paged_attend.launches += 1
+        if bf16:
+            paged_attend.launches_bf16 += 1
+        else:
+            paged_attend.launches += 1
     return out
 
 
 paged_attend.launches = 0
+paged_attend.launches_bf16 = 0

@@ -16,11 +16,18 @@ needs the int64 range too.
 Rounding modes:
   * ``truncate``   — the paper's mode: drop the low bytes.
   * ``nearest``    — add half an ULP of the kept format first (saturating).
-  * ``stochastic`` — not ported yet (needs ``jax.random.randint``'s bits).
+  * ``stochastic`` — add uniform noise in ``[0, ULP)`` of the kept format
+                     first (saturating), the noise being
+                     ``jax.random.randint``'s bits under the caller's key
+                     (:func:`repro_torch.random.randint`): element ``i``'s
+                     noise depends on its flat index alone, so a padded
+                     and an unpadded tensor round alike.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch import random as _random
 
 VALID_ROUND_TO = (1, 2, 3, 4)
 
@@ -39,34 +46,38 @@ def _wrap_i32(u64: torch.Tensor) -> torch.Tensor:
     return torch.where(u64 >= 2**31, u64 - 2**32, u64).to(torch.int32)
 
 
-def _round_bits(u: torch.Tensor, round_to: int, mode: str, key=None) -> torch.Tensor:
+def _round_bits(u: torch.Tensor, round_to: int, mode: str, key=None,
+                index=None) -> torch.Tensor:
     """Apply rounding to the (int32-viewed) word before truncation."""
     drop = 8 * (4 - round_to)
     if drop == 0 or mode == "truncate":
         return u
     if mode == "nearest":
-        # add half of the dropped range; saturate at 0xFFFFFFFF so the
-        # word never wraps (same as the reference's `bumped < u` check)
-        bumped = (u.to(torch.int64) & _U32) + (1 << (drop - 1))
-        return _wrap_i32(torch.clamp(bumped, max=_U32))
-    if mode == "stochastic":
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet (needs a bit-exact "
-            "jax.random.randint)"
-        )
-    raise ValueError(f"unknown rounding mode {mode!r}")
+        bump = 1 << (drop - 1)  # half of the dropped range
+    elif mode == "stochastic":
+        if key is None:
+            raise ValueError("stochastic rounding requires a PRNG key")
+        bump = _random.randint(key, u.shape, 0, 1 << drop, device=u.device, index=index)
+    else:
+        raise ValueError(f"unknown rounding mode {mode!r}")
+    # saturate at 0xFFFFFFFF so the word never wraps (the reference's
+    # `bumped < u` check)
+    bumped = (u.to(torch.int64) & _U32) + bump
+    return _wrap_i32(torch.clamp(bumped, max=_U32))
 
 
 def bitpack_ref(
-    w: torch.Tensor, round_to: int, *, mode: str = "truncate", key=None
+    w: torch.Tensor, round_to: int, *, mode: str = "truncate", key=None, index=None
 ) -> torch.Tensor:
     """fp32 tensor -> uint8 byte planes, shape ``(round_to, *w.shape)``.
 
     Plane 0 is the most significant byte (sign + 7 exponent bits).
+    ``index`` (stochastic mode): the flat index at which each element's
+    noise is drawn (``repro_torch.random.bits``), default its own.
     """
     if round_to not in VALID_ROUND_TO:
         raise ValueError(f"round_to must be in {VALID_ROUND_TO}")
-    u = _round_bits(_as_i32(w), round_to, mode, key)
+    u = _round_bits(_as_i32(w), round_to, mode, key, index)
     planes = [
         ((u >> _SHIFTS[k]) & 0xFF).to(torch.uint8) for k in range(round_to)
     ]
@@ -136,8 +147,9 @@ def flash_prefill_ref(
     ``q (B, H, Sq, hd)``, ``k/v (B, Kv, Sk, hd)``, ``G = H // Kv`` query
     heads per kv head (head ``h`` reads kv head ``h // G``); ``q_offset``
     is the absolute position of ``q[..., 0, :]`` relative to ``k[..., 0,
-    :]``. Scores and the running ``(m, l, acc)`` are fp32; the output is
-    ``acc / max(l, 1e-30)`` in q's dtype.
+    :]``. Scores and the running ``(m, l, acc)`` are fp32 (bf16 inputs are
+    taken as their exact fp32 values); the output is ``acc / max(l,
+    1e-30)`` in q's dtype.
     """
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
@@ -145,13 +157,16 @@ def flash_prefill_ref(
         raise ValueError(f"H={H} not a multiple of Kv={Kv}")
     G = H // Kv
     block_q, block_k = _resolve_blocks(Sq, Sk, block_q, block_k)
-    kh = k.repeat_interleave(G, dim=1)
+    # scores and p . v in fp32 from exact fp32 copies of bf16 inputs (the
+    # reference's preferred_element_type=float32); a no-op on fp32 inputs
+    qf = q.to(torch.float32)
+    kh = k.repeat_interleave(G, dim=1).to(torch.float32)
     vh = v.repeat_interleave(G, dim=1).to(torch.float32)
     scale = hd ** -0.5
     dev = q.device
     out = torch.empty_like(q)
     for i in range(Sq // block_q):
-        qb = q[:, :, i * block_q:(i + 1) * block_q]
+        qb = qf[:, :, i * block_q:(i + 1) * block_q]
         q_pos = q_offset + i * block_q + torch.arange(block_q, device=dev)
         m = torch.full((B, H, block_q), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, block_q), dtype=torch.float32, device=dev)
@@ -159,7 +174,7 @@ def flash_prefill_ref(
         for j in range(Sk // block_k):
             kb = kh[:, :, j * block_k:(j + 1) * block_k]
             vb = vh[:, :, j * block_k:(j + 1) * block_k]
-            s = torch.matmul(qb, kb.transpose(-1, -2)).to(torch.float32) * scale
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
             k_pos = j * block_k + torch.arange(block_k, device=dev)
             s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -193,8 +208,9 @@ def paged_attend_ref(
 
     Page ``j`` of row ``b`` is pool row ``page_table[b, j]``; its rows at
     ``j * page + offset >= lengths[b]`` score ``-1e30``. Scores are
-    ``(q . k) * hd^-0.5`` in fp32 with the running ``(m, l, acc)``; the
-    output is ``acc / max(l, 1e-30)`` in q's dtype. Every page is walked,
+    ``(q . k) * hd^-0.5`` in fp32 (bf16 inputs taken as their exact fp32
+    values) with the running ``(m, l, acc)``; the output is ``acc / max(l,
+    1e-30)`` in q's dtype. Every page is walked,
     so a row of length 0 (all masked) gets the mean of V over its
     ``n_pages * page`` table rows, as in the reference.
     """
@@ -208,11 +224,12 @@ def paged_attend_ref(
     l = torch.zeros((B, Kv, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Kv, G, hd), dtype=torch.float32, device=dev)
     table = page_table.to(torch.int64)
+    qf = q.to(torch.float32)  # fp32 scores from exact copies of bf16 inputs
     for j in range(n_pages):
         pid = table[:, j]
         k_pg, v_pg = k_pool[pid], v_pool[pid]  # (B, page, Kv, hd)
         valid = (j * page + offs)[None, :] < lengths.to(torch.int64)[:, None]  # (B, page)
-        s = torch.einsum("bkgh,bpkh->bkgp", q, k_pg).to(torch.float32) * scale
+        s = torch.einsum("bkgh,bpkh->bkgp", qf, k_pg.to(torch.float32)) * scale
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])

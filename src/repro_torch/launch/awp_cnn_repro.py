@@ -16,8 +16,9 @@ paper init) with the default ``compress_min_size``.
 ``--devices`` does on N fake devices: N gloo ranks, processes spawned on
 ``--device`` (several may share one card), each holding its shards of the
 ``DIST`` weights and its slice of every batch; ``--grad-round-to`` packs
-the gradient reduce-scatter (``--grad-mode`` nearest or truncate;
-stochastic is not ported). The figures are rank 0's, printed by this
+the gradient reduce-scatter (``--grad-mode`` nearest, truncate or
+stochastic: the step's key, ``PRNGKey(1000 + step)``, folded as the
+reference folds it). The figures are rank 0's, printed by this
 process.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.awp_cnn_repro --net alexnet --steps 150
@@ -199,16 +200,11 @@ def main(argv=None):
                     help="compress the gradient reduce-scatter (devices > 1)")
     ap.add_argument("--grad-mode", default="nearest",
                     choices=["truncate", "nearest", "stochastic"],
-                    help="gradient rounding (stochastic is not ported)")
+                    help="gradient rounding of the packed reduce-scatter")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
 
-    if args.grad_mode == "stochastic":
-        raise NotImplementedError(
-            "--grad-mode stochastic: stochastic rounding is not ported (it needs a "
-            "bit-exact jax.random.randint; ROADMAP Queue 1 item 6.3)"
-        )
     device = resolve_device(args.device)
     if args.devices > 1:
         run = spawn_ranks(run_all, args.devices, args, str(device))[0]

@@ -6,17 +6,20 @@ on an FSDP×TP mesh of ranks.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --prompt-lens 512,512,384,256,200 --gen 16 --max-slots 2 \\
       [--mesh 1x2] [--weight-stationary] [--check-static] [--reduced] [--device cpu] \\
-      [--act-round-to 2] [--seq-parallel] \\
+      [--plan plan.json | --round-to 2 --act-round-to 2] [--seq-parallel] \\
       [--paged [--page-size 64] [--num-pages N] [--no-share-prefix]] \\
       [--shared-prefix N] [--int8-kv] [--window W] \\
       [--temperature T [--top-p P] [--top-k K] [--seed S]] \\
       [--spec-decode [--draft tiny] [--spec-k 4]]
 
-Weights are random, from seed 0 (``repro_torch.models.init``); the plan
-is ``PrecisionPlan.build(round_to=2)``, the reference launcher's default
-(bf16 planes), with ``--act-round-to`` packing the TP-region all-reduces
-and ``--seq-parallel`` the sequence-parallel prefill layout,
-``--int8-kv`` the int8 KV caches. ``--temperature`` (> 0) switches every
+Weights are random, from seed 0 (``repro_torch.models.init``). The plan
+is ``--plan``'s JSON file, else ``PrecisionPlan.build`` from
+``--round-to`` (default 2, the reference launcher's: bf16 planes) and
+``--act-round-to`` (the TP-region all-reduces; default 4); the layout
+flags ``--seq-parallel`` (the sequence-parallel prefill layout) and
+``--int8-kv`` (int8 KV caches) override either, as in the reference. A
+plan's ``"dtype": "bf16"`` serves in bf16: weights cast after the unpack,
+bf16 KV caches, and the bf16 attention kernels on the card. ``--temperature`` (> 0) switches every
 request to seeded sampling with ``--top-p`` / ``--top-k``, request i at
 seed ``--seed + i``; ``--window W`` serves with a sliding window (cache
 capacity ``min(max prompt + gen, W)``, a ring when the prompts reach it);
@@ -34,11 +37,12 @@ mesh, the engine's collectives per traffic class against the plan's
 ``serve_wire_table`` (``[OK ...]`` or ``[MISMATCH ...]``). Runs on
 ``cuda`` unless ``--device cpu``. Speculative decoding and windows on a
 mesh raise ``NotImplementedError`` (ROADMAP item 7.6); the reference
-launcher's plan-file, chunks and checkpoint options are not ported.
+launcher's chunks and checkpoint options are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -138,8 +142,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-slots", type=int, default=0,
                     help="KV slots resident in the engine (default min(4, requests))")
-    ap.add_argument("--act-round-to", type=int, default=4,
-                    help="activation wire format of the TP-region all-reduces")
+    ap.add_argument("--plan", default="",
+                    help="PrecisionPlan JSON (the layout flags override it)")
+    ap.add_argument("--round-to", type=int, default=None,
+                    help="ADT weight wire format (plan-builder sugar, default 2; "
+                         "ignored with --plan)")
+    ap.add_argument("--act-round-to", type=int, default=None,
+                    help="activation wire format of the TP-region all-reduces "
+                         "(plan-builder sugar, default 4; ignored with --plan)")
     ap.add_argument("--seq-parallel", action="store_true",
                     help="sequence-parallel prefill activations (decode keeps the psum "
                          "layout)")
@@ -177,6 +187,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def plan_from_args(args, nrt: int) -> PrecisionPlan:
+    """The reference launcher's plan resolution: ``--plan`` wins, else the
+    precision flags build one (``--round-to`` default 2, ``--act-round-to``
+    default 4); the layout flags override either source."""
+    if args.plan:
+        with open(args.plan) as f:
+            plan = PrecisionPlan.from_json(f.read()).broadcast(nrt)
+    else:
+        plan = PrecisionPlan.build(
+            nrt, round_to=args.round_to if args.round_to is not None else 2,
+            act_round_to=args.act_round_to if args.act_round_to is not None else 4)
+    overrides = {}
+    if args.seq_parallel:
+        overrides["seq_parallel"] = True
+    if args.int8_kv:
+        overrides["int8_kv"] = True
+    return dataclasses.replace(plan, **overrides) if overrides else plan
+
+
 def _serve(rank: int, args, params=None) -> dict:
     """The static reference (``--check-static``) and the engine run of
     :func:`main` on rank ``rank`` (the only one on ``1x1``); checks the
@@ -190,8 +219,7 @@ def _serve(rank: int, args, params=None) -> dict:
     mesh = make_mesh_from_cfg(mesh_cfg)
     _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank,
                                   params=params)
-    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2, act_round_to=args.act_round_to,
-                               seq_parallel=args.seq_parallel, int8_kv=args.int8_kv)
+    plan = plan_from_args(args, cfg.num_groups + 1)
     requests = build_requests([int(s) for s in args.prompt_lens.split(",")], args.gen,
                               cfg.vocab_size, shared_prefix=args.shared_prefix,
                               temperature=args.temperature, top_p=args.top_p,

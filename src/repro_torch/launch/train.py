@@ -18,7 +18,10 @@ others waiting, so that one whole model at a time is on a card. The
 precision flags build the plan as the reference's do: ``--grad-round-to``
 / ``--grad-mode`` (truncate or nearest) the gradient reduce-scatter,
 ``--act-round-to`` the TP-region all-reduces, ``--seq-parallel`` the
-sequence-parallel layout, ``--chunks`` the gather's plane blocks.
+sequence-parallel layout, ``--chunks`` the gather's plane blocks,
+``--bf16`` the bf16 compute dtype, ``--accum`` the micro-batches a step
+sums. ``--grad-mode stochastic`` (or a plan with a stochastic entry)
+gives each step the key ``PRNGKey(step)``, as the reference's launcher.
 Prints the reference launcher's ``step``, ``done: ... wire-reduction``,
 ``wire by plan entry`` and ``AWP: ...`` lines (rank 0's), and on a mesh
 one more: the collectives' measured wire by class against
@@ -26,10 +29,9 @@ one more: the collectives' measured wire by class against
 ``--device cpu``.
 
 Every flag of the reference that needs a module the port does not have
-raises ``NotImplementedError`` naming its ROADMAP item: ``--bf16``,
-``--grad-mode stochastic``, ``--accum``, ``--ckpt`` and its options,
-``--resume``, ``--data-dir``, ``--chunks auto``, and a ``--plan`` with
-such fields.
+raises ``NotImplementedError`` naming its ROADMAP item: ``--ckpt`` and its
+options, ``--resume``, ``--data-dir``, ``--chunks auto``, and a ``--plan``
+with such fields.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import fp32_math, resolve_device
+from repro_torch import random as _random
 from repro_torch.configs.registry import ARCHS, get_config, reduced
 from repro_torch.data.pipeline import synthetic_lm_batch
 from repro_torch.dist.spec import (
@@ -70,11 +73,7 @@ def parse_mesh(spec: str) -> MeshCfg:
 def _unported(args) -> list[str]:
     """The set flags that need a module the port does not have."""
     checks = (
-        (args.bf16, "--bf16 (the bf16 compute dtype, ROADMAP item 6.4)"),
-        (args.grad_mode == "stochastic",
-         "--grad-mode stochastic (stochastic rounding, ROADMAP item 6.3)"),
         (args.chunks == "auto", "--chunks auto (plan/sweep.py's pick_chunks, ROADMAP item 12)"),
-        (args.accum != 1, "--accum (gradient accumulation, accum_steps, ROADMAP item 6.2)"),
         (args.ckpt or args.ckpt_every or args.async_ckpt,
          "--ckpt/--ckpt-every/--async-ckpt (checkpoint/ckpt.py, checkpoint/sharded.py, "
          "ROADMAP item 9)"),
@@ -104,7 +103,8 @@ def plan_from_args(args, nrt: int) -> PrecisionPlan:
     return PrecisionPlan.build(
         nrt, round_to=round_to, grad_round_to=args.grad_round_to,
         grad_mode=args.grad_mode, act_round_to=args.act_round_to,
-        seq_parallel=args.seq_parallel, chunks=int(args.chunks), schedule=schedule,
+        seq_parallel=args.seq_parallel, chunks=int(args.chunks),
+        dtype="bf16" if args.bf16 else "f32", accum_steps=args.accum, schedule=schedule,
         awp_threshold=args.awp_threshold, awp_interval=args.awp_interval,
     )
 
@@ -226,8 +226,9 @@ def _train(rank: int, args, params=None) -> dict:
     t0, elapsed, step_tables = time.time(), [], []
     for step in range(args.steps):
         tokens, labels = synthetic_lm_batch(cfg.vocab_size, B, S, step, device=device)
+        extra = (_random.PRNGKey(step),) if plan.needs_rng else ()
         storage, mom, _ = trainer.run_step(
-            storage, mom, {"tokens": tokens, "labels": labels}, args.lr
+            storage, mom, {"tokens": tokens, "labels": labels}, args.lr, *extra
         )
         elapsed.append(time.time() - t0)
         step_tables.append(step_wire_table(

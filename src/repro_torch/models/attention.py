@@ -266,9 +266,11 @@ def _values(cache, k, v) -> tuple:
 
 def _attend_tile(q, k, v, mask):
     """Dense tile: q (B,Kv,G,Sq,hd), k/v (B,Sk,Kv,hd), mask (Sq,Sk) or None.
-    Returns (scores_max, sumexp, acc) in fp32 for online combination."""
+    Returns (scores_max, sumexp, acc) in fp32 for online combination: the
+    scores come from exact fp32 copies of bf16 inputs, as the reference's
+    ``preferred_element_type=float32`` (no-op casts on fp32 inputs)."""
     scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bkgqh,bskh->bkgqs", q, k).to(torch.float32) * scale
+    s = torch.einsum("bkgqh,bskh->bkgqs", q.to(torch.float32), k.to(torch.float32)) * scale
     if mask is not None:
         s = torch.where(mask[None, None, None], s, NEG_INF)
     m = s.amax(dim=-1)
@@ -369,7 +371,8 @@ def _attend_one(qh, cache, vmask) -> torch.Tensor:
     slots under ``vmask``. int8 codes score against q and take their
     per-slot scales after, as in the reference."""
     scale = qh.shape[-1] ** -0.5
-    s = torch.einsum("bkgh,bskh->bkgs", qh, cache.k.to(torch.float32)) * scale
+    s = torch.einsum("bkgh,bskh->bkgs", qh.to(torch.float32),
+                     cache.k.to(torch.float32)) * scale
     quant = isinstance(cache, QuantKVCache)
     if quant:
         s = s * cache.k_scale.permute(0, 2, 1)[:, :, None, :]

@@ -108,13 +108,15 @@ def run_group(
     env: Env,
     *,
     mode: str,
-    mat_fn: Callable[[str, dict], dict],  # (pattern key, rep storage) -> weights
+    mat_fn: Callable[..., dict],  # (pattern key, rep storage, rep=) -> weights
     caches: Any = None,      # {p<i>: stacked cache nodes} or None
     window_override=None,
     pos_offset=0,
     page_table=None,         # (B, n_pages) int32 — paged decode only
 ):
     """Run the group's pattern repetitions. Returns (x, caches').
+    ``mat_fn(key, storage, rep=rep)`` materializes a repetition's weights
+    (``rep`` names the layer's stochastic-rounding site).
 
     ``group_params`` leaves are stacked ``(R, ...)`` tensors, or lists of
     ``R`` per-repetition tensors (the train step's leaves, so that each
@@ -123,7 +125,7 @@ def run_group(
     def body(x, rep):
         for pi, kind in enumerate(cfg.pattern):
             key = f"p{pi}"
-            w = mat_fn(key, _index(group_params[key], rep))
+            w = mat_fn(key, _index(group_params[key], rep), rep=rep)
             c_in = caches[key].rep(rep) if caches is not None else None
             x, _ = apply_block(
                 kind, x, w, cfg, env, mode=mode, cache=c_in,

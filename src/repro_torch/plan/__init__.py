@@ -4,6 +4,8 @@ from repro_torch.plan.plan import (
     PrecisionPlan,
     SamplingParams,
     Schedule,
+    policy_uses_rng,
 )
 
-__all__ = ["PrecisionPlan", "SamplingParams", "Schedule", "TRAFFIC_CLASSES"]
+__all__ = ["PrecisionPlan", "SamplingParams", "Schedule", "TRAFFIC_CLASSES",
+           "policy_uses_rng"]

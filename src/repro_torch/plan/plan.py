@@ -8,10 +8,11 @@ optional ``activations`` policy (the LM's TP-region all-reduces; the
 CNN's stage-boundary quantize), an optional ``seq_boundary`` policy (the
 sequence-parallel gather / scatter pair; defaults to ``activations``), an
 optional ``host_device`` policy (the serve engine's token staging;
-defaults to the weight entries), the layout (``seq_parallel``, ``chunks``
-— the weight gather's plane blocks — ``int8_kv``, the serve caches' int8
-KV, and ``env_overrides``, the ``Env`` knobs ``attn_chunk`` and
-``causal_skip``), the serving defaults (``sampling``, a
+defaults to the weight entries), the execution layout (``seq_parallel``,
+``chunks`` — the weight gather's plane blocks — ``dtype``, the compute
+dtype ``f32`` or ``bf16``, ``int8_kv``, the serve caches' int8 KV,
+``accum_steps``, the train step's micro-batches, and ``env_overrides``,
+the ``Env`` knobs ``attn_chunk`` and ``causal_skip``), the serving defaults (``sampling``, a
 :class:`SamplingParams`; ``spec_draft`` and ``spec_k``, the speculative
 engine's draft name and proposals a round) and a schedule source
 (``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
@@ -20,10 +21,11 @@ byte account of one step, from the policy formulas.
 
 Plan JSON loads across packages: :meth:`PrecisionPlan.to_json_dict`
 writes the reference's other fields (``kv_migration`` and
-``weight_publish``, the fleet's; ``dtype``; ``accum_steps``) at their
-defaults, and :meth:`PrecisionPlan.from_json_dict` accepts them only at
-those defaults (anything else raises ``NotImplementedError``: the port
-has no code that would honour it yet).
+``weight_publish``, the fleet's) at their defaults, and
+:meth:`PrecisionPlan.from_json_dict` accepts them only at those defaults
+(anything else raises ``NotImplementedError``: the port has no code that
+would honour it yet). :func:`policy_uses_rng` is the one rule for which
+materialization sites take a stochastic-rounding key.
 
 Invalid plans raise :class:`ValueError` at construction.
 """
@@ -48,6 +50,8 @@ TRAFFIC_CLASSES = (
     "kv_migration", "weight_publish",
 )
 VALID_SCHEDULES = ("static", "awp")
+VALID_DTYPES = ("f32", "bf16")
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # Env knobs a plan may override (the reference's list has mlstm_chunk too,
 # for the xLSTM family, which is not ported)
 ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip")
@@ -56,8 +60,6 @@ ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip")
 UNPORTED_DEFAULTS = {
     "kv_migration": None,
     "weight_publish": None,
-    "dtype": "f32",
-    "accum_steps": 1,
 }
 # the reference's JSON key order
 JSON_FIELDS = (
@@ -66,6 +68,16 @@ JSON_FIELDS = (
     "dtype", "int8_kv", "accum_steps", "env_overrides", "sampling",
     "spec_draft", "spec_k",
 )
+
+
+def policy_uses_rng(p: CompressionPolicy) -> bool:
+    """True when materializing or synchronizing under this policy packs
+    planes with stochastic rounding *at its current widths* (which needs a
+    PRNG key): the rule by which the step factories hand a materialization
+    site a key."""
+    return (p.mode == "stochastic" and p.round_to < FP32_BYTES) or (
+        p.grad_mode == "stochastic" and p.grad_round_to < FP32_BYTES
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +172,9 @@ class PrecisionPlan:
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
     seq_parallel: bool = False
     chunks: int = 1
+    dtype: str = "f32"
     int8_kv: bool = False
+    accum_steps: int = 1
     env_overrides: tuple[tuple[str, object], ...] = ()
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     spec_draft: str = ""
@@ -182,6 +196,10 @@ class PrecisionPlan:
             raise ValueError("schedule must be a Schedule")
         if not isinstance(self.chunks, int) or self.chunks < 1:
             raise ValueError("chunks must be an int >= 1")
+        if self.dtype not in VALID_DTYPES:
+            raise ValueError(f"dtype must be in {VALID_DTYPES}")
+        if not isinstance(self.accum_steps, int) or self.accum_steps < 1:
+            raise ValueError("accum_steps must be an int >= 1")
         if isinstance(self.sampling, Mapping):
             object.__setattr__(self, "sampling", SamplingParams(**self.sampling))
         if not isinstance(self.sampling, SamplingParams):
@@ -283,7 +301,7 @@ class PrecisionPlan:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.float32  # the plan's dtype field is "f32" (only that is ported)
+        return _DTYPES[self.dtype]
 
     def make_env(self, mesh_cfg, mesh=None):
         """Build the execution :class:`~repro_torch.models.env.Env`: the
@@ -322,7 +340,7 @@ class PrecisionPlan:
     # -- per-entry wire accounting ---------------------------------------
     def wire_table(self, dist_elems_per_group, gather_axis_size: int = 1, *,
                    training: bool = True, tp: int = 1, act_elems: int = 0,
-                   act_collectives: int = 0) -> dict:
+                   act_collectives: int = 0, act_bytes: int = FP32_BYTES) -> dict:
         """Per-traffic-class wire bytes of ONE step, from the policy
         formulas. The keys are the reference's; classes a step does not
         move report 0.
@@ -340,7 +358,8 @@ class PrecisionPlan:
         the ``seq_boundary`` row under ``seq_parallel`` (pairs,
         ``seq_pair_wire_bytes``), else the ``activations`` row
         (all-reduces, ``all_reduce_wire_bytes``); both at the policy's
-        forward width.
+        forward width, an uncompressed element at ``act_bytes`` (the
+        compute dtype's width: 2 under bf16; the reference prices 4).
         """
         pols = self.weight_policies()
         elems = list(dist_elems_per_group)
@@ -363,9 +382,11 @@ class PrecisionPlan:
             act = self.activations or CompressionPolicy()
             seq = self.seq_policy() or CompressionPolicy()
             if self.seq_parallel:
-                table["seq_boundary"] = act_collectives * seq.seq_pair_wire_bytes(act_elems, tp)
+                table["seq_boundary"] = act_collectives * seq.seq_pair_wire_bytes(
+                    act_elems, tp, uncompressed_bytes=act_bytes)
             else:
-                table["activations"] = act_collectives * act.all_reduce_wire_bytes(act_elems, tp)
+                table["activations"] = act_collectives * act.all_reduce_wire_bytes(
+                    act_elems, tp, act_bytes)
         table["total"] = sum(table[k] for k in TRAFFIC_CLASSES)
         return table
 
@@ -385,7 +406,9 @@ class PrecisionPlan:
             "schedule": dataclasses.asdict(self.schedule),
             "seq_parallel": self.seq_parallel,
             "chunks": self.chunks,
+            "dtype": self.dtype,
             "int8_kv": self.int8_kv,
+            "accum_steps": self.accum_steps,
             "env_overrides": dict(self.env_overrides),
             "sampling": dataclasses.asdict(self.sampling),
             "spec_draft": self.spec_draft,
@@ -442,16 +465,17 @@ class PrecisionPlan:
         act_mode: str = "nearest",
         seq_parallel: bool = False,
         chunks: int = 1,
+        dtype: str = "f32",
         int8_kv: bool = False,
+        accum_steps: int = 1,
         schedule: str = "static",
         awp_threshold: float = -2e-3,
         awp_interval: int = 100,
         awp_initial_bits: int = 8,
         env_overrides=(),
     ) -> "PrecisionPlan":
-        """The CLI flag → plan builder the launchers use (the reference's
-        ``build`` without the flags of unported fields: ``dtype``,
-        ``accum_steps``)."""
+        """The CLI flag → plan builder the launchers use: every knob maps
+        onto exactly one plan field, as in the reference's."""
         gradients = None
         if grad_round_to is not None and (
             grad_round_to != 4 or grad_mode != "nearest"
@@ -476,7 +500,9 @@ class PrecisionPlan:
             activations=activations,
             seq_parallel=seq_parallel,
             chunks=chunks,
+            dtype=dtype,
             int8_kv=int8_kv,
+            accum_steps=accum_steps,
             env_overrides=env_overrides,
             schedule=Schedule(
                 source=schedule,

@@ -25,16 +25,23 @@ fp32 (:mod:`repro_torch.dist.comm`). As in the reference, a monitored leaf
 that is not ``DIST`` (conv0 at full width, under ``compress_min_size``)
 is whole on every rank, so its Σw² enters the sum ``dshards`` times.
 
+Stochastic rounding (``plan.needs_rng``) packs with keys folded off
+``fold_in(key, 0xAD7)``, one a leaf of each layer whose policy uses one,
+as the reference's; the planes then go through the plain version.
+
 PyTorch runs eagerly, so the reference's jitted step becomes a plain
 function; the trainer caches one step per format tuple as the reference
 caches compiled steps.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
 from repro_torch import fp32_math
+from repro_torch import random as _random
 from repro_torch.dist import comm
 from repro_torch.dist.spec import (
     DIST,
@@ -47,7 +54,7 @@ from repro_torch.launch.mesh import fsdp_group
 from repro_torch.kernels import ops
 from repro_torch.models.cnn import CNNConfig, cnn_loss, topk_error
 from repro_torch.optim.sgd import SGDConfig, sgd_update
-from repro_torch.plan import PrecisionPlan
+from repro_torch.plan import PrecisionPlan, policy_uses_rng
 from repro_torch.train.step import resolve_plan
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
@@ -92,17 +99,80 @@ def cnn_dist_elems(spec_tree, groups_info, mesh_cfg: MeshCfg) -> list[int]:
     return elems
 
 
-def _mat(storage, spec_tree, mesh_cfg, groups, policies, group=None):
-    """Materialize every layer with its own AWP format (per-layer mode)."""
+def reference_index(shapes: dict, device) -> dict:
+    """``{name: index}`` for the weights (``shapes``: ``{layer name: w
+    shape}`` in layer order) whose port layout is not the reference's:
+    every conv kernel (OIHW here, HWIO there) and the first dense layer
+    after the convolutions (rows in NCHW flatten order here, NHWC there).
+    ``index`` has the port weight's shape and holds each element's flat
+    index in the reference's layout (int64 on ``device``): where stochastic
+    rounding draws its noise. Tracks the channels the last layer produced."""
+    out, ch = {}, None
+    for name, shape in shapes.items():
+        ar = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+        if len(shape) == 4:  # reference (H, W, I, O) -> port (O, I, H, W)
+            o, i, h, k = shape
+            out[name] = ar.reshape(h, k, i, o).permute(3, 2, 0, 1).contiguous()
+            ch = o
+        elif len(shape) == 2:
+            rows, cols = shape
+            if ch and rows != ch and rows % ch == 0:  # rows (h, w, c) -> (c, h, w)
+                hw = math.isqrt(rows // ch)
+                out[name] = ar.reshape(hw, hw, ch, cols).permute(2, 0, 1, 3).reshape(shape)
+            ch = cols
+    return out
+
+
+def noise_indices(spec_tree, mesh_cfg: MeshCfg, device, rank: int = 0) -> dict:
+    """``{name: index}``, the ``index`` argument of
+    :func:`~repro_torch.dist.spec.materialize_leaf` for each weight of
+    :func:`reference_index`, on FSDP rank ``rank``: on the trivial mesh the
+    index itself; across ranks ``(forward, backward)``, the backward over
+    the padded flat storage (padding at its own index) and the forward
+    over the rank's shard, modulo the shard length (the reference packs
+    each rank's shard from index 0)."""
+    specs = {n: leafs["w"] for n, leafs in spec_tree["layers"].items() if "w" in leafs}
+    out = {}
+    for name, idx in reference_index({n: s.logical for n, s in specs.items()},
+                                     device).items():
+        spec = specs[name]
+        if mesh_cfg.trivial or spec.kind != DIST:
+            out[name] = idx
+            continue
+        flat = idx.reshape(-1)
+        pad = torch.arange(flat.numel(), spec.pad_rep, dtype=torch.int64, device=device)
+        full = torch.cat([flat, pad])
+        per = spec.pad_rep // mesh_cfg.dshards
+        out[name] = (full[rank * per:(rank + 1) * per] % per, full)
+    return out
+
+
+def _mat(storage, spec_tree, mesh_cfg, groups, policies, group=None, rng=None,
+         indices=None):
+    """Materialize every layer with its own AWP format (per-layer mode).
+
+    ``rng``: the stochastic-rounding key. Each leaf of a layer whose
+    policy uses it gets ``fold_in(rng, i)``, ``i`` counted over those
+    leaves in the reference's order (layer names, then leaf names, sorted:
+    jax's order for a dict). ``indices`` (:func:`noise_indices`) draws
+    each weight's noise where the reference draws it for the same element,
+    so the planes are the reference's."""
     by_name = {name: policies[g] for name, g in groups.items()}
-    return {
-        name: {
-            k: materialize_leaf(v, spec_tree["layers"][name][k], mesh_cfg, by_name[name],
-                                group=group)
-            for k, v in leafs.items()
-        }
-        for name, leafs in storage["layers"].items()
-    }
+    keys, fold = {}, 0
+    for name in sorted(storage["layers"]):
+        if rng is not None and policy_uses_rng(by_name[name]):
+            for k in sorted(storage["layers"][name]):
+                keys[name, k] = _random.fold_in(rng, fold)
+                fold += 1
+
+    def mat(name, k, v):
+        key = keys.get((name, k))
+        index = (indices or {}).get(name) if key is not None and k == "w" else None
+        return materialize_leaf(v, spec_tree["layers"][name][k], mesh_cfg, by_name[name],
+                                key=key, group=group, index=index)
+
+    return {name: {k: mat(name, k, v) for k, v in leafs.items()}
+            for name, leafs in storage["layers"].items()}
 
 
 def _dp_group(mesh_cfg: MeshCfg, mesh, caller: str):
@@ -157,12 +227,10 @@ def make_cnn_train_step(
     )
     fp32_math()
     policies = plan.weight_policies()
-    if plan.needs_rng:
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet (needs a bit-exact "
-            "jax.random.randint; ROADMAP Queue 1 item 6.3)"
-        )
+    needs_rng = plan.needs_rng
     group = _dp_group(mesh_cfg, mesh, "make_cnn_train_step")
+    rank = 0 if mesh_cfg.trivial else dist.get_rank(group)
+    indices: dict = {}  # noise indices, built at the first step on its device
     n = mesh_cfg.dshards
     aq = _act_quant_fn(plan.activations)
     wd = tree_map(lambda s: 1.0 if s.meta.compress else 0.0, spec_tree)
@@ -178,7 +246,12 @@ def make_cnn_train_step(
         live = [p.detach().requires_grad_(True) for p in leaves]
         it = iter(live)
         st = tree_map(lambda _: next(it), storage)
-        layers = _mat(st, spec_tree, mesh_cfg, groups, policies, group)
+        # stochastic rounding rides a branch folded off the dropout key, so
+        # that turning it on never moves an existing run's dropout pattern
+        rngq = _random.fold_in(key, 0xAD7) if needs_rng else None
+        if needs_rng and not indices:
+            indices.update(noise_indices(spec_tree, mesh_cfg, leaves[0].device, rank))
+        layers = _mat(st, spec_tree, mesh_cfg, groups, policies, group, rngq, indices)
         images, labels = batch["images"], batch["labels"]
         if n > 1:
             images, labels = _rank_slice(images, group, n), _rank_slice(labels, group, n)

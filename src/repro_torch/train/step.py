@@ -22,9 +22,13 @@ are summed over the groups. PyTorch runs eagerly, so the jitted step
 becomes a plain function that updates storage and momentum in place; the
 trainer caches one per format tuple.
 
-Not ported, each raising ``NotImplementedError``: stochastic rounding
-(``plan.needs_rng``, the step's PRNG key; ROADMAP item 6.3) and gradient
-accumulation (``accum_steps`` other than 1; item 6.2).
+The plan's ``dtype`` is the compute dtype (materialized weights are cast
+to it after the unpack; masters, planes and Σw² stay fp32), its
+``accum_steps`` the number of micro-batches whose gradients and losses a
+step sums. ``plan.needs_rng`` (stochastic rounding on the weight or
+gradient path) gives the step a trailing ``repro_torch.random`` key; each
+materialization site of a policy that uses it gets ``fold_in(key, i)``,
+``i`` counted in the reference's trace order (:func:`fold_sites`).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import fp32_math
+from repro_torch import random as _random
 from repro_torch.dist import comm
 from repro_torch.dist.spec import (
     DIST,
@@ -44,7 +49,7 @@ from repro_torch.launch.mesh import fsdp_group
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.optim.sgd import SGDConfig, sgd_update
-from repro_torch.plan import PrecisionPlan
+from repro_torch.plan import PrecisionPlan, policy_uses_rng
 from repro_torch.transport import CompressionPolicy, policy_for
 from repro_torch.utils.trees import tree_leaves, tree_map
 
@@ -78,37 +83,105 @@ def check_seq_parallel(batch_shapes: dict, mesh_cfg: MeshCfg):
                              f"divisible by tp={mesh_cfg.tp}")
 
 
+def _jax_paths(tree, prefix=()) -> list[tuple]:
+    """The leaf paths of nested dicts in jax's flattening order (keys
+    sorted), the order in which the reference's ``tree_map`` visits them."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _jax_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _shared_reps(cfg) -> bool:
+    """Whether a group's layers share their stochastic-rounding keys: the
+    reference traces the layer body once under a scan or ``remat``."""
+    return cfg.scan_layers or cfg.remat
+
+
+def fold_sites(cfg, spec_tree, policies) -> dict:
+    """The reference's stochastic-rounding fold index of every
+    materialization site of one forward: ``{site: i}``, the site's key
+    being ``fold_in(key, i)``.
+
+    The reference counts one index per materialized leaf whose policy
+    uses a key (:func:`~repro_torch.plan.policy_uses_rng`), DIST or not,
+    in the order its forward traces them: the embedding; then each
+    group's layers, a pattern key's leaves in jax's order (sorted keys);
+    the final norm; the head (or, tied, the embedding again). A group's
+    layer body is traced once under ``cfg.scan_layers`` (the scan), and
+    also under ``cfg.remat`` (``jax.checkpoint`` traces the body once and
+    reuses it for every repetition of the group), so then every layer of
+    the group shares one index a leaf (sites ``("group", g, None, key,
+    path)``); otherwise each repetition has its own (``rep`` for
+    ``None``). A recomputed (remat) layer looks its key up again: the same
+    site, the same key. Top-level sites are ``("top", name, n)``, the
+    ``n``-th materialization of ``name`` in the forward."""
+    sites, top = [], policies[-1]
+    tops = ["embed", "final_norm", "embed" if cfg.tie_embeddings else "head"]
+    seen: dict = {}
+
+    def add_top(name):
+        seen[name] = seen.get(name, -1) + 1
+        if policy_uses_rng(top):
+            sites.append(("top", name, seen[name]))
+
+    add_top(tops[0])
+    for g, gs in enumerate(spec_tree["groups"]):
+        if not policy_uses_rng(policies[g]):
+            continue
+        reps = next(iter(tree_leaves(gs))).reps
+        for rep in [None] if _shared_reps(cfg) else range(reps):
+            for pi in range(len(cfg.pattern)):
+                key = f"p{pi}"
+                sites += [("group", g, rep, key, p) for p in _jax_paths(gs[key])]
+    for name in tops[1:]:
+        add_top(name)
+    return {site: i for i, site in enumerate(sites)}
+
+
 def make_mat_fns(spec_tree, mesh_cfg: MeshCfg, round_tos, dtype=torch.float32,
-                 placed: bool = False, group=None):
+                 placed: bool = False, group=None, rng=None, cfg=None):
     """``(mat_group, mat_top_factory)`` shared by the train and serve steps.
 
-    ``mat_group(g, key, storage)`` materializes one layer repetition of
-    group ``g`` (``storage`` without the repetition dim) at the group's
-    policy; ``mat_top_factory(storage)(name)`` a top-level leaf at the
-    last policy. ``round_tos`` entries are ints or policies (a plan
-    passes ``plan.weight_policies()``). Materialized weights are cast to
-    the compute dtype; the fp32 masters stay in storage. ``placed=True``
-    consumes resident weights (weight-stationary serving). ``group`` is
-    the FSDP group of a sharded mesh."""
+    ``mat_group(g, key, storage, rep=None)`` materializes repetition
+    ``rep`` of group ``g``'s pattern key ``key`` (``storage`` without the
+    repetition dim) at the group's policy; ``mat_top_factory(storage)(name)``
+    a top-level leaf at the last policy. ``round_tos`` entries are ints or
+    policies (a plan passes ``plan.weight_policies()``). Materialized
+    weights are cast to the compute dtype after the unpack; the fp32
+    masters stay in storage. ``placed=True`` consumes resident weights
+    (weight-stationary serving). ``group`` is the FSDP group of a sharded
+    mesh. ``rng`` is the stochastic-rounding key of one forward, folded per
+    site as :func:`fold_sites` numbers them from ``cfg`` (make a new pair
+    for each forward: the top-level sites are counted by call)."""
     policies = tuple(policy_for(rt) for rt in round_tos)
+    folds = {} if rng is None else fold_sites(cfg, spec_tree, policies)
 
     def _cast(x):
         return x.to(dtype) if x.dtype == torch.float32 else x
 
-    def _mat(x, s, pol):
+    def _mat(x, s, pol, site):
         if placed:
             return _cast(materialize_placed_leaf(x, s, mesh_cfg))
-        return _cast(materialize_leaf(x, s, mesh_cfg, pol, group=group))
+        i = folds.get(site)
+        key = None if i is None else _random.fold_in(rng, i)
+        return _cast(materialize_leaf(x, s, mesh_cfg, pol, key=key, group=group))
 
-    def mat_group(g, key, storage):
-        pol = policies[g]
-        return tree_map(lambda x, s: _mat(x, s, pol), storage, spec_tree["groups"][g][key])
+    def _mat_tree(x, s, pol, site):
+        if isinstance(x, dict):
+            return {k: _mat_tree(x[k], s[k], pol, site + (k,)) for k in x}
+        return _mat(x, s, pol, site[:4] + (site[4:],))
+
+    def mat_group(g, key, storage, rep=None):
+        site = ("group", g, None if cfg is None or _shared_reps(cfg) else rep, key)
+        return _mat_tree(storage, spec_tree["groups"][g][key], policies[g], site)
 
     def mat_top_factory(storage):
         pol = policies[-1]
+        calls: dict = {}
 
         def mat_top(name):
-            return _mat(storage[name], spec_tree[name], pol)
+            calls[name] = calls.get(name, -1) + 1
+            return _mat(storage[name], spec_tree[name], pol, ("top", name, calls[name]))
 
         return mat_top
 
@@ -234,7 +307,10 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
     elems = (B / dshards) · S · d``; under ``remat`` the recomputed
     forward's collectives are added by the same policy formulas: the
     group leaves' gathers (the top-level leaves are gathered outside the
-    recomputed layers) and :func:`remat_tp_collectives`. In each of
+    recomputed layers) and :func:`remat_tp_collectives`; with
+    ``accum_steps`` micro-batches the weight and gradient rows are that
+    many times one's (the plan's ``wire_table``, like the reference's,
+    prices one). In each of
     :data:`COLLECTIVE_CLASSES` the collectives' measured log
     (``comm.wire_by_traffic``) must equal it."""
     B, S = batch_shape
@@ -242,22 +318,29 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
     elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
     n, tp = mesh_cfg.dshards, mesh_cfg.tp
     act_elems = (B // n) * S * cfg.d_model if tp > 1 else 0
+    width = plan.compute_dtype.itemsize  # an uncompressed activation's bytes
     table = plan.wire_table(elems, n, tp=tp, act_elems=act_elems,
-                            act_collectives=tp_boundaries(cfg))
+                            act_collectives=tp_boundaries(cfg), act_bytes=width)
     extra = {}
     if cfg.remat and n > 1:
         extra["weights"] = plan.wire_table(elems[:-1] + [0], n, training=False)["weights"]
     enters, exits = remat_tp_collectives(cfg)
     if tp > 1 and plan.seq_parallel:
         seq = plan.seq_policy() or CompressionPolicy()
-        extra["seq_boundary"] = (enters * seq.seq_gather_wire_bytes(act_elems, tp)
-                                 + exits * seq.seq_scatter_wire_bytes(act_elems, tp))
+        extra["seq_boundary"] = (
+            enters * seq.seq_gather_wire_bytes(act_elems, tp, uncompressed_bytes=width)
+            + exits * seq.seq_scatter_wire_bytes(act_elems, tp, uncompressed_bytes=width))
     elif tp > 1:
         act = plan.activations or CompressionPolicy()
-        extra["activations"] = exits * act.all_reduce_wire_bytes(act_elems, tp)
+        extra["activations"] = exits * act.all_reduce_wire_bytes(act_elems, tp, width)
     for k, v in extra.items():
         table[k] += v
         table["total"] += v
+    # each micro-batch gathers the weights and reduce-scatters its gradients
+    # (its activations are 1 / accum of the batch's: their sum is the same)
+    for k in ("weights", "gradients"):
+        table["total"] += (plan.accum_steps - 1) * table[k]
+        table[k] *= plan.accum_steps
     return table
 
 
@@ -291,6 +374,20 @@ def _rep_specs(storage, spec_tree) -> list:
                         **{k: spec_tree[k] for k in storage if k != "groups"}})
 
 
+def micro_batches(batch: dict, accum_steps: int) -> list[dict]:
+    """The reference's ``(accum, B / accum, ...)`` reshape of a (rank-local)
+    batch: row ``i`` of micro-batch ``j`` is row ``j * B / accum + i``."""
+    if accum_steps == 1:
+        return [batch]
+    B = next(iter(batch.values())).shape[0]
+    if B % accum_steps:
+        raise ValueError(f"a batch of {B} rows does not split into accum_steps="
+                         f"{accum_steps} micro-batches")
+    per = B // accum_steps
+    return [{k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+            for j in range(accum_steps)]
+
+
 def make_train_step(
     cfg,
     mesh_cfg: MeshCfg,
@@ -301,15 +398,16 @@ def make_train_step(
     *,
     plan: PrecisionPlan | None = None,
 ):
-    """Returns ``step(storage, momentum, batch, lr) -> (storage, momentum,
-    metrics)`` with ``metrics = {"loss", "token_count",
+    """Returns ``step(storage, momentum, batch, lr[, key]) -> (storage,
+    momentum, metrics)`` with ``metrics = {"loss", "token_count",
     "group_norms_sq"}`` (0-d, 0-d and ``(num_groups + 1,)`` tensors on the
     storage's device, equal on every rank). ``batch`` holds ``tokens``
     and ``labels``, the global ``(B, S)`` integer tensors (on a mesh the
     rank takes its FSDP slice of the rows); the loss is the summed NLL
     over ``B * S`` (the reference's static token count). Storage and
     momentum (on a mesh, the rank's blocks) are updated in place and
-    returned.
+    returned. The trailing ``key`` (a ``repro_torch.random`` key) exists
+    exactly when ``plan.needs_rng``; every micro-batch uses it alike.
 
     Call as the reference is called::
 
@@ -319,36 +417,50 @@ def make_train_step(
     with ``mesh`` None on one device, else
     ``launch.mesh.make_mesh_from_cfg(mesh_cfg)``'s. ``batch_shapes`` maps
     ``tokens`` / ``labels`` to their ``(B, S)`` shapes (the
-    sequence-parallel precondition reads them); nothing is traced."""
+    sequence-parallel precondition reads them); nothing is traced.
+
+    With ``plan.accum_steps > 1`` the rank's rows are cut into that many
+    micro-batches (:func:`micro_batches`; a batch that does not split
+    raises ``ValueError``); their gradients and losses are summed in
+    micro-batch order before the gradient sync and the update."""
     if opt_cfg is None or batch_shapes is None:
         raise TypeError("make_train_step: opt_cfg and batch_shapes required")
     check_mesh(mesh_cfg, mesh, "make_train_step")
     plan = resolve_plan(cfg, plan=plan, caller="make_train_step")
-    if plan.needs_rng:
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet (needs a bit-exact "
-            "jax.random.randint and the step's PRNG key; ROADMAP Queue 1 item 6.3)"
-        )
     fp32_math()
     env = plan.make_env(mesh_cfg, mesh)
     fsdp, model = env.fsdp_group, env.model_group
     if env.seq_parallel and mesh_cfg.tp > 1:
         check_seq_parallel(batch_shapes, mesh_cfg)
-    mat_group, mat_top_factory = make_mat_fns(
-        spec_tree, mesh_cfg, plan.weight_policies(), plan.compute_dtype, group=fsdp
-    )
+    policies = plan.weight_policies()
     n = mesh_cfg.dshards
 
-    def step(storage, momentum, batch, lr):
+    def grad_one(live, batch, total, rng):
+        mat_group, mat_top_factory = make_mat_fns(
+            spec_tree, mesh_cfg, policies, plan.compute_dtype, group=fsdp, rng=rng, cfg=cfg
+        )
+        nll_sum, metrics = M.forward_loss(
+            live, batch, cfg, env, mat_group=mat_group, mat_top=mat_top_factory(live)
+        )
+        loss = nll_sum / total  # local tokens x dshards
+        grads = list(torch.autograd.grad(loss, tree_leaves(live)))
+        return loss.detach(), metrics["token_count"].detach(), grads
+
+    def _step(storage, momentum, batch, lr, rng):
         B, S = batch["labels"].shape
         if n > 1:
             batch = {k: _rank_rows(v, fsdp, n) for k, v in batch.items()}
         live = _split_reps(storage, spec_tree, lambda t: t.detach().requires_grad_(True))
-        nll_sum, metrics = M.forward_loss(
-            live, batch, cfg, env, mat_group=mat_group, mat_top=mat_top_factory(live)
-        )
-        loss = nll_sum / float(B * S)  # local tokens x dshards
-        grads = list(torch.autograd.grad(loss, tree_leaves(live)))
+        loss = count = grads = None
+        for mb in micro_batches(batch, plan.accum_steps):
+            l, c, g = grad_one(live, mb, float(B * S), rng)
+            if grads is None:
+                loss, count, grads = l, c, g
+            else:  # summed in micro-batch order, as the reference's scan
+                loss, count = loss + l, count + c
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+                del g
         del live
         specs = _rep_specs(storage, spec_tree)  # one a gradient, in the same order
         if not mesh_cfg.trivial:
@@ -361,7 +473,6 @@ def make_train_step(
         )
         del grads
         norms = awp_group_norms(storage, spec_tree, mesh_cfg, fsdp=fsdp, model=model)
-        loss, count = loss.detach(), metrics["token_count"].detach()
         if n > 1:
             loss = comm.all_reduce(loss, fsdp, traffic="metrics")
             count = comm.all_reduce(count, fsdp, traffic="metrics")
@@ -370,5 +481,12 @@ def make_train_step(
             "token_count": count,
             "group_norms_sq": norms,
         }
+
+    if plan.needs_rng:
+        def step(storage, momentum, batch, lr, key):
+            return _step(storage, momentum, batch, lr, key)
+    else:
+        def step(storage, momentum, batch, lr):
+            return _step(storage, momentum, batch, lr, None)
 
     return step

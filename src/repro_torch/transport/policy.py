@@ -105,31 +105,39 @@ class CompressionPolicy:
 
     # -- activation path (TP axis): forward collectives move (round_to,
     # mode) planes, cotangent collectives (grad_round_to, grad_mode) ---
-    def _act_width(self, grad: bool) -> int:
-        return self.grad_round_to if grad else self.round_to
+    def _act_width(self, grad: bool, uncompressed_bytes: int = FP32_BYTES) -> int:
+        """Bytes an activation element moves: the packed width, or the
+        compute dtype's (``uncompressed_bytes``) where the direction does
+        not compress."""
+        width = self.grad_round_to if grad else self.round_to
+        return width if width < FP32_BYTES else uncompressed_bytes
 
     def seq_gather_wire_bytes(self, elems_out: int, axis_size: int, *,
-                              grad: bool = False) -> int:
+                              grad: bool = False,
+                              uncompressed_bytes: int = FP32_BYTES) -> int:
         """Bytes received per device for one ``seq_gather`` producing
         ``elems_out`` gathered elements (``grad``: the ``seq_scatter``
         backward's cotangent gather)."""
-        payload = elems_out * self._act_width(grad)
+        payload = elems_out * self._act_width(grad, uncompressed_bytes)
         return round(ring_wire_bytes("all-gather", payload, axis_size))
 
     def seq_scatter_wire_bytes(self, elems_in: int, axis_size: int, *,
-                               grad: bool = False) -> int:
+                               grad: bool = False,
+                               uncompressed_bytes: int = FP32_BYTES) -> int:
         """Bytes received per device for one ``seq_scatter`` of
         ``elems_in`` input elements (``grad``: the ``seq_gather``
         backward's cotangent reduce-scatter)."""
-        payload = elems_in * self._act_width(grad)
+        payload = elems_in * self._act_width(grad, uncompressed_bytes)
         return round(ring_wire_bytes("reduce-scatter", payload, axis_size))
 
-    def seq_pair_wire_bytes(self, elems: int, axis_size: int, *, grad: bool = False) -> int:
+    def seq_pair_wire_bytes(self, elems: int, axis_size: int, *, grad: bool = False,
+                            uncompressed_bytes: int = FP32_BYTES) -> int:
         """One sequence-parallel boundary pair (``seq_gather`` into the
         region + ``seq_scatter`` out of it) in one direction; ``elems`` is
         the full (gathered) activation element count."""
-        return self.seq_gather_wire_bytes(elems, axis_size, grad=grad) + \
-            self.seq_scatter_wire_bytes(elems, axis_size, grad=grad)
+        kw = dict(grad=grad, uncompressed_bytes=uncompressed_bytes)
+        return self.seq_gather_wire_bytes(elems, axis_size, **kw) + \
+            self.seq_scatter_wire_bytes(elems, axis_size, **kw)
 
     def all_reduce_wire_bytes(self, elems: int, axis_size: int,
                               uncompressed_bytes: int = FP32_BYTES, *,

@@ -26,8 +26,14 @@ paths of data-parallel training and the trivial-mesh quantize).
     no collective to ride on.
 
 Bitpack and Bitunpack run the CUDA kernels for CUDA tensors
-(``impl="auto"``) in truncate mode; nearest rounding stays on the plain
-version, as in the reference's ``resolve_impl``. Planes are always
+(``impl="auto"``) in truncate mode; nearest and stochastic rounding stay on
+the plain version, as in the reference's ``resolve_impl``. Stochastic
+rounding takes a ``repro_torch.random`` key: the weight path packs with
+the caller's key (folded by chunk index on the chunked path), the
+gradient reduce-scatter in the gather's backward with ``fold_in(key,
+_BWD_FOLD)``, as the reference's. An element's noise is drawn at its flat
+index; a caller whose layout is not the reference's passes ``index``, the
+flat index each element has in the reference's layout (:func:`all_gather`). Planes are always
 exact-shape ``(round_to, *w.shape)`` u8. The collectives are
 :mod:`repro_torch.dist.comm`'s (gloo; every call logged with its traffic
 class: ``weights`` and ``gradients`` on the weight path, ``activations``
@@ -42,6 +48,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import random as _random
 from repro_torch.dist import comm
 from repro_torch.kernels.ops import bitpack, bitunpack, resolve_impl
 from repro_torch.transport.policy import FP32_BYTES, CompressionPolicy, policy_for
@@ -59,10 +66,11 @@ def pack_planes(
     mode: str = "truncate",
     impl: str = "auto",
     key=None,
+    index=None,
 ) -> torch.Tensor:
     """fp32 tensor (any shape) -> uint8 byte planes ``(round_to, *w.shape)``.
     Plane 0 is the most significant byte."""
-    return bitpack(w, round_to, impl=impl, mode=mode, key=key)
+    return bitpack(w, round_to, impl=impl, mode=mode, key=key, index=index)
 
 
 def unpack_planes(planes: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -76,18 +84,19 @@ def unpack_planes(planes: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
 
 
 def _packed_all_gather(x, group, round_to, mode, impl, axis: int, key=None, *,
-                       traffic="weights"):
+                       traffic="weights", index=None):
     """Compressed all-gather of an arbitrary-rank tensor along ``axis``:
     pack (non-fp32 inputs cast to fp32 exactly), gather the planes (their
     data axis is one further along), unpack, cast back."""
     axis = axis % x.ndim  # planes prepend a dim: negatives must resolve first
-    planes = pack_planes(x.to(torch.float32), round_to, mode=mode, impl=impl, key=key)
+    planes = pack_planes(x.to(torch.float32), round_to, mode=mode, impl=impl, key=key,
+                         index=index)
     planes_g = comm.all_gather(planes, group, axis=axis + 1, traffic=traffic)
     return unpack_planes(planes_g, impl=impl).to(x.dtype)
 
 
 def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None, *,
-                           traffic="gradients"):
+                           traffic="gradients", index=None):
     """Compressed reduce-scatter of an arbitrary-rank tensor along
     ``axis``: the scatter dim is split into per-peer blocks here, each
     block is packed, the planes ride one ``all_to_all``, and the unpacked
@@ -103,7 +112,9 @@ def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None, 
         )
     gm = g.to(torch.float32).movedim(axis, 0)
     gm = gm.reshape((size, length // size) + tuple(gm.shape[1:])).contiguous()
-    planes = pack_planes(gm, round_to, mode=mode, impl=impl, key=key)
+    if index is not None:  # laid out as g: the same moves
+        index = index.movedim(axis, 0).reshape(gm.shape)
+    planes = pack_planes(gm, round_to, mode=mode, impl=impl, key=key, index=index)
     # (round_to, size, loc, ...): block j of dim 1 goes to rank j, and after
     # the exchange block j holds rank j's contribution to this rank's block
     planes_x = comm.all_to_all(planes, group, axis=1, traffic=traffic)
@@ -112,7 +123,7 @@ def _packed_reduce_scatter(g, group, round_to, mode, impl, axis: int, key=None, 
     return out.movedim(0, axis).to(g.dtype)
 
 
-def _all_gather_impl(w, group, policy: CompressionPolicy, axis: int, key=None):
+def _all_gather_impl(w, group, policy: CompressionPolicy, axis: int, key=None, index=None):
     if not policy.compresses:
         return comm.all_gather(w, group, axis=axis, traffic="weights")
     if (
@@ -121,22 +132,25 @@ def _all_gather_impl(w, group, policy: CompressionPolicy, axis: int, key=None):
         and w.ndim == 1
         and w.shape[0] % policy.chunks == 0
     ):
+        if index is not None and key is not None:
+            raise NotImplementedError("a chunked gather draws its noise by chunk: no "
+                                      "noise index there")
         return _chunked_all_gather(w, group, policy, key)
     return _packed_all_gather(w, group, policy.round_to, policy.mode, policy.impl, axis,
-                              key=key)
+                              key=key, index=index)
 
 
 def _chunked_all_gather(w, group, policy: CompressionPolicy, key=None):
     """Gather in ``policy.chunks`` independent plane blocks, re-interleaved
-    to the unchunked layout exactly."""
-    if key is not None:
-        raise NotImplementedError("stochastic rounding is not ported yet")
+    to the unchunked layout exactly; block ``c`` packs with ``fold_in(key,
+    c)``."""
     n_chunks = policy.chunks
     loc = w.shape[0] // n_chunks
     gathered = []
     for c in range(n_chunks):
         planes = pack_planes(w[c * loc:(c + 1) * loc], policy.round_to, mode=policy.mode,
-                             impl=policy.impl)
+                             impl=policy.impl,
+                             key=None if key is None else _random.fold_in(key, c))
         planes_g = comm.all_gather(planes, group, axis=1, traffic="weights")
         gathered.append(unpack_planes(planes_g, impl=policy.impl))
     # gathered[c] = concat_d shard_d[block c]; the full gather is
@@ -146,11 +160,12 @@ def _chunked_all_gather(w, group, policy: CompressionPolicy, key=None):
     return stacked.transpose(0, 1).reshape(-1)
 
 
-def _reduce_scatter_impl(g, group, policy: CompressionPolicy, axis: int, key=None):
+def _reduce_scatter_impl(g, group, policy: CompressionPolicy, axis: int, key=None,
+                         index=None):
     if not policy.compresses_grads:
         return comm.reduce_scatter(g, group, axis=axis, traffic="gradients")
     return _packed_reduce_scatter(g, group, policy.grad_round_to, policy.grad_mode,
-                                  policy.impl, axis, key=key)
+                                  policy.impl, axis, key=key, index=index)
 
 
 def _seq_gather_impl(x, group, policy: CompressionPolicy, axis: int):
@@ -190,9 +205,9 @@ def _all_reduce_impl(x, group, policy: CompressionPolicy, use_grad_format: bool,
     return _packed_all_gather(part, group, rt, mode, policy.impl, axis, traffic=traffic)
 
 
-def _quantize_impl(w, policy: CompressionPolicy, key=None):
+def _quantize_impl(w, policy: CompressionPolicy, key=None, index=None):
     planes = pack_planes(
-        w, policy.round_to, mode=policy.mode, impl=policy.impl, key=key
+        w, policy.round_to, mode=policy.mode, impl=policy.impl, key=key, index=index
     )
     return unpack_planes(planes, impl=policy.impl)
 
@@ -201,20 +216,27 @@ class _Quantize(torch.autograd.Function):
     """pack∘unpack forward, identity backward (straight-through)."""
 
     @staticmethod
-    def forward(ctx, w, policy, key):
-        return _quantize_impl(w, policy, key)
+    def forward(ctx, w, policy, key, index):
+        return _quantize_impl(w, policy, key, index)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
-def quantize(w: torch.Tensor, policy: CompressionPolicy, key=None) -> torch.Tensor:
-    """Format truncation (pack∘unpack) with a straight-through gradient."""
+def quantize(w: torch.Tensor, policy: CompressionPolicy, key=None, index=None) -> torch.Tensor:
+    """Format truncation (pack∘unpack) with a straight-through gradient;
+    ``index``: each element's noise index (stochastic rounding)."""
     if not policy.compresses:
         # rt=4 keeps every byte: rounding is a no-op regardless of mode
         return w
-    return _Quantize.apply(w, policy, key)
+    return _Quantize.apply(w, policy, key, index)
+
+
+# fold id of the backward (cotangent) pack: outside the forward chunked
+# gather's per-chunk fold range (0..chunks-1), so the forward's and the
+# backward's stochastic-rounding noise never share a stream
+_BWD_FOLD = 0x62776421
 
 
 # ---------------------------------------------------------------------------
@@ -228,16 +250,17 @@ class _AllGather(torch.autograd.Function):
     master-weight update)."""
 
     @staticmethod
-    def forward(ctx, w_local, group, policy, axis, key):
-        ctx.group, ctx.policy, ctx.axis = group, policy, axis
-        if key is not None:
-            raise NotImplementedError("stochastic rounding is not ported yet")
-        return _all_gather_impl(w_local, group, policy, axis)
+    def forward(ctx, w_local, group, policy, axis, key, index):
+        ctx.group, ctx.policy, ctx.axis, ctx.key = group, policy, axis, key
+        fwd, ctx.bwd_index = index if index is not None else (None, None)
+        return _all_gather_impl(w_local, group, policy, axis, key, fwd)
 
     @staticmethod
     def backward(ctx, g):
-        return (_reduce_scatter_impl(g, ctx.group, ctx.policy, ctx.axis),
-                None, None, None, None)
+        gkey = None if ctx.key is None else _random.fold_in(ctx.key, _BWD_FOLD)
+        return (_reduce_scatter_impl(g, ctx.group, ctx.policy, ctx.axis, key=gkey,
+                                     index=ctx.bwd_index),
+                None, None, None, None, None)
 
 
 def all_gather(
@@ -246,14 +269,19 @@ def all_gather(
     policy: CompressionPolicy,
     axis: int = 0,
     key=None,
+    index=None,
 ) -> torch.Tensor:
     """Compressed all-gather over the process group ``group`` with a
     reduce-scatter backward.
 
     The forward moves ``policy.round_to`` of every fp32 byte; the backward
     reduce-scatters the cotangent at ``policy.grad_round_to`` (4 =
-    uncompressed, paper-faithful)."""
-    return _AllGather.apply(w_local, group, policy, axis, key)
+    uncompressed, paper-faithful). ``key`` is the stochastic-rounding key,
+    needed exactly when a used direction of the policy is stochastic.
+    ``index``, ``(forward, backward)`` or None: the flat index at which
+    each element's noise is drawn, laid out as ``w_local`` (the forward
+    pack) and as the gathered tensor (the gradient's)."""
+    return _AllGather.apply(w_local, group, policy, axis, key, index)
 
 
 def reduce_scatter(
@@ -266,10 +294,8 @@ def reduce_scatter(
     """Compressed reduce-scatter along ``axis`` (default 0: the flat
     gradient path, ``(S,)`` -> ``(S / n,)``) at ``policy.grad_round_to``
     bytes; rounding defaults to *nearest* (gradient sums are
-    bias-sensitive)."""
-    if key is not None:
-        raise NotImplementedError("stochastic rounding is not ported yet")
-    return _reduce_scatter_impl(g, group, policy, axis)
+    bias-sensitive); ``grad_mode="stochastic"`` needs ``key``."""
+    return _reduce_scatter_impl(g, group, policy, axis, key=key)
 
 
 # -- activation path (TP axis) ----------------------------------------------

@@ -152,6 +152,9 @@ POLICIES = {
     "baseline": dict(round_to=4),
     "oracle:2": dict(round_to=2),
     "awp": dict(round_to=4, schedule="awp", awp_threshold=1.0, awp_interval=1),
+    # stochastic weight rounding: both packages fold the same keys off
+    # fold_in(PRNGKey(1000 + step), 0xAD7), one a leaf in jax's order
+    "stochastic": dict(round_to=2, mode="stochastic"),
 }
 
 

@@ -56,8 +56,10 @@ MIN_SIZE = 256  # the example's compress_min_size for the mini-nets
 LR = 0.01
 BATCH = 32
 STEPS = 3
-# (dp, pods, grad_round_to) of the data-parallel CNN runs
-DP_RUNS = ((2, 1, None), (4, 1, None), (2, 1, 2))
+# (dp, pods, grad_round_to) of the data-parallel CNN runs; "2s" is
+# grad_round_to 2 with stochastic rounding (the step's key folded as the
+# reference folds it)
+DP_RUNS = ((2, 1, None), (4, 1, None), (2, 1, 2), (2, 1, "2s"))
 # At grad_round_to=2 each rank's gradient block is rounded to bf16
 # (nearest) before the exchange: a gradient that lies within fp32
 # summation noise of a rounding midpoint lands one bf16 step (2^-8
@@ -67,6 +69,13 @@ DP_RUNS = ((2, 1, None), (4, 1, None), (2, 1, 2))
 # 1e-4, and at most this share of them may be more than 1e-5 apart.
 GRAD2_FLIPS = 1e-3
 LAUNCH = ["--steps", "3", "--batch", "16"]
+
+
+def _grad_kw(grt) -> dict:
+    """``PrecisionPlan.build`` keywords of a ``DP_RUNS`` gradient entry."""
+    if grt == "2s":
+        return {"grad_round_to": 2, "grad_mode": "stochastic"}
+    return {"grad_round_to": grt}
 # The reference's jitted data-parallel CNN step donates its storage, and at
 # dp=2 XLA:CPU (jax 0.9.0) refuses that donation for reduced AlexNet
 # ("Expected aliased input 5 ... to have the same size"; ROADMAP reference
@@ -212,7 +221,7 @@ def _reference(inputs_path, out_path):
         params = jax.tree_util.tree_map(jnp.asarray, tree)
         spec = jstep.build_cnn_spec_tree(params, metas, mcfg)
         st = jstep.cnn_to_storage(params, spec, mcfg)
-        plan = JPlan.build(gi[1], round_to=2, grad_round_to=grt)
+        plan = JPlan.build(gi[1], round_to=2, **_grad_kw(grt))
         with mesh:
             step = jax.jit(jstep.make_cnn_train_step(
                 jcfg, mcfg, mesh, spec, gi, JSGD(lr=LR, momentum=0.9, weight_decay=5e-4),
@@ -305,7 +314,7 @@ def _port_rank(rank, D, inputs):
         params = convert_cnn_params(tcfg, tree, device="cpu")
         spec = tstep.build_cnn_spec_tree(params, metas, mcfg)
         st = tree_to_local(tstep.cnn_to_storage(params, spec, mcfg), spec, mcfg, rank)
-        plan = PrecisionPlan.build(gi[1], round_to=2, grad_round_to=grt)
+        plan = PrecisionPlan.build(gi[1], round_to=2, **_grad_kw(grt))
         step = tstep.make_cnn_train_step(
             tcfg, mcfg, spec, gi, SGDConfig(lr=LR, momentum=0.9, weight_decay=5e-4),
             plan=plan, mesh=mesh)
@@ -322,6 +331,17 @@ def _port_rank(rank, D, inputs):
         for name, leafs in st["layers"].items():
             for k, v in leafs.items():
                 out[f"{tag}/final/{name}/{k}"] = v.numpy()
+        if grt == "2s":  # a second run from the same state: the same bits
+            st2 = tree_to_local(tstep.cnn_to_storage(params, spec, mcfg), spec, mcfg, rank)
+            mom2 = init_momentum(st2)
+            for i in range(STEPS):
+                imgs, labels = data.batch(BATCH, i)
+                st2, mom2, m = step(st2, mom2, {"images": imgs, "labels": labels}, LR,
+                                    jr.PRNGKey(1000 + i))
+                out[f"{tag}/again/loss/{i}"] = m["loss"].numpy()
+            for name, leafs in st2["layers"].items():
+                for k, v in leafs.items():
+                    out[f"{tag}/again/final/{name}/{k}"] = v.numpy()
         if dp == 2 and pods == 1 and grt is None:
             evaluate = tstep.make_cnn_eval(tcfg, mcfg, spec, gi, plan=plan, mesh=mesh)
             imgs, labels = data.validation(64)
@@ -515,7 +535,7 @@ def test_sharded_wire_table_equals_reference(kw):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("run", DP_RUNS, ids=["dp2", "dp4", "dp2-grad2"])
+@pytest.mark.parametrize("run", DP_RUNS, ids=["dp2", "dp4", "dp2-grad2", "dp2-grad2-stochastic"])
 def test_dp_cnn_steps_match_reference(runs, run):
     """Three ``oracle:2`` steps of reduced AlexNet, data-parallel, from the
     same weights and batches: losses and per-group Σw² within rtol 1e-4 of
@@ -535,6 +555,12 @@ def test_dp_cnn_steps_match_reference(runs, run):
             np.testing.assert_allclose(p[f"{tag}/norms/{i}"], ref[f"dp/{D}/{grt}/norms/{i}"],
                                        rtol=1e-4)
             assert p[f"{tag}/loss/{i}"] == ranks[0][f"{tag}/loss/{i}"]
+            if grt == "2s":  # a second run gives the same bits
+                assert p[f"{tag}/again/loss/{i}"] == p[f"{tag}/loss/{i}"]
+    if grt == "2s":
+        for p in ranks:
+            for k in [k for k in p if k.startswith(f"{tag}/final/")]:
+                np.testing.assert_array_equal(p[k.replace("/final/", "/again/final/")], p[k])
     _, tcfg = _cnn_cfgs()
     tree = _cnn_tree(inputs)
     logical = {name: {k: ref[f"dp/{D}/{grt}/final/{name}/{k}"][:a.size].reshape(a.shape)
@@ -560,7 +586,7 @@ def test_dp_cnn_steps_match_reference(runs, run):
     params, metas, gi = init_cnn(tcfg, 0, device="meta")
     mcfg = MeshCfg(dp=D, pods=pods, compress_min_size=MIN_SIZE)
     elems = cnn_dist_elems(build_cnn_spec_tree(params, metas, mcfg), gi, mcfg)
-    table = PrecisionPlan.build(gi[1], round_to=2, grad_round_to=grt).wire_table(elems, D)
+    table = PrecisionPlan.build(gi[1], round_to=2, **_grad_kw(grt)).wire_table(elems, D)
     wire = ranks[0][f"{tag}/wire"]
     for k in ("weights", "gradients"):
         assert wire[k] == STEPS * table[k], (k, wire, table)
@@ -626,12 +652,21 @@ def test_launcher_twin_prints_reference_figures(runs, capsys):
         assert r["measured_by_entry"]["gradients"] == r["wire_by_entry"]["gradients"]
 
 
-def test_launcher_refuses_stochastic_gradients():
+def test_launcher_refuses_stochastic_gradients(capsys):
+    """Refused until stochastic rounding was ported; now ``--grad-mode
+    stochastic`` runs on two ranks: the stochastic gradient reduce-scatter
+    moves its packed planes (the measured wire is the plan's), and two runs
+    give the same losses bit for bit (the keys are the steps')."""
     from repro_torch.launch import awp_cnn_repro
 
-    with pytest.raises(NotImplementedError, match="6.3"):
-        awp_cnn_repro.main(["--devices", "2", "--grad-round-to", "2", "--grad-mode",
-                            "stochastic", "--device", "cpu"])
+    argv = ["--devices", "2", "--steps", "2", "--batch", "16", "--grad-round-to", "2",
+            "--grad-mode", "stochastic", "--device", "cpu"]
+    first = awp_cnn_repro.main(argv)
+    again = awp_cnn_repro.main(argv)
+    assert "wire reduction" in capsys.readouterr().out
+    for policy, r in first.items():
+        assert r["measured_by_entry"]["gradients"] == r["wire_by_entry"]["gradients"] > 0
+        assert r["losses"] == again[policy]["losses"], policy
 
 
 def test_chip_smoke_dp_phase_rehearses_on_cpu(monkeypatch, capsys):

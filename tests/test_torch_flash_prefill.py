@@ -346,16 +346,37 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     assert flash_prefill.launches == launches
 
 
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step (the spacing of bf16 numbers) at each value of ``x``."""
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.frexp(x.float())[1] - 8)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_bf16_on_card(cuda_device):
-    """bf16 is not built (ROADMAP item 6.4): a bf16 input raises, with no
-    silent fallback to the plain version."""
-    q, k, v = (torch.zeros(s, device=cuda_device, dtype=torch.bfloat16) for s in
-               ((1, 2, 128, 128), (1, 1, 128, 128), (1, 1, 128, 128)))
-    launches = flash_prefill.launches
-    with pytest.raises(ValueError, match="float32"):
-        flash_prefill(q, k, v)
-    assert flash_prefill.launches == launches
+@pytest.mark.parametrize("case", [(1, 16, 8, 512, 512, 0), (2, 16, 8, 384, 384, 0),
+                                  (1, 16, 8, 128, 512, 384), (1, 4, 4, 256, 256, 0)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_bf16_kernel_matches_plain_version_on_card(cuda_device, case):
+    """The bf16 kernel (it replaced a refusal of bf16 inputs) against its
+    plain version on the same bf16 inputs: each element within one bf16
+    step of the plain version's, plus the fp32 kernels' bar 1e-5 (both
+    compute in fp32 and round once; the fp32 sums' order moves a value
+    near 0 by more than its own bf16 step). One launch of the bf16 kernel,
+    none of the fp32 one; mixed types raise without a launch."""
+    B, H, Kv, Sq, Sk, off = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(B, H, Kv, Sq, Sk, 128, seed=7))
+    before = (flash_prefill.launches, flash_prefill.launches_bf16)
+    got = flash_prefill(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert (flash_prefill.launches, flash_prefill.launches_bf16) == (before[0], before[1] + 1)
+    want = ref.flash_prefill_ref(q, k, v, q_offset=off)
+    assert got.dtype == torch.bfloat16
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= bf16_step(want) + 1e-5).all()), float(gap.max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_prefill(q, k.float(), v)
+    assert flash_prefill.launches_bf16 == before[1] + 1
 
 
 @pytest.mark.cuda

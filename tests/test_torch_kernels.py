@@ -162,7 +162,19 @@ def test_cpu_wrappers_never_count_launches():
 
 
 def test_stochastic_mode_not_ported():
-    with pytest.raises(NotImplementedError):
+    """Refused until ``repro_torch.random.randint`` was bit-exact; now the
+    stochastic planes are the reference's byte for byte
+    (``tests/test_torch_stochastic.py`` holds them over seeds and widths),
+    and without a key the plain version refuses, as the reference's."""
+    import jax
+    from repro.kernels import ref as jref
+    from repro_torch import random as tr
+
+    w = np.random.default_rng(3).normal(size=(5, 33)).astype(np.float32)
+    got = ref.bitpack_ref(torch.from_numpy(w), 2, mode="stochastic", key=tr.PRNGKey(4))
+    want = jref.bitpack_ref(w, 2, mode="stochastic", key=jax.random.PRNGKey(4))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="key"):
         ref.bitpack_ref(torch.ones(4), 2, mode="stochastic")
 
 

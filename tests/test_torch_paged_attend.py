@@ -445,14 +445,29 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_bf16_on_card(cuda_device):
-    """bf16 is not built (ROADMAP item 6.4): a bf16 input raises, with no
-    silent fallback to the plain version."""
-    q, kp, vp, table, lengths = _port(_setup(2, 2, 2, 8, 3, 12, seed=3), cuda_device)
-    launches = paged_attend.launches
-    with pytest.raises(ValueError, match="float32"):
-        paged_attend(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table, lengths)
-    assert paged_attend.launches == launches
+@pytest.mark.parametrize("case", [(2, 8, 2, 64, 9, 19), (3, 8, 4, 8, 66, 199),
+                                  (2, 8, 2, 256, 3, 7)], ids=lambda c: "x".join(map(str, c)))
+def test_bf16_kernel_matches_plain_version_on_card(cuda_device, case):
+    """The bf16 kernel (it replaced a refusal of bf16 inputs) against its
+    plain version on the same bf16 inputs: each element within one bf16
+    step of the plain version's, plus the fp32 kernel's bar 2e-6 (both
+    compute in fp32 and round once). One launch of the bf16 kernel, none
+    of the fp32 one; mixed types raise without a launch."""
+    B, Kv, G, page, width, P = case
+    q, kp, vp, table, lengths = _port(_setup(B, Kv, G, page, width, P, seed=3), cuda_device)
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    before = (paged_attend.launches, paged_attend.launches_bf16)
+    got = paged_attend(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert (paged_attend.launches, paged_attend.launches_bf16) == (before[0], before[1] + 1)
+    want = ref.paged_attend_ref(q, kp, vp, table, lengths)
+    step = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                       torch.frexp(want.float())[1] - 8)
+    gap = (got.float() - want.float()).abs()
+    assert got.dtype == torch.bfloat16 and bool((gap <= step + 2e-6).all()), float(gap.max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_attend(q.float(), kp, vp, table, lengths)
+    assert paged_attend.launches_bf16 == before[1] + 1
 
 
 @pytest.mark.cuda

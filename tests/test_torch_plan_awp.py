@@ -3,6 +3,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.awp import AWPConfig as JAWPConfig
 from repro.core.awp import AWPController as JAWPController
@@ -86,21 +87,33 @@ def test_wire_table_equal(idx):
                 assert a == b, (n, training)
 
 
+PORTED_FIELDS = (dict(accum_steps=2), dict(dtype="bf16"))
+
+
 @pytest.mark.parametrize("kw", [
     dict(kv_migration={"round_to": 2}), dict(env_overrides={"mlstm_chunk": 64}),
-    dict(weight_publish={"round_to": 1}),
-    dict(accum_steps=2), dict(dtype="bf16"),
+    dict(weight_publish={"round_to": 1}), *PORTED_FIELDS,
 ])
 def test_unported_plan_fields_raise(kw):
     """A reference plan that sets a field the port has no code for is
     refused, not silently run at the default (``mlstm_chunk``: an env
     override of the unported xLSTM family; ``kv_migration`` and
     ``weight_publish``: the fleet's). ``int8_kv`` and ``sampling``, once
-    refused here, load (``tests/test_torch_sampling.py``)."""
+    refused here, load (``tests/test_torch_sampling.py``); so do
+    ``accum_steps`` and ``dtype`` since the train step runs them: their
+    cases hold the loaded plan's JSON to the reference's, byte for byte,
+    and the compute dtype it gives."""
     d = JPlan.build(9, round_to=2).to_json_dict()
     d.update(kw)
+    text = JPlan.from_json_dict(d).to_json()
+    if kw in PORTED_FIELDS:
+        t = PrecisionPlan.from_json(text)
+        assert t.to_json() == text
+        assert (t.accum_steps, t.compute_dtype) == (
+            kw.get("accum_steps", 1), torch.bfloat16 if "dtype" in kw else torch.float32)
+        return
     with pytest.raises(NotImplementedError):
-        PrecisionPlan.from_json(JPlan.from_json_dict(d).to_json())
+        PrecisionPlan.from_json(text)
 
 
 @pytest.mark.parametrize("kw", [

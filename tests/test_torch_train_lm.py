@@ -58,6 +58,8 @@ from repro.optim.sgd import SGDConfig as JSGD
 from repro.optim.sgd import init_momentum as j_init_momentum
 from repro.plan import PrecisionPlan as JPlan
 from repro.train import step as jstep
+from repro.transport import CompressionPolicy as JPolicy
+from repro_torch import random as tr
 from repro_torch.configs.registry import get_config, reduced
 from repro_torch.convert import convert_lm_params
 from repro_torch.data.pipeline import synthetic_lm_batch
@@ -302,7 +304,7 @@ def test_remat_gives_the_same_step_and_recomputes_the_transfer(setup, monkeypatc
     calls = []
     real = transport._quantize_impl
     monkeypatch.setattr(transport, "_quantize_impl",
-                        lambda w, pol, key=None: calls.append(w.shape) or real(w, pol, key))
+                        lambda w, pol, *a: calls.append(w.shape) or real(w, pol, *a))
     runs = {}
     for remat in (False, True):
         calls.clear()
@@ -344,19 +346,45 @@ def test_step_needs_the_mesh_of_its_cfg(setup, case):
 
 
 def _raises_stochastic(s):
+    """A stochastic plan's step takes the key as its fifth argument (the
+    reference's signature) and runs; the loss is the reference's."""
+    jplan = JPlan(weights=(JPolicy(round_to=2, mode="stochastic"),) * 3)
     plan = PrecisionPlan(weights=(CompressionPolicy(round_to=2, mode="stochastic"),) * 3)
-    tstep.make_train_step(s["tcfg"], s["tmesh"], None, s["tspec"], SGDConfig(), {}, plan=plan)
+    assert plan.needs_rng and jplan.needs_rng
+    shapes = {k: jax.ShapeDtypeStruct((B, S), jnp.int32) for k in ("tokens", "labels")}
+    jfn = jstep.make_train_step(s["jcfg"], s["jmesh"], None, s["jspec"],
+                                JSGD(lr=LR, momentum=0.9, weight_decay=1e-4), shapes, plan=jplan)
+    storage = jax.tree_util.tree_map(jnp.copy, s["params"])
+    _, _, jm = jfn(storage, j_init_momentum(storage), s["jbatch"], LR, jax.random.PRNGKey(5))
+    tp = _tparams(s)
+    fn = tstep.make_train_step(s["tcfg"], s["tmesh"], None, s["tspec"],
+                               SGDConfig(lr=LR, momentum=0.9, weight_decay=1e-4),
+                               {"tokens": (B, S), "labels": (B, S)}, plan=plan)
+    with pytest.raises(TypeError):
+        fn(tp, init_momentum(tp), _tbatch(), LR)  # the key is not optional
+    _, _, tm = fn(tp, init_momentum(tp), _tbatch(), LR, tr.PRNGKey(5))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=LOSS_RTOL)
 
 
 def _raises_accum(s):
-    PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "accum_steps": 2})
+    """A plan with ``accum_steps`` 2 loads, and a batch that does not split
+    into its micro-batches raises ``ValueError``."""
+    plan = PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "accum_steps": 2})
+    assert plan.accum_steps == 2
+    tp = _tparams(s)
+    fn = tstep.make_train_step(s["tcfg"], s["tmesh"], None, s["tspec"], SGDConfig(),
+                               {"tokens": (3, S), "labels": (3, S)}, plan=plan)
+    tokens, labels = synthetic_lm_batch(512, 3, S, 0, device="cpu")
+    with pytest.raises(ValueError, match="accum_steps"):
+        fn(tp, init_momentum(tp), {"tokens": tokens, "labels": labels}, LR)
 
 
 @pytest.mark.parametrize("case", [_raises_stochastic, _raises_accum],
                          ids=lambda f: f.__name__[len("_raises_"):])
 def test_unported_step_options_raise(setup, case):
-    with pytest.raises(NotImplementedError):
-        case(setup)
+    """Both options raised ``NotImplementedError`` until this slice ported
+    them; each case now runs the ported option (see its docstring)."""
+    case(setup)
 
 
 def test_make_train_step_needs_its_arguments(setup):
@@ -434,8 +462,7 @@ def test_launcher_twin_prints_the_reference_awp_line(verify_runs, capsys, tmp_pa
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16"], ["--grad-mode", "stochastic"], ["--accum", "2"], ["--ckpt", "x"], ["--resume"],
-    ["--data-dir", "x"],
+    ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"],
 ], ids=lambda f: f[0])
 def test_launcher_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError):
@@ -451,6 +478,10 @@ PORTED_FLAGS = (
     (["--mesh", "1x2", "--act-round-to", "2"], "activations"),
     (["--mesh", "1x2", "--seq-parallel"], "seq_boundary"),
     (["--mesh", "2x1", "--chunks", "2"], "weights"),
+    # ported by the slice after: the flags that raised until then
+    (["--mesh", "2x1", "--grad-round-to", "2", "--grad-mode", "stochastic"], "gradients"),
+    (["--mesh", "2x1", "--accum", "2"], "weights"),
+    (["--mesh", "1x2", "--bf16"], "activations"),
 )
 
 
@@ -463,17 +494,20 @@ def one_device_step(setup):
 
 @pytest.mark.parametrize("flags,moves", PORTED_FLAGS,
                          ids=["--mesh", "--grad-round-to", "--act-round-to", "--seq-parallel",
-                              "--chunks"])
+                              "--chunks", "--grad-mode", "--accum", "--bf16"])
 def test_launcher_ported_flags_run(flags, moves, one_device_step, capsys):
-    """The flags that raised before the FSDP×TP slice run on two ranks:
-    the measured wire equals ``step_wire_table`` (the launcher exits
-    otherwise), the flag's class moves, and the first loss is the one
-    device's within rtol 1e-5 (rounded activations: 1e-3)."""
+    """The flags that raised before the FSDP×TP slice, and ``--grad-mode
+    stochastic``, ``--accum`` and ``--bf16`` that raised before the slice
+    after it, run on two ranks: the measured wire equals
+    ``step_wire_table`` (the launcher prints OK only then), the flag's
+    class moves, and the first loss is the one device's within rtol 1e-5
+    (rounded activations: 1e-3; bf16 compute, whose 8-bit activations
+    move the loss by ~1e-4: 1e-3)."""
     s = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                       "--seq", "16", "--batch", "4", "--policy", "oracle:2", *flags])
     assert "[OK against step_wire_table]" in capsys.readouterr().out
     assert s["measured"][0][moves] > 0
-    rtol = 1e-3 if "--act-round-to" in flags else 1e-5
+    rtol = 1e-3 if "--act-round-to" in flags or "--bf16" in flags else 1e-5
     np.testing.assert_allclose(s["losses"][0], one_device_step["losses"][0], rtol=rtol)
 
 
