@@ -34,9 +34,9 @@ Phases, each printing its own lines:
      |err| <= 1e-5, two calls bit-equal, and each row of a batch of 2 and 4
      bit-equal to the row alone (S 512, 256 and the continuation). Times the kernel (in a CUDA graph,
      the device time, and eager), the plain version and
-     ``scaled_dot_product_attention`` (the library yardstick) with CUDA
-     events beside the bound (causal FLOPs at 67 TFLOP/s fp32, or bytes at
-     3.35 TB/s).
+     ``scaled_dot_product_attention`` (the library yardstick, in a graph
+     and eager) with CUDA events beside the bound (causal FLOPs at 67
+     TFLOP/s fp32, or bytes at 3.35 TB/s).
   7. serve — full-width qwen3-1.7b (28 layers, d 2048, vocab 151,936, random
      weights from seed 0) served through ``repro_torch.launch.serve``'s
      functions: ``PrecisionPlan.build(round_to=2)``, five greedy requests
@@ -252,8 +252,11 @@ Phases, each printing its own lines:
      nearest-rounded run within ``DP16_LOSS_RTOL``; (d) three bf16 steps,
      the first loss within ``BF16_LOSS_RTOL`` of (a)'s fp32 one. Then the
      bf16 kernels against their plain versions at phases 6's and 8's shapes
-     (each element within one bf16 step plus the fp32 bar), timed as those
-     phases time the fp32 ones, beside the bf16 bound and bf16 SDPA; and
+     and flash at the tp-2 heads (each element within one bf16 step plus
+     the fp32 bar; flash twice bit-equal, and each row bit-equal alone and
+     in batches of 2 and 4), timed as those phases time the fp32 ones (flash
+     at S 128, 512, 2048 and the tp-2 heads in a graph), beside the bf16
+     bound and bf16 SDPA in a graph and eager; and
      (e) phase 7's requests under a plan with ``"dtype": "bf16"``: static,
      engine and paged engine (page 64), paged equal to contiguous exactly,
      the engine equal to static but where a batch-1 run's top-2 logits tie
@@ -724,17 +727,21 @@ FLASH_SHAPES = (
 )
 FLASH_TIMED = (128, 512, 2048)  # Sq = Sk, B = 1, q_offset = 0
 FLASH_TOL = 1e-5
+# a model rank's heads at tp 2 (phase 14's flash shape), which phase 16 (e)
+# also checks and times in bf16
+FLASH_TP2 = (1, 8, 4, 512, 512, 0)
 
 
-def flash_bound(B, H, Kv, Sq, Sk, q_offset, hd=128):
+def flash_bound(B, H, Kv, Sq, Sk, q_offset, hd=128, elem=4, flop_rate=FP32_FLOP_PER_S):
     """Least time for the causal attention these inputs need: the larger
     of the FLOPs of the unmasked (q, k) pairs (2·hd for q·k and 2·hd for
-    p·v each) at the fp32 peak, and q, k, v and out moved once at the HBM
-    rate. Returns (ms, "operations" or "bytes")."""
+    p·v each) at the peak ``flop_rate`` (fp32's, or bf16's tensor cores
+    with ``elem`` 2), and q, k, v and out moved once at the HBM rate, at
+    ``elem`` bytes an element. Returns (ms, "operations" or "bytes")."""
     rows = [min(q_offset + r + 1, Sk) for r in range(Sq)]
     flops = 4 * hd * B * H * sum(rows)
-    nbytes = 4 * hd * (2 * B * H * Sq + 2 * B * Kv * Sk)
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = elem * hd * (2 * B * H * Sq + 2 * B * Kv * Sk)
+    t_ops, t_bytes = flops / flop_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -769,14 +776,18 @@ def check_flash(torch, device):
             ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
             plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v),
                               iters=5)
-            lib = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)
+            lib_eager = time_cuda(torch, sdpa)
+            lib = time_graph(torch, [sdpa], reps=10)
             bound, by = flash_bound(B, H, Kv, Sq, Sk, off)
             out[Sq] = {"ms": ms, "eager_ms": eager, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+                       "library_eager_ms": lib_eager, "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err}
             line += (f"; kernel {ms * 1e3:.1f} us in a CUDA graph ({eager * 1e3:.1f} us "
-                     f"eager), plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
-                     f"{bound * 1e3:.1f} us ({by}, {bound / ms:.0%} of it)")
+                     f"eager), plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us in a graph "
+                     f"({lib_eager * 1e3:.1f} us eager), bound {bound * 1e3:.1f} us ({by}, "
+                     f"{bound / ms:.0%} of it)")
         say(line)
     check_flash_rows(torch, device, gen)
     return out
@@ -787,24 +798,25 @@ def check_flash(torch, device):
 FLASH_ROW_SHAPES = ((16, 8, 512, 512, 0), (16, 8, 256, 256, 0), (16, 8, 128, 512, 384))
 
 
-def check_flash_rows(torch, device, gen):
-    """A row's output is bit-equal alone and inside batches of 2 and 4."""
+def check_flash_rows(torch, device, gen, dtype=None):
+    """A row's output is bit-equal alone and inside batches of 2 and 4 (fp32
+    unit normals, or ``dtype``'s rounding of them)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
 
+    dtype = dtype or torch.float32
     for H, Kv, Sq, Sk, off in FLASH_ROW_SHAPES:
-        q = torch.randn((4, H, Sq, 128), generator=gen, device=device)
-        k = torch.randn((4, Kv, Sk, 128), generator=gen, device=device)
-        v = torch.randn((4, Kv, Sk, 128), generator=gen, device=device)
+        q, k, v = (torch.randn(s, generator=gen, device=device).to(dtype) for s in
+                   ((4, H, Sq, 128), (4, Kv, Sk, 128), (4, Kv, Sk, 128)))
         alone = [flash_prefill(q[b:b + 1], k[b:b + 1], v[b:b + 1], q_offset=off)
                  for b in range(4)]
         for B in (2, 4):
             batch = flash_prefill(q[:B], k[:B], v[:B], q_offset=off)
             for b in range(B):
                 check(torch.equal(batch[b], alone[b][0]),
-                      f"flash H={H} Sq={Sq} Sk={Sk} q_offset={off}: row {b} differs alone "
-                      f"and in a batch of {B}")
-        say(f"   flash H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}: each row bit-equal "
-            "alone and in batches of 2 and 4")
+                      f"{dtype} flash H={H} Sq={Sq} Sk={Sk} q_offset={off}: row {b} differs "
+                      f"alone and in a batch of {B}")
+        say(f"   {str(dtype)[6:]} flash H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}: each row "
+            "bit-equal alone and in batches of 2 and 4")
 
 
 # ---------------------------------------------------------------------------
@@ -3760,9 +3772,11 @@ def lm_features_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=
 
 def check_bf16_kernels(torch, device):
     """(e): the bf16 kernels against their plain versions at phase 6's and
-    phase 8's shapes (bf16 unit normals): within one bf16 step plus the
-    fp32 bar; times flash at S 512 and paged_attend at the decode shape as
-    phases 6 and 8 time the fp32 ones, with the bf16 library calls."""
+    phase 8's shapes and flash at the tp-2 heads (bf16 unit normals): within
+    one bf16 step plus the fp32 bar, flash twice bit-equal and each row
+    bit-equal alone and in a batch; times flash at S 128, 512, 2048 and the
+    tp-2 heads, and paged_attend at the decode shape, as phases 6 and 8
+    time the fp32 ones, with the bf16 library calls in a graph and eager."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -3771,33 +3785,40 @@ def check_bf16_kernels(torch, device):
 
     gen = torch.Generator(device=device).manual_seed(16)
     bf = torch.bfloat16
-    out = {"flash_err": 0.0, "paged_err": 0.0, "differ": 0, "elements": 0}
-    for B, H, Kv, Sq, Sk, off in FLASH_SHAPES:
+    out = {"flash_err": 0.0, "paged_err": 0.0, "differ": 0, "elements": 0, "flash_times": {}}
+    for B, H, Kv, Sq, Sk, off in (*FLASH_SHAPES, FLASH_TP2):
         q, k, v = (torch.randn(s, generator=gen, device=device).to(bf) for s in
                    ((B, H, Sq, 128), (B, Kv, Sk, 128), (B, Kv, Sk, 128)))
         got = flash_prefill(q, k, v, q_offset=off)
+        again = flash_prefill(q, k, v, q_offset=off)
         block = 128 if Sq % 128 == 0 and Sk % 128 == 0 else 64
         want = ref.flash_prefill_ref(q, k, v, q_offset=off, block_q=block, block_k=block)
         err, beyond, differ = bf16_gap(torch, got, want, FLASH_TOL)
+        label = f"B={B} H={H} Kv={Kv} Sq={Sq} Sk={Sk} q_offset={off}"
         check(beyond == 0 and got.dtype == bf,
-              f"bf16 flash B={B} H={H} Sq={Sq} Sk={Sk}: {beyond} elements beyond one step")
+              f"bf16 flash {label}: {beyond} elements beyond one step")
+        check(torch.equal(got, again), f"bf16 flash {label}: two calls gave other bits")
         out["flash_err"] = max(out["flash_err"], err)
         out["differ"] += differ
         out["elements"] += got.numel()
-        if (B, H, Sq, Sk, off) == (1, 16, 512, 512, 0):
+        if B == 1 and Sq == Sk and off == 0 and (
+                (H, Kv) == (16, 8) and Sq in FLASH_TIMED or (B, H, Kv, Sq, Sk, off) == FLASH_TP2):
             ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
-            plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v), iters=5)
-            lib = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            rows = [min(off + r + 1, Sk) for r in range(Sq)]
-            t_ops = 4 * 128 * B * H * sum(rows) / BF16_FLOP_PER_S * 1e3
-            t_bytes = 2 * 128 * (2 * B * H * Sq + 2 * B * Kv * Sk) / HBM_BYTES_PER_S * 1e3
-            bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-            out["flash"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                            "bound_by": by}
-            say(f"   bf16 flash S=512: kernel {ms * 1e3:.1f} us in a CUDA graph, plain "
-                f"{plain * 1e3:.1f} us, bf16 sdpa {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
-                f"({by}, {bound / ms:.0%} of it)")
+            plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v), iters=3)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)
+            lib_eager = time_cuda(torch, sdpa)
+            lib = time_graph(torch, [sdpa], reps=10)
+            bound, by = flash_bound(B, H, Kv, Sq, Sk, off, elem=2, flop_rate=BF16_FLOP_PER_S)
+            out["flash_times"][(H, Kv, Sq)] = {
+                "ms": ms, "plain_ms": plain, "library_ms": lib, "library_eager_ms": lib_eager,
+                "bound_ms": bound, "bound_by": by}
+            say(f"   bf16 flash H={H} Kv={Kv} S={Sq}: kernel {ms * 1e3:.2f} us in a CUDA graph, "
+                f"plain {plain * 1e3:.1f} us, bf16 sdpa {lib * 1e3:.2f} us in a graph "
+                f"({lib_eager * 1e3:.1f} us eager), bound {bound * 1e3:.2f} us ({by}, "
+                f"{bound / ms:.0%} of it)")
+    out["flash"] = out["flash_times"][(16, 8, 512)]
+    check_flash_rows(torch, device, gen, bf)
     for B, Kv, G, page, width, P, lengths in PAGED_CASES:
         q, kp, vp, table, lens = paged_inputs(torch, device, gen, B, Kv, G, page, width, P,
                                               lengths)
@@ -4161,7 +4182,7 @@ def main() -> int:
     })
     kernels.append({
         "name": "flash_prefill_bf16", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_prefill.cu",
+        "source": "src/repro_torch/csrc/flash_prefill_bf16.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:110",
         "launches": bfs["launches"]["flash_prefill_bf16"],
         "max_abs_err": max(bfk["flash_err"], bfs["errs"]["flash"]),

@@ -1,5 +1,7 @@
 // Flash prefill attention for Hopper: causal online-softmax GQA attention
-// in fp32 arithmetic on the CUDA cores, on fp32 or bf16 tensors.
+// in fp32 arithmetic on the CUDA cores, on fp32 tensors (bf16 ones go to
+// flash_prefill_bf16.cu, on the tensor cores; the work list, the unit and
+// the merge are shared, in flash_common.cuh).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py::flash_prefill
 // (body _flash_kernel, tile update _flash_tile, mask _tile_mask). It
@@ -12,21 +14,7 @@
 // GQA: q head h reads kv head h / G, G = H / Kv.
 //
 // Layout: q (B, H, Sq, 128), k/v (B, Kv, Sk, 128), out (B, H, Sq, 128), all
-// contiguous, all fp32 or all bf16.
-//
-// bf16 (a serve prefill under a bf16 plan; the reference's kernel takes it
-// with fp32 accumulation and writes q's dtype): the kernel is a template on
-// the element type, and the bf16 one widens every element of Q, K and V
-// exactly (__bfloat162float) as it stores it into the same fp32 tiles, so
-// everything after the loads, p . v with p in fp32 included (the reference
-// multiplies p as fp32), is the fp32 kernel's arithmetic; the output is
-// rounded once, with __float2bfloat16_rn. Its loads are plain loads and
-// stores, not cp.async (a tile is converted on its way in), so they no
-// longer overlap the compute: a simple kernel that is right. Bound: the
-// larger of the operations at 989 TFLOP/s (bf16 tensor cores; this kernel
-// runs fp32 FMAs, so it stays far from it) and the bytes at 3.35 TB/s, at
-// 2 B an element. The fp32 instantiation is the fp32 kernel as it was, bit
-// for bit.
+// contiguous, all fp32.
 //
 // Bound: operations. At the serving shapes (Sq = Sk = 512, H = 16, hd =
 // 128) the causal work is ~1.1 GFLOP against ~13 MB of q/k/v/o. The port
@@ -78,75 +66,15 @@
 // Plain C interface (loaded with ctypes): returns cudaGetLastError() after
 // the launch, so a refused launch is seen by the caller.
 
-#include <cstdint>
-#include <type_traits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kHd = 128;
-constexpr int kHd4 = kHd / 4;      // float4s a row
-constexpr int kRowsQ = 64;         // query rows a unit: 64 / Gc positions x Gc heads
-constexpr int kBK = 64;            // keys a tile
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;  // as the reference: exp() gives exactly 0
-constexpr int kMaxDevices = 64;
+using namespace flash;
+
 // Q, K, V tiles (64 x 128 each), P^T (64 keys x 64 rows), row scales (64)
 constexpr size_t kSmemBytes =
     sizeof(float) * (3 * kRowsQ * kHd + kBK * kRowsQ + kRowsQ);
-
-// four consecutive elements as fp32 (bf16 widened exactly), and back
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits)));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
-  return make_float4(bf16_bits_to_float(u.x & 0xffffu), bf16_bits_to_float(u.x >> 16),
-                     bf16_bits_to_float(u.y & 0xffffu), bf16_bits_to_float(u.y >> 16));
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
-}
-
-__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// one float4 column of a tile row: a cp.async for fp32, a widening load and
-// store for bf16 (4 elements, 8 B)
-template <typename T>
-__device__ __forceinline__ void tile_load(float4* dst, const T* src) {
-  if constexpr (std::is_same<T, float>::value)
-    cp_async16(dst, reinterpret_cast<const float4*>(src));
-  else
-    *dst = load4(src);
-}
 
 // max / sum over the 8 lanes that share a row (lane bits 0-2)
 __device__ __forceinline__ float row_max8(float v) {
@@ -161,58 +89,35 @@ __device__ __forceinline__ float row_sum8(float v) {
   return v;
 }
 
-// Where a unit's row rho lives: batch b, head h and position pos.
-struct Unit {
-  int b, kvh, hg, qb, bq, Gc;
-  __device__ Unit(int unit, int H, int Kv, int Gc_, int Sq) : Gc(Gc_) {
-    bq = kRowsQ / Gc;
-    const int nqb = Sq / bq;
-    qb = unit % nqb;
-    const int bhg = unit / nqb;
-    const int groups = H / Gc;
-    hg = bhg % groups;
-    b = bhg / groups;
-    kvh = hg * Gc / (H / Kv);
-  }
-  __device__ int pos(int rho) const { return qb * bq + rho % bq; }
-  // offset of (row rho, column 0) in q or out
-  __device__ size_t row(int rho, int H, int Sq) const {
-    return ((static_cast<size_t>(b) * H + hg * Gc + rho / bq) * Sq + pos(rho)) * kHd;
-  }
-};
-
 // 64 rows of K from key row k0, swizzled: row r's float4 column c at
 // r * 32 + (c ^ (r & 7)); 16 copies a thread, a warp per two rows
-template <typename T>
-__device__ __forceinline__ void load_k(float4* __restrict__ Ks, const T* __restrict__ kg,
+__device__ __forceinline__ void load_k(float4* __restrict__ Ks, const float* __restrict__ kg,
                                        int k0) {
 #pragma unroll
   for (int it = 0; it < kBK * kHd4 / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kHd4;
     const int c = idx % kHd4;
-    tile_load(Ks + r * kHd4 + (c ^ (r & 7)), kg + static_cast<size_t>(k0 + r) * kHd + 4 * c);
+    cp_async16(Ks + r * kHd4 + (c ^ (r & 7)), kg + static_cast<size_t>(k0 + r) * kHd + 4 * c);
   }
 }
 
 // 64 rows of V from key row k0, plain layout
-template <typename T>
-__device__ __forceinline__ void load_v(float4* __restrict__ Vs, const T* __restrict__ vg,
+__device__ __forceinline__ void load_v(float4* __restrict__ Vs, const float* __restrict__ vg,
                                        int k0) {
 #pragma unroll
   for (int it = 0; it < kBK * kHd4 / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
-    tile_load(Vs + idx, vg + static_cast<size_t>(k0) * kHd + 4 * idx);
+    cp_async16(Vs + idx, vg + static_cast<size_t>(k0) * kHd + 4 * idx);
   }
 }
 
 // items[i] = (unit, first tile | end tile << 16, partial slot or -1, merge
 // index); merges[j] = (first slot, pieces, 0, 0); counters[j] is 0 on entry
 // and left 0.
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      const int4* __restrict__ items, const int4* __restrict__ merges,
                      int* __restrict__ counters, float* __restrict__ part_acc,
                      float* __restrict__ part_ml, int H, int Kv, int Gc, int Sq, int Sk,
@@ -223,7 +128,6 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4* Vs = Ks + kBK * kHd4;       // [64][32]
   float4* Pt = Vs + kBK * kHd4;       // [64 keys][16 row quads], swizzled
   float* rowv = reinterpret_cast<float*>(Pt + kBK * (kRowsQ / 4));  // [64]
-  __shared__ int last;
 
   const int4 item = items[blockIdx.x];
   const Unit u(item.x, H, Kv, Gc, Sq);
@@ -239,8 +143,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ry = 2 * warp + lane / 16;
   const int cx = lane % 16;
 
-  const T* kg = k + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
-  const T* vg = v + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
+  const float* kg = k + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
+  const float* vg = v + (static_cast<size_t>(u.b) * Kv + u.kvh) * Sk * kHd;
 
   // group 1: Q and K_0; group 2: V_0
 #pragma unroll
@@ -248,7 +152,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kHd4;
     const int c = idx % kHd4;
-    tile_load(Qs + idx, q + u.row(r, H, Sq) + 4 * c);
+    cp_async16(Qs + idx, q + u.row(r, H, Sq) + 4 * c);
   }
   if (nt > 0) load_k(Ks, kg, kt0 * kBK);
   cp_async_commit();
@@ -376,7 +280,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float den = fmaxf(rowv[8 * ry + i], 1e-30f);
-      T* orow = out + u.row(8 * ry + i, H, Sq);
+      float* orow = out + u.row(8 * ry + i, H, Sq);
       store4(orow + 4 * cx,
              make_float4(acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den));
       store4(orow + 4 * (cx + 16),
@@ -400,91 +304,31 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     pacc[(8 * ry + i) * kHd4 + cx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     pacc[(8 * ry + i) * kHd4 + cx + 16] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
-  __threadfence();  // the partial is visible device-wide before the count
-  __syncthreads();
-  const int4 mg = merges[item.w];
-  if (threadIdx.x == 0) last = atomicAdd(counters + item.w, 1) == mg.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // thread t merges row t / 2, float4 columns 16 (t % 2) .. + 16, in piece order
-  const int rho = threadIdx.x / 2;
-  const int c0 = (threadIdx.x % 2) * 16;
-  float mt = kNegInf;
-#pragma unroll 4
-  for (int p = 0; p < mg.y; ++p)
-    mt = fmaxf(mt, __ldcg(part_ml + static_cast<size_t>(mg.x + p) * 2 * kRowsQ + rho));
-  float lt = 0.f;
-  float4 a[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p = 0; p < mg.y; ++p) {
-    const size_t slot = static_cast<size_t>(mg.x + p);
-    const float w = exp2f(__ldcg(part_ml + slot * 2 * kRowsQ + rho) - mt);
-    lt = fmaf(__ldcg(part_ml + slot * 2 * kRowsQ + kRowsQ + rho), w, lt);
-    const float4* src =
-        reinterpret_cast<const float4*>(part_acc + (slot * kRowsQ + rho) * kHd) + c0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float4 x = __ldcg(src + j);
-      a[j].x = fmaf(w, x.x, a[j].x);
-      a[j].y = fmaf(w, x.y, a[j].y);
-      a[j].z = fmaf(w, x.z, a[j].z);
-      a[j].w = fmaf(w, x.w, a[j].w);
-    }
-  }
-  const float den = fmaxf(lt, 1e-30f);
-  T* orow = out + u.row(rho, H, Sq) + 4 * c0;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    store4(orow + 4 * j, make_float4(a[j].x / den, a[j].y / den, a[j].z / den, a[j].w / den));
-  if (threadIdx.x == 0) counters[item.w] = 0;  // as it was found
+  merge_if_last(item, u, merges, counters, part_acc, part_ml, out, H, Sq);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, const void* items,
+int launch(const float* q, const float* k, const float* v, float* out, const void* items,
            int n_items, const void* merges, void* counters, void* part_acc, void* part_ml,
            int B, int H, int Kv, int Gc, int Sq, int Sk, int q_offset, float scale,
            void* stream) {
-  if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv || Sq % 64 || Sk % 64 || q_offset < 0 ||
-      (Gc != 1 && Gc != 2 && Gc != 4) || (H / Kv) % Gc || n_items < 0)
+  if (bad_shape(B, H, Kv, Gc, Sq, Sk, q_offset, n_items))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_items == 0) return 0;
-  // The shared-memory opt-in is an attribute of each device and each
-  // instantiation: set it once on every device the kernel runs on (the
-  // wrapper makes q's device current).
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in_smem(flash_prefill_kernel, kSmemBytes, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
-  }
-  flash_prefill_kernel<T><<<n_items, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<const int4*>(items),
-      static_cast<const int4*>(merges), static_cast<int*>(counters),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, Kv, Gc, Sq, Sk,
-      q_offset, scale);
+  flash_prefill_kernel<<<n_items, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, static_cast<const int4*>(items), static_cast<const int4*>(merges),
+      static_cast<int*>(counters), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), H, Kv, Gc, Sq, Sk, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, Sq, 128), k / v (B, Kv, Sk, 128), out (B, H, Sq, 128): contiguous
-// on the current device, 16-byte aligned, all fp32 (repro_flash_prefill) or
-// all bf16 (repro_flash_prefill_bf16). Sq and Sk multiples of 64, H a
-// multiple of Kv, q_offset >= 0 (all checked by the Python wrapper).
+// q (B, H, Sq, 128), k / v (B, Kv, Sk, 128), out (B, H, Sq, 128): fp32,
+// contiguous on the current device, 16-byte aligned. Sq and Sk multiples of
+// 64, H a multiple of Kv, q_offset >= 0 (all checked by the Python wrapper).
 // Causal only: the one mask the serving path asks for. items (n_items
 // int4) and merges (int4) on the device, from the wrapper's work list for
 // Gc query heads a unit; counters (one int a merge) all 0, left 0;
@@ -494,15 +338,8 @@ extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
                                    const void* merges, void* counters, void* part_acc,
                                    void* part_ml, int B, int H, int Kv, int Gc, int Sq,
                                    int Sk, int q_offset, float scale, void* stream) {
-  return launch<float>(q, k, v, out, items, n_items, merges, counters, part_acc, part_ml,
-                       B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream);
-}
-
-extern "C" int repro_flash_prefill_bf16(const void* q, const void* k, const void* v,
-                                        void* out, const void* items, int n_items,
-                                        const void* merges, void* counters, void* part_acc,
-                                        void* part_ml, int B, int H, int Kv, int Gc, int Sq,
-                                        int Sk, int q_offset, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, items, n_items, merges, counters, part_acc,
-                               part_ml, B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream);
+  return launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(out), items, n_items,
+                merges, counters, part_acc, part_ml, B, H, Kv, Gc, Sq, Sk, q_offset, scale,
+                stream);
 }

@@ -22,7 +22,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (
-    "bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "paged_attend.cu", "l2norm.cu",
+    "bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "flash_prefill_bf16.cu",
+    "paged_attend.cu", "l2norm.cu",
 )
 BUILD_DIR = _PKG.parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -58,7 +59,7 @@ _SIGNATURES = {
     # (w, partials, max_parts, out, n, stream)
     "repro_l2norm_sq": [_P, _P, _I, _P, ctypes.c_longlong, _P],
 }
-# the bf16 instantiations of the attention kernels take the fp32 ones' arguments
+# the bf16 attention kernels take the fp32 ones' arguments
 _SIGNATURES["repro_flash_prefill_bf16"] = _SIGNATURES["repro_flash_prefill"]
 _SIGNATURES["repro_paged_attend_bf16"] = _SIGNATURES["repro_paged_attend"]
 

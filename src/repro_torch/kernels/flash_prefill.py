@@ -4,15 +4,16 @@ Counterpart of ``repro.kernels.flash_prefill.flash_prefill``: causal
 online-softmax GQA attention with ``q_offset``, fp32 running max, sum and
 accumulator, masked scores ``-1e30``, output ``acc / max(l, 1e-30)`` in
 q's dtype, for fp32 or bf16 q, k and v (all of one type; bf16 inputs are
-taken as their exact fp32 values). The kernel is
-``csrc/flash_prefill.cu``, one instantiation a type: fp32 FMAs on the CUDA
-cores over a
-work list that :func:`flash_work` builds on the host, each item 64 query
-rows of ``Gc`` heads sharing a kv head and a range of their unmasked
-64-key tiles; a long unit's tiles are cut into pieces whose partials the
-unit's last piece to finish merges in a fixed order. On a CPU tensor the
-wrapper runs the plain version ``ref.flash_prefill_ref``; on a CUDA
-tensor it launches the kernel or raises.
+taken as their exact fp32 values). Two kernels walk one kind of work list,
+which :func:`flash_work` builds on the host: each item 64 query rows of
+``Gc`` heads sharing a kv head and a range of their unmasked 64-key tiles;
+a long unit's tiles are cut into pieces whose partials the unit's last
+piece to finish merges in a fixed order. ``csrc/flash_prefill.cu`` takes
+fp32, in fp32 FMAs on the CUDA cores; ``csrc/flash_prefill_bf16.cu`` takes
+bf16, its two products on the bf16 tensor cores (``wgmma``, p · v as three
+bf16 terms of each fp32 p, every product exact). On a CPU tensor the
+wrapper runs the plain version ``ref.flash_prefill_ref``; on a CUDA tensor
+it launches the kernel or raises.
 
 ``flash_prefill.launches`` counts launches of the fp32 kernel,
 ``flash_prefill.launches_bf16`` of the bf16 one (never plain-version
@@ -36,18 +37,26 @@ KEY_TILE = 64   # keys the kernel takes a step
 # A constant, so that the work list, and with it the bits of the result,
 # depend on one sequence's shape alone (not on the card, nor on the batch).
 SLOTS = 264
+# The bf16 kernel's: one CTA an SM, whose two warpgroups take the first and
+# the second half of an item's tiles and merge in shared memory, and a merge
+# of pieces costs about two tiles; so it cuts pieces only where a batch
+# row's units would leave most of the card idle, and never below a tile for
+# each warpgroup
+SLOTS_BF16 = 48
+MIN_TILES_BF16 = 2
 
 
 def flash_work(B: int, H: int, Kv: int, Sq: int, Sk: int, q_offset: int,
-               slots: int = SLOTS):
+               slots: int = SLOTS, min_tiles: int = 1):
     """The kernel's work list, a pure function of the shapes.
 
     A unit is 64 query rows: ``Gc = gcd(H / Kv, 4)`` heads of one kv head
     at ``64 / Gc`` positions each; unit ``u`` is ``((b * H / Gc + hg) *
     nqb + qb)`` with ``nqb = Sq / (64 / Gc)``. Its unmasked keys are the
     first ``min(Sk, q_offset + (qb + 1) * 64 / Gc)``, in ``n`` 64-key tiles.
-    A unit whose ``n`` exceeds ``kmax = ceil(tiles of one batch row /
-    slots)`` (the tiles of its ``H / Gc`` head groups; no ``B`` in it) is
+    A unit whose ``n`` exceeds ``kmax = max(min_tiles, ceil(tiles of one
+    batch row / slots))`` (the tiles of its ``H / Gc`` head groups; no ``B``
+    in it) is
     cut into ``ceil(n / kmax)`` near-equal pieces of consecutive tiles,
     each with its own partial slot. So a row's items, pieces and merge
     order are the same alone or in any batch, and its bits do not depend
@@ -59,7 +68,7 @@ def flash_work(B: int, H: int, Kv: int, Sq: int, Sk: int, q_offset: int,
     bq = UNIT_ROWS // Gc
     nqb, groups = Sq // bq, B * (H // Gc)
     need = [-(-min(Sk, q_offset + (qb + 1) * bq) // KEY_TILE) for qb in range(nqb)]
-    kmax = max(1, -(-sum(need) * (H // Gc) // slots))
+    kmax = max(min_tiles, -(-sum(need) * (H // Gc) // slots))
     items, merges, n_parts = [], [], 0
     for unit in range(groups * nqb):
         n = need[unit % nqb]
@@ -76,11 +85,12 @@ def flash_work(B: int, H: int, Kv: int, Sq: int, Sk: int, q_offset: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _device_work(B, H, Kv, Sq, Sk, q_offset, device):
-    """:func:`flash_work` packed as the kernel reads it, int32 ``(n, 4)``
-    tensors on ``device``, built once per shape (the copy to the card is the
-    only host-device traffic)."""
-    Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, q_offset)
+def _device_work(B, H, Kv, Sq, Sk, q_offset, bf16, device):
+    """:func:`flash_work` packed as the kernel (fp32, or ``bf16``) reads it,
+    int32 ``(n, 4)`` tensors on ``device``, built once per shape (the copy
+    to the card is the only host-device traffic)."""
+    tiling = (SLOTS_BF16, MIN_TILES_BF16) if bf16 else (SLOTS, 1)
+    Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, q_offset, *tiling)
     packed = [(u, lo | hi << 16, slot, merge) for u, lo, hi, slot, merge in items]
     as_dev = lambda rows: torch.tensor(rows, dtype=torch.int32).reshape(-1, 4).to(device)
     return Gc, as_dev(packed), as_dev([(a, n, 0, 0) for a, n in merges]), n_parts
@@ -125,15 +135,16 @@ def flash_prefill(
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs q/k/v 16-byte aligned")
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
     if Sq:
-        Gc, items, merges, n_parts = _device_work(B, H, Kv, Sq, Sk, int(q_offset), q.device)
+        Gc, items, merges, n_parts = _device_work(B, H, Kv, Sq, Sk, int(q_offset), bf16,
+                                                  q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         counters = workspace("flash_prefill.counters", q.device, stream, merges.shape[0],
                              torch.int32)
         # partials: acc (n_parts, 64, 128), then m and l (n_parts, 2, 64)
         scratch = workspace("flash_prefill.partials", q.device, stream,
                             n_parts * UNIT_ROWS * (hd + 2), torch.float32)
-        bf16 = q.dtype == torch.bfloat16
         lib = library()
         fn = lib.repro_flash_prefill_bf16 if bf16 else lib.repro_flash_prefill
         with torch.cuda.device(q.device):

@@ -78,7 +78,7 @@ from repro_torch.dist.spec import MeshCfg, mesh_coords
 from repro_torch.models.attention import PAGED, check_cache_geometry, leaves
 from repro_torch.plan import PrecisionPlan
 from repro_torch.serve.api import Request, SamplingParams
-from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.sampling import sample_tokens, seed_words
 from repro_torch.serve.spec import (
     DraftBundle,
     DraftRunner,
@@ -475,7 +475,7 @@ class ServeEngine:
         self._temp[slot] = s.temperature
         self._top_p[slot] = s.top_p
         self._top_k[slot] = s.top_k
-        self._seed[slot] = s.seed & 0xFFFFFFFF  # a uint32, as the reference's key takes it
+        self._seed[slot] = seed_words(s.seed)  # a uint32, as the reference's key takes it
         self._nemit[slot] = 0
 
     def _clear_sampling_slot(self, slot: int) -> None:
@@ -704,6 +704,9 @@ class ServeEngine:
         if not ok:
             raise CapacityError(f"request {req.rid}: no free slot/pages for admission")
         self._validate(req)
+        # the reference raises OverflowError for a seed outside [0, 2**32)
+        # once the slot and the prefill are spent; here before either is
+        seed_words(req.sampling.seed)
         rec = self._ensure_rec()
         S, page = len(req.prompt_ids), self.page_size
         slot, row = self._alloc_residency(req, hits)
@@ -737,7 +740,7 @@ class ServeEngine:
         del pcaches
         s = req.sampling
         sampling = None if s.greedy else (  # the first token is emitted index 0
-            [s.temperature], [s.top_p], [s.top_k], [s.seed & 0xFFFFFFFF], [0])
+            [s.temperature], [s.top_p], [s.top_k], [s.seed], [0])
         tok_planes = self._sample(logits, sampling)  # (w, 1) — d2h first id
         rec["host_device"] += tok_planes.nbytes
         first = int(unpack_tokens_host(tok_planes)[0])
@@ -1020,7 +1023,7 @@ def generate_static(
             temp = np.asarray([p.temperature for p in rows], np.float32)
             topp = np.asarray([p.top_p for p in rows], np.float32)
             topk = np.asarray([p.top_k for p in rows], np.int32)
-            seed = np.asarray([p.seed & 0xFFFFFFFF for p in rows], np.uint32)
+            seed = seed_words([p.seed for p in rows])  # OverflowError past uint32
 
             def pick(lg, step):
                 return sample_tokens(lg[:, -1], cfg.vocab_size, temp, topp, topk, seed,

@@ -8,9 +8,10 @@ seed, n)``. Its uniform draw is the reference's
     ``jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed), n))``
 
 on the threefry of :mod:`repro_torch.random`, with the seed taken as a
-uint32 (the reference casts seeds to ``uint32``, whose key is ``(0,
-seed)``; a larger int wraps modulo 2**32 as ``np.uint32`` arithmetic
-does). The draws are bit-equal to the reference's.
+uint32 as the reference takes it (its key is ``(0, seed)``): a Python int
+outside ``[0, 2**32)`` raises ``OverflowError``, as numpy's conversion to
+``uint32`` does in the reference, while a wider numpy array wraps modulo
+2**32, as its cast does. The draws are bit-equal to the reference's.
 
 Every op of :func:`sample_tokens` reduces along the vocabulary axis only
 (a stable argsort, a softmax and prefix sums accumulated in fp64, and a
@@ -31,7 +32,7 @@ import torch
 from repro_torch import random as R
 from repro_torch.plan.plan import SamplingParams
 
-__all__ = ["SamplingParams", "fold_key", "sample_tokens", "uniform_for"]
+__all__ = ["SamplingParams", "fold_key", "sample_tokens", "seed_words", "uniform_for"]
 
 
 def fold_key(seed: int, step: int) -> R.Key:
@@ -42,11 +43,27 @@ def fold_key(seed: int, step: int) -> R.Key:
 
 
 def _words(x) -> np.ndarray:
-    """Seeds or steps as uint32 words on the host (ints, lists, numpy or
-    tensors on any device; wider ints wrap modulo 2**32)."""
+    """Steps as int32 words on the host, held as uint32 (ints, lists, numpy
+    or tensors on any device; wider ints wrap modulo 2**32)."""
     if torch.is_tensor(x):
         x = x.detach().cpu().numpy()
     return (np.asarray(x).astype(np.int64) & R._M).astype(np.uint32)
+
+
+def seed_words(seed) -> np.ndarray:
+    """Seeds as the reference's ``np.uint32`` / ``jnp.uint32`` conversion
+    takes them: Python ints (alone or in lists) outside ``[0, 2**32)``
+    raise ``OverflowError``; numpy arrays and tensors are cast, wider
+    words wrapping modulo 2**32."""
+    if torch.is_tensor(seed):
+        seed = seed.detach().cpu().numpy()
+    if isinstance(seed, (np.ndarray, np.generic)):
+        return np.asarray(seed).astype(np.uint32)
+    ints = np.asarray(seed, dtype=object).reshape(-1)
+    bad = [int(x) for x in ints if not 0 <= int(x) <= R._M]
+    if bad:
+        raise OverflowError(f"Python integer {bad[0]} out of bounds for uint32")
+    return np.asarray(seed, dtype=np.int64).astype(np.uint32)
 
 
 def _rotl_words(x: np.ndarray, r: int) -> np.ndarray:
@@ -57,9 +74,10 @@ def uniform_for(seed, step) -> torch.Tensor:
     """One float32 uniform draw on [0, 1) per (seed, step) pair, broadcast
     to a common shape, on the host: ``uniform(fold_key(seed, step), ())``
     for every pair, bit-equal to the reference's. Seeds are uint32 and
-    steps int32 words, as in the reference; the hash runs on numpy uint32
-    words, whose adds wrap as threefry's do."""
-    seed, step = np.broadcast_arrays(_words(seed), _words(step))
+    steps int32 words, as in the reference (:func:`seed_words`: a Python
+    int seed outside ``[0, 2**32)`` raises ``OverflowError``); the hash
+    runs on numpy uint32 words, whose adds wrap as threefry's do."""
+    seed, step = np.broadcast_arrays(seed_words(seed), _words(step))
     zero = np.zeros_like(seed)
     k0, k1 = R._hash(zero, seed, zero, step, _rotl_words, R._M)  # fold_in: count [0, step]
     b0, b1 = R._hash(k0, k1, zero, zero, _rotl_words, R._M)  # bits(key, ()): count [0, 0]

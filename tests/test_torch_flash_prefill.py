@@ -19,7 +19,8 @@ from repro.kernels.flash_prefill import flash_prefill as j_flash
 from repro.kernels.flash_prefill import flash_prefill_ref as j_flash_ref
 from repro.models.attention import attend_tiled as j_attend_tiled
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_prefill import KEY_TILE, SLOTS, flash_prefill, flash_work
+from repro_torch.kernels.flash_prefill import (KEY_TILE, MIN_TILES_BF16, SLOTS, SLOTS_BF16,
+                                              flash_prefill, flash_work)
 from repro_torch.models import attention as ta
 
 ATOL = 2e-5
@@ -126,21 +127,32 @@ def _unit_rows(unit, Gc, Sq, H):
     return b, [hg * Gc + r // bq for r in range(64)], [qb * bq + r % bq for r in range(64)]
 
 
-@pytest.mark.parametrize("shape", WORK_SHAPES, ids=lambda c: "x".join(map(str, c)))
-def test_work_list_covers_every_unmasked_tile_once(shape):
+def _tilings(shapes):
+    """Each shape at the fp32 kernel's tiling (``(slots, min_tiles)``; ids
+    as the shape), then at the bf16 kernel's (ids ``bf16-`` and the
+    shape)."""
+    name = lambda c: "x".join(map(str, c))  # noqa: E731
+    return [pytest.param(s, (SLOTS, 1), id=name(s)) for s in shapes] + \
+        [pytest.param(s, (SLOTS_BF16, MIN_TILES_BF16), id=f"bf16-{name(s)}") for s in shapes]
+
+
+@pytest.mark.parametrize("shape,tiling", _tilings(WORK_SHAPES))
+def test_work_list_covers_every_unmasked_tile_once(shape, tiling):
     """Every (unit, unmasked 64-key tile) pair is in exactly one item, no
     tile lies past Sk or wholly above the diagonal, the units cover every
     (b, head, position) once, a split unit's pieces are near-equal runs of
     consecutive tiles on consecutive partial slots, no item holds more
-    than ``ceil(tiles of one batch row / SLOTS)`` tiles unless its unit is
-    whole, and the items come longest first."""
+    than ``max(min_tiles, ceil(tiles of one batch row / slots))`` tiles
+    unless its unit is whole, and the items come longest first; at either
+    kernel's tiling."""
     B, H, Kv, Sq, Sk, off = shape
-    Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, off)
+    slots, min_tiles = tiling
+    Gc, items, merges, n_parts = flash_work(B, H, Kv, Sq, Sk, off, slots, min_tiles)
     assert Gc in (1, 2, 4) and (H // Kv) % Gc == 0
     bq = 64 // Gc
     units = B * (H // Gc) * (Sq // bq)
     need = [-(-min(Sk, off + (u % (Sq // bq) + 1) * bq) // KEY_TILE) for u in range(units)]
-    kmax = max(1, -(-sum(need) // B // SLOTS))  # every row has the same tiles
+    kmax = max(min_tiles, -(-sum(need) // B // slots))  # every row has the same tiles
     seen = {}
     for unit, lo, hi, slot, merge in items:
         _, _, pos = _unit_rows(unit, Gc, Sq, H)
@@ -171,10 +183,10 @@ def test_work_list_covers_every_unmasked_tile_once(shape):
     assert lengths == sorted(lengths, reverse=True)
 
 
-def _row_work(B, H, Kv, Sq, Sk, off, b):
+def _row_work(B, H, Kv, Sq, Sk, off, b, tiling):
     """Row ``b``'s items as ``(unit within the row, first tile, end tile,
     pieces of its unit)`` in list order, and its merges' piece counts."""
-    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, Sk, off)
+    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, Sk, off, *tiling)
     per_row = (H // Gc) * (Sq // (64 // Gc))
     pieces = lambda merge: 1 if merge < 0 else merges[merge][1]  # noqa: E731
     mine = [(u - b * per_row, lo, hi, pieces(m)) for u, lo, hi, _, m in items
@@ -182,50 +194,64 @@ def _row_work(B, H, Kv, Sq, Sk, off, b):
     return mine, sorted(n for _, _, _, n in mine if n > 1)
 
 
-@pytest.mark.parametrize("shape", [(16, 8, 512, 512, 0), (16, 8, 256, 256, 0),
-                                   (16, 8, 128, 512, 384), (4, 2, 128, 384, 256)],
-                         ids=lambda c: "x".join(map(str, c)))
-def test_a_rows_work_list_does_not_depend_on_the_batch(shape):
+@pytest.mark.parametrize("shape,tiling", _tilings([
+    (16, 8, 512, 512, 0), (16, 8, 256, 256, 0), (16, 8, 128, 512, 384), (4, 2, 128, 384, 256),
+    (8, 4, 512, 512, 0)]))
+def test_a_rows_work_list_does_not_depend_on_the_batch(shape, tiling):
     """A row's items, their tile ranges and pieces, and so its merge order,
     are the same alone and as any row of a batch of 2 or 4: the piece size
     comes from one row's tiles, never from B. (Phase 7's static run
-    prefills 512-token prompts at B=2, the engine at B=1.)"""
+    prefills 512-token prompts at B=2, the engine at B=1.) At either
+    kernel's tiling, and at the tp-2 heads."""
     H, Kv, Sq, Sk, off = shape
-    alone = _row_work(1, H, Kv, Sq, Sk, off, 0)
+    alone = _row_work(1, H, Kv, Sq, Sk, off, 0, tiling)
     assert alone[0]
     for B in (2, 4):
         for b in range(B):
-            assert _row_work(B, H, Kv, Sq, Sk, off, b) == alone, (B, b)
+            assert _row_work(B, H, Kv, Sq, Sk, off, b, tiling) == alone, (B, b)
 
 
-def _pieces_and_merge(q, k, v, q_offset, slots):
-    """The kernel's algebra in plain PyTorch: each item's softmax over its
-    tiles (rows fully masked in a piece score -1e30 throughout), a whole
-    unit normalised in place, a split unit's partials merged in piece
-    order."""
+def _merged(parts):
+    """``(m, l, acc)`` partials merged in order, as the kernels do."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    return (m, sum(wi * p[1] for wi, p in zip(w, parts)),
+            sum(wi[:, None] * p[2] for wi, p in zip(w, parts)))
+
+
+def _pieces_and_merge(q, k, v, q_offset, slots, halves=False, min_tiles=1):
+    """The kernels' algebra in plain PyTorch: each item's softmax over its
+    tiles (rows fully masked in a piece score -1e30 throughout; with
+    ``halves``, as the bf16 kernel's two warpgroups, over the first and the
+    second half of them, merged in that order), a whole unit normalised in
+    place, a split unit's partials merged in piece order."""
     B, H, Sq, hd = q.shape
     Kv = k.shape[1]
-    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, k.shape[2], q_offset, slots)
+    Gc, items, merges, _ = flash_work(B, H, Kv, Sq, k.shape[2], q_offset, slots, min_tiles)
     out, parts = torch.empty_like(q), {}
     for unit, lo, hi, slot, _ in items:
         b, heads, pos = _unit_rows(unit, Gc, Sq, H)
         kvh = heads[0] // (H // Kv)
-        keys = torch.arange(lo * KEY_TILE, hi * KEY_TILE)
-        s = q[b, heads, pos] @ k[b, kvh, keys].T * hd ** -0.5
-        s = torch.where(torch.tensor(pos)[:, None] + q_offset >= keys[None], s, ref.NEG_INF)
-        m = s.amax(-1)
-        p = torch.exp(s - m[:, None])
+        cuts = [lo, lo + (hi - lo + 1) // 2, hi] if halves else [lo, hi]
+        runs = []
+        for a, e in zip(cuts, cuts[1:]):
+            if a == e:
+                continue
+            keys = torch.arange(a * KEY_TILE, e * KEY_TILE)
+            s = q[b, heads, pos] @ k[b, kvh, keys].T * hd ** -0.5
+            s = torch.where(torch.tensor(pos)[:, None] + q_offset >= keys[None], s, ref.NEG_INF)
+            m = s.amax(-1)
+            p = torch.exp(s - m[:, None])
+            runs.append((m, p.sum(-1), p @ v[b, kvh, keys]))
+        m, l, acc = _merged(runs)
         if slot < 0:
-            out[b, heads, pos] = (p @ v[b, kvh, keys]) / torch.clamp(p.sum(-1), min=1e-30)[:, None]
+            out[b, heads, pos] = acc / torch.clamp(l, min=1e-30)[:, None]
         else:
-            parts[slot] = (unit, m, p.sum(-1), p @ v[b, kvh, keys])
+            parts[slot] = (unit, m, l, acc)
     for first, n in merges:
         unit = parts[first][0]
         b, heads, pos = _unit_rows(unit, Gc, Sq, H)
-        m = torch.stack([parts[first + i][1] for i in range(n)]).amax(0)
-        w = [torch.exp(parts[first + i][1] - m) for i in range(n)]
-        l = sum(w[i] * parts[first + i][2] for i in range(n))
-        acc = sum(w[i][:, None] * parts[first + i][3] for i in range(n))
+        _, l, acc = _merged([parts[first + i][1:] for i in range(n)])
         out[b, heads, pos] = acc / torch.clamp(l, min=1e-30)[:, None]
     return out
 
@@ -233,18 +259,21 @@ def _pieces_and_merge(q, k, v, q_offset, slots):
 @pytest.mark.parametrize("shape", [(1, 4, 2, 256, 256, 0), (2, 4, 1, 128, 384, 256),
                                    (1, 8, 2, 192, 320, 128)],
                          ids=lambda c: "x".join(map(str, c)))
-@pytest.mark.parametrize("slots", [1, 16, 256])
+@pytest.mark.parametrize("slots", [1, 16, 256, SLOTS_BF16])
 def test_pieces_and_merge_match_plain_version(shape, slots):
     """Cutting a unit's tiles into pieces and merging their partials is
     the reference's attention (within ATOL), from whole units (one slot)
     down to one tile a piece; a row wholly masked in a piece weighs
-    exactly 0."""
+    exactly 0. At the bf16 kernel's tiling each item is also cut in halves
+    merged in shared memory, as its two warpgroups do."""
     B, H, Kv, Sq, Sk, off = shape
-    merges = flash_work(B, H, Kv, Sq, Sk, off, slots)[2]
-    assert bool(merges) == (slots > 1) or slots == 16  # 16: as the shape falls
+    bf16 = slots == SLOTS_BF16
+    min_tiles = MIN_TILES_BF16 if bf16 else 1
+    merges = flash_work(B, H, Kv, Sq, Sk, off, slots, min_tiles)[2]
+    assert bool(merges) == (slots > 1) or slots in (16, SLOTS_BF16)  # as the shape falls
     q, k, v = map(torch.from_numpy, _qkv(B, H, Kv, Sq, Sk, 128, seed=Sq + slots))
     want = ref.flash_prefill_ref(q, k, v, q_offset=off, block_q=64, block_k=64)
-    got = _pieces_and_merge(q, k, v, off, slots)
+    got = _pieces_and_merge(q, k, v, off, slots, halves=bf16, min_tiles=min_tiles)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
 
 
@@ -267,6 +296,60 @@ def test_viability_rule(device, hd, Sq, Sk, window, pos, want):
     assert ta._flash_prefill_viable(True, window, False, pos, qg, k) is want
     assert not ta._flash_prefill_viable(False, None, False, 0, qg, k)
     assert not ta._flash_prefill_viable(True, None, True, 0, qg, k)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's exact P . V: p as three bf16 terms
+# ---------------------------------------------------------------------------
+
+
+def _split3(p: torch.Tensor):
+    """The bf16 kernel's split of fp32 ``p`` (``split3`` in
+    ``csrc/flash_prefill_bf16.cu``): each term the top 16 bits of what is
+    left (a bf16 by truncation), the remainders taken in fp32. Returns the
+    terms as fp32 tensors."""
+    def top(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)  # 0xFFFF0000
+
+    hi = top(p)
+    r = p - hi
+    mid = top(r)
+    return hi, mid, r - mid
+
+
+def _split_cases(kind):
+    if kind == "uniform in log2":  # the softmax's p = exp2(s - m) over [2^-100, 1]
+        e = np.random.default_rng(21).uniform(-100.0, 0.0, 1_000_000)
+        return torch.from_numpy(np.exp2(e).astype(np.float32)).clamp(2.0**-100, 1.0)
+    powers = torch.ldexp(torch.ones(101), -torch.arange(101)).float()  # 1, 1/2, ..., 2^-100
+    if kind == "powers of two":
+        return powers
+    up = torch.nextafter(powers, torch.full_like(powers, 2.0))
+    down = torch.nextafter(powers, torch.zeros_like(powers))
+    return torch.cat([up[1:], down[:-1]])  # one ulp either side, inside [2^-100, 1]
+
+
+@pytest.mark.parametrize("kind", ["uniform in log2", "powers of two",
+                                  "one ulp either side of a power of two"])
+def test_three_bf16_terms_give_back_p_and_exact_products(kind):
+    """The exactness the bf16 kernel's P . V rests on: each term is a bf16,
+    hi + mid + lo == p bit for bit for fp32 p in [2^-100, 1], and each
+    term's product with a bf16 v is exact in fp32 (8 bits times 8 bits), so
+    three bf16 wgmmas give the fp32 product p . v up to the fp32 sums'
+    order."""
+    p = _split_cases(kind)
+    assert bool(((p >= 2.0**-100) & (p <= 1.0)).all())
+    hi, mid, lo = _split3(p)
+    for term in (hi, mid, lo):  # each a bf16: the low 16 bits are zero
+        assert torch.equal(term.to(torch.bfloat16).float(), term)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, p.double())
+    v = torch.from_numpy(np.random.default_rng(22).normal(0, 1, p.numel())
+                         .astype(np.float32)).to(torch.bfloat16).float()
+    for term in (hi, mid, lo):
+        assert torch.equal((term * v).double(), term.double() * v.double())
+    if kind == "uniform in log2":  # two terms are not enough: the third carries bits of p
+        assert bool((lo != 0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -354,38 +437,48 @@ def bf16_step(x: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(1, 16, 8, 512, 512, 0), (2, 16, 8, 384, 384, 0),
-                                  (1, 16, 8, 128, 512, 384), (1, 4, 4, 256, 256, 0)],
+                                  (1, 16, 8, 128, 512, 384), (1, 4, 4, 256, 256, 0),
+                                  (1, 16, 8, 2048, 2048, 0), (1, 8, 4, 512, 512, 0)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_bf16_kernel_matches_plain_version_on_card(cuda_device, case):
-    """The bf16 kernel (it replaced a refusal of bf16 inputs) against its
-    plain version on the same bf16 inputs: each element within one bf16
-    step of the plain version's, plus the fp32 kernels' bar 1e-5 (both
-    compute in fp32 and round once; the fp32 sums' order moves a value
-    near 0 by more than its own bf16 step). One launch of the bf16 kernel,
-    none of the fp32 one; mixed types raise without a launch."""
+    """The bf16 kernel (wgmma on the tensor cores) against its plain
+    version on the same bf16 inputs: each element within one bf16 step of
+    the plain version's, plus the fp32 kernels' bar 1e-5 (both compute in
+    fp32 and round once; the fp32 sums' order moves a value near 0 by more
+    than its own bf16 step); two calls give the same bits. One launch of
+    the bf16 kernel a call, none of the fp32 one; mixed types raise
+    without a launch."""
     B, H, Kv, Sq, Sk, off = case
     q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                for a in _qkv(B, H, Kv, Sq, Sk, 128, seed=7))
     before = (flash_prefill.launches, flash_prefill.launches_bf16)
     got = flash_prefill(q, k, v, q_offset=off)
+    again = flash_prefill(q, k, v, q_offset=off)
     torch.cuda.synchronize()
-    assert (flash_prefill.launches, flash_prefill.launches_bf16) == (before[0], before[1] + 1)
+    assert (flash_prefill.launches, flash_prefill.launches_bf16) == (before[0], before[1] + 2)
+    assert torch.equal(got, again)
     want = ref.flash_prefill_ref(q, k, v, q_offset=off)
     assert got.dtype == torch.bfloat16
     gap = (got.float() - want.float()).abs()
     assert bool((gap <= bf16_step(want) + 1e-5).all()), float(gap.max())
     with pytest.raises(ValueError, match="bfloat16"):
         flash_prefill(q, k.float(), v)
-    assert flash_prefill.launches_bf16 == before[1] + 1
+    assert flash_prefill.launches_bf16 == before[1] + 2
+
+
+ROW_CASES = [(16, 8, 512, 512, 0), (16, 8, 256, 256, 0), (16, 8, 128, 512, 384)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(16, 8, 512, 512, 0), (16, 8, 256, 256, 0),
-                                  (16, 8, 128, 512, 384)], ids=lambda c: "x".join(map(str, c)))
-def test_a_row_alone_and_in_a_batch_gives_the_same_bits_on_card(cuda_device, case):
-    """A row's output is bit-equal alone and inside batches of 2 and 4."""
+@pytest.mark.parametrize("case,dtype", [
+    *(pytest.param(c, torch.float32, id="x".join(map(str, c))) for c in ROW_CASES),
+    *(pytest.param(c, torch.bfloat16, id="bf16-" + "x".join(map(str, c))) for c in ROW_CASES)])
+def test_a_row_alone_and_in_a_batch_gives_the_same_bits_on_card(cuda_device, case, dtype):
+    """A row's output is bit-equal alone and inside batches of 2 and 4,
+    from either kernel."""
     H, Kv, Sq, Sk, off = case
-    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(4, H, Kv, Sq, Sk, 128, seed=7))
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(4, H, Kv, Sq, Sk, 128, seed=7))
     alone = [flash_prefill(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
                            v[b:b + 1].contiguous(), q_offset=off) for b in range(4)]
     for B in (2, 4):

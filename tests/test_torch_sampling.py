@@ -14,7 +14,8 @@ printed), and on no more than a thousandth of the draws. Within the port
 a row's token is the same alone as in a batch of 8. The engine's and
 ``generate_static``'s sampled streams (reduced qwen3-1.7b, the
 reference's weights converted) equal the reference engine's and static
-run's.
+run's. A seed outside ``[0, 2**32)`` raises ``OverflowError`` in both
+packages' ``uniform_for``, engine admission and ``generate_static``.
 """
 import jax
 import jax.numpy as jnp
@@ -80,9 +81,9 @@ def test_uniform_for_and_fold_key_bit_equal_reference():
     for s, n in ((0, 0), (2**31, 5), (2**32 - 1, 2**31 - 1)):
         key = np.asarray(jax.random.key_data(js.fold_key(np.uint32(s), n)))
         assert ts.fold_key(s, n) == tuple(int(x) for x in key)
-    # larger seeds wrap as uint32 words
-    np.testing.assert_array_equal(ts.uniform_for([2**32 + 5], [3]).numpy(),
-                                  ts.uniform_for([5], [3]).numpy())
+    # a larger seed raises, as the reference's conversion to uint32 does
+    with pytest.raises(OverflowError):
+        ts.uniform_for([2**32 + 5], [3])
 
 
 def _reference_parts(lg, vocab, temp, top_p, top_k, seed, step):
@@ -252,6 +253,9 @@ def streams():
                            cache_capacity=24)
     out["j_engine"] = {k: r.tokens for k, r in eng.run(jreqs).items()}
     out["j_summary"] = eng.wire_summary()
+    out["setup"] = dict(jcfg=jcfg, jmesh=jmesh, jspec=jspec, jstorage=jstorage, jplan=jplan,
+                        jeng=eng, tcfg=tcfg, tmesh=tmesh, tspec=tspec, tstorage=tstorage,
+                        tplan=tplan, treqs=treqs)
     for paged in (False, True):
         eng = teng.ServeEngine(tcfg, tmesh, None, tspec, tstorage, plan=tplan, max_slots=2,
                                cache_capacity=24, paged=paged, page_size=8)
@@ -281,3 +285,48 @@ def test_sampled_launcher_twin_on_cpu(capsys):
     reqs = launch.build_requests([4, 4], 2, 512, temperature=0.8, seed=100)
     assert [r.sampling.seed for r in reqs] == [100, 101]
     assert launch.build_requests([4], 2, 512)[0].sampling.greedy
+
+
+BIG_SEED = 2**32 + 5
+
+
+@pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "greedy"])
+def test_seed_past_uint32_raises_in_both_packages(streams, sampled):
+    """A seed of 2**32 + 5 raises ``OverflowError`` in both packages'
+    ``uniform_for``, at admission in both engines (the reference converts
+    every request's seed to uint32 there, greedy or not) and in both
+    ``generate_static`` runs of a sampled group. The port's engine raises
+    before it holds a slot or a page: the same stream then serves request
+    2 (seed 2**32 - 1, the largest that is taken) as the reference's
+    engine does, and its slot and page audits pass."""
+    for uniform in (js.uniform_for, ts.uniform_for):
+        with pytest.raises(OverflowError):
+            uniform([BIG_SEED], [3])
+    st = streams["setup"]
+    kw = dict(temperature=0.8, top_p=0.95, top_k=40) if sampled else {}
+    prompt = st["treqs"][0].prompt_ids
+    jbad = jeng.Request(rid=9, prompt_ids=prompt, max_new=3,
+                        sampling=JSampling(seed=BIG_SEED, **kw))
+    tbad = teng.Request(rid=9, prompt_ids=prompt, max_new=3,
+                        sampling=SamplingParams(seed=BIG_SEED, **kw))
+    with pytest.raises(OverflowError):
+        st["jeng"].run([jbad])
+    if sampled:  # an all-greedy group never converts its seeds
+        with pytest.raises(OverflowError):
+            jeng.generate_static(st["jcfg"], st["jmesh"], None, st["jspec"], st["jstorage"],
+                                 [jbad], plan=st["jplan"])
+        with pytest.raises(OverflowError):
+            teng.generate_static(st["tcfg"], st["tmesh"], None, st["tspec"], st["tstorage"],
+                                 [tbad], plan=st["tplan"])
+    for paged in (False, True):
+        eng = teng.ServeEngine(st["tcfg"], st["tmesh"], None, st["tspec"], st["tstorage"],
+                               plan=st["tplan"], max_slots=2, cache_capacity=24, paged=paged,
+                               page_size=8)
+        eng.begin_stream()
+        with pytest.raises(OverflowError):
+            eng.admit(tbad)
+        assert eng.slots.free_slots == 2 and eng.slots.alloc_count == 0
+        eng.admit(st["treqs"][2])
+        while eng._active:
+            eng.decode_tick()
+        assert eng.finish()[2].tokens == streams["j_engine"][2] == streams["j_static"][2]

@@ -7,7 +7,8 @@
 this checkout's), so that two versions of the kernels can be timed in one
 run on one card, in turns (A, B, B, A). The shapes are ``chip_smoke.py``'s
 timed rows: flash at B=1, H=16, Kv=8, S = 128 / 512 / 2048, and at B=2,
-S=512 (phase 7's static prefill); paged decode at phase 9's shape (warm,
+S=512 (phase 7's static prefill), in fp32 and (in a graph) in bf16, where
+the tp-2 heads (H 8, Kv 4, S 512) join them; paged decode at phase 9's shape (warm,
 and with the L2 cold over ``COLD_COPIES`` copies of the pools) and at B=16,
 4096 tokens. ``--split-rows R`` sets ``paged_attend.SPLIT_ROWS`` (the
 logical rows a split of the paged kernel covers) before timing, so that
@@ -68,6 +69,12 @@ def main() -> int:
         name = f"flash S={S}" if B == 1 else f"flash B={B} S={S}"
         us[f"{name} eager"] = cs.time_cuda(torch, fn) * 1e3
         us[f"{name} graph"] = cs.time_graph(torch, [fn], reps=10) * 1e3
+    # the bf16 path: S 128 / 512 / 2048, the tp-2 heads, B=2 at 512
+    for B, H, Kv, S in [(1, 16, 8, S) for S in cs.FLASH_TIMED] + [(1, 8, 4, 512), (2, 16, 8, 512)]:
+        q, k, v = (torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+                   for s in ((B, H, S, 128), (B, Kv, S, 128), (B, Kv, S, 128)))
+        fn = lambda: flash_prefill(q, k, v)  # noqa: E731
+        us[f"bf16 flash B={B} H={H} S={S} graph"] = cs.time_graph(torch, [fn], reps=10) * 1e3
     gen = torch.Generator(device=device).manual_seed(8)
     for label, (B, Kv, G, page, width, P, lengths) in cs.PAGED_TIMED:
         a = cs.paged_inputs(torch, device, gen, B, Kv, G, page, width, P, lengths)
