@@ -267,6 +267,28 @@ Phases, each printing its own lines:
      7's fp32 ones (relative l2, printed). Prints step times, memory peaks
      and the card's name and power limit.
 
+ 17. main path — training I/O on full-width qwen3-1.7b (phase 11's weights
+     from seed 0 and settings, batch 8 x seq 128, remat on), in a fresh
+     temporary directory (at least 40 GB free, else the phase fails; removed
+     at the end): (a) 64 LM shard records (vocab 151,936, seq 128, seed 0)
+     written and read through ``ShardReader(quality=4)`` and
+     ``Prefetcher(depth=2)``, each step's ``io_log`` equal to
+     ``train_ingest_bytes``; (b) six steps of phase 11's AWP plan off the
+     prefetcher; (c) three steps from fresh weights, an ``AsyncCheckpointer``
+     save (residuals, plan, the consumed batch's data state), step 4 while it
+     writes, the manifest's bytes equal to ``train_checkpoint_bytes`` and
+     the files' sizes (16,253,919,232 B), the checkpoint read back into
+     fresh tensors equal to the state at submit (a hash of each leaf's
+     bytes), then steps 4-6 from it and the restored reader: losses, AWP
+     history, final storage and momentum bit-equal to (b); (d) the step-3
+     weights exported without residuals at the wire widths (4,063,727,616
+     B), loaded at ``quality="wire"`` and served (phase 7's first prompt,
+     16 tokens), the stream equal to the same weights truncated in memory.
+     Launch counts and the first launch of each kernel at each shape held
+     to the plain version, as phase 11. Prints write / read MB/s, ingest
+     steps/s, the async submit ms and save s, the load s and GB/s, the
+     bytes and the phase's seconds beside the card's name and power limit.
+
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -3976,6 +3998,448 @@ def bf16_serve_path(torch, device, phase7, *, cfg=None, page=PAGE):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training I/O — shards, the prefetcher, async checkpoints, resume
+# ---------------------------------------------------------------------------
+
+IO_RECORDS = 64  # LM records written, vocab 151,936, seq 128, seed 0
+IO_QUALITY, IO_DEPTH = 4, 2  # the reader's tier and the prefetcher's queue
+IO_STEPS, IO_SAVE_AT = 6, 3  # (b) runs 6 steps; (c) saves after 3 and resumes
+IO_MIN_FREE = 40e9  # one full-width checkpoint (16.25 GB) and one export (4.06 GB)
+# full-width qwen3-1.7b's checkpoint at round_to 2 with SGD momentum and its
+# weights-only export (``train_checkpoint_bytes`` over the reference's tree)
+QWEN3_CKPT_BYTES, QWEN3_EXPORT_BYTES = 16_253_919_232, 4_063_727_616
+
+
+def tree_digest(torch, tree):
+    """``{key path: (s1, s2)}``: each leaf's 32-bit words summed twice on its
+    own device in int64 (wrapping), once plain and once weighted by
+    position: a hash of the leaf's bytes whatever the device, exact to
+    compare."""
+    from repro_torch.checkpoint.sharded import leaf_entries
+
+    out, chunk = {}, 1 << 24
+    for path, x in leaf_entries(tree):
+        w = x.detach().reshape(-1).view(torch.int32)
+        s1 = torch.zeros((), dtype=torch.int64, device=w.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=w.device)
+        for i in range(0, w.numel(), chunk):
+            c = w[i:i + chunk].to(torch.int64)
+            pos = torch.arange(i, i + c.numel(), dtype=torch.int64, device=w.device)
+            s1 += c.sum()
+            s2 += (c * (pos * 0x9E3779B1 + 1)).sum()
+        out[path] = (int(s1), int(s2))
+    return out
+
+
+def truncate_tree(torch, storage, widths):
+    """``storage`` with every leaf of ``widths`` (``assign_widths``'s, < 4)
+    cut to its top ``width`` bytes in memory: the transport's truncation."""
+    from repro_torch.checkpoint.sharded import leaf_entries, tree_from_entries
+
+    def cut(path, x):
+        w = widths.get(path, 4)
+        if w >= 4:
+            return x.clone()
+        mask = -(1 << (32 - 8 * w))  # the top w bytes of an int32 word
+        return (x.view(torch.int32) & mask).view(torch.float32)
+
+    return tree_from_entries(storage, {p: cut(p, x) for p, x in leaf_entries(storage)})
+
+
+def leaf_io_times(torch, storage, widths, root, sync):
+    """Where a checkpoint's time goes, on its largest leaf: the copy to the
+    host, the plane split, the tier writes, the reads, the plane join (both
+    qualities) and the copy back, each with its rate over the leaf's fp32
+    bytes; the leaf must come back bit-equal."""
+    from repro_torch.checkpoint.sharded import (
+        decode_leaf, encode_leaf, host_array, leaf_entries,
+    )
+
+    path, x = max(leaf_entries(storage), key=lambda e: e[1].numel())
+    base, t, times = os.path.join(root, "leaf"), time.perf_counter(), {}
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        times[name], t = now - t, now
+
+    sync()
+    t = time.perf_counter()
+    arr = host_array(x, copy=True)
+    lap("copy to host")
+    wire, res, info = encode_leaf(arr, widths.get(path, 4), True)
+    lap("plane split")
+    for suffix, buf in ((".w.bin", wire), (".r.bin", res)):
+        with open(base + suffix, "wb") as f:
+            f.write(buf)
+    lap("write")
+    del wire, res
+    with open(base + ".w.bin", "rb") as f:
+        wire = f.read()
+    with open(base + ".r.bin", "rb") as f:
+        res = f.read()
+    lap("read")
+    info["path"] = path
+    back = decode_leaf(wire, info, "exact", res)
+    lap("plane join (exact)")
+    y = torch.from_numpy(back).to(x.device)
+    sync()
+    lap("copy to device")
+    decode_leaf(wire, info, "wire")
+    lap("plane join (wire)")
+    check(torch.equal(y.view(torch.int32), x.view(torch.int32)), f"leaf {path} round trip")
+    for suffix in (".w.bin", ".r.bin"):
+        os.remove(base + suffix)
+    nbytes = x.numel() * 4
+    say(f"   (c) where a leaf's time goes ({path}, {nbytes} B fp32 at width {info['width']}): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms ({nbytes / v / 1e9:.2f} GB/s)"
+                    for k, v in times.items()))
+
+
+def io_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+            prompt_len=SERVE_LENS[0], gen=SERVE_GEN, min_free=IO_MIN_FREE):
+    """Training I/O on full-width qwen3-1.7b (phase 11's weights from seed 0
+    and settings): (a) LM shards written and read through the prefetcher,
+    each step's io_log equal to ``train_ingest_bytes``; (b) six steps of
+    phase 11's AWP plan off the prefetcher; (c) three steps from fresh
+    weights, an async save, step 4 while it writes, the checkpoint held to
+    the state at submit, then resumed to step 6 bit-equal to (b); (d) the
+    step-3 weights exported at the wire widths without residuals and
+    served, equal to the same weights truncated in memory. Everything is
+    written under a fresh temporary directory, removed at the end. Launch
+    counts, the packing records and times are read on a card only, so the
+    phase rehearses on the CPU at a reduced config."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.checkpoint.sharded import assign_widths, manifest_bytes, read_meta
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.prefetch import Prefetcher
+    from repro_torch.data.shards import ShardReader, batches, write_lm_shards
+    from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import train_checkpoint_bytes, train_ingest_bytes
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.trees import tree_leaves
+
+    full_width = cfg is None
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    mesh_cfg, nrt = MeshCfg(), cfg.num_groups + 1
+    plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
+                               awp_interval=2)
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    width = plan.host_device_policies()[0].token_wire_width(cfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    seen, packs, monitor, errs = {}, {}, {}, []
+    unwatch = [watch_flash(torch, seen), watch_packing(torch, packs),
+               watch_monitor_lengths(torch, monitor)]
+    zero_counts()
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= min_free, f"phase 17 needs {min_free:.0f} B free under {root}, "
+                                f"has {free} B")
+        say(f"   working directory {root}: {free / 1e9:.1f} GB free")
+
+        # (a) shards
+        shard_dir = os.path.join(root, "shards")
+        t0 = time.perf_counter()
+        manifest = write_lm_shards(shard_dir, vocab=cfg.vocab_size, seq=seq,
+                                   num_records=IO_RECORDS, seed=0)
+        write_s = time.perf_counter() - t0
+        stored = sum(s for sh in manifest["shards"] for r in sh["records"]
+                     for f in r["fields"].values() for s in f["plane_sizes"])
+        on_disk = sum(os.path.getsize(os.path.join(shard_dir, sh["file"]))
+                      for sh in manifest["shards"])
+        check(stored == on_disk, f"shards: manifest {stored} B, files {on_disk} B")
+        reader = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
+        t0 = time.perf_counter()
+        decoded = sum(sum(a.nbytes for a in reader.next_record()[0].values())
+                      for _ in range(reader.num_records))
+        read_s = time.perf_counter() - t0
+        check(reader.bytes_read == stored, f"one epoch read {reader.bytes_read} B of {stored}")
+        reader.close()
+        say(f"   (a) {IO_RECORDS} records of {seq + 1} ids, {stored} B stored "
+            f"({stored / IO_RECORDS:.1f} B a record, {decoded} B decoded): write "
+            f"{stored / write_s / 1e6:.3f} MB/s stored ({write_s * 1e3:.1f} ms), read "
+            f"{stored / read_s / 1e6:.3f} MB/s stored, {decoded / read_s / 1e6:.3f} MB/s "
+            f"decoded ({read_s * 1e3:.1f} ms)")
+        say(f"   (a) the AWP plan's host_device policy (round_to "
+            f"{plan.host_device_policies()[0].round_to}) stages ids at {width} B: "
+            + ("it compresses" if width < 4 else "raw int32")
+            + f", {batch * (seq + 1) * width} B a step")
+
+        def trainer():
+            def builder(rts):
+                return make_train_step(cfg, mesh_cfg, None, spec_tree, opt, shapes,
+                                       plan=plan.with_round_tos(rts))
+            return Trainer(builder, nrt, plan=plan,
+                           dist_elems_per_group=dist_elems_per_group(spec_tree, mesh_cfg, nrt))
+
+        def fresh():
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            spec, storage, mom = setup(cfg, mesh_cfg, device=device)
+            sync()
+            return spec, storage, mom, time.perf_counter() - t0
+
+        class Feed:
+            """The prefetcher over a reader at ``state``, each io_log held to
+            ``train_ingest_bytes`` priced from the consumed position."""
+
+            def __init__(self, state=None):
+                self.reader = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
+                self.planner = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
+                if state is not None:
+                    self.reader.load_state(state)
+                    self.planner.load_state(state)
+                self.pf = Prefetcher(batches(self.reader, batch), kind="lm",
+                                     vocab=cfg.vocab_size, plan=plan, depth=IO_DEPTH,
+                                     device=device)
+                self.wait_s, self.logs = 0.0, []
+
+            def next(self):
+                want = train_ingest_bytes(plan, cfg.vocab_size, kind="lm", batch=batch,
+                                          seq=seq, steps=1, reader=self.planner)
+                t0 = time.perf_counter()
+                b, log = self.pf.next()
+                self.wait_s += time.perf_counter() - t0
+                check({"shard_read": log["shard_read"], "host_device": log["host_device"]}
+                      == {"shard_read": want["shard_read"], "host_device": want["ingest_h2d"]},
+                      f"io_log {log} != train_ingest_bytes {want}")
+                check(tuple(b["tokens"].shape) == (batch, seq)
+                      and b["tokens"].dtype == torch.int32, f"batch {b['tokens'].shape}")
+                self.planner.load_state(log["data_state"])
+                self.logs.append(log)
+                return b, log
+
+            def close(self):
+                self.pf.close()
+                self.reader.close()
+                self.planner.close()
+
+        def steps(tr, storage, mom, feed, n):
+            losses, ms = [], []
+            for _ in range(n):
+                b, log = feed.next()
+                sync()
+                t0 = time.perf_counter()
+                storage, mom, m = tr.run_step(storage, mom, b, lr, io_log=log)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(math.isfinite(losses[-1]), f"loss {losses[-1]}")
+                check_seen_packing(torch, packs)
+                check_seen_monitor(monitor, errs)
+            return storage, mom, losses, ms
+
+        # ingest alone: the prefetcher's steps/s with no training behind it,
+        # after a first batch that also starts the worker and the unpack
+        feed = Feed()
+        t0 = time.perf_counter()
+        feed.next()
+        sync()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(IO_STEPS):
+            feed.next()
+        sync()
+        ingest_s = time.perf_counter() - t0
+        feed.close()
+        say(f"   (a) ingest alone: {IO_STEPS / ingest_s:.1f} steps/s ({ingest_s * 1e3:.2f} ms for "
+            f"{IO_STEPS} batches of {batch} x {seq} after a first one of {first_s * 1e3:.2f} ms, "
+            f"depth {IO_DEPTH})")
+
+        # (b) uninterrupted
+        spec_tree, storage, mom, init_s = fresh()
+        tr_b = trainer()
+        feed = Feed()
+        priced = train_ingest_bytes(plan, cfg.vocab_size, kind="lm", batch=batch, seq=seq,
+                                    steps=IO_STEPS, reader=feed.planner)
+        t0 = time.perf_counter()
+        try:
+            storage, mom, losses_b, ms_b = steps(tr_b, storage, mom, feed, IO_STEPS)
+        finally:
+            feed.close()
+        run_b = time.perf_counter() - t0
+        io = tr_b.summary()["io_by_entry"]
+        check(io == {"shard_read": priced["shard_read"], "host_device": priced["ingest_h2d"]},
+              f"(b) io_by_entry {io}, train_ingest_bytes {priced}")
+        hist_b = list(tr_b.bits_history)
+        rts_b = [r.round_tos[0] for r in tr_b.records]
+        final_b = (tree_digest(torch, storage), tree_digest(torch, mom))
+        say(f"   (b) {IO_STEPS} steps off the prefetcher (init {init_s:.2f} s): losses "
+            f"{[round(x, 5) for x in losses_b]}, step ms {[round(x, 1) for x in ms_b]}, "
+            f"{IO_STEPS / run_b:.2f} steps/s, {feed.wait_s * 1e3:.2f} ms waiting on the "
+            f"prefetcher; AWP {hist_b}; io_by_entry {io} == train_ingest_bytes")
+        del storage, mom, tr_b
+
+        # (c) interrupted: 3 steps, async save, step 4 while it writes
+        spec_tree, storage, mom, _ = fresh()
+        tr_c = trainer()
+        feed = Feed()
+        try:
+            storage, mom, losses_c, _ = steps(tr_c, storage, mom, feed, IO_SAVE_AT)
+            rts = tr_c.current_round_tos()
+            state = feed.logs[-1]["data_state"]  # the consumed batch's, not the reader's
+            at_submit = (tree_digest(torch, storage), tree_digest(torch, mom))
+            path = os.path.join(root, "ckpt")
+            ac = C.AsyncCheckpointer()
+            sync()
+            t0 = time.perf_counter()
+            C.save_checkpoint(path, storage, mom, tr_c.controller, IO_SAVE_AT, plan=plan,
+                              spec_tree=spec_tree, round_tos=rts,
+                              extra={"data_state": state}, async_ckpt=ac)
+            submit_s = time.perf_counter() - t0
+            in_flight = ac.in_flight
+            storage, mom, loss4, ms4 = steps(tr_c, storage, mom, feed, 1)
+            step4_s = time.perf_counter() - t0
+            ac.wait()
+            save_s = time.perf_counter() - t0
+        finally:
+            feed.close()
+        check(losses_c + loss4 == losses_b[:IO_SAVE_AT + 1],
+              f"(c) losses {losses_c + loss4} != (b)'s {losses_b[:IO_SAVE_AT + 1]}")
+        d = C.ckpt_dir(path)
+        meta = read_meta(d)
+        mb = manifest_bytes(meta)
+        analytic = train_checkpoint_bytes(storage, mom, spec_tree=spec_tree, round_tos=rts)
+        files = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+                    if f.endswith(".bin"))
+        check(mb == analytic and mb["total"] == files,
+              f"checkpoint bytes: manifest {mb}, train_checkpoint_bytes {analytic}, "
+              f"files {files}")
+        check(not full_width or mb["total"] == QWEN3_CKPT_BYTES,
+              f"checkpoint {mb['total']} B, expected {QWEN3_CKPT_BYTES}")
+        check(meta["extra"] == {"data_state": state} and meta["step"] == IO_SAVE_AT,
+              f"checkpoint meta step {meta['step']}, extra {meta['extra']}")
+        after4 = (tree_digest(torch, storage), tree_digest(torch, mom))
+        check(after4[0] != at_submit[0], "step 4 left the weights unchanged")
+        say(f"   (c) async save at step {IO_SAVE_AT} (round_tos {rts}): submit "
+            f"{submit_s * 1e3:.1f} ms (in flight after submit: {in_flight}), step 4 "
+            f"{ms4[0]:.1f} ms beside the writer, save done {save_s:.2f} s after submit "
+            f"({step4_s:.2f} s to the end of step 4); {mb['total']} B = wire {mb['wire']} + "
+            f"residual {mb['residual']} == train_checkpoint_bytes == the files' sizes")
+        # load into fresh tensors: the state at submit, not after step 4
+        ctl = trainer()
+        like_s, like_m = storage, mom
+        sync()
+        t0 = time.perf_counter()
+        storage, mom, step = C.load_checkpoint(path, like_s, like_m, ctl.controller)
+        sync()
+        load_s = time.perf_counter() - t0
+        del like_s, like_m
+        loaded = (tree_digest(torch, storage), tree_digest(torch, mom))
+        check(loaded == at_submit, "the checkpoint does not read back as the state at submit")
+        check(step == IO_SAVE_AT and ctl.bits_history == hist_b[:len(ctl.bits_history)],
+              f"restored step {step}, AWP {ctl.bits_history}")
+        say(f"   (c) sync load {load_s:.2f} s ({mb['total'] / load_s / 1e9:.2f} GB/s), equal to "
+            f"the state at submit, not to the state after step 4")
+        widths = assign_widths(storage, spec_tree, rts)
+        leaf_io_times(torch, storage, widths, root, sync)
+
+        # (d) the serving hand-off: the step-3 weights at the wire widths
+        export = os.path.join(root, "export")
+        sync()
+        t0 = time.perf_counter()
+        emeta = C.save_checkpoint(export, storage, None, None, IO_SAVE_AT, plan=plan,
+                                  spec_tree=spec_tree, round_tos=rts, residuals=False)
+        export_s = time.perf_counter() - t0
+        eb = manifest_bytes(emeta)
+        check(eb == train_checkpoint_bytes(storage, spec_tree=spec_tree, round_tos=rts,
+                                           residuals=False)
+              and eb["residual"] == 0, f"export bytes {eb}")
+        check(not full_width or eb["total"] == QWEN3_EXPORT_BYTES,
+              f"export {eb['total']} B, expected {QWEN3_EXPORT_BYTES}")
+        t0 = time.perf_counter()
+        wire_w, _ = C.load_storage(export, storage, quality="wire")
+        sync()
+        wire_s = time.perf_counter() - t0
+        truncated = truncate_tree(torch, storage, widths)
+        check(tree_digest(torch, wire_w) == tree_digest(torch, truncated),
+              "the wire tier does not read back as the truncated weights")
+        serve_plan = PrecisionPlan.build(nrt, round_to=2)
+        req = build_requests((prompt_len,), gen, cfg.vocab_size)[0]
+        per_forward = sum(s.reps for g in spec_tree["groups"] for s in tree_leaves(g)
+                          if s.kind == DIST) + sum(
+            1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
+        streams, serve_ms = [], []
+        for w in (wire_w, truncated):
+            t0 = time.perf_counter()
+            engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, w, plan=serve_plan,
+                                 max_slots=1, cache_capacity=prompt_len + gen)
+            streams.append(engine.run([req])[req.rid].tokens)
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            del engine
+        check(streams[0] == streams[1] and len(streams[0]) == gen,
+              f"hand-off streams {streams[0]} != {streams[1]}")
+        del wire_w, truncated
+        say(f"   (d) hand-off: export {eb['total']} B in {export_s:.2f} s, wire load "
+            f"{wire_s:.2f} s ({eb['total'] / wire_s / 1e9:.2f} GB/s); {prompt_len}-token "
+            f"prompt +{gen}: {streams[0]} from the export equal to the weights truncated in "
+            f"memory ({[round(x, 1) for x in serve_ms]} ms)")
+        shutil.rmtree(C.ckpt_dir(export))  # at most one checkpoint and one export on disk
+
+        # (c) resumed: steps 4-6 from the checkpoint and the restored reader
+        feed = Feed(C.load_extra(path)["data_state"])
+        try:
+            storage, mom, losses_r, _ = steps(ctl, storage, mom, feed, IO_STEPS - IO_SAVE_AT)
+        finally:
+            feed.close()
+        check(losses_c + losses_r == losses_b, f"resumed losses {losses_c + losses_r} != "
+                                               f"(b)'s {losses_b}")
+        check(ctl.bits_history == hist_b, f"resumed AWP {ctl.bits_history} != (b)'s {hist_b}")
+        check((tree_digest(torch, storage), tree_digest(torch, mom)) == final_b,
+              "resumed final storage or momentum differs from (b)'s")
+        say(f"   (c) resumed at step {IO_SAVE_AT} to {IO_STEPS}: losses, AWP history, final "
+            f"storage and momentum bit-equal to (b)")
+        got = counts()
+        check_seen_packing(torch, packs)
+        check_seen_flash(seen)
+    finally:
+        for undo in unwatch:
+            undo()
+        shutil.rmtree(root, ignore_errors=True)
+    # launches: every step below 32 bits packs each DIST leaf per use; the
+    # monitor once a leaf a step; each serve forward packs once a leaf
+    group_dist = [s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+    top_dist = [k for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST]
+    per_step = per_forward + (sum(s.reps for s in group_dist) if cfg.remat else 0)
+    train_steps = len(rts_b) + len(tr_c.records) + len(ctl.records)
+    below = sum(rt < 4 for rt in rts_b) + sum(r.round_tos[0] < 4
+                                              for r in tr_c.records + ctl.records)
+    serve_forwards = 2 * gen  # each run: the admission, then gen - 1 decode steps
+    viable = on_card and cfg.head_dim % 128 == 0 and prompt_len % 128 == 0
+    want = {"bitpack": (below * per_step + serve_forwards * per_forward) * on_card,
+            "flash_prefill": 2 * cfg.num_layers * viable, "paged_attend": 0,
+            "l2norm_sq": train_steps * (len(group_dist) + len(top_dist)) * on_card}
+    want["bitunpack"] = want["bitpack"]
+    check(got == want, f"phase 17 launches {got}, expected {want}")
+    if on_card:
+        check(len(monitor) > 0 and len(errs) == len(monitor) and len(packs) > 0,
+              f"held to the plain versions: monitor lengths {sorted(monitor)}, packing "
+              f"{sorted(packs)}")
+    phase_s = time.perf_counter() - t_phase
+    say(f"   launches {got} ({train_steps} train steps, {serve_forwards} serve forwards); "
+        f"phase 17 took {phase_s:.1f} s")
+    return {"launches": got, "phase_s": phase_s,
+            "flash_err": max((r["max_abs_err"] for r in seen.values()), default=0.0),
+            "monitor_err": max(errs, default=0.0), "ckpt_bytes": mb["total"],
+            "export_bytes": eb["total"], "ckpt_rts": rts,
+            "n_params": sum(x.numel() for x in tree_leaves(storage))}
+
+
 def main() -> int:
     import torch
 
@@ -4137,6 +4601,16 @@ def main() -> int:
     say(f"   launches over phase 16's runs: training {lmf['launches']}, bf16 serving "
         f"{bfs['launches']}; phase 16 took {time.perf_counter() - t16:.1f} s")
 
+    say(f"phase 17: main path — training I/O on full-width qwen3-1.7b, batch {LM_BATCH} x seq "
+        f"{LM_SEQ}: (a) {IO_RECORDS} shard records through the prefetcher (depth {IO_DEPTH}), "
+        f"(b) {IO_STEPS} AWP steps, (c) {IO_SAVE_AT} steps + an async checkpoint + resume, "
+        f"(d) the wire-tier serving hand-off; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    io = io_path(torch, device)
+    for k in served:
+        served[k] += io["launches"][k]
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -4154,7 +4628,8 @@ def main() -> int:
         "name": "flash_prefill", "route": "cuda", "source": "src/repro_torch/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:110",
         "launches": served["flash_prefill"],
-        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"], feats["flash_err"]),
+        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"], feats["flash_err"],
+                           io["flash_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -4175,8 +4650,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/l2norm.py:31",
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
-                     + lmf["launches"]["l2norm_sq"]),
-        "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"]),
+                     + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]),
+        "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

@@ -6,6 +6,9 @@ packages see identical batches; they are returned as tensors on the
 requested device (images NHWC float32, labels int64).
 ``synthetic_lm_batch`` is the reference's k-gram token stream, drawn with
 the same numpy calls, so tokens and labels equal the reference's (int32).
+``synthetic_feature_batch`` is the reference's frame embeddings and frame
+labels (the audio family's records; ``data.shards.write_feature_shards``
+stores them), bit-equal to the reference's.
 """
 from __future__ import annotations
 
@@ -80,3 +83,20 @@ def synthetic_lm_batch(
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return put(stream[:, :-1]), put(stream[:, 1:])
+
+
+def synthetic_feature_batch(dim: int, vocab: int, batch: int, seq: int, step: int, *,
+                            seed: int = 0, device="cuda"):
+    """Frame embeddings ``(batch, seq, dim)`` float32 and frame labels
+    ``(batch, seq)`` int32 on ``device``, drawn as the reference draws
+    them: labels and noise from the (seed, step) stream, the codebook from
+    the seed alone (through the bijective uint64 view, so negative seeds
+    work)."""
+    rng = _step_rng(seed, step)
+    labels = rng.integers(0, vocab, (batch, seq))
+    codebook = np.random.default_rng(int(np.uint64(np.int64(seed)))).normal(0, 1, (vocab, dim))
+    feats = codebook[labels] + 0.5 * rng.normal(0, 1, (batch, seq, dim))
+    return (
+        torch.from_numpy(feats.astype(np.float32)).to(device),
+        torch.from_numpy(labels.astype(np.int32)).to(device),
+    )

@@ -35,9 +35,12 @@ whole model at a time on a shared card) and runs the same engine loop on
 its TP slice. Rank 0 prints the reference launcher's lines and, on a
 mesh, the engine's collectives per traffic class against the plan's
 ``serve_wire_table`` (``[OK ...]`` or ``[MISMATCH ...]``). Runs on
-``cuda`` unless ``--device cpu``. Speculative decoding and windows on a
-mesh raise ``NotImplementedError`` (ROADMAP item 7.6); the reference
-launcher's chunks and checkpoint options are not ported.
+``cuda`` unless ``--device cpu``. ``--ckpt`` serves the weights of a
+training checkpoint (``load_storage``, either package's) and takes its
+plan unless ``--plan`` overrides it, as the reference does. Speculative
+decoding and windows on a mesh raise ``NotImplementedError`` (ROADMAP item
+7.6), as does ``--ckpt`` on a mesh (item 9b); the reference launcher's
+chunks option is not ported.
 """
 from __future__ import annotations
 
@@ -45,10 +48,12 @@ import argparse
 import dataclasses
 import os
 import time
+import warnings
 
 import numpy as np
 
 from repro_torch import fp32_math, resolve_device
+from repro_torch.checkpoint.ckpt import load_plan, load_storage
 from repro_torch.configs.registry import ARCHS, get_config, reduced
 from repro_torch.dist.spec import MeshCfg
 from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
@@ -144,6 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV slots resident in the engine (default min(4, requests))")
     ap.add_argument("--plan", default="",
                     help="PrecisionPlan JSON (the layout flags override it)")
+    ap.add_argument("--ckpt", default="",
+                    help="serve the weights (and, unless --plan overrides it, the plan) "
+                         "of a training checkpoint")
     ap.add_argument("--round-to", type=int, default=None,
                     help="ADT weight wire format (plan-builder sugar, default 2; "
                          "ignored with --plan)")
@@ -188,13 +196,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def plan_from_args(args, nrt: int) -> PrecisionPlan:
-    """The reference launcher's plan resolution: ``--plan`` wins, else the
-    precision flags build one (``--round-to`` default 2, ``--act-round-to``
-    default 4); the layout flags override either source."""
+    """The reference launcher's plan resolution: ``--plan`` wins, then the
+    plan saved with ``--ckpt``, else the precision flags build one
+    (``--round-to`` default 2, ``--act-round-to`` default 4); the layout
+    flags override any source."""
+    plan = None
     if args.plan:
-        with open(args.plan) as f:
-            plan = PrecisionPlan.from_json(f.read()).broadcast(nrt)
-    else:
+        plan = PrecisionPlan.from_file(args.plan).broadcast(nrt)
+    elif args.ckpt:
+        plan = load_plan(args.ckpt)
+        if plan is not None:
+            plan = plan.broadcast(nrt)
+        else:
+            warnings.warn(
+                f"checkpoint {args.ckpt} carries no PrecisionPlan: serving falls back to the "
+                "flag-built plan (pass --plan to pin the formats the run used)", stacklevel=2)
+    if plan is None:
         plan = PrecisionPlan.build(
             nrt, round_to=args.round_to if args.round_to is not None else 2,
             act_round_to=args.act_round_to if args.act_round_to is not None else 4)
@@ -220,6 +237,11 @@ def _serve(rank: int, args, params=None) -> dict:
     _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank,
                                   params=params)
     plan = plan_from_args(args, cfg.num_groups + 1)
+    restored = None
+    if args.ckpt:
+        storage, ckpt_step = load_storage(args.ckpt, storage)
+        restored = (f"restored weights from {args.ckpt} (train step {ckpt_step}, "
+                    f"plan rts {plan.round_tos})")
     requests = build_requests([int(s) for s in args.prompt_lens.split(",")], args.gen,
                               cfg.vocab_size, shared_prefix=args.shared_prefix,
                               temperature=args.temperature, top_p=args.top_p,
@@ -231,6 +253,7 @@ def _serve(rank: int, args, params=None) -> dict:
     # it): capped at the window, long prompts wrap instead of overflowing
     cap = max(lens) + args.gen if window is None else min(max(lens) + args.gen, window)
     out = {"cfg": cfg.name, "device": str(device), "lens": lens, "slots": slots,
+           "restored": restored,
            "mesh": mesh_cfg.shape, "trivial": mesh_cfg.trivial, "static": None}
     if args.check_static:
         t0 = time.perf_counter()
@@ -269,6 +292,10 @@ def main(argv=None, *, params=None):
         require_one_device(mesh_cfg, "speculative decoding")
     if args.window:
         require_one_device(mesh_cfg, "sliding-window serving")
+    if args.ckpt and not mesh_cfg.trivial:
+        raise NotImplementedError(
+            f"--ckpt on mesh {args.mesh}: restoring a checkpoint across ranks is not ported "
+            "(ROADMAP item 9b)")
     if mesh_cfg.trivial:
         out = _serve(0, args, params)
     else:
@@ -277,6 +304,8 @@ def main(argv=None, *, params=None):
         threads = 1 if args.device == "cpu" else max(1, (os.cpu_count() or 1) // world)
         out = spawn_ranks(_serve, world, args, params, threads=threads)[0]
     results, summary, analytic, lens = out["results"], out["summary"], out["analytic"], out["lens"]
+    if out["restored"]:
+        print(out["restored"])
     if out["static"] is not None:
         print(f"static one-shot reference: {len(results)} requests in {out['static_s']:.2f}s")
     total_new = sum(len(r.tokens) for r in results.values())

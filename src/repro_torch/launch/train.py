@@ -28,10 +28,28 @@ one more: the collectives' measured wire by class against
 :func:`~repro_torch.train.step.step_wire_table`. Runs on ``cuda`` unless
 ``--device cpu``.
 
+Training I/O, on one device: ``--data-dir`` trains from a shard
+directory (``python -m repro_torch.data.write``) through the
+:class:`~repro_torch.data.prefetch.Prefetcher` (``--data-quality``,
+``--prefetch-depth``), the shards' meta checked against the run, and
+prints the measured ingest bytes against
+:func:`~repro_torch.roofline.analysis.train_ingest_bytes`; ``--ckpt``
+writes a width-aware sharded checkpoint at the end (and every
+``--ckpt-every`` steps, on a worker thread with ``--async-ckpt``) with the
+plan and the consumed batch's data state; ``--resume`` restores storage,
+momentum, the AWP state and the data position from ``--ckpt`` and runs on
+to ``--steps``. A ``--plan`` may carry a ``host_device`` entry (the
+ingest's staging width and the ``host_device`` wire entry).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
+      --steps 6 --data-dir shards/ --ckpt ck --ckpt-every 3 --async-ckpt [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
+      --steps 6 --data-dir shards/ --ckpt ck --resume [--device cpu]
+
 Every flag of the reference that needs a module the port does not have
-raises ``NotImplementedError`` naming its ROADMAP item: ``--ckpt`` and its
-options, ``--resume``, ``--data-dir``, ``--chunks auto``, and a ``--plan``
-with such fields.
+raises ``NotImplementedError`` naming its ROADMAP item: ``--chunks auto``
+(item 12), and on a mesh ``--ckpt`` and its options, ``--resume`` and
+``--data-dir`` (checkpoints and shard ingest across ranks, item 9b).
 """
 from __future__ import annotations
 
@@ -46,8 +64,13 @@ import torch.distributed as dist
 
 from repro_torch import fp32_math, resolve_device
 from repro_torch import random as _random
+from repro_torch.checkpoint.ckpt import (
+    AsyncCheckpointer, load_checkpoint, load_extra, save_checkpoint,
+)
 from repro_torch.configs.registry import ARCHS, get_config, reduced
 from repro_torch.data.pipeline import synthetic_lm_batch
+from repro_torch.data.prefetch import Prefetcher
+from repro_torch.data.shards import ShardReader, batches
 from repro_torch.dist.spec import (
     MeshCfg, build_spec_tree, dist_elems_per_group, leaf_to_local, tree_to_storage,
 )
@@ -55,6 +78,7 @@ from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
 from repro_torch.models.init import init_params
 from repro_torch.optim.sgd import SGDConfig, init_momentum
 from repro_torch.plan import PrecisionPlan
+from repro_torch.roofline.analysis import train_ingest_bytes
 from repro_torch.train.loop import Trainer
 from repro_torch.train.step import COLLECTIVE_CLASSES, make_train_step, step_wire_table
 from repro_torch.utils.trees import tree_leaves, tree_map
@@ -72,13 +96,14 @@ def parse_mesh(spec: str) -> MeshCfg:
 
 def _unported(args) -> list[str]:
     """The set flags that need a module the port does not have."""
+    mesh = not parse_mesh(args.mesh).trivial
     checks = (
         (args.chunks == "auto", "--chunks auto (plan/sweep.py's pick_chunks, ROADMAP item 12)"),
-        (args.ckpt or args.ckpt_every or args.async_ckpt,
-         "--ckpt/--ckpt-every/--async-ckpt (checkpoint/ckpt.py, checkpoint/sharded.py, "
-         "ROADMAP item 9)"),
-        (args.resume, "--resume (checkpoint/ckpt.py, ROADMAP item 9)"),
-        (args.data_dir, "--data-dir (data/shards.py, data/prefetch.py, ROADMAP item 9)"),
+        (mesh and (args.ckpt or args.ckpt_every or args.async_ckpt or args.resume),
+         "--ckpt/--ckpt-every/--async-ckpt/--resume on a mesh (checkpoints across ranks, "
+         "ROADMAP item 9b)"),
+        (mesh and args.data_dir, "--data-dir on a mesh (shard ingest across ranks, "
+                                 "ROADMAP item 9b)"),
     )
     return [what for cond, what in checks if cond]
 
@@ -86,13 +111,7 @@ def _unported(args) -> list[str]:
 def plan_from_args(args, nrt: int) -> PrecisionPlan:
     """CLI flags -> PrecisionPlan (``--plan`` wins outright)."""
     if args.plan:
-        with open(args.plan) as f:
-            plan = PrecisionPlan.from_json(f.read()).broadcast(nrt)
-        if plan.host_device is not None:
-            raise NotImplementedError(
-                f"--plan {args.plan}: host_device staging is not ported for LM training"
-            )
-        return plan
+        return PrecisionPlan.from_file(args.plan).broadcast(nrt)
     schedule, round_to = "awp", 4
     if args.policy == "baseline":
         schedule = "static"
@@ -134,7 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--data-dir", default="")
+    ap.add_argument("--data-dir", default="",
+                    help="train from a tiered shard dir (repro_torch.data.write) through "
+                         "the prefetcher instead of making batches inline")
+    ap.add_argument("--data-quality", type=int, default=4,
+                    help="progressive-record tier: float payloads read only their N most "
+                         "significant byte planes (ids are always lossless)")
+    ap.add_argument("--prefetch-depth", type=int, default=2)
     ap.add_argument("--losses-out", default="",
                     help="write the per-step loss stream as JSON")
     ap.add_argument("--check", default="",
@@ -197,10 +222,31 @@ def rank_device(args, rank: int, world: int) -> torch.device:
     return device
 
 
+def open_shards(args, cfg, plan, device, *, data_state=None, steps: int):
+    """``(reader, prefetcher, ingest)`` for ``--data-dir``: the reader at
+    ``data_state`` (a resumed run's), its meta checked against the run, the
+    analytic ingest bytes of ``steps`` batches priced from its position
+    before the prefetcher reads ahead, and the prefetcher."""
+    reader = ShardReader(args.data_dir, quality=args.data_quality, seed=0)
+    if reader.kind != "lm":
+        raise SystemExit(f"--data-dir holds {reader.kind!r} shards, arch needs 'lm'")
+    for key, want in (("vocab", cfg.vocab_size), ("seq", args.seq)):
+        got = reader.meta.get(key)
+        if got is not None and got != want:
+            raise SystemExit(f"--data-dir {key}={got} does not match run {key}={want}")
+    if data_state is not None:
+        reader.load_state(data_state)
+    ingest = train_ingest_bytes(plan, cfg.vocab_size, kind=reader.kind, batch=args.batch,
+                                seq=args.seq, steps=steps, reader=reader)
+    prefetcher = Prefetcher(batches(reader, args.batch), kind=reader.kind, vocab=cfg.vocab_size,
+                            plan=plan, depth=args.prefetch_depth, device=device)
+    return reader, prefetcher, ingest
+
+
 def _train(rank: int, args, params=None) -> dict:
     """The training loop of :func:`main` on rank ``rank`` (the only one on
     ``1x1``); returns plain data: the header, the trainer's summary, the
-    step records and the per-step step-wire tables."""
+    step records, the per-step step-wire tables and the I/O lines."""
     fp32_math()
     cfg = get_config(args.arch)
     if args.reduced:
@@ -223,28 +269,83 @@ def _train(rank: int, args, params=None) -> dict:
     trainer = Trainer(builder, nrt, plan=plan,
                       dist_elems_per_group=dist_elems_per_group(spec_tree, mesh_cfg, nrt),
                       gather_axis_size=max(mesh_cfg.dshards, 1))
+    notes = {"resumed": None, "ingest": None, "ckpt": None}
+    # -- resume: storage, momentum, AWP state and the data position
+    start_step, data_state = 0, None
+    if args.resume:
+        if not args.ckpt:
+            raise SystemExit("--resume needs --ckpt")
+        storage, mom, start_step = load_checkpoint(args.ckpt, storage, mom, trainer.controller)
+        data_state = load_extra(args.ckpt).get("data_state")
+        notes["resumed"] = f"resumed {args.ckpt} at step {start_step}"
+    if start_step >= args.steps:
+        raise SystemExit(f"checkpoint step {start_step} >= --steps {args.steps}")
+    reader = prefetcher = ingest = None
+    if args.data_dir:
+        reader, prefetcher, ingest = open_shards(args, cfg, plan, device, data_state=data_state,
+                                                 steps=args.steps - start_step)
+    async_ckpt = AsyncCheckpointer() if args.async_ckpt else None
+
+    def checkpoint(step):
+        save_checkpoint(args.ckpt, storage, mom, trainer.controller, step, plan=plan,
+                        spec_tree=spec_tree, round_tos=trainer.current_round_tos(),
+                        extra={"data_state": data_state} if data_state else None,
+                        async_ckpt=async_ckpt)
+
     t0, elapsed, step_tables = time.time(), [], []
-    for step in range(args.steps):
-        tokens, labels = synthetic_lm_batch(cfg.vocab_size, B, S, step, device=device)
-        extra = (_random.PRNGKey(step),) if plan.needs_rng else ()
-        storage, mom, _ = trainer.run_step(
-            storage, mom, {"tokens": tokens, "labels": labels}, args.lr, *extra
-        )
-        elapsed.append(time.time() - t0)
-        step_tables.append(step_wire_table(
-            plan.with_round_tos(trainer.records[-1].round_tos), cfg, spec_tree, mesh_cfg,
-            (B, S)))
+    try:
+        for step in range(start_step, args.steps):
+            io_log = None
+            if prefetcher is not None:
+                batch, io_log = prefetcher.next()
+                # the consumed batch's position: the reader is ahead by the queue
+                data_state = io_log["data_state"]
+            else:
+                tokens, labels = synthetic_lm_batch(cfg.vocab_size, B, S, step, device=device)
+                batch = {"tokens": tokens, "labels": labels}
+            extra = (_random.PRNGKey(step),) if plan.needs_rng else ()
+            storage, mom, _ = trainer.run_step(storage, mom, batch, args.lr, *extra,
+                                               io_log=io_log)
+            elapsed.append(time.time() - t0)
+            step_tables.append(step_wire_table(
+                plan.with_round_tos(trainer.records[-1].round_tos), cfg, spec_tree, mesh_cfg,
+                (B, S)))
+            if args.ckpt and args.ckpt_every and (
+                    (step + 1) % args.ckpt_every == 0 and step + 1 < args.steps):
+                checkpoint(step + 1)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+            reader.close()
+    summary = trainer.summary()
+    if ingest is not None:
+        io = summary.get("io_by_entry", {})
+        measured = {"shard_read": io.get("shard_read", 0),
+                    "ingest_h2d": io.get("host_device", 0)}
+        analytic = {k: ingest[k] for k in measured}
+        status = "OK" if measured == analytic else "MISMATCH"
+        notes["ingest"] = f"ingest bytes measured {measured} analytic {analytic} [{status}]"
+        if measured != analytic:
+            raise SystemExit(f"{notes['ingest']}: measured ingest bytes != analytic model")
+    if args.ckpt:
+        checkpoint(args.steps)
+        if async_ckpt is not None:
+            async_ckpt.wait()
+        notes["ckpt"] = f"checkpoint -> {args.ckpt} (plan + data state persisted)"
     n = sum(math.prod(s.logical) * s.reps for s in tree_leaves(spec_tree))
     return {
         "header": f"{cfg.name}: {n/1e6:.1f}M params, mesh {mesh_cfg.shape}, "
                   f"schedule {plan.schedule.source}, rts {plan.round_tos}",
-        "summary": trainer.summary(),
+        "summary": summary,
         "records": [dict(loss=r.loss, round_tos=r.round_tos, wire_bytes=r.wire_bytes,
-                         measured=r.measured_by_entry, stage_s=r.stage_s, wall_s=r.wall_s)
+                         measured=r.measured_by_entry, stage_s=r.stage_s, wall_s=r.wall_s,
+                         io=r.io_by_entry)
                     for r in trainer.records],
         "elapsed": elapsed,
         "step_tables": step_tables,
         "trivial": mesh_cfg.trivial,
+        "start_step": start_step,
+        "notes": notes,
     }
 
 
@@ -267,10 +368,12 @@ def main(argv=None, *, params=None) -> dict:
         threads = 1 if args.device == "cpu" else max(1, (os.cpu_count() or 1) // world)
         out = spawn_ranks(_train, world, args, params, threads=threads)[0]
     print(out["header"])
-    records = out["records"]
+    records, start, notes = out["records"], out["start_step"], out["notes"]
+    if notes["resumed"]:
+        print(notes["resumed"])
     for i, r in enumerate(records):
         if (i + 1) % 20 == 0:
-            print(f"step {i+1:4d}  loss {r['loss']:.4f}  rts {r['round_tos']}"
+            print(f"step {start+i+1:4d}  loss {r['loss']:.4f}  rts {r['round_tos']}"
                   f"  wire {r['wire_bytes']/1e6:.1f}MB"
                   f"  {out['elapsed'][i]/(i + 1):.2f}s/step", flush=True)
     s = out["summary"]
@@ -287,26 +390,33 @@ def main(argv=None, *, params=None) -> dict:
         print(f"measured wire by class (rank 0): {shown} [{status} against "
               f"step_wire_table]; not priced: "
               + ", ".join(f"{k} {v/1e6:.3f}MB" for k, v in other.items()))
+    if notes["ingest"]:
+        print(notes["ingest"])
     print(f"AWP: {s['bits_history']}")
+    if notes["ckpt"]:
+        print(notes["ckpt"])
 
     losses = [r["loss"] for r in records]
     if args.losses_out:
         with open(args.losses_out, "w") as f:
-            json.dump({"start_step": 0, "losses": losses}, f)
+            json.dump({"start_step": start, "losses": losses}, f)
         print(f"losses -> {args.losses_out}")
     if args.check:
         with open(args.check) as f:
             ref = json.load(f)
-        start = ref["start_step"]
-        mism = [(g, ref["losses"][g - start], losses[g])
-                for g in range(start, min(len(losses), start + len(ref["losses"])))
-                if ref["losses"][g - start] != losses[g]]
+        r0 = ref["start_step"]
+        mism = [(g, ref["losses"][g - r0], losses[g - start])
+                for g in range(max(start, r0),
+                               min(start + len(losses), r0 + len(ref["losses"])))
+                if ref["losses"][g - r0] != losses[g - start]]
         if mism:
             for g, a, b in mism[:5]:
                 print(f"step {g}: ref {a!r} != run {b!r}")
             raise SystemExit(f"--check: {len(mism)} loss mismatches vs {args.check}")
         print(f"--check OK: losses bit-exact vs {args.check}")
     s["losses"] = losses
+    s["start_step"] = start
+    s["io"] = [r["io"] for r in records]
     s["step_wire_bytes"] = [r["wire_bytes"] for r in records]
     s["measured"] = [r["measured"] for r in records]
     s["step_tables"] = out["step_tables"]

@@ -10,10 +10,13 @@ Presets, the reference's:
              64, vocab 32,768, the layer scan and remat on), 300 steps at
              batch 8 × 512, sized for a card
 
-Logs the loss, the AWP format trajectory and the wire bytes, as the
-reference's. The reference also writes a checkpoint; checkpoints are not
-ported (ROADMAP item 9), so this twin writes none, and ``--ckpt`` raises
-``NotImplementedError``.
+Logs the loss, the AWP format trajectory and the wire bytes, and writes
+a checkpoint at the end, as the reference's: the sharded directory of
+``--ckpt`` (default, as the reference's, ``repro_lm_ckpt.npz`` in the
+temporary directory; ``ckpt_dir`` maps it to ``repro_lm_ckpt.ckpt/``), full width, with the plan and the AWP state. At
+a mesh preset (``8dev``) the run writes no checkpoint and says so, and an
+explicit ``--ckpt`` raises ``NotImplementedError``: checkpoints across
+ranks are ROADMAP item 9b.
 
   PYTHONPATH=src python -m repro_torch.launch.train_lm --preset cpu-demo [--device cpu]
 """
@@ -23,9 +26,11 @@ import argparse
 import dataclasses
 import math
 import os
+import tempfile
 import time
 
 from repro_torch import fp32_math, resolve_device
+from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.configs.registry import get_config, reduced
 from repro_torch.data.pipeline import synthetic_lm_batch
 from repro_torch.dist.spec import MeshCfg, dist_elems_per_group
@@ -78,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=0)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--policy", default="awp", help="awp | baseline | oracle:<rt>")
-    ap.add_argument("--ckpt", default="",
-                    help="not ported (ROADMAP item 9): given, the driver raises")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path (default repro_lm_ckpt.npz in the temporary "
+                         "directory; one device only, ROADMAP item 9b)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -118,6 +124,8 @@ def _run(rank: int, args, params=None) -> dict:
             r = trainer.records[-1]
             lines.append(f"step {step+1:4d}  loss {r.loss:.4f}  rts {r.round_tos}  "
                          f"wire {r.wire_bytes/1e6:.1f}MB  {(time.time()-t0)/(step+1):.2f}s/step")
+    if mesh_cfg.trivial:
+        save_checkpoint(args.ckpt, storage, mom, trainer.controller, steps, plan=plan)
     return {"lines": lines, "summary": trainer.summary(),
             "losses": [r.loss for r in trainer.records]}
 
@@ -128,10 +136,13 @@ def main(argv=None, *, params=None) -> dict:
     the preset mesh's ``tp``: the parity tests start both packages from
     one state)."""
     args = build_parser().parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoints are not ported (checkpoint/ckpt.py, ROADMAP item 9)")
     _, mesh_cfg, *_ = build_preset(args.preset)
+    if not mesh_cfg.trivial and args.ckpt is not None:
+        raise NotImplementedError(
+            f"--ckpt at preset {args.preset}: checkpoints across ranks are not ported "
+            "(ROADMAP item 9b)")
+    if args.ckpt is None and mesh_cfg.trivial:
+        args.ckpt = os.path.join(tempfile.gettempdir(), "repro_lm_ckpt.npz")
     if mesh_cfg.trivial:
         out = _run(0, args, params)
     else:
@@ -145,6 +156,11 @@ def main(argv=None, *, params=None) -> dict:
     print(f"\nfinal loss {s['final_loss']:.4f}  wire reduction "
           f"{s['wire_reduction']*100:.1f}%  recompiles {s['recompiles']}")
     print(f"AWP history: {s['bits_history']}")
+    if mesh_cfg.trivial:
+        print(f"checkpoint -> {args.ckpt}")
+    else:
+        print(f"no checkpoint: preset {args.preset} runs on a mesh, and checkpoints across "
+              "ranks are not ported (ROADMAP item 9b)")
     s["losses"] = out["losses"]
     return s
 

@@ -7,8 +7,8 @@ reduce-scatter's format, folded into the weight policies' grad fields), an
 optional ``activations`` policy (the LM's TP-region all-reduces; the
 CNN's stage-boundary quantize), an optional ``seq_boundary`` policy (the
 sequence-parallel gather / scatter pair; defaults to ``activations``), an
-optional ``host_device`` policy (the serve engine's token staging;
-defaults to the weight entries), the execution layout (``seq_parallel``,
+optional ``host_device`` policy (the serve engine's token staging and
+training ingest's; defaults to the weight entries), the execution layout (``seq_parallel``,
 ``chunks`` — the weight gather's plane blocks — ``dtype``, the compute
 dtype ``f32`` or ``bf16``, ``int8_kv``, the serve caches' int8 KV,
 ``accum_steps``, the train step's micro-batches, and ``env_overrides``,
@@ -449,6 +449,15 @@ class PrecisionPlan:
     @classmethod
     def from_json(cls, text: str) -> "PrecisionPlan":
         return cls.from_json_dict(json.loads(text))
+
+    def to_file(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+
+    @classmethod
+    def from_file(cls, path: str) -> "PrecisionPlan":
+        with open(path) as f:
+            return cls.from_json(f.read())
 
     # -- builder sugar ---------------------------------------------------
     @classmethod

@@ -1,8 +1,11 @@
 """Analytic byte models (counterpart of ``repro.roofline.analysis``, the
-serve-wire, speculative serve-wire and paged-residency models). Pure arithmetic on the policy
-formulas and the config, so their outputs must equal the reference's
+serve-wire, speculative serve-wire, paged-residency, training-ingest and
+checkpoint models). Pure arithmetic on the policy formulas, the config
+and shard manifests, so their outputs must equal the reference's
 exactly."""
 from __future__ import annotations
+
+import math
 
 
 def serve_host_device_bytes(
@@ -135,3 +138,61 @@ def serve_paged_kv_bytes(
         "pages": pages,
         "kv_bytes_resident": pages * bytes_per_page,
     }
+
+
+def train_ingest_bytes(plan_or_policy, vocab_size: int, *, kind: str, batch: int, seq: int,
+                       steps: int, dim: int = 0, reader=None) -> dict:
+    """Training-ingest bytes of ``steps`` batches fed from the tiered shard
+    pipeline; the prefetcher's per-step ``io_by_entry`` must sum to it:
+
+      * ``shard_read`` — stored bytes the reader moves off disk,
+        :meth:`~repro_torch.data.shards.ShardReader.planned_bytes` from the
+        reader's *current* position (0 without a ``reader``);
+      * ``ingest_h2d`` — bytes staged host->device at the plan's
+        ``host_device`` policy: the ids
+        (:func:`~repro_torch.data.prefetch.staged_ids_per_batch` a batch)
+        at ``token_wire_width``, plus raw fp32 features
+        (``batch·seq·dim·4``)."""
+    from repro_torch.data.prefetch import resolve_policy, staged_ids_per_batch
+
+    pol = resolve_policy(plan_or_policy)
+    steps = int(steps)
+    ids = staged_ids_per_batch(kind, batch, seq) * steps
+    float_bytes = 4 * batch * seq * int(dim) * steps if kind == "feature" else 0
+    table = {
+        "shard_read": reader.planned_bytes(batch * steps) if reader is not None else 0,
+        "ingest_h2d": pol.token_host_bytes(ids, vocab_size) + float_bytes,
+        "token_width": pol.token_wire_width(vocab_size),
+    }
+    table["total"] = table["shard_read"] + table["ingest_h2d"]
+    return table
+
+
+def train_checkpoint_bytes(storage_like, opt_like=None, *, spec_tree=None, round_tos=None,
+                           residuals: bool = True) -> dict:
+    """Bytes of one width-aware sharded checkpoint; must equal
+    :func:`repro_torch.checkpoint.sharded.manifest_bytes` of the written
+    directory and the summed sizes of its ``.bin`` files. Walks the
+    writer's own :func:`~repro_torch.checkpoint.sharded.assign_widths`: a
+    compressible fp32 leaf of a group at ``round_to`` rt costs ``elems·rt``
+    wire bytes (+ ``elems·(4-rt)`` residual bytes with ``residuals``);
+    every other storage leaf and the whole optimizer tree cost full
+    width. Leaves may be tensors or arrays: only shapes and dtypes are
+    read."""
+    from repro_torch.checkpoint.sharded import assign_widths, leaf_entries, np_dtype
+
+    widths: dict[str, int] = {}
+    if round_tos is not None and spec_tree is not None:
+        widths = assign_widths(storage_like, spec_tree, round_tos)
+    wire = residual = 0
+    for tree, use_widths in ((storage_like, True), (opt_like, False)):
+        if tree is None:
+            continue
+        for kpath, leaf in leaf_entries(tree):
+            n = math.prod(leaf.shape) if len(leaf.shape) else 1
+            full = np_dtype(leaf).itemsize
+            w = widths.get(kpath, full) if use_widths else full
+            wire += n * w
+            if residuals and w < full:
+                residual += n * (full - w)
+    return {"wire": wire, "residual": residual, "total": wire + residual}

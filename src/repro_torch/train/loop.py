@@ -16,7 +16,10 @@ measured log: ``ring_wire_bytes`` of the collectives that
 (``weights``, ``gradients``, ``activations``, ``seq_boundary`` and the
 classes no plan entry prices: ``grad_sync``, ``metrics``, ``loss``), a
 count independent of the plan's formulas, with the seconds the step spent
-staging tensors between the device and the host for gloo. (The
+staging tensors between the device and the host for gloo. A step fed by
+the shard prefetcher also keeps its batch's training-I/O bytes
+(``run_step(..., io_log=...)``, ``StepRecord.io_by_entry``), summed in the
+summary's ``io_by_entry``. (The
 reference's pre-plan ``policy=`` strings are not ported: every caller
 passes a plan.)
 """
@@ -49,6 +52,11 @@ class StepRecord:
     measured_by_entry: dict | None = None
     # host clock of the step's device <-> host staging for gloo
     stage_s: float = 0.0
+    # training-I/O bytes of the step's batch ("shard_read": stored bytes
+    # read off disk, "host_device": bytes staged across the boundary at
+    # the plan's host_device policy), from the prefetcher's io_log; None
+    # for batches made inline
+    io_by_entry: dict | None = None
 
 
 class Trainer:
@@ -99,7 +107,7 @@ class Trainer:
         return self.wire_entries(round_tos)["total"]
 
     # ------------------------------------------------------------------
-    def run_step(self, storage, opt_state, batch, lr, *extra):
+    def run_step(self, storage, opt_state, batch, lr, *extra, io_log=None):
         rts = self.current_round_tos()
         recompiled = rts not in self._cache
         fn = self._step_fn(rts)
@@ -128,6 +136,10 @@ class Trainer:
                 wire_by_entry=entries,
                 measured_by_entry=measured,
                 stage_s=stage_s,
+                io_by_entry=(
+                    {k: v for k, v in io_log.items() if isinstance(v, int)}
+                    if io_log is not None else None
+                ),
             )
         )
         return storage, opt_state, metrics
@@ -160,4 +172,10 @@ class Trainer:
             if key == "wire_by_entry" or any(r.measured_by_entry is not None
                                              for r in self.records):
                 out[key] = by_entry
+        if any(r.io_by_entry for r in self.records):
+            io: dict[str, int] = {}
+            for r in self.records:
+                for k, v in (r.io_by_entry or {}).items():
+                    io[k] = io.get(k, 0) + v
+            out["io_by_entry"] = io
         return out

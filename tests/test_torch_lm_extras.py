@@ -302,8 +302,11 @@ def test_cpu_demo_matches_the_example(tmp_path, capsys):
 
 
 def test_twin_writes_no_checkpoint():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_lm.main(["--preset", "cpu-demo", "--steps", "1", "--device", "cpu",
+    """At a mesh preset the twin writes no checkpoint: checkpoints across
+    ranks are ROADMAP item 9b, so an explicit ``--ckpt`` raises before any
+    rank starts (one device writes one: ``test_torch_train_io.py``)."""
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        train_lm.main(["--preset", "8dev", "--steps", "1", "--device", "cpu",
                        "--ckpt", "x.npz"])
 
 

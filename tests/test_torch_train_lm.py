@@ -465,9 +465,11 @@ def test_launcher_twin_prints_the_reference_awp_line(verify_runs, capsys, tmp_pa
     ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"],
 ], ids=lambda f: f[0])
 def test_launcher_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError):
+    """Training I/O runs on one device (``test_torch_train_io.py``); across
+    ranks it is ROADMAP item 9b, and the flags raise before a rank starts."""
+    with pytest.raises(NotImplementedError, match="item 9b"):
         tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
-                      *flags])
+                      "--mesh", "2x1", *flags])
 
 
 # (flags, the traffic class that must move) of the flags the FSDP×TP slice
@@ -512,11 +514,11 @@ def test_launcher_ported_flags_run(flags, moves, one_device_step, capsys):
 
 
 def test_launcher_plan_file(tmp_path, capsys):
-    ok, act, bad = tmp_path / "ok.json", tmp_path / "act.json", tmp_path / "bad.json"
+    ok, act, hd = tmp_path / "ok.json", tmp_path / "act.json", tmp_path / "hd.json"
     ok.write_text(PrecisionPlan.build(3, round_to=2).to_json())
     act.write_text(PrecisionPlan.build(3, round_to=2, act_round_to=2).to_json())
-    bad.write_text(PrecisionPlan(weights=(CompressionPolicy(round_to=2),) * 3,
-                                 host_device=CompressionPolicy(round_to=2)).to_json())
+    hd.write_text(PrecisionPlan(weights=(CompressionPolicy(round_to=2),) * 3,
+                                host_device=CompressionPolicy(round_to=1)).to_json())
     s = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                       "--plan", str(ok)])
     assert s["wire_reduction"] == 0.5
@@ -524,9 +526,12 @@ def test_launcher_plan_file(tmp_path, capsys):
     a = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                       "--plan", str(act)])
     assert a["losses"] == s["losses"] and a["wire_reduction"] == 0.5
-    with pytest.raises(NotImplementedError):
-        tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
-                      "--plan", str(bad)])
+    # a host_device entry (ported with training I/O) prices the host->device
+    # wire at its own width and leaves the step alone
+    h = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
+                      "--plan", str(hd)])
+    assert h["losses"] == s["losses"]
+    assert 2 * h["wire_by_entry"]["host_device"] == s["wire_by_entry"]["host_device"] > 0
 
 
 def test_launcher_defaults_to_the_card():
