@@ -143,9 +143,11 @@ Phases, each printing its own lines:
      ``torch.profiler`` trace of one more step on rank 0 with the device's
      idle share, beside the card's name and power limit.
 
- 13. main path — FSDP×TP training of full-width qwen3-1.7b (phase 11's
-     weights from seed 0 and settings: remat on, ``synthetic_lm_batch`` at
-     batch 8 x seq 128, lr 0.05) on a 2×2 mesh: 4 gloo ranks on the one
+ 13. main path — FSDP×TP training of qwen3-1.7b at its widths and
+     ``TP_LAYERS`` (4) of its 28 layers (cut so that the script
+     fits its time limit: phase 18 (a) trains the 2×2 mesh at full depth;
+     phase 11's weights from seed 0 and settings: remat on,
+     ``synthetic_lm_batch`` at batch 8 x seq 128, lr 0.05) on a 2×2 mesh: 4 gloo ranks on the one
      card (``spawn_ranks``), each with 4 of the 8 sequences, its model
      rank's TP half of every matrix and a quarter of the ``DIST`` weights,
      built in turn behind a barrier. Through ``Trainer`` and
@@ -267,8 +269,10 @@ Phases, each printing its own lines:
      7's fp32 ones (relative l2, printed). Prints step times, memory peaks
      and the card's name and power limit.
 
- 17. main path — training I/O on full-width qwen3-1.7b (phase 11's weights
-     from seed 0 and settings, batch 8 x seq 128, remat on), in a fresh
+ 17. main path — training I/O on qwen3-1.7b at its widths and
+     ``IO_LAYERS`` (4) of its 28 layers (cut as phase 13's: phase
+     18 (a) saves and loads the full-width state; phase 11's weights from
+     seed 0 and settings, batch 8 x seq 128, remat on), in a fresh
      temporary directory (at least 40 GB free, else the phase fails; removed
      at the end): (a) 64 LM shard records (vocab 151,936, seq 128, seed 0)
      written and read through ``ShardReader(quality=4)`` and
@@ -277,7 +281,7 @@ Phases, each printing its own lines:
      prefetcher; (c) three steps from fresh weights, an ``AsyncCheckpointer``
      save (residuals, plan, the consumed batch's data state), step 4 while it
      writes, the manifest's bytes equal to ``train_checkpoint_bytes`` and
-     the files' sizes (16,253,919,232 B), the checkpoint read back into
+     the files' sizes (at full depth 16,253,919,232 B), the checkpoint read back into
      fresh tensors equal to the state at submit (a hash of each leaf's
      bytes), then steps 4-6 from it and the restored reader: losses, AWP
      history, final storage and momentum bit-equal to (b); (d) the step-3
@@ -288,6 +292,41 @@ Phases, each printing its own lines:
      to the plain version, as phase 11. Prints write / read MB/s, ingest
      steps/s, the async submit ms and save s, the load s and GB/s, the
      bytes and the phase's seconds beside the card's name and power limit.
+ 18. main path — the mesh finished, full-width qwen3-1.7b. (a) A 2×2 mesh
+     of 4 gloo ranks (phase 13's, at full depth; phase 11's weights from
+     seed 0 and settings, remat on, batch 8 x seq 128), phase 17's AWP plan
+     (widening every 2 steps) off phase 17's 64 shard records, each rank
+     reading the global batch through its own ``Prefetcher(depth=2)``
+     (every ``io_log`` equal to ``train_ingest_bytes``, every step's wire
+     to ``step_wire_table``): two steps, then the step-2 weights exported
+     across ranks without residuals at the wire widths, then an
+     ``AsyncCheckpointer`` save across ranks (the gather to rank 0 on the
+     calling thread; residuals, plan and the consumed batch's data state),
+     step 3 beside rank 0's writer, the manifest's bytes equal to
+     ``train_checkpoint_bytes`` of the global storage and the files' sizes
+     (16,253,919,232 B), then a load across ranks into fresh tensors (equal
+     to the state at submit, a hash of each block), the export restored at
+     ``quality="wire"`` through ``launch.serve``'s ``restore`` and served
+     at 2×2 weight-stationary (phase 7's first prompt, ``MESH_GEN`` tokens)
+     equal to the same weights truncated in memory, and step 3 again from
+     the restored state and reader: the uninterrupted step's loss, AWP
+     history, storage and momentum blocks, bit for bit. The steps before
+     and after the save are one uninterrupted run (a save only reads).
+     (b) A 1×2 mesh: phase 15's sampled requests (``MESH_GEN`` tokens)
+     through the engine and the speculative engine (``FEAT_SPEC_K``; the
+     target as its own draft, and the tiny draft built on the mesh): the
+     speculative streams equal to the 1×2 engine's and all to phase 15's
+     one-device streams, but where the draw lies within ``FEAT_NEAR_TIE``
+     of a boundary in a batch-1 static run at the mesh. (c) At 1×2 a
+     ``FEAT_WINDOW``-token window: the windowed static run equal to the
+     ring engine exactly, both to phase 15 (d)'s one-device streams under
+     the same rule. Each run checks its launches (zeroed before, read
+     after), its wire and its host<->device bytes, and the first launch of
+     each kernel at each new shape against its plain version; streams equal
+     on every rank. Prints step ms and the gloo staging share, the submit
+     ms, save s, load s and GB/s, the gather and scatter bytes, rounds and
+     acceptance, and the phase's seconds, beside the card's name and power
+     limit.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -296,6 +335,7 @@ exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1855,8 +1895,6 @@ def dp_config(cfg):
     step draws every rank's dropout mask from the same key over the rank's
     own rows, so with dropout a 2-rank step is not the 1-rank step of the
     same batch, and check (e) could not compare like with like."""
-    import dataclasses
-
     return dataclasses.replace(cfg, dropout=0.0)
 
 
@@ -2145,6 +2183,10 @@ def dp_train_path(torch, device, *, cfg=None, batch=64, min_size=None):
 # ---------------------------------------------------------------------------
 
 TP_DP, TP_TP = 2, 2  # the mesh: 2 data ranks × 2 model ranks
+# the phase's depth: its widths are qwen3-1.7b's, its layers cut from 28 so
+# that the whole script fits its time limit; phase 18 (a) trains the 2×2
+# mesh at full depth
+TP_LAYERS = 4
 # (label, PrecisionPlan.build keywords) of the phase's steps, in order, all at
 # round_to 2: fp32 gradients and uncompressed activations twice, the
 # sequence-parallel layout, then the TP-region activations and the gradient
@@ -4006,9 +4048,55 @@ IO_RECORDS = 64  # LM records written, vocab 151,936, seq 128, seed 0
 IO_QUALITY, IO_DEPTH = 4, 2  # the reader's tier and the prefetcher's queue
 IO_STEPS, IO_SAVE_AT = 6, 3  # (b) runs 6 steps; (c) saves after 3 and resumes
 IO_MIN_FREE = 40e9  # one full-width checkpoint (16.25 GB) and one export (4.06 GB)
+# the phase's depth, cut from 28 layers as phase 13's (phase 18 (a) saves and
+# loads the full-width state across ranks)
+IO_LAYERS = 4
 # full-width qwen3-1.7b's checkpoint at round_to 2 with SGD momentum and its
 # weights-only export (``train_checkpoint_bytes`` over the reference's tree)
 QWEN3_CKPT_BYTES, QWEN3_EXPORT_BYTES = 16_253_919_232, 4_063_727_616
+
+
+class ShardFeed:
+    """The prefetcher (depth ``IO_DEPTH``) over a ``ShardReader`` of
+    ``shard_dir`` (tier ``IO_QUALITY``, seed 0) at data state ``state``,
+    each batch's io_log held to ``train_ingest_bytes`` priced from the
+    consumed position, and each batch's shape checked."""
+
+    def __init__(self, torch, shard_dir, plan, vocab, batch, seq, device, state=None):
+        from repro_torch.data.prefetch import Prefetcher
+        from repro_torch.data.shards import ShardReader, batches
+
+        self.torch, self.plan, self.vocab, self.batch, self.seq = torch, plan, vocab, batch, seq
+        self.reader = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
+        self.planner = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
+        if state is not None:
+            self.reader.load_state(state)
+            self.planner.load_state(state)
+        self.pf = Prefetcher(batches(self.reader, batch), kind="lm", vocab=vocab, plan=plan,
+                             depth=IO_DEPTH, device=device)
+        self.wait_s, self.logs = 0.0, []
+
+    def next(self):
+        from repro_torch.roofline.analysis import train_ingest_bytes
+
+        want = train_ingest_bytes(self.plan, self.vocab, kind="lm", batch=self.batch,
+                                  seq=self.seq, steps=1, reader=self.planner)
+        t0 = time.perf_counter()
+        b, log = self.pf.next()
+        self.wait_s += time.perf_counter() - t0
+        check({"shard_read": log["shard_read"], "host_device": log["host_device"]}
+              == {"shard_read": want["shard_read"], "host_device": want["ingest_h2d"]},
+              f"io_log {log} != train_ingest_bytes {want}")
+        check(tuple(b["tokens"].shape) == (self.batch, self.seq)
+              and b["tokens"].dtype == self.torch.int32, f"batch {b['tokens'].shape}")
+        self.planner.load_state(log["data_state"])
+        self.logs.append(log)
+        return b, log
+
+    def close(self):
+        self.pf.close()
+        self.reader.close()
+        self.planner.close()
 
 
 def tree_digest(torch, tree):
@@ -4116,8 +4204,7 @@ def io_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     from repro_torch.checkpoint import ckpt as C
     from repro_torch.checkpoint.sharded import assign_widths, manifest_bytes, read_meta
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.prefetch import Prefetcher
-    from repro_torch.data.shards import ShardReader, batches, write_lm_shards
+    from repro_torch.data.shards import ShardReader, write_lm_shards
     from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
     from repro_torch.launch.serve import build_requests
     from repro_torch.launch.train import setup
@@ -4195,40 +4282,8 @@ def io_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
             sync()
             return spec, storage, mom, time.perf_counter() - t0
 
-        class Feed:
-            """The prefetcher over a reader at ``state``, each io_log held to
-            ``train_ingest_bytes`` priced from the consumed position."""
-
-            def __init__(self, state=None):
-                self.reader = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
-                self.planner = ShardReader(shard_dir, quality=IO_QUALITY, seed=0)
-                if state is not None:
-                    self.reader.load_state(state)
-                    self.planner.load_state(state)
-                self.pf = Prefetcher(batches(self.reader, batch), kind="lm",
-                                     vocab=cfg.vocab_size, plan=plan, depth=IO_DEPTH,
-                                     device=device)
-                self.wait_s, self.logs = 0.0, []
-
-            def next(self):
-                want = train_ingest_bytes(plan, cfg.vocab_size, kind="lm", batch=batch,
-                                          seq=seq, steps=1, reader=self.planner)
-                t0 = time.perf_counter()
-                b, log = self.pf.next()
-                self.wait_s += time.perf_counter() - t0
-                check({"shard_read": log["shard_read"], "host_device": log["host_device"]}
-                      == {"shard_read": want["shard_read"], "host_device": want["ingest_h2d"]},
-                      f"io_log {log} != train_ingest_bytes {want}")
-                check(tuple(b["tokens"].shape) == (batch, seq)
-                      and b["tokens"].dtype == torch.int32, f"batch {b['tokens'].shape}")
-                self.planner.load_state(log["data_state"])
-                self.logs.append(log)
-                return b, log
-
-            def close(self):
-                self.pf.close()
-                self.reader.close()
-                self.planner.close()
+        def Feed(state=None):
+            return ShardFeed(torch, shard_dir, plan, cfg.vocab_size, batch, seq, device, state)
 
         def steps(tr, storage, mom, feed, n):
             losses, ms = [], []
@@ -4440,6 +4495,523 @@ def io_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
             "n_params": sum(x.numel() for x in tree_leaves(storage))}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh finished — training I/O across ranks, speculative
+# decoding and sliding windows at tp 2
+# ---------------------------------------------------------------------------
+
+MIO_STEPS, MIO_SAVE_AT = 3, 2  # (a): three steps; the checkpoint after the second
+MESH_GEN = 8  # (a)'s hand-off, (b) and (c): new tokens a request
+
+
+def checkpoint_wire(records):
+    """Payload bytes of the ``checkpoint`` class among ``dist.comm`` records
+    (a save's gathers, a load's scatters: the root's whole buffer a call)."""
+    return sum(r.nbytes for r in records if r.traffic == "checkpoint")
+
+
+def _mesh_io_rank(rank, device_name, cfg, batch, seq, lr, root, shard_dir, prompt, gen):
+    """One rank of phase 18 (a) (a process of a gloo group of 4, a 2×2
+    mesh): phase 17's AWP plan off its own prefetcher, an export and an
+    async checkpoint across ranks, step 3 beside the writer, a load into
+    fresh tensors, the export served at 2×2 weight-stationary against the
+    weights truncated in memory, then step 3 again from the restored state
+    and reader; checks on its own view, returns its measurements."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.checkpoint.sharded import (
+        assign_widths, global_like, manifest_bytes, read_meta,
+    )
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.serve import restore
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import train_checkpoint_bytes
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import Trainer
+    from repro_torch.utils.trees import tree_leaves
+
+    fp32_math()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh_cfg = MeshCfg(tp=TP_TP, dp=TP_DP)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    t0 = time.perf_counter()
+    spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device, rank=rank)
+    sync()
+    setup_s = time.perf_counter() - t0
+    nrt = cfg.num_groups + 1
+    plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
+                               awp_interval=2)  # phase 17's: widens every 2 steps
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
+
+    def trainer():
+        return Trainer(lambda rts: tstep.make_train_step(
+            cfg, mesh_cfg, mesh, spec_tree, opt, shapes, plan=plan.with_round_tos(rts)),
+            nrt, plan=plan, dist_elems_per_group=elems, gather_axis_size=TP_DP)
+
+    seen_flash, packs, monitor, errs = {}, {}, {}, []
+    undo = [watch_flash(torch, seen_flash)]
+    if on_card:
+        undo += [watch_packing(torch, packs), watch_monitor_lengths(torch, monitor)]
+    out = {"setup_s": setup_s, "steps": []}
+
+    def step(tr, storage, mom, feed):
+        b, log = feed.next()
+        sync()
+        storage, mom, m = tr.run_step(storage, mom, b, lr, io_log=log)
+        r = tr.records[-1]
+        table = tstep.step_wire_table(plan.with_round_tos(r.round_tos), cfg, spec_tree,
+                                      mesh_cfg, (batch, seq))
+        for k in tstep.COLLECTIVE_CLASSES:
+            check(r.measured_by_entry.get(k, 0) == table[k],
+                  f"rank {rank} step {len(out['steps'])}: measured {k} "
+                  f"{r.measured_by_entry.get(k, 0)} B != step_wire_table {table[k]} B")
+        out["steps"].append({"loss": r.loss, "wall_s": r.wall_s, "stage_s": r.stage_s,
+                             "round_tos": r.round_tos, "io": r.io_by_entry})
+        check(math.isfinite(r.loss), f"rank {rank}: loss {r.loss}")
+        if on_card:
+            check_seen_packing(torch, packs)
+            check_seen_monitor(monitor, errs)
+        return storage, mom
+
+    zero_counts()
+    tr = trainer()
+    feed = ShardFeed(torch, shard_dir, plan, cfg.vocab_size, batch, seq, device)
+    try:
+        for _ in range(MIO_SAVE_AT):
+            storage, mom = step(tr, storage, mom, feed)
+        rts = tr.current_round_tos()
+        state = feed.logs[-1]["data_state"]  # the consumed batch's, not the reader's
+        at_submit = (tree_digest(torch, storage), tree_digest(torch, mom))
+        # the hand-off export (sync, no residuals), then the async checkpoint
+        export, path = os.path.join(root, "export"), os.path.join(root, "ckpt")
+        first = len(comm.LOG)
+        sync()
+        t0 = time.perf_counter()
+        emeta = C.save_checkpoint(export, storage, None, None, MIO_SAVE_AT, plan=plan,
+                                  spec_tree=spec_tree, round_tos=rts, residuals=False,
+                                  mesh_cfg=mesh_cfg)
+        out["export_s"] = time.perf_counter() - t0
+        out["export_wire"] = checkpoint_wire(comm.LOG[first:])
+        ac = C.AsyncCheckpointer()
+        first = len(comm.LOG)
+        sync()
+        t0 = time.perf_counter()
+        C.save_checkpoint(path, storage, mom, tr.controller, MIO_SAVE_AT, plan=plan,
+                          spec_tree=spec_tree, round_tos=rts, extra={"data_state": state},
+                          async_ckpt=ac, mesh_cfg=mesh_cfg)
+        out["submit_s"] = time.perf_counter() - t0
+        out["gather_wire"] = checkpoint_wire(comm.LOG[first:])
+        out["in_flight"] = ac.in_flight
+        storage, mom = step(tr, storage, mom, feed)  # step 3, beside rank 0's writer
+        out["step3_s"] = time.perf_counter() - t0
+        ac.wait()
+        out["save_s"] = time.perf_counter() - t0
+    finally:
+        feed.close()
+    after3 = (tree_digest(torch, storage), tree_digest(torch, mom))
+    hist = list(tr.bits_history)
+    d = C.ckpt_dir(path)
+    meta = read_meta(d)
+    mb, eb = manifest_bytes(meta), manifest_bytes(emeta)
+    analytic = train_checkpoint_bytes(global_like(storage, spec_tree, mesh_cfg),
+                                      global_like(mom, spec_tree, mesh_cfg),
+                                      spec_tree=spec_tree, round_tos=rts)
+    files = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d) if f.endswith(".bin"))
+    check(mb == analytic and mb["total"] == files,
+          f"rank {rank}: checkpoint bytes: manifest {mb}, train_checkpoint_bytes {analytic}, "
+          f"files {files}")
+    check(eb == train_checkpoint_bytes(global_like(storage, spec_tree, mesh_cfg),
+                                       spec_tree=spec_tree, round_tos=rts, residuals=False)
+          and eb["residual"] == 0, f"rank {rank}: export bytes {eb}")
+    check(meta["extra"] == {"data_state": state} and meta["step"] == MIO_SAVE_AT,
+          f"rank {rank}: checkpoint step {meta['step']}, extra {meta['extra']}")
+    check(after3[0] != at_submit[0], f"rank {rank}: step 3 left the weights unchanged")
+    out.update(ckpt=mb, export=eb, rts=rts)
+
+    # a load into fresh tensors: the state at submit, not after step 3
+    ctl = trainer()
+    first = len(comm.LOG)
+    sync()
+    t0 = time.perf_counter()
+    st2, mo2, at = C.load_checkpoint(path, storage, mom, ctl.controller, spec_tree=spec_tree,
+                                     mesh_cfg=mesh_cfg)
+    sync()
+    out["load_s"] = time.perf_counter() - t0
+    out["scatter_wire"] = checkpoint_wire(comm.LOG[first:])
+    check((tree_digest(torch, st2), tree_digest(torch, mo2)) == at_submit,
+          f"rank {rank}: the checkpoint does not read back as the state at submit")
+    check(at == MIO_SAVE_AT and ctl.bits_history == hist[:len(ctl.bits_history)],
+          f"rank {rank}: restored step {at}, AWP {ctl.bits_history}")
+    del storage, mom
+    gc.collect()
+
+    # the hand-off: launch.serve's restore of the export (at the wire widths),
+    # served at 2×2 weight-stationary, against the weights truncated in memory
+    widths = assign_widths(st2, spec_tree, rts)
+    t0 = time.perf_counter()
+    wire_w, _ = restore(export, st2, spec_tree, mesh_cfg)
+    out["wire_load_s"] = time.perf_counter() - t0
+    truncated = truncate_tree(torch, st2, widths)
+    check(tree_digest(torch, wire_w) == tree_digest(torch, truncated),
+          f"rank {rank}: the export does not read back as the truncated weights")
+    serve_plan = PrecisionPlan.build(nrt, round_to=2)
+    req = Request(rid=0, prompt_ids=prompt, max_new=gen)
+    streams, serve_s = [], []
+    for w in (wire_w, truncated):
+        sync()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, w, plan=serve_plan,
+                             max_slots=TP_DP, cache_capacity=len(prompt) + gen,
+                             weight_stationary=True)
+        streams.append(engine.run([req])[0].tokens)
+        serve_s.append(time.perf_counter() - t0)
+        del engine
+    check(streams[0] == streams[1] and len(streams[0]) == gen,
+          f"rank {rank}: hand-off streams {streams[0]} != {streams[1]}")
+    out.update(stream=streams[0], serve_s=serve_s)
+    del wire_w, truncated
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # step 3 again, from the restored state and the restored reader
+    feed = ShardFeed(torch, shard_dir, plan, cfg.vocab_size, batch, seq, device,
+                     C.load_extra(path)["data_state"])
+    try:
+        st2, mo2 = step(ctl, st2, mo2, feed)
+    finally:
+        feed.close()
+    losses = [s["loss"] for s in out["steps"]]
+    check(losses[-1] == losses[MIO_SAVE_AT], f"rank {rank}: resumed step 3 loss {losses[-1]!r}"
+                                             f" != {losses[MIO_SAVE_AT]!r}")
+    check(ctl.bits_history == hist, f"rank {rank}: resumed AWP {ctl.bits_history} != {hist}")
+    check((tree_digest(torch, st2), tree_digest(torch, mo2)) == after3,
+          f"rank {rank}: resumed storage or momentum differs from the uninterrupted run's")
+    sync()
+    got = counts()
+    for u in undo:
+        u()
+    check_seen_flash(seen_flash)
+    # launches: every training step (below 32 bits) packs each DIST leaf per
+    # use, the remat backward again; the monitor once a leaf a step; each
+    # weight-stationary serve run places once and gathers for its admission
+    dist_specs = [s for s in tree_leaves(spec_tree) if s.kind == DIST]
+    group_dist = [s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+    per_forward = dist_per_forward(spec_tree)
+    per_step = per_forward + (sum(s.reps for s in group_dist) if cfg.remat else 0)
+    n_steps = len(out["steps"])
+    check(all(min(s["round_tos"]) < 4 for s in out["steps"]), "a step ran at 32 bits")
+    packed = n_steps * per_step + 2 * (per_forward + len(dist_specs))
+    viable = on_card and cfg.head_dim % 128 == 0 and len(prompt) % 128 == 0
+    want = {"bitpack": packed * on_card, "bitunpack": packed * on_card,
+            "flash_prefill": 2 * cfg.num_layers * viable, "paged_attend": 0,
+            "l2norm_sq": n_steps * len(dist_specs) * on_card}
+    check(got == want, f"rank {rank}: phase 18 (a) launches {got}, expected {want}")
+    out.update(launches=got, hist=hist, losses=losses,
+               flash_err=max((r["max_abs_err"] for r in seen_flash.values()), default=0.0),
+               monitor_err=max(errs, default=0.0), n_dist=len(dist_specs))
+    return out
+
+
+def hold_on_mesh(torch, label, got, want, requests, setup, plan, mesh, *, near_tie=0.0,
+                 what="the reference run"):
+    """``got`` against ``want`` request by request on a mesh (every rank
+    alike): a divergence prints its position and the draw's distance to
+    its nearest boundary (the top-2 gap for greedy) in a batch-1 static run
+    at the mesh, and fails unless it is below ``near_tie``. Returns the
+    cases."""
+    cfg, mesh_cfg, spec_tree, storage = setup
+    cases = []
+    for r in requests:
+        t = diverged_at(got[r.rid], want[r.rid])
+        if t is None:
+            continue
+        _, dists, _ = static_trace(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                                   mesh=mesh)
+        say(f"   {label}: DIVERGED request {r.rid} (prompt {len(r.prompt_ids)}) at token {t}: "
+            f"{got[r.rid][t]} against {what}'s {want[r.rid][t]}; the draw {dists[t]:.3e} from "
+            f"a boundary (batch-1 static at the mesh)")
+        cases.append((r.rid, t, dists[t]))
+        check(dists[t] < near_tie, f"{label}: request {r.rid} left {what} at token {t}, "
+                                   f"{dists[t]:.3e} from a boundary (bound {near_tie})")
+    return cases
+
+
+def _mesh_serve_rank(rank, device_name, cfg, greedy, sampled, one_device, window, spec_k):
+    """One rank of phase 18 (b) and (c) (a 1×2 mesh): phase 15's sampled
+    requests through the engine and the speculative engine (self and tiny
+    drafts, both on the mesh), then a windowed static run and the ring
+    engine; launches, wire per forward and host<->device bytes checked,
+    streams held to each other and to ``one_device`` (phase 15's, cut to
+    these lengths). Returns the measurements."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.serve import check_wire, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine, generate_static
+    from repro_torch.serve.spec import DraftBundle, build_draft
+    from repro_torch.train.step import COLLECTIVE_CLASSES
+
+    fp32_math()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh_cfg = MeshCfg(tp=TPS_TP)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    t0 = time.perf_counter()
+    _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank)
+    drafts = {"self": DraftBundle(cfg, spec_tree, storage),
+              "tiny": build_draft(cfg, mesh_cfg, "tiny", seed=1, device=device)}
+    sync()
+    out = {"setup_s": time.perf_counter() - t0, "runs": {}}
+    setup4 = (cfg, mesh_cfg, spec_tree, storage)
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    cap = max(len(r.prompt_ids) for r in greedy) + max(r.max_new for r in greedy)
+    per_forward = dist_per_forward(spec_tree)
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    seen_flash, packs = {}, {}
+    undo = [watch_flash(torch, seen_flash)]
+    if on_card:
+        undo.append(watch_packing(torch, packs))
+
+    def run(label, requests, *, engine=None, draft=None, **kw):
+        zero_counts()
+        first = len(comm.LOG)
+        timings = {"admit": [], "decode": []}
+        sync()
+        t0 = time.perf_counter()
+        rec = {}
+        draft_flash = 0
+        if engine is None:
+            streams = generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests,
+                                      plan=plan, **kw)
+            groups = static_groups(requests)
+            packed = per_forward * sum(max(r.max_new for r in g) for g in groups)
+            prefills = [len(g[0].prompt_ids) for g in groups]
+            measured = comm.wire_by_traffic(comm.LOG[first:])
+            want_wire = static_wire(plan, cfg, spec_tree, mesh_cfg, groups)
+            for k in COLLECTIVE_CLASSES:
+                check(measured.get(k, 0) == want_wire[k], f"rank {rank} {label}: measured {k} "
+                      f"{measured.get(k, 0)} B != serve_wire_table {want_wire[k]} B")
+        else:
+            eng = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
+                              max_slots=SERVE_SLOTS, draft=draft, **engine)
+            instrument(eng, timings)
+            streams = {k: r.tokens for k, r in eng.run(requests).items()}
+            summary = eng.wire_summary()
+            check_wire(eng, plan, requests)  # raises on a mismatch
+            for r, t in zip(eng.wire_log, eng.wire_tables(), strict=True):
+                for k in COLLECTIVE_CLASSES:
+                    check(r["wire"].get(k, 0) == t[k],
+                          f"rank {rank} {label} step {r['step']} {r['kind']}: measured {k} "
+                          f"{r['wire'].get(k, 0)} B != serve_wire_table {t[k]} B")
+            steps = summary.get("spec_rounds", summary["decode_steps"])
+            packed = per_forward * (summary["admissions"] + steps)
+            if draft is not None:  # the draft's prefills and k + 1 micro steps a round
+                packed += dist_per_forward(draft.spec_tree) * (
+                    summary["admissions"] + steps * (spec_k + 1))
+                draft_flash = draft.cfg.num_layers * sum(
+                    on_card and draft.cfg.head_dim % 128 == 0 and len(r.prompt_ids) % 128 == 0
+                    for r in requests)
+            prefills = [len(r.prompt_ids) for r in requests]
+            rec["summary"] = summary
+            eng = None
+            gc.collect()
+        sync()
+        rec["wall_s"] = time.perf_counter() - t0
+        got = counts()
+        want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0
+                                                      for S in prefills) + draft_flash,
+                "paged_attend": 0, "bitpack": packed * on_card, "bitunpack": packed * on_card,
+                "l2norm_sq": 0}
+        check(got == want, f"rank {rank} {label}: launches {got}, expected {want}")
+        check_seen_flash(seen_flash)
+        if on_card:
+            check_seen_packing(torch, packs)
+        dec = sorted(timings["decode"])
+        rec.update(streams=streams, launches=got,
+                   step_ms=dec[len(dec) // 2] * 1e3 if dec else None,
+                   stage_s=sum(c.stage_s for c in comm.LOG[first:]),
+                   tokens=sum(len(s) for s in streams.values()))
+        out["runs"][label] = rec
+        return streams
+
+    # (b) sampled: the engine, then the speculative engine with each draft
+    def hold(label, got, want, requests, what):
+        out["diverged"].setdefault(label, []).extend(hold_on_mesh(
+            torch, label, got, want, requests, setup4, plan, mesh, near_tie=FEAT_NEAR_TIE,
+            what=what))
+
+    out["diverged"] = {}
+    engine = run("(b) sampled engine", sampled, engine={"cache_capacity": cap})
+    if one_device is not None:
+        hold("(b) sampled engine", engine, one_device["sampled"], sampled,
+             "one device's (phase 15)")
+    for name in ("self", "tiny"):
+        label = f"(b) spec {name}"
+        streams = run(label, sampled, engine={"cache_capacity": cap, "spec_k": spec_k},
+                      draft=drafts[name])
+        hold(label, streams, engine, sampled, "the 1×2 engine")
+        if one_device is not None:
+            hold(label, streams, one_device["sampled"], sampled, "one device's (phase 15)")
+    del drafts
+
+    # (c) a window: the static run (linear cache, window mask) and the ring engine
+    static = run("(c) window static", greedy, window=window)
+    ring = run("(c) window engine", greedy,
+               engine={"cache_capacity": min(cap, window), "window": window})
+    check(ring == static, f"rank {rank}: (c) the ring engine's streams differ from the windowed "
+                          "static run's")
+    if one_device is not None:
+        hold("(c) window", static, one_device["window"], greedy, "one device's (phase 15)")
+    for u in undo:
+        u()
+    out["flash_err"] = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
+    out["flash_shapes"] = sorted(seen_flash)
+    return out
+
+
+def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+              gen=MESH_GEN, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, min_free=IO_MIN_FREE,
+              requests=None):
+    """Phase 18: (a) full-width qwen3-1.7b (phase 11's weights and settings)
+    trained on a 2×2 mesh of gloo ranks from phase 17's shards, with an
+    export and an async checkpoint across ranks, a load and a resume, and
+    the export served at 2×2; (b) phase 15's sampled requests at 1×2
+    through the engine and the speculative engine; (c) a window at 1×2.
+    ``phase15`` holds phase 15's one-device streams and requests (phase 7's
+    prompts); without it (a run of this phase alone) (b) and (c) are held
+    to each other only. Launch counts, packing records and times are read
+    on a card only, so the phase rehearses on the CPU at a reduced config.
+    Returns the measurements; raises on a failed check."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.shards import write_lm_shards
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serve.engine import Request
+
+    full_width = cfg is None
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip() if on_card else "the CPU"
+    if requests is None:
+        requests = phase15["requests"] if phase15 else build_requests(SERVE_LENS, gen,
+                                                                      cfg.vocab_size)
+    greedy = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=gen) for r in requests]
+    sampled = sampled_requests(greedy)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {}
+    threads = 2 if on_card else 1
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= min_free, f"phase 18 needs {min_free:.0f} B free under {root}, has {free} B")
+        shard_dir = os.path.join(root, "shards")
+        write_lm_shards(shard_dir, vocab=cfg.vocab_size, seq=seq, num_records=IO_RECORDS, seed=0)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_mesh_io_rank, TP_DP * TP_TP, str(device), cfg, batch, seq, lr,
+                            root, shard_dir, greedy[0].prompt_ids, gen, threads=threads,
+                            timeout_s=900)
+        a_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    check(not full_width or r0["ckpt"]["total"] == QWEN3_CKPT_BYTES,
+          f"(a) checkpoint {r0['ckpt']['total']} B, expected {QWEN3_CKPT_BYTES} (no padding at "
+          "full width: the 2×2 global storage holds the one device's elements)")
+    for r, o in enumerate(ranks):
+        check(o["losses"] == r0["losses"] and o["hist"] == r0["hist"]
+              and o["stream"] == r0["stream"], f"(a): rank {r}'s losses, AWP history or stream "
+                                               "differ from rank 0's")
+    check(r0["hist"][0] == (0, (8,) * (cfg.num_groups + 1)), f"(a) AWP history {r0['hist']}")
+    steps = r0["steps"]
+    warm = steps[1:MIO_SAVE_AT] + steps[MIO_SAVE_AT + 1:]
+    say(f"   (a) 2×2, {smi}: losses {[round(x, 6) for x in r0['losses']]} (the last, step "
+        f"{MIO_SAVE_AT + 1} resumed, bit-equal to the uninterrupted one on every rank, as the "
+        f"storage and momentum blocks and the AWP history {r0['hist']}); step ms "
+        f"{[round(s['wall_s'] * 1e3, 1) for s in steps]}, gloo staging share "
+        f"{sum(s['stage_s'] for s in warm) / max(sum(s['wall_s'] for s in warm), 1e-9):.1%} "
+        f"after the first; io_log == train_ingest_bytes each batch on each rank; wire == "
+        f"step_wire_table each step")
+    ck, ex = r0["ckpt"], r0["export"]
+    say(f"   (a) async checkpoint at step {MIO_SAVE_AT} (round_tos {r0['rts']}): submit "
+        f"{r0['submit_s'] * 1e3:.1f} ms (the gather of {r0['gather_wire']} B to rank 0, rank "
+        f"0's in flight after: {r0['in_flight']}), step {MIO_SAVE_AT + 1} beside the writer "
+        f"done {r0['step3_s']:.2f} s after submit, save done {r0['save_s']:.2f} s after submit; "
+        f"{ck['total']} B = wire {ck['wire']} + residual {ck['residual']} == "
+        f"train_checkpoint_bytes == the files' sizes; export {ex['total']} B in "
+        f"{r0['export_s']:.2f} s (gather {r0['export_wire']} B); {smi}")
+    say(f"   (a) load across ranks {r0['load_s']:.2f} s ({ck['total'] / r0['load_s'] / 1e9:.2f} "
+        f"GB/s, scatter {r0['scatter_wire']} B from rank 0), equal to the state at submit on "
+        f"every rank; the export at the wire widths in {r0['wire_load_s']:.2f} s, served at 2×2 "
+        f"weight-stationary ({len(greedy[0].prompt_ids)}-token prompt +{gen}): "
+        f"{r0['stream']} == the weights truncated in memory "
+        f"({[round(x, 2) for x in r0['serve_s']]} s); launches per rank "
+        f"{[o['launches'] for o in ranks]}; ranks' processes {a_s:.1f} s, set-up "
+        f"{[round(o['setup_s'], 1) for o in ranks]} s; {smi}")
+    out["a"] = ranks
+
+    one = None
+    if phase15:  # the first gen tokens of phase 15's streams: a stream's prefix is its own
+        one = {k: {rid: s[:gen] for rid, s in phase15[k].items()} for k in ("sampled", "window")}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_mesh_serve_rank, TPS_TP, str(device), cfg, greedy, sampled, one,
+                        window, spec_k, threads=threads, timeout_s=900)
+    bc_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r, o in enumerate(ranks):
+        for label in r0["runs"]:
+            check(o["runs"][label]["streams"] == r0["runs"][label]["streams"],
+                  f"(b)/(c): rank {r}'s {label} streams differ from rank 0's")
+    for label, rec in r0["runs"].items():
+        line = (f"   {label} at 1×2: {rec['wall_s']:.2f} s, {rec['tokens']} tokens, "
+                f"{rec['tokens'] / rec['wall_s']:.2f} tokens/s, gloo staging "
+                f"{rec['stage_s']:.2f} s, launches {rec['launches']}")
+        if rec["step_ms"] is not None:
+            line += f", ms a {'round' if 'spec' in label else 'decode step'} {rec['step_ms']:.1f}"
+        s = rec.get("summary", {})
+        if "spec_rounds" in s:
+            line += (f"; {s['spec_rounds']} rounds, acceptance {s['acceptance_rate']:.4f}, "
+                     f"{s['tokens_per_target_step']:.3f} tokens a target step")
+        say(line + f"; {smi}")
+    div = {k: v for k, v in r0["diverged"].items() if v}
+    say(f"   (b), (c) held: speculative streams == the 1×2 engine's, ring == windowed static"
+        + (", both == phase 15's one-device streams" if phase15 else "")
+        + (f" but for near ties {div}" if div else "") + f"; ranks' processes {bc_s:.1f} s; "
+        f"{smi}")
+    out["bc"] = ranks
+    launches = {k: sum(o["launches"][k] for o in out["a"]) for k in counts()}
+    for o in ranks:
+        for rec in o["runs"].values():
+            for k in launches:
+                launches[k] += rec["launches"][k]
+    phase_s = time.perf_counter() - t_phase
+    say(f"   launches over phase 18's runs {launches}; phase 18 took {phase_s:.1f} s; {smi}")
+    return {"launches": launches, "phase_s": phase_s,
+            "flash_err": max([o["flash_err"] for o in out["a"]]
+                             + [o["flash_err"] for o in ranks]),
+            "monitor_err": max(o["monitor_err"] for o in out["a"])}
+
+
 def main() -> int:
     import torch
 
@@ -4459,6 +5031,7 @@ def main() -> int:
     say(f"   torch {torch.__version__} cuda {torch.version.cuda} on {device_name}")
 
     from repro_torch import fp32_math
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
 
     fp32_math()
@@ -4549,12 +5122,14 @@ def main() -> int:
     for k in ("bitpack", "bitunpack"):
         served[k] += dp["launches"][k]
 
-    say(f"phase 13: main path — full-width qwen3-1.7b FSDP×TP training on a {TP_DP}×{TP_TP} mesh "
+    say(f"phase 13: main path — qwen3-1.7b at its widths and {TP_LAYERS} of its layers, FSDP×TP "
+        f"training on a {TP_DP}×{TP_TP} mesh "
         f"of gloo ranks, batch {LM_BATCH} ({LM_BATCH // TP_DP} a data rank) x seq {LM_SEQ}, "
         f"steps {[label for label, _ in TP_STEPS]}")
     gc.collect()
     torch.cuda.empty_cache()
-    tp = tp_train_path(torch, device)
+    tp = tp_train_path(torch, device, cfg=dataclasses.replace(get_config("qwen3-1.7b"),
+                                                              num_layers=TP_LAYERS))
     for k in ("bitpack", "bitunpack"):
         served[k] += tp["launches"][k]
 
@@ -4601,15 +5176,31 @@ def main() -> int:
     say(f"   launches over phase 16's runs: training {lmf['launches']}, bf16 serving "
         f"{bfs['launches']}; phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    say(f"phase 17: main path — training I/O on full-width qwen3-1.7b, batch {LM_BATCH} x seq "
+    say(f"phase 17: main path — training I/O on qwen3-1.7b at its widths and {IO_LAYERS} of its "
+        f"layers, batch {LM_BATCH} x seq "
         f"{LM_SEQ}: (a) {IO_RECORDS} shard records through the prefetcher (depth {IO_DEPTH}), "
         f"(b) {IO_STEPS} AWP steps, (c) {IO_SAVE_AT} steps + an async checkpoint + resume, "
         f"(d) the wire-tier serving hand-off; {smi[0]}")
     gc.collect()
     torch.cuda.empty_cache()
-    io = io_path(torch, device)
+    io = io_path(torch, device, cfg=dataclasses.replace(get_config("qwen3-1.7b"),
+                                                        num_layers=IO_LAYERS))
     for k in served:
         served[k] += io["launches"][k]
+
+    say(f"phase 18: main path — the mesh finished, full-width qwen3-1.7b: (a) a {TP_DP}×{TP_TP} "
+        f"mesh training off phase 17's shards, batch {LM_BATCH} x seq {LM_SEQ}, with an async "
+        f"checkpoint across ranks, a load and a resume, the export served at 2×2; (b) phase 15's "
+        f"sampled requests at 1×{TPS_TP} through the speculative engine (self and tiny drafts, "
+        f"spec_k {FEAT_SPEC_K}); (c) a {FEAT_WINDOW}-token window at 1×{TPS_TP}; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh18 = mesh_path(torch, device, {
+        "requests": serve7["requests"],
+        "sampled": feats["runs"]["(a) sampled engine"]["streams"],
+        "window": feats["runs"]["(d) window engine"]["streams"]})
+    for k in served:
+        served[k] += mesh18["launches"][k]
 
     kernels = []
     for name, src, replaces in (
@@ -4629,7 +5220,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_prefill.py:110",
         "launches": served["flash_prefill"],
         "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"], feats["flash_err"],
-                           io["flash_err"]),
+                           io["flash_err"], mesh18["flash_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -4650,8 +5241,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/l2norm.py:31",
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
-                     + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]),
-        "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"]),
+                     + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]
+                     + mesh18["launches"]["l2norm_sq"]),
+        "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"],
+                           mesh18["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

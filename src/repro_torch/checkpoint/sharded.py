@@ -34,6 +34,21 @@ gives analytically.
 The codec is numpy on the host. Loading gives fresh, writable, contiguous
 tensors on the device of the restore target's leaves. Structure mismatches
 raise :class:`CheckpointError` naming the key path.
+
+Across ranks (``mesh_cfg`` a sharded mesh, every rank of the default
+process group calling alike, ``spec_tree`` given): a save gathers each
+leaf's blocks to rank 0, which rebuilds the reference's global storage
+array (:func:`~repro_torch.dist.spec.storage_to_global`), encodes and
+writes it and frees it before the next leaf, so that rank 0 never holds
+the whole state; the directory is the reference's ``save_sharded`` of the
+same global state at the same mesh. A load reads each leaf on rank 0 and
+scatters each rank its block (:func:`~repro_torch.dist.spec.local_shard`),
+after rank 0 has checked the manifest against the global shapes the mesh
+gives the restore target (the reference's check: a directory written at
+another mesh's layout raises as the reference's does). The gathers and
+scatters are logged in ``dist.comm.LOG`` under the ``checkpoint`` class,
+which no wire table prices. The step, the AWP state and ``extra`` must be
+the same on every rank (checked: a save raises otherwise).
 """
 from __future__ import annotations
 
@@ -44,6 +59,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.planes import plane_join, plane_split
 
@@ -240,8 +256,80 @@ def _write_leaf(arr: np.ndarray, width: int, base: str, residuals: bool) -> dict
     return info
 
 
+def _across_ranks(mesh_cfg) -> bool:
+    return mesh_cfg is not None and not mesh_cfg.trivial
+
+
+def _host_leaves(tree):
+    """``(key path, host array)`` of each leaf of a one-device tree."""
+    for kpath, leaf in leaf_entries(tree):
+        yield kpath, host_array(leaf)  # the device->host copy happens here
+
+
+def _gathered_leaves(tree, spec_tree, mesh_cfg):
+    """``(key path, global storage array)`` of each leaf, gathered to rank 0
+    one leaf at a time (``None`` on the other ranks, which only send)."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import storage_to_global
+
+    specs = dict(leaf_entries(spec_tree))
+    for kpath, leaf in leaf_entries(tree):
+        blocks = comm.gather(leaf.detach(), traffic="checkpoint")
+        arr = (None if blocks is None else
+               storage_to_global([b.numpy() for b in blocks], specs[kpath], mesh_cfg))
+        del blocks
+        yield kpath, arr
+
+
+def _write_dir(path: str, sources, widths: dict, residuals: bool, head: dict) -> dict:
+    """Write ``sources`` (``(tree name, leaves)``, leaves yielding ``(key
+    path, host array)``) at ``path`` through a ``.tmp.<pid>`` sibling, one
+    leaf at a time; returns the manifest."""
+    tmp = path + f".tmp.{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    trees = {}
+    for tree_name, leaves in sources:
+        entries = []
+        for i, (kpath, arr) in enumerate(leaves):
+            width = (widths.get(kpath, arr.dtype.itemsize) if tree_name == "storage"
+                     else arr.dtype.itemsize)
+            info = _write_leaf(arr, width, os.path.join(tmp, f"{tree_name}_{i:05d}"), residuals)
+            del arr
+            info["path"] = kpath
+            info["file"] = f"{tree_name}_{i:05d}"
+            entries.append(info)
+        trees[tree_name] = entries
+    meta = {**head, "residuals": bool(residuals), "trees": trees}
+    with open(os.path.join(tmp, META), "w") as f:
+        json.dump(meta, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    return meta
+
+
+def _same_on_ranks(what: str, value) -> None:
+    """Raise unless ``value`` (JSON) is the same on every rank."""
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, json.dumps(value, sort_keys=True))
+    bad = [r for r, v in enumerate(got) if v != got[0]]
+    if bad:
+        raise CheckpointError(f"checkpoint {what} differs on ranks {bad} from rank 0's")
+
+
+def _gather_trees(storage, opt_state, spec_tree, mesh_cfg, head: dict):
+    """The checks and the gathers of a save across ranks: ``(storage,
+    opt)`` leaf sources (global arrays on rank 0, ``None`` elsewhere)."""
+    if spec_tree is None:
+        raise CheckpointError("a save across ranks needs spec_tree (the storage layout)")
+    _same_on_ranks("step, AWP state and extra", [head["step"], head["awp"], head["extra"]])
+    return (("storage", _gathered_leaves(storage, spec_tree, mesh_cfg)),
+            ("opt", _gathered_leaves(opt_state, spec_tree, mesh_cfg)))
+
+
 def save_sharded(path: str, storage, opt_state, awp, step: int, *, plan=None, spec_tree=None,
-                 round_tos=None, extra: dict | None = None, residuals: bool = True) -> dict:
+                 round_tos=None, extra: dict | None = None, residuals: bool = True,
+                 mesh_cfg=None) -> dict:
     """Write the sharded checkpoint directory at ``path`` atomically (a
     ``.tmp.<pid>`` sibling renamed over it). ``round_tos`` + ``spec_tree``
     give width-aware tiers (pass the controller's *current* formats);
@@ -249,44 +337,37 @@ def save_sharded(path: str, storage, opt_state, awp, step: int, *, plan=None, sp
     residual tiers: a width-priced export (the serving hand-off) that
     restores only at ``quality="wire"``. ``awp`` is an ``AWPController``
     or a snapshotted meta dict. Leaves may be tensors on any device or
-    numpy arrays. Returns the manifest."""
-    awp_meta = awp_to_meta(awp)
+    numpy arrays. With ``mesh_cfg`` a sharded mesh, ``storage`` and
+    ``opt_state`` are each rank's blocks, every rank calls, and rank 0
+    writes the global state (module docstring). Returns the manifest (on
+    every rank)."""
+    head = {
+        "version": 1,
+        "format": "sharded-v1",
+        "step": int(step),
+        "plan": plan.to_json_dict() if plan is not None else None,
+        "awp": awp_to_meta(awp),
+        "extra": extra or {},
+    }
     widths: dict[str, int] = {}
     if round_tos is not None:
         if spec_tree is None:
             raise CheckpointError("width-aware save needs spec_tree alongside round_tos")
         widths = assign_widths(storage, spec_tree, round_tos)
-
-    tmp = path + f".tmp.{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    trees = {}
-    for tree_name, tree in (("storage", storage), ("opt", opt_state)):
-        entries = []
-        for i, (kpath, leaf) in enumerate(leaf_entries(tree)):
-            arr = host_array(leaf)  # the device->host copy happens here
-            width = (widths.get(kpath, arr.dtype.itemsize) if tree_name == "storage"
-                     else arr.dtype.itemsize)
-            info = _write_leaf(arr, width, os.path.join(tmp, f"{tree_name}_{i:05d}"), residuals)
-            info["path"] = kpath
-            info["file"] = f"{tree_name}_{i:05d}"
-            entries.append(info)
-        trees[tree_name] = entries
-    meta = {
-        "version": 1,
-        "format": "sharded-v1",
-        "step": int(step),
-        "plan": plan.to_json_dict() if plan is not None else None,
-        "awp": awp_meta,
-        "extra": extra or {},
-        "residuals": bool(residuals),
-        "trees": trees,
-    }
-    with open(os.path.join(tmp, META), "w") as f:
-        json.dump(meta, f)
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
-    return meta
+    if not _across_ranks(mesh_cfg):
+        return _write_dir(path, (("storage", _host_leaves(storage)),
+                                 ("opt", _host_leaves(opt_state))), widths, residuals, head)
+    sources = _gather_trees(storage, opt_state, spec_tree, mesh_cfg, head)
+    meta = None
+    if dist.get_rank() == 0:
+        meta = _write_dir(path, sources, widths, residuals, head)
+    else:
+        for _, leaves in sources:
+            for _ in leaves:  # send each leaf's block in turn
+                pass
+    out = [meta]
+    dist.broadcast_object_list(out, src=0)  # the directory is in place
+    return out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -353,23 +434,103 @@ def _load_tree(path: str, entries: list[dict], like, quality: str):
         e["path"]: to_like(_read_leaf(path, e, quality), likes[e["path"]]) for e in entries})
 
 
-def load_sharded(path: str, storage_like, opt_like=None, awp=None, *, quality: str = "exact"):
+def global_like(like, spec_tree, mesh_cfg):
+    """The shapes and dtypes of the global storage arrays of a rank's
+    restore target ``like`` (its blocks) on ``mesh_cfg``: what the
+    reference's restore target holds, and what a manifest is checked
+    against."""
+    from types import SimpleNamespace
+
+    from repro_torch.dist.spec import storage_shape
+
+    specs = dict(leaf_entries(spec_tree))
+    return tree_from_entries(like, {
+        p: SimpleNamespace(shape=storage_shape(specs[p], mesh_cfg), dtype=np_dtype(x))
+        for p, x in leaf_entries(like)})
+
+
+def checked_on_rank0(check) -> None:
+    """Run ``check()`` on rank 0 and raise its :class:`CheckpointError` on
+    every rank (the others would wait for rank 0's scatters otherwise)."""
+    err = [None]
+    if dist.get_rank() == 0:
+        try:
+            check()
+        except CheckpointError as e:
+            err[0] = str(e)
+    dist.broadcast_object_list(err, src=0)
+    if err[0] is not None:
+        raise CheckpointError(err[0])
+
+
+def scatter_tree(like, spec_tree, mesh_cfg, read):
+    """``like``'s structure with each leaf this rank's block of a global
+    storage array that ``read(key path)`` gives on rank 0 (called there
+    only, leaf by leaf): rank 0 cuts every rank's block and scatters them.
+    Blocks land on the device of ``like``'s leaves."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import local_shard
+
+    specs = dict(leaf_entries(spec_tree))
+    root, world = dist.get_rank() == 0, dist.get_world_size()
+    out = {}
+    for kpath, leaf in leaf_entries(like):
+        blocks = None
+        if root:
+            whole = torch.from_numpy(read(kpath))
+            blocks = [local_shard(whole, specs[kpath], mesh_cfg, r) for r in range(world)]
+            del whole
+        out[kpath] = comm.scatter(blocks, leaf, traffic="checkpoint")
+        del blocks
+    return tree_from_entries(like, out)
+
+
+def _load_tree(path: str, entries: list[dict], like, quality: str, spec_tree=None,
+               mesh_cfg=None):
+    by_path = {e["path"]: e for e in entries}
+    if _across_ranks(mesh_cfg):
+        return scatter_tree(like, spec_tree, mesh_cfg,
+                            lambda p: _read_leaf(path, by_path[p], quality))
+    likes = dict(leaf_entries(like))
+    return tree_from_entries(like, {
+        p: to_like(_read_leaf(path, e, quality), likes[p]) for p, e in by_path.items()})
+
+
+def load_sharded(path: str, storage_like, opt_like=None, awp=None, *, quality: str = "exact",
+                 spec_tree=None, mesh_cfg=None):
     """Restore ``(storage, opt_state, step, meta)`` from a sharded dir into
     the structure and devices of ``storage_like`` / ``opt_like`` (whose
     values are not read). ``quality="exact"`` reads wire + residual tiers
     (bitwise fp32, resume-grade); ``"wire"`` only the width-priced tiers
     (the transport's truncation, serving-grade, the only mode a
     ``residuals=False`` export supports). ``opt_like=None`` skips the
-    optimizer tree."""
+    optimizer tree. With ``mesh_cfg`` a sharded mesh (and ``spec_tree``)
+    the ``*_like`` trees are each rank's blocks, every rank calls, rank 0
+    reads and each rank gets its blocks (module docstring)."""
     if quality not in VALID_QUALITIES:
         raise CheckpointError(f"quality must be in {VALID_QUALITIES}")
-    meta = read_meta(path)
-    _check_structure(meta["trees"]["storage"], storage_like, "storage")
-    storage = _load_tree(path, meta["trees"]["storage"], storage_like, quality)
-    opt_state = None
-    if opt_like is not None:
-        _check_structure(meta["trees"]["opt"], opt_like, "opt")
-        opt_state = _load_tree(path, meta["trees"]["opt"], opt_like, quality)
+    trees = [("storage", storage_like)] + ([("opt", opt_like)] if opt_like is not None else [])
+    if _across_ranks(mesh_cfg):
+        if spec_tree is None:
+            raise CheckpointError("a load across ranks needs spec_tree (the storage layout)")
+        meta = [None]
+
+        def check():
+            meta[0] = read_meta(path)
+            for name, like in trees:
+                _check_structure(meta[0]["trees"][name],
+                                 global_like(like, spec_tree, mesh_cfg), name)
+
+        checked_on_rank0(check)
+        dist.broadcast_object_list(meta, src=0)
+        meta = meta[0]
+    else:
+        meta = read_meta(path)
+        for name, like in trees:
+            _check_structure(meta["trees"][name], like, name)
+    loaded = [_load_tree(path, meta["trees"][name], like, quality, spec_tree, mesh_cfg)
+              for name, like in trees]
+    storage, opt_state = loaded[0], (loaded[1] if opt_like is not None else None)
     awp_from_meta(awp, meta.get("awp"))
     return storage, opt_state, meta["step"], meta
 
@@ -402,11 +563,21 @@ class AsyncCheckpointer:
     memory). The AWP state and ``extra`` are snapshotted up front too.
     What overlaps the next step is everything after the copy: plane
     splits, tier writes, the manifest. Failures surface on the next
-    :meth:`save` / :meth:`wait` as :class:`CheckpointError`."""
+    :meth:`save` / :meth:`wait` as :class:`CheckpointError`.
+
+    Across ranks (``mesh_cfg=`` a sharded mesh, with ``spec_tree=``) the
+    copy is the gather of every leaf to rank 0, on the calling thread and
+    in the same order on every rank, so that it never interleaves with a
+    step's collectives: rank 0 then holds the global state on the host (as
+    one device holds its copy) and only its worker thread encodes and
+    writes, issuing no collective. The other ranks have no worker; at the
+    next :meth:`save` or at :meth:`wait`, which every rank calls alike,
+    they wait for rank 0's writer to finish and raise its failure too."""
 
     def __init__(self):
         self._thread: threading.Thread | None = None
         self._exc: BaseException | None = None
+        self._ranks = False  # the save in flight is across ranks
         self.saves = 0
 
     @property
@@ -415,14 +586,27 @@ class AsyncCheckpointer:
 
     def save(self, path, storage, opt_state, awp, step, **kw):
         self.wait()
+        mesh_cfg = kw.pop("mesh_cfg", None)
         awp_meta = json.loads(json.dumps(awp_to_meta(awp)))
         extra = json.loads(json.dumps(kw.pop("extra", None) or {}))
-        snap = {p: host_array(x, copy=True) for p, x in leaf_entries(storage)}
-        host_storage = tree_from_entries(storage, snap)
-        host_opt = None
-        if opt_state is not None:
-            snap = {p: host_array(x, copy=True) for p, x in leaf_entries(opt_state)}
-            host_opt = tree_from_entries(opt_state, snap)
+        if _across_ranks(mesh_cfg):
+            self._ranks = True
+            self.saves += 1
+            sources = _gather_trees(storage, opt_state, kw.get("spec_tree"), mesh_cfg,
+                                    {"step": int(step), "awp": awp_meta, "extra": extra})
+            snaps = [dict(leaves) for _, leaves in sources]  # every leaf, now
+            if dist.get_rank() != 0:
+                return
+            host_storage = tree_from_entries(storage, snaps[0])
+            host_opt = tree_from_entries(opt_state, snaps[1]) if opt_state is not None else None
+        else:
+            snap = {p: host_array(x, copy=True) for p, x in leaf_entries(storage)}
+            host_storage = tree_from_entries(storage, snap)
+            host_opt = None
+            if opt_state is not None:
+                snap = {p: host_array(x, copy=True) for p, x in leaf_entries(opt_state)}
+                host_opt = tree_from_entries(opt_state, snap)
+            self.saves += 1
 
         def work():
             try:
@@ -432,12 +616,17 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
-        self.saves += 1
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._exc is not None:
-            exc, self._exc = self._exc, None
+        exc, self._exc = self._exc, None
+        if self._ranks:  # every rank learns how rank 0's writer ended
+            self._ranks = False
+            msg = [None if exc is None else f"{type(exc).__name__}: {exc}"]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is not None:
+                raise CheckpointError(f"async checkpoint failed on rank 0: {msg[0]}") from exc
+        elif exc is not None:
             raise CheckpointError(f"async checkpoint failed: {exc}") from exc

@@ -71,7 +71,7 @@ class ModelConfig:
         if self.arch_type != "dense":
             raise NotImplementedError(
                 f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                "(only dense attention models)"
+                "(only dense attention models; ROADMAP item 11)"
             )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)

@@ -23,7 +23,7 @@ UNPORTED_ARCHS = (
 def get_config(name: str) -> ModelConfig:
     if name in UNPORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)})"
+            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}; ROADMAP item 11)"
         )
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")

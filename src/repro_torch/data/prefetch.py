@@ -25,6 +25,14 @@ checkpoint written after the matching step persists). The trainer keeps
 it per step as ``StepRecord.io_by_entry``, and
 :func:`repro_torch.roofline.analysis.train_ingest_bytes` gives both byte
 terms analytically.
+
+On a mesh every rank runs its own reader and prefetcher over the same
+shards (deterministic from ``seed`` and the data state), so each rank
+stages the whole global batch and the train step takes the rank's rows
+(``train.step``'s ``P(dp)`` slice, as the reference's step slices its
+global batch). Its ``io_log`` bytes are per rank, each rank's equal to
+``train_ingest_bytes`` of the global batch: what the reference reckons per
+step, where one host reads the batch.
 """
 from __future__ import annotations
 

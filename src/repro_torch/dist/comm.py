@@ -25,8 +25,10 @@ all-reduces — and ``seq_boundary`` — the sequence-parallel gather and
 scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
 step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums),
 ``logits`` (a serve step's gather of its vocabulary-sharded, and under a
-sharded batch row-sharded, logits) and ``relayout`` (the lossless
-sequence split and merge). The payload is what
+sharded batch row-sharded, logits), ``relayout`` (the lossless
+sequence split and merge) and ``checkpoint`` (a checkpoint's leaves
+gathered to rank 0 on a save and scattered from it on a load, between
+steps: :func:`gather` and :func:`scatter`). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output
 of an all-gather or all-to-all, the input of a reduce-scatter or
 all-reduce), so :func:`wire_by_traffic` of the log is a measured count of
@@ -52,6 +54,7 @@ _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
 @dataclasses.dataclass(frozen=True)
 class CommRecord:
     kind: str          # "all-gather" | "all-to-all" | "reduce-scatter" | "all-reduce"
+    #                    | "gather" | "scatter"
     traffic: str       # the traffic class (see the module docstring)
     nbytes: int        # payload, as ring_wire_bytes reads it
     group_size: int
@@ -162,4 +165,29 @@ def all_reduce(x: torch.Tensor, group=None, *, traffic: str, op: str = "sum") ->
     dist.all_reduce(host, op=_OPS[op], group=group)
     out, s_out = _to_device(host, x.device)
     _log("all-reduce", traffic, x.numel() * x.element_size(), n, s_in + s_out)
+    return out
+
+
+def gather(x: torch.Tensor, *, traffic: str) -> list | None:
+    """Every rank's ``x`` (all of one shape and dtype) to rank 0 of the
+    default group: there the list of blocks in rank order, on the host
+    (the caller writes them out); ``None`` on the other ranks."""
+    n = dist.get_world_size()
+    host, s_in = _to_host(x)
+    out = [torch.empty_like(host) for _ in range(n)] if dist.get_rank() == 0 else None
+    dist.gather(host, out, dst=0)
+    _log("gather", traffic, n * host.numel() * host.element_size(), n, s_in)
+    return out
+
+
+def scatter(blocks, like: torch.Tensor, *, traffic: str) -> torch.Tensor:
+    """Rank 0's ``blocks[r]`` (host tensors in rank order, read on rank 0
+    only) to rank ``r`` of the default group: a fresh tensor of ``like``'s
+    shape and dtype on ``like``'s device."""
+    n = dist.get_world_size()
+    out = torch.empty(like.shape, dtype=like.dtype)
+    src = [b.contiguous() for b in blocks] if dist.get_rank() == 0 else None
+    dist.scatter(out, src, src=0)
+    out, s_out = _to_device(out, like.device)
+    _log("scatter", traffic, n * out.numel() * out.element_size(), n, s_out)
     return out

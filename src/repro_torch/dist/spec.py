@@ -38,7 +38,10 @@ blocks), and :func:`local_shard` / :func:`tree_to_local` take the block
 of the rank at mesh coordinates (pod, data, model), what the reference's
 ``leaf_partition_spec`` selects for ``shard_map``. A rank is numbered in
 mesh order, ``((pod * dp) + data) * tp + model``, as the reference's
-``jax.make_mesh`` lays devices out. The reference's ``dist/shard.py``
+``jax.make_mesh`` lays devices out. :func:`storage_to_global` reads the
+layout backwards: the whole storage array from every rank's block (what a
+checkpoint across ranks writes, and :func:`local_shard` takes back out of
+it on a load). The reference's ``dist/shard.py``
 (its ``shard_map`` version shim) has no counterpart here: each rank's
 process *is* the shard.
 """
@@ -47,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.models.meta import COMPRESS_MIN_SIZE, ParamMeta
@@ -246,6 +250,35 @@ def local_shard(x, spec: LeafSpec, mesh_cfg: MeshCfg, rank: int):
         x = x.narrow(lead, m, 1)
     per = spec.pad_rep // mesh_cfg.dshards
     return x[..., f * per:(f + 1) * per].clone()
+
+
+def storage_to_global(blocks_by_rank, spec: LeafSpec, mesh_cfg: MeshCfg):
+    """The inverse of :func:`local_shard` over all ranks: the whole storage
+    array of a leaf (the reference's global array, ``np.asarray`` of its
+    sharded leaf) from ``blocks_by_rank[r]``, global rank ``r``'s block, in
+    mesh order. A ``DIST`` leaf's flat shards are laid side by side at their
+    FSDP offsets (per repetition; padding included), in their model rank's
+    row when TP-sliced; a ``TP_SMALL`` leaf's slices are stacked at their
+    model ranks; a ``REPL`` leaf is rank 0's. Where several ranks hold one
+    block (a ``DIST`` leaf with no TP dim, a ``REPL`` leaf) the first
+    rank's is taken. Tensors or numpy arrays; the result is of the blocks'
+    kind (a fresh array, on the blocks' device)."""
+    if mesh_cfg.trivial or spec.kind == REPL:
+        return blocks_by_rank[0]
+    lead = 1 if spec.stacked else 0
+    tp = mesh_cfg.tp
+
+    def cat(parts, axis):
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts, axis)
+        return np.concatenate(parts, axis)
+
+    if spec.kind == TP_SMALL:
+        return cat([blocks_by_rank[m] for m in range(tp)], lead)
+    # DIST: rank f * tp + m holds FSDP block f of model row m
+    rows = [cat([blocks_by_rank[f * tp + m] for f in range(mesh_cfg.dshards)], -1)
+            for m in range(tp if spec.meta.tp_dim is not None else 1)]
+    return cat(rows, lead) if spec.meta.tp_dim is not None else rows[0]
 
 
 def tree_to_local(storage, spec_tree, mesh_cfg: MeshCfg, rank: int):

@@ -5,9 +5,10 @@ on an FSDP×TP mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --prompt-lens 512,512,384,256,200 --gen 16 --max-slots 2 \\
-      [--mesh 1x2] [--weight-stationary] [--check-static] [--reduced] [--device cpu] \\
-      [--plan plan.json | --round-to 2 --act-round-to 2] [--seq-parallel] \\
-      [--paged [--page-size 64] [--num-pages N] [--no-share-prefix]] \\
+      [--mesh 1x2] [--weight-stationary] [--check-static | --static] [--reduced] \\
+      [--device cpu] [--plan plan.json | --round-to 2 --act-round-to 2] \\
+      [--seq-parallel] [--chunks C] [--requests N --prompt-len L] \\
+      [--contiguous | --paged [--page-size 64] [--num-pages N] [--no-share-prefix]] \\
       [--shared-prefix N] [--int8-kv] [--window W] \\
       [--temperature T [--top-p P] [--top-k K] [--seed S]] \\
       [--spec-decode [--draft tiny] [--spec-k 4]]
@@ -16,8 +17,14 @@ Weights are random, from seed 0 (``repro_torch.models.init``). The plan
 is ``--plan``'s JSON file, else ``PrecisionPlan.build`` from
 ``--round-to`` (default 2, the reference launcher's: bf16 planes) and
 ``--act-round-to`` (the TP-region all-reduces; default 4); the layout
-flags ``--seq-parallel`` (the sequence-parallel prefill layout) and
-``--int8-kv`` (int8 KV caches) override either, as in the reference. A
+flags ``--seq-parallel`` (the sequence-parallel prefill layout),
+``--int8-kv`` (int8 KV caches) and ``--chunks`` (the weight gather's plane
+blocks) override either, as in the reference. The requests are
+``--prompt-lens``' lengths, else ``--requests`` prompts of
+``--prompt-len`` tokens (the reference's defaults, 8 of 64);
+``--static`` runs only the static one-shot path and prints its first
+streams; ``--contiguous`` names the default slotted layout (exclusive with
+``--paged``). A
 plan's ``"dtype": "bf16"`` serves in bf16: weights cast after the unpack,
 bf16 KV caches, and the bf16 attention kernels on the card. ``--temperature`` (> 0) switches every
 request to seeded sampling with ``--top-p`` / ``--top-k``, request i at
@@ -37,10 +44,13 @@ mesh, the engine's collectives per traffic class against the plan's
 ``serve_wire_table`` (``[OK ...]`` or ``[MISMATCH ...]``). Runs on
 ``cuda`` unless ``--device cpu``. ``--ckpt`` serves the weights of a
 training checkpoint (``load_storage``, either package's) and takes its
-plan unless ``--plan`` overrides it, as the reference does. Speculative
-decoding and windows on a mesh raise ``NotImplementedError`` (ROADMAP item
-7.6), as does ``--ckpt`` on a mesh (item 9b); the reference launcher's
-chunks option is not ported.
+plan unless ``--plan`` overrides it, as the reference does; on a mesh rank
+0 reads it and scatters each rank its blocks. An export written without
+residual tiers is read at ``quality="wire"`` (the widths it was priced at;
+the reference's launcher reads every checkpoint at ``exact`` and raises on
+such an export). Speculative decoding and windows run on any mesh: the
+draft on the target's mesh, every rank's acceptance decided on the
+gathered logits.
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ import warnings
 import numpy as np
 
 from repro_torch import fp32_math, resolve_device
-from repro_torch.checkpoint.ckpt import load_plan, load_storage
+from repro_torch.checkpoint.ckpt import ckpt_dir, load_plan, load_storage
+from repro_torch.checkpoint.sharded import read_meta
 from repro_torch.configs.registry import ARCHS, get_config, reduced
 from repro_torch.dist.spec import MeshCfg
 from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
@@ -61,7 +72,7 @@ from repro_torch.launch.train import parse_mesh, rank_device, setup_storage
 from repro_torch.plan import PrecisionPlan, SamplingParams
 from repro_torch.roofline.analysis import serve_host_device_bytes, serve_spec_decode_bytes
 from repro_torch.serve.engine import Request, ServeEngine, generate_static
-from repro_torch.serve.spec import build_draft, require_one_device
+from repro_torch.serve.spec import build_draft
 from repro_torch.train.step import COLLECTIVE_CLASSES
 
 
@@ -142,8 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mesh", default="1x1", help="DPxTP or PODSxDPxTP")
-    ap.add_argument("--prompt-lens", default="64,48,64,32",
-                    help="comma-separated per-request prompt lengths")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--prompt-lens", default="",
+                    help="comma-separated per-request prompt lengths; overrides "
+                         "--requests/--prompt-len")
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-slots", type=int, default=0,
                     help="KV slots resident in the engine (default min(4, requests))")
@@ -161,13 +175,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-parallel", action="store_true",
                     help="sequence-parallel prefill activations (decode keeps the psum "
                          "layout)")
+    ap.add_argument("--chunks", type=int, default=None,
+                    help="weight-gather chunk count (overrides the plan's)")
     ap.add_argument("--weight-stationary", action="store_true")
+    ap.add_argument("--static", action="store_true",
+                    help="run only the static one-shot reference path")
     ap.add_argument("--check-static", action="store_true",
                     help="also run the static reference and require equal streams")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--paged", action="store_true",
-                    help="block-paged KV layout: page pool + per-slot page table, "
-                         "shared-prefix pages refcounted")
+    layout = ap.add_mutually_exclusive_group()
+    layout.add_argument("--paged", action="store_true",
+                        help="block-paged KV layout: page pool + per-slot page table, "
+                             "shared-prefix pages refcounted")
+    layout.add_argument("--contiguous", action="store_true",
+                        help="slotted contiguous KV layout (the default)")
     ap.add_argument("--page-size", type=int, default=64, help="tokens per KV page (--paged)")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool size (default: slots x table width)")
@@ -177,7 +198,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prepend this many common tokens to every prompt")
     ap.add_argument("--int8-kv", action="store_true", help="int8 KV caches (fp32 scales)")
     ap.add_argument("--window", type=int, default=0,
-                    help="sliding-window decode (one device)")
+                    help="sliding-window decode override (long-context)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy; > 0 samples every request)")
     ap.add_argument("--top-p", type=float, default=1.0, help="nucleus cutoff (--temperature)")
@@ -185,8 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="base sampling seed; request i uses seed + i")
     ap.add_argument("--spec-decode", action="store_true",
-                    help="speculative decoding (one device): the draft proposes --spec-k "
-                         "ids a slot, the target verifies them in one step")
+                    help="speculative decoding: the draft proposes --spec-k ids a slot, "
+                         "the target verifies them in one step")
     ap.add_argument("--draft", default="tiny",
                     help="draft model: 'tiny' (the target shrunk, same vocabulary, random "
                          "weights from seed 1) or an arch name (--spec-decode)")
@@ -220,7 +241,26 @@ def plan_from_args(args, nrt: int) -> PrecisionPlan:
         overrides["seq_parallel"] = True
     if args.int8_kv:
         overrides["int8_kv"] = True
+    if args.chunks is not None:
+        overrides["chunks"] = args.chunks
     return dataclasses.replace(plan, **overrides) if overrides else plan
+
+
+def prompt_lens(args) -> list[int]:
+    """``--prompt-lens``, else ``--requests`` prompts of ``--prompt-len``."""
+    if args.prompt_lens:
+        return [int(s) for s in args.prompt_lens.split(",")]
+    return [args.prompt_len] * args.requests
+
+
+def restore(path: str, storage, spec_tree, mesh_cfg: MeshCfg):
+    """``(storage, step)`` of a training checkpoint's weights for serving:
+    at ``quality="wire"`` when it was written without residual tiers (an
+    export), else exact; on a mesh rank 0 reads and each rank gets its
+    blocks."""
+    d = ckpt_dir(path)  # a legacy .npz is full precision
+    quality = "wire" if os.path.isdir(d) and not read_meta(d)["residuals"] else "exact"
+    return load_storage(path, storage, quality=quality, spec_tree=spec_tree, mesh_cfg=mesh_cfg)
 
 
 def _serve(rank: int, args, params=None) -> dict:
@@ -239,10 +279,10 @@ def _serve(rank: int, args, params=None) -> dict:
     plan = plan_from_args(args, cfg.num_groups + 1)
     restored = None
     if args.ckpt:
-        storage, ckpt_step = load_storage(args.ckpt, storage)
+        storage, ckpt_step = restore(args.ckpt, storage, spec_tree, mesh_cfg)
         restored = (f"restored weights from {args.ckpt} (train step {ckpt_step}, "
                     f"plan rts {plan.round_tos})")
-    requests = build_requests([int(s) for s in args.prompt_lens.split(",")], args.gen,
+    requests = build_requests(prompt_lens(args), args.gen,
                               cfg.vocab_size, shared_prefix=args.shared_prefix,
                               temperature=args.temperature, top_p=args.top_p,
                               top_k=args.top_k, seed=args.seed)
@@ -255,11 +295,13 @@ def _serve(rank: int, args, params=None) -> dict:
     out = {"cfg": cfg.name, "device": str(device), "lens": lens, "slots": slots,
            "restored": restored,
            "mesh": mesh_cfg.shape, "trivial": mesh_cfg.trivial, "static": None}
-    if args.check_static:
+    if args.check_static or args.static:
         t0 = time.perf_counter()
         out["static"] = generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests,
                                         plan=plan, window=window)
         out["static_s"] = time.perf_counter() - t0
+        if args.static:
+            return out
     draft = None
     if args.spec_decode:
         draft = build_draft(cfg, mesh_cfg, args.draft, device=device)
@@ -284,18 +326,11 @@ def _serve(rank: int, args, params=None) -> dict:
 
 
 def main(argv=None, *, params=None):
-    """Run the launcher; returns rank 0's ``{rid: GenResult}``. ``params``
-    replaces the seeded weights (a port LM tree at the mesh's ``tp``)."""
+    """Run the launcher; returns rank 0's ``{rid: GenResult}`` (with
+    ``--static``, its ``{rid: ids}``). ``params`` replaces the seeded
+    weights (a port LM tree at the mesh's ``tp``)."""
     args = build_parser().parse_args(argv)
     mesh_cfg = parse_mesh(args.mesh)
-    if args.spec_decode:
-        require_one_device(mesh_cfg, "speculative decoding")
-    if args.window:
-        require_one_device(mesh_cfg, "sliding-window serving")
-    if args.ckpt and not mesh_cfg.trivial:
-        raise NotImplementedError(
-            f"--ckpt on mesh {args.mesh}: restoring a checkpoint across ranks is not ported "
-            "(ROADMAP item 9b)")
     if mesh_cfg.trivial:
         out = _serve(0, args, params)
     else:
@@ -303,11 +338,16 @@ def main(argv=None, *, params=None):
         resolve_device(args.device)  # a missing card fails here, not in the ranks
         threads = 1 if args.device == "cpu" else max(1, (os.cpu_count() or 1) // world)
         out = spawn_ranks(_serve, world, args, params, threads=threads)[0]
-    results, summary, analytic, lens = out["results"], out["summary"], out["analytic"], out["lens"]
     if out["restored"]:
         print(out["restored"])
     if out["static"] is not None:
-        print(f"static one-shot reference: {len(results)} requests in {out['static_s']:.2f}s")
+        print(f"static one-shot reference: {len(out['static'])} requests in "
+              f"{out['static_s']:.2f}s")
+    if args.static:
+        for rid in sorted(out["static"])[:4]:
+            print(f"  req{rid}: {out['static'][rid][:16]}")
+        return out["static"]
+    results, summary, analytic, lens = out["results"], out["summary"], out["analytic"], out["lens"]
     total_new = sum(len(r.tokens) for r in results.values())
     print(f"{out['cfg']} on {out['device']}, mesh {out['mesh']}: {len(results)} requests, "
           f"prompts {min(lens)}..{max(lens)}, +{args.gen} tokens, {out['slots']} slots")

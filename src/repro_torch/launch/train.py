@@ -28,7 +28,7 @@ one more: the collectives' measured wire by class against
 :func:`~repro_torch.train.step.step_wire_table`. Runs on ``cuda`` unless
 ``--device cpu``.
 
-Training I/O, on one device: ``--data-dir`` trains from a shard
+Training I/O, on any mesh: ``--data-dir`` trains from a shard
 directory (``python -m repro_torch.data.write``) through the
 :class:`~repro_torch.data.prefetch.Prefetcher` (``--data-quality``,
 ``--prefetch-depth``), the shards' meta checked against the run, and
@@ -39,7 +39,16 @@ writes a width-aware sharded checkpoint at the end (and every
 plan and the consumed batch's data state; ``--resume`` restores storage,
 momentum, the AWP state and the data position from ``--ckpt`` and runs on
 to ``--steps``. A ``--plan`` may carry a ``host_device`` entry (the
-ingest's staging width and the ``host_device`` wire entry).
+ingest's staging width and the ``host_device`` wire entry). On a mesh every
+rank reads the whole global batch through its own reader and prefetcher
+(each is deterministic from ``seed=0`` and the data state) and the step
+takes the rank's rows, as the reference's step slices its global batch:
+the ingest bytes are per rank, each rank's equal to
+``train_ingest_bytes`` of the global batch, which the reference reckons
+per step on its one host. A checkpoint is gathered to rank 0, which writes
+the global state (byte-equal to the reference's at the same mesh), and a
+resume reads it on rank 0 and scatters each rank its blocks; the data
+state saved is the consumed batch's, checked equal on every rank.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
       --steps 6 --data-dir shards/ --ckpt ck --ckpt-every 3 --async-ckpt [--device cpu]
@@ -48,8 +57,7 @@ ingest's staging width and the ``host_device`` wire entry).
 
 Every flag of the reference that needs a module the port does not have
 raises ``NotImplementedError`` naming its ROADMAP item: ``--chunks auto``
-(item 12), and on a mesh ``--ckpt`` and its options, ``--resume`` and
-``--data-dir`` (checkpoints and shard ingest across ranks, item 9b).
+(item 12).
 """
 from __future__ import annotations
 
@@ -96,14 +104,8 @@ def parse_mesh(spec: str) -> MeshCfg:
 
 def _unported(args) -> list[str]:
     """The set flags that need a module the port does not have."""
-    mesh = not parse_mesh(args.mesh).trivial
     checks = (
         (args.chunks == "auto", "--chunks auto (plan/sweep.py's pick_chunks, ROADMAP item 12)"),
-        (mesh and (args.ckpt or args.ckpt_every or args.async_ckpt or args.resume),
-         "--ckpt/--ckpt-every/--async-ckpt/--resume on a mesh (checkpoints across ranks, "
-         "ROADMAP item 9b)"),
-        (mesh and args.data_dir, "--data-dir on a mesh (shard ingest across ranks, "
-                                 "ROADMAP item 9b)"),
     )
     return [what for cond, what in checks if cond]
 
@@ -275,7 +277,8 @@ def _train(rank: int, args, params=None) -> dict:
     if args.resume:
         if not args.ckpt:
             raise SystemExit("--resume needs --ckpt")
-        storage, mom, start_step = load_checkpoint(args.ckpt, storage, mom, trainer.controller)
+        storage, mom, start_step = load_checkpoint(args.ckpt, storage, mom, trainer.controller,
+                                                   spec_tree=spec_tree, mesh_cfg=mesh_cfg)
         data_state = load_extra(args.ckpt).get("data_state")
         notes["resumed"] = f"resumed {args.ckpt} at step {start_step}"
     if start_step >= args.steps:
@@ -290,7 +293,7 @@ def _train(rank: int, args, params=None) -> dict:
         save_checkpoint(args.ckpt, storage, mom, trainer.controller, step, plan=plan,
                         spec_tree=spec_tree, round_tos=trainer.current_round_tos(),
                         extra={"data_state": data_state} if data_state else None,
-                        async_ckpt=async_ckpt)
+                        async_ckpt=async_ckpt, mesh_cfg=mesh_cfg)
 
     t0, elapsed, step_tables = time.time(), [], []
     try:

@@ -13,10 +13,11 @@ Presets, the reference's:
 Logs the loss, the AWP format trajectory and the wire bytes, and writes
 a checkpoint at the end, as the reference's: the sharded directory of
 ``--ckpt`` (default, as the reference's, ``repro_lm_ckpt.npz`` in the
-temporary directory; ``ckpt_dir`` maps it to ``repro_lm_ckpt.ckpt/``), full width, with the plan and the AWP state. At
-a mesh preset (``8dev``) the run writes no checkpoint and says so, and an
-explicit ``--ckpt`` raises ``NotImplementedError``: checkpoints across
-ranks are ROADMAP item 9b.
+temporary directory; ``ckpt_dir`` maps it to ``repro_lm_ckpt.ckpt/``),
+full width, with the plan and the AWP state. At a mesh preset (``8dev``)
+the ranks' blocks are gathered to rank 0, which writes the global state
+(``repro_torch.checkpoint.sharded``), as the reference's writes its
+sharded arrays.
 
   PYTHONPATH=src python -m repro_torch.launch.train_lm --preset cpu-demo [--device cpu]
 """
@@ -85,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", default="awp", help="awp | baseline | oracle:<rt>")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint path (default repro_lm_ckpt.npz in the temporary "
-                         "directory; one device only, ROADMAP item 9b)")
+                         "directory)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -124,8 +125,8 @@ def _run(rank: int, args, params=None) -> dict:
             r = trainer.records[-1]
             lines.append(f"step {step+1:4d}  loss {r.loss:.4f}  rts {r.round_tos}  "
                          f"wire {r.wire_bytes/1e6:.1f}MB  {(time.time()-t0)/(step+1):.2f}s/step")
-    if mesh_cfg.trivial:
-        save_checkpoint(args.ckpt, storage, mom, trainer.controller, steps, plan=plan)
+    save_checkpoint(args.ckpt, storage, mom, trainer.controller, steps, plan=plan,
+                    spec_tree=spec_tree, mesh_cfg=mesh_cfg)
     return {"lines": lines, "summary": trainer.summary(),
             "losses": [r.loss for r in trainer.records]}
 
@@ -137,11 +138,7 @@ def main(argv=None, *, params=None) -> dict:
     one state)."""
     args = build_parser().parse_args(argv)
     _, mesh_cfg, *_ = build_preset(args.preset)
-    if not mesh_cfg.trivial and args.ckpt is not None:
-        raise NotImplementedError(
-            f"--ckpt at preset {args.preset}: checkpoints across ranks are not ported "
-            "(ROADMAP item 9b)")
-    if args.ckpt is None and mesh_cfg.trivial:
+    if args.ckpt is None:
         args.ckpt = os.path.join(tempfile.gettempdir(), "repro_lm_ckpt.npz")
     if mesh_cfg.trivial:
         out = _run(0, args, params)
@@ -156,11 +153,7 @@ def main(argv=None, *, params=None) -> dict:
     print(f"\nfinal loss {s['final_loss']:.4f}  wire reduction "
           f"{s['wire_reduction']*100:.1f}%  recompiles {s['recompiles']}")
     print(f"AWP history: {s['bits_history']}")
-    if mesh_cfg.trivial:
-        print(f"checkpoint -> {args.ckpt}")
-    else:
-        print(f"no checkpoint: preset {args.preset} runs on a mesh, and checkpoints across "
-              "ranks are not ported (ROADMAP item 9b)")
+    print(f"checkpoint -> {args.ckpt}")
     s["losses"] = out["losses"]
     return s
 

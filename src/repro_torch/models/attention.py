@@ -556,7 +556,7 @@ def mha(
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mha mode={mode!r} (train, prefill, decode)")
     if is_cross or kv_ext is not None:
-        raise NotImplementedError("cross-attention is not ported")
+        raise NotImplementedError("cross-attention is not ported (ROADMAP item 11)")
     paged = isinstance(cache, PAGED)
     if mode == "train" and cache is not None:
         raise ValueError("train mode takes no KV cache")
@@ -576,7 +576,7 @@ def mha(
             "stays on the contiguous ring layout"
         )
     if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported")
+        raise NotImplementedError("qkv_bias is not ported (ROADMAP item 11)")
     if cache is None and mode != "train":
         raise ValueError(f"{mode} needs a pre-allocated KV cache")
     hd = cfg.head_dim

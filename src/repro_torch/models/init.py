@@ -76,7 +76,7 @@ def _attn_params(mk: Maker, cfg: ModelConfig, tp: int):
     d, hd = cfg.d_model, cfg.head_dim
     H, Kv = eff_heads(cfg, tp), eff_kv_heads(cfg, tp)
     if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported (qwen2.5 family)")
+        raise NotImplementedError("qkv_bias is not ported (qwen2.5 family, ROADMAP item 11)")
     p = {
         "wq": mk.masked_heads(mk.normal((d, H * hd)), cfg.num_heads, H, hd, 1),
         "wk": mk.normal((d, Kv * hd)),

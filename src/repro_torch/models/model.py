@@ -91,7 +91,8 @@ def apply_block(
     """One block of the pattern. Returns (x', cache'); the reference's
     third value, the MoE auxiliary loss, has no counterpart here."""
     if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported (attn only)")
+        raise NotImplementedError(f"block kind {kind!r} is not ported (attn only; ROADMAP "
+                                  "item 11)")
     window = _window(cfg, window_override)
     wa = w["attn"]
     xn = rms_norm(x, wa["ln"], cfg.norm_eps)
@@ -287,7 +288,7 @@ def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
         entry = {}
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported")
+                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP item 11)")
             one = init_cache(batch, capacity, kv_l, cfg.head_dim,
                              torch.int8 if env.int8_kv else dtype,
                              per_slot=per_slot, device=device)
@@ -314,7 +315,7 @@ def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
         entry = {}
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported")
+                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP item 11)")
             one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
                                    torch.int8 if env.int8_kv else dtype, device=device)
             entry[f"p{pi}"] = _stack(one, reps)

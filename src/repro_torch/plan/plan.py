@@ -435,7 +435,8 @@ class PrecisionPlan:
             if v != UNPORTED_DEFAULTS[k]:
                 raise NotImplementedError(
                     f"plan field {k}={v!r} is not ported (only its "
-                    f"default {UNPORTED_DEFAULTS[k]!r} runs)"
+                    f"default {UNPORTED_DEFAULTS[k]!r} runs; the fleet's fields, ROADMAP "
+                    "item 10)"
                 )
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - known

@@ -46,7 +46,8 @@ class Request:
             raise ValueError(f"request {rid}: sampling must be a SamplingParams")
         if image_features is not None:
             raise NotImplementedError(
-                f"request {rid}: image features (vision cross-attention) are not ported"
+                f"request {rid}: image features (vision cross-attention) are not ported "
+                "(ROADMAP item 11)"
             )
         object.__setattr__(self, "rid", rid)
         object.__setattr__(self, "prompt_ids", prompt_ids)

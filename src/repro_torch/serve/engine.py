@@ -54,8 +54,9 @@ order on all ranks. :attr:`ServeEngine.wire_log` records each forward's
 collectives per traffic class (``dist.comm``'s log) and
 :attr:`ServeEngine.place_wire` the placement's.
 
-Not ported: speculative decoding and sliding windows on a mesh raise
-``NotImplementedError`` (ROADMAP item 7.6); the fleet's migration
+Speculative decoding and sliding windows run on any mesh, as the
+reference's: the draft on the target's mesh, ring caches at the rank's kv
+heads. Not ported: the fleet's migration
 admission (``admit_pages`` / ``install_pages``) and weight swaps
 (``swap_weights``) are absent (item 10). The reference compiles one
 prefill per prompt length (per page-bucket length when paged); PyTorch
@@ -84,7 +85,6 @@ from repro_torch.serve.spec import (
     DraftRunner,
     check_spec_arch,
     insert_slot,
-    require_one_device,
     rollback_caches,
 )
 from repro_torch.serve.step import (
@@ -325,10 +325,10 @@ class ServeEngine:
     ``num_pages`` allocatable pages (default ``max_slots`` × the table
     width, ``ceil((cache_capacity + spec_k) / page_size)``, ``spec_k``
     only with a draft), ``share_prefix`` interning of whole prompt pages.
-    ``window`` is the decode's sliding window (contiguous layout, one
-    device); ``draft`` a :class:`~repro_torch.serve.spec.DraftBundle` for
-    speculative decoding with ``spec_k`` proposals a round (default the
-    plan's), on one device."""
+    ``window`` is the decode's sliding window (contiguous layout);
+    ``draft`` a :class:`~repro_torch.serve.spec.DraftBundle` (on the
+    engine's mesh) for speculative decoding with ``spec_k`` proposals a
+    round (default the plan's)."""
 
     def __init__(
         self,
@@ -361,10 +361,6 @@ class ServeEngine:
                     "resident — sliding-window (ring) serving stays on the "
                     "contiguous layout"
                 )
-        if window is not None:
-            require_one_device(mesh_cfg, "sliding-window serving")
-        if draft is not None:
-            require_one_device(mesh_cfg, "speculative decoding")
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
         self.cfg = cfg
@@ -995,10 +991,7 @@ def generate_static(
     attention (the engine's ring holds the same tokens). On a mesh a
     group's rows are sharded over the data ranks when they split evenly,
     and a length the model group does not divide takes the psum layout,
-    as in the reference; a window there raises ``NotImplementedError``
-    (ROADMAP item 7.6)."""
-    if window is not None:
-        require_one_device(mesh_cfg, "sliding-window serving")
+    as in the reference, and a window masks the rank's heads alike."""
     plan = plan.broadcast(cfg.num_groups + 1)
     device = storage["embed"].device
     groups: dict[int, list[Request]] = {}

@@ -24,9 +24,11 @@ Cache discipline: the verify step advances every slot's ``pos`` by ``k +
 port's caches are updated in place). Entries past the new ``pos`` are
 masked and the next block overwrites them.
 
-On a mesh (tp > 1) speculative decoding raises ``NotImplementedError``
-(ROADMAP item 7.6): the reference's engine cannot run on a mesh, so
-there is nothing to hold it against.
+On a mesh the draft lives on the target's mesh (:func:`build_draft`, each
+rank its blocks) and its prefills and micro steps run on the rank's heads;
+every step returns the logits gathered over the vocabulary slices, so the
+proposals, the verify samples, the acceptance and the rollback deltas are
+the same on every rank, and each rank rolls back its own caches.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.spec import MeshCfg
@@ -56,19 +59,8 @@ __all__ = [
     "check_spec_arch",
     "insert_slot",
     "make_draft_config",
-    "require_one_device",
     "rollback_caches",
 ]
-
-
-def require_one_device(mesh_cfg: MeshCfg, what: str) -> None:
-    """Speculative decoding and sliding windows run on the trivial mesh
-    only; elsewhere they raise, naming their ROADMAP item."""
-    if not mesh_cfg.trivial:
-        raise NotImplementedError(
-            f"{what} at mesh {mesh_cfg.shape} is not ported: one device only "
-            "(ROADMAP item 7.6)"
-        )
 
 
 def check_spec_arch(cfg: ModelConfig, *, window=None) -> None:
@@ -136,16 +128,18 @@ class DraftBundle:
 
 def build_draft(cfg: ModelConfig, mesh_cfg: MeshCfg, name: str = "tiny", *, seed: int = 1,
                 device="cuda", params=None) -> DraftBundle:
-    """The draft of ``cfg`` on ``device``: random weights from ``seed``
-    (``repro_torch.models.init``), or ``params`` (a port tree of the
-    draft config, e.g. the reference's converted by
-    :func:`repro_torch.convert.convert_lm_params`)."""
+    """The draft of ``cfg`` on ``device``, on the target's mesh (as the
+    reference's): random weights from ``seed`` (``repro_torch.models.init``),
+    or ``params`` (a port tree of the draft config at the mesh's ``tp``,
+    e.g. the reference's converted by
+    :func:`repro_torch.convert.convert_lm_params`). On a sharded mesh every
+    rank calls, and each gets its blocks."""
     from repro_torch.launch.train import setup_storage
 
-    require_one_device(mesh_cfg, "speculative decoding")
     dcfg = make_draft_config(cfg, name)
+    rank = 0 if mesh_cfg.trivial else dist.get_rank()
     spec_tree, storage = setup_storage(dcfg, mesh_cfg, device=torch.device(device),
-                                       params=params, seed=seed)
+                                       params=params, seed=seed, rank=rank)
     return DraftBundle(dcfg, spec_tree, storage)
 
 
@@ -190,7 +184,6 @@ class DraftRunner:
     def __init__(self, bundle: DraftBundle, mesh_cfg: MeshCfg, mesh, *, plan: PrecisionPlan,
                  max_slots: int, capacity: int, spec_k: int, token_width: int, device):
         check_spec_arch(bundle.cfg)
-        require_one_device(mesh_cfg, "speculative decoding")
         cfg = bundle.cfg
         self.cfg = cfg
         self.mesh_cfg = mesh_cfg

@@ -130,7 +130,10 @@ def noise_indices(spec_tree, mesh_cfg: MeshCfg, device, rank: int = 0) -> dict:
     index itself; across ranks ``(forward, backward)``, the backward over
     the padded flat storage (padding at its own index) and the forward
     over the rank's shard, modulo the shard length (the reference packs
-    each rank's shard from index 0)."""
+    each rank's shard from index 0). A chunked gather (``plan.chunks > 1``)
+    reads the forward index chunk by chunk: an element at shard offset
+    ``q`` draws under the key of the reference's chunk ``q // loc`` at
+    ``q % loc`` (``transport._pack_by_chunk``)."""
     specs = {n: leafs["w"] for n, leafs in spec_tree["layers"].items() if "w" in leafs}
     out = {}
     for name, idx in reference_index({n: s.logical for n, s in specs.items()},

@@ -35,8 +35,9 @@ def ring_wire_bytes(kind: str, payload_bytes: float, group_size: int) -> float:
     """Per-device wire bytes of one ring-algorithm collective.
 
     ``payload_bytes`` is the *output* size for all-gather / all-to-all,
-    the *input* size for all-reduce / reduce-scatter, and the transferred
-    size for collective-permute.
+    the *input* size for all-reduce / reduce-scatter, the transferred
+    size for collective-permute, and the root's whole buffer (every
+    rank's block) for a gather to or a scatter from one rank.
     """
     n = max(int(group_size), 1)
     kind = kind.replace("-start", "")
@@ -48,6 +49,8 @@ def ring_wire_bytes(kind: str, payload_bytes: float, group_size: int) -> float:
         return payload_bytes * (n - 1) / n
     if kind == "collective-permute":
         return float(payload_bytes)
+    if kind in ("gather", "scatter"):  # to or from one root: n - 1 blocks cross
+        return payload_bytes * (n - 1) / n
     raise ValueError(f"unknown collective kind {kind!r}")
 
 

@@ -132,25 +132,45 @@ def _all_gather_impl(w, group, policy: CompressionPolicy, axis: int, key=None, i
         and w.ndim == 1
         and w.shape[0] % policy.chunks == 0
     ):
-        if index is not None and key is not None:
-            raise NotImplementedError("a chunked gather draws its noise by chunk: no "
-                                      "noise index there")
-        return _chunked_all_gather(w, group, policy, key)
+        return _chunked_all_gather(w, group, policy, key, index)
     return _packed_all_gather(w, group, policy.round_to, policy.mode, policy.impl, axis,
                               key=key, index=index)
 
 
-def _chunked_all_gather(w, group, policy: CompressionPolicy, key=None):
+def _pack_by_chunk(piece, index, loc: int, policy: CompressionPolicy, key):
+    """Planes of ``piece`` whose elements sit, in the reference's layout, at
+    the shard offsets ``index``: an element at offset ``q`` lies in the
+    reference's chunk ``q // loc``, which packs with ``fold_in(key, q //
+    loc)`` at ``q % loc``, so each element takes that chunk's key and
+    index, whichever chunk of the port's layout holds it."""
+    owner = index // loc
+    planes = torch.empty((policy.round_to, piece.shape[0]), dtype=torch.uint8,
+                         device=piece.device)
+    for c in torch.unique(owner).tolist():
+        sel = owner == c
+        planes[:, sel] = pack_planes(piece[sel], policy.round_to, mode=policy.mode,
+                                     impl=policy.impl, key=_random.fold_in(key, c),
+                                     index=index[sel] % loc)
+    return planes
+
+
+def _chunked_all_gather(w, group, policy: CompressionPolicy, key=None, index=None):
     """Gather in ``policy.chunks`` independent plane blocks, re-interleaved
     to the unchunked layout exactly; block ``c`` packs with ``fold_in(key,
-    c)``."""
+    c)``, as the reference's. With a noise ``index`` (the shard offset of
+    each element in the reference's layout) an element draws under the key
+    and at the index of the reference's chunk that holds it
+    (:func:`_pack_by_chunk`)."""
     n_chunks = policy.chunks
     loc = w.shape[0] // n_chunks
     gathered = []
     for c in range(n_chunks):
-        planes = pack_planes(w[c * loc:(c + 1) * loc], policy.round_to, mode=policy.mode,
-                             impl=policy.impl,
-                             key=None if key is None else _random.fold_in(key, c))
+        piece = w[c * loc:(c + 1) * loc]
+        if key is not None and index is not None:
+            planes = _pack_by_chunk(piece, index[c * loc:(c + 1) * loc], loc, policy, key)
+        else:
+            planes = pack_planes(piece, policy.round_to, mode=policy.mode, impl=policy.impl,
+                                 key=None if key is None else _random.fold_in(key, c))
         planes_g = comm.all_gather(planes, group, axis=1, traffic="weights")
         gathered.append(unpack_planes(planes_g, impl=policy.impl))
     # gathered[c] = concat_d shard_d[block c]; the full gather is

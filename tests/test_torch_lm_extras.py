@@ -301,13 +301,31 @@ def test_cpu_demo_matches_the_example(tmp_path, capsys):
     assert len(s["losses"]) == 30 and out.splitlines()[0] == ref.splitlines()[0]
 
 
-def test_twin_writes_no_checkpoint():
-    """At a mesh preset the twin writes no checkpoint: checkpoints across
-    ranks are ROADMAP item 9b, so an explicit ``--ckpt`` raises before any
-    rank starts (one device writes one: ``test_torch_train_io.py``)."""
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        train_lm.main(["--preset", "8dev", "--steps", "1", "--device", "cpu",
-                       "--ckpt", "x.npz"])
+def test_twin_writes_no_checkpoint(tmp_path, capsys):
+    """At a mesh preset the twin wrote no checkpoint until ROADMAP item 9b;
+    now ``8dev``'s eight ranks gather theirs to rank 0, which writes the
+    4x2 mesh's global storage at full width, as the reference's
+    ``examples/train_lm.py`` does (the reference loads it:
+    ``test_torch_mesh_io.py``)."""
+    from repro_torch.checkpoint.sharded import leaf_entries, manifest_bytes, read_meta
+    from repro_torch.dist.spec import build_spec_tree, storage_shape
+    from repro_torch.models.init import init_params
+
+    path = str(tmp_path / "lm.npz")
+    train_lm.main(["--preset", "8dev", "--steps", "1", "--device", "cpu", "--ckpt", path])
+    assert f"checkpoint -> {path}" in capsys.readouterr().out
+    d = str(tmp_path / "lm.ckpt")
+    meta = read_meta(d)
+    cfg, mcfg, *_ = train_lm.build_preset("8dev")
+    shapes, metas = init_params(cfg, device="meta", tp=mcfg.tp)
+    specs = dict(leaf_entries(build_spec_tree(shapes, metas, mcfg)))
+    assert meta["step"] == 1 and meta["awp"]["history"]
+    for name in ("storage", "opt"):
+        for e in meta["trees"][name]:
+            assert tuple(e["shape"]) == storage_shape(specs[e["path"]], mcfg), e["path"]
+            assert not e["tiered"]  # full width, as the reference's
+    sizes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d) if f.endswith(".bin"))
+    assert manifest_bytes(meta)["total"] == sizes
 
 
 # ---------------------------------------------------------------------------

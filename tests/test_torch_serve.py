@@ -11,7 +11,9 @@ Tolerances: logits atol 2e-5 / rtol 1e-5 (fp32 sums in another order in
 XLA and PyTorch; logits are O(0.1)); token streams, byte counts, step
 logs and tree shapes must be exactly equal.
 """
+import contextlib
 import dataclasses
+import io
 
 import jax
 import jax.numpy as jnp
@@ -296,63 +298,114 @@ def test_slot_manager_audit_and_misuse():
 
 # Sampled requests, int8 KV (contiguous and paged), speculative decoding and
 # sliding windows, once deferred here, are served (tests/test_torch_sampling.py,
-# test_torch_int8_kv.py, test_torch_spec.py, test_torch_window.py). What still
-# raises in each of their areas: speculative decoding and windows on a mesh
-# (ROADMAP item 7.6) and the fleet's int8 page migration (item 10).
+# test_torch_int8_kv.py, test_torch_spec.py, test_torch_window.py), and since
+# ROADMAP item 7.6 speculative decoding and windows on a mesh too
+# (tests/test_torch_tp_spec.py): each case below that once raised on a mesh
+# now holds a 1x2 run (two gloo ranks) to one device's run of the same
+# weights. What still raises in their areas: the fleet's int8 page migration
+# (item 10).
 
 
-def _self_draft(s):
-    from repro_torch.serve.spec import DraftBundle
+def _mesh_case_rank(rank):
+    """The once-deferred options at 1x2 and on one device, from the port's
+    seed-0 weights at tp 2, on rank ``rank``: ``{case: (mesh, one device)}``."""
+    from repro_torch.dist.spec import tree_to_local
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.serve.spec import DraftBundle, build_draft
 
-    return DraftBundle(s["tcfg"], s["tspec"], s["tstorage"])
+    tcfg = reduced(get_config("qwen3-1.7b"))
+    plan = PrecisionPlan.build(tcfg.num_groups + 1, round_to=2)
+    params, metas = init_params(tcfg, 0, device="cpu", tp=2)
+    meshes = {}
+    for name, mcfg in (("mesh", MeshCfg(tp=2)), ("one", MeshCfg())):
+        spec = build_spec_tree(params, metas, mcfg)
+        storage = tree_to_local(tree_to_storage(params, spec, mcfg), spec, mcfg, rank)
+        meshes[name] = (mcfg, make_mesh_from_cfg(mcfg), spec, storage)
+    reqs = _requests(tcfg.vocab_size)
+    sampled = [Request(0, (1, 2, 3), 6, sampling=SamplingParams(temperature=0.7, seed=1))]
+    out = {}
+    for name, (mcfg, mesh, spec, storage) in meshes.items():
+        def run(**kw):
+            eng = teng.ServeEngine(tcfg, mcfg, mesh, spec, storage, plan=plan,
+                                   max_slots=SLOTS, **{"cache_capacity": CAPACITY, **kw})
+            return {rid: r.tokens for rid, r in eng.run(reqs).items()}
+
+        self_draft = DraftBundle(tcfg, spec, storage)
+        tiny = build_draft(tcfg, mcfg, "tiny", device="cpu")
+        got = {
+            "plain": run(),
+            "paged": run(paged=True, page_size=8, draft=self_draft),
+            "draft": run(draft=self_draft),
+            "window": run(window=8, cache_capacity=8),
+            "window-static": teng.generate_static(tcfg, mcfg, mesh, spec, storage, reqs,
+                                                  plan=plan, window=8),
+            "sampled": teng.generate_static(tcfg, mcfg, mesh, spec, storage, sampled,
+                                            plan=plan, window=8),
+            "int8_kv": run(draft=tiny),
+        }
+        for case, v in got.items():
+            out.setdefault(case, {})[name] = v
+    return out
 
 
-def _mesh_engine(s, **kw):
-    return teng.ServeEngine(s["tcfg"], MeshCfg(tp=2), None, s["tspec"], s["tstorage"],
-                            plan=s["tplan"], max_slots=SLOTS, cache_capacity=CAPACITY, **kw)
+@pytest.fixture(scope="module")
+def mesh_cases():
+    from repro_torch.launch.mesh import spawn_ranks
+
+    ranks = spawn_ranks(_mesh_case_rank, 2)
+    assert ranks[0] == ranks[1]  # every rank streams alike
+    return ranks[0]
 
 
-def _raises_paged(s):
-    _mesh_engine(s, paged=True, page_size=8, draft=_self_draft(s))
+def _raises_paged(s, m):
+    assert m["paged"]["mesh"] == m["paged"]["one"] == m["plain"]["mesh"] == m["plain"]["one"]
 
 
-def _raises_draft(s):
-    _mesh_engine(s, draft=_self_draft(s))
+def _raises_draft(s, m):
+    assert m["draft"]["mesh"] == m["draft"]["one"] == m["plain"]["one"]
 
 
-def _raises_window(s):
-    _mesh_engine(s, window=8)
+def _raises_window(s, m):
+    w = m["window"]
+    assert w["mesh"] == w["one"] == m["window-static"]["mesh"] == m["window-static"]["one"]
+    assert w["one"] != m["plain"]["one"]  # the window bites
 
 
-def _raises_sampled(s):
-    req = Request(0, (1, 2, 3), 2, sampling=SamplingParams(temperature=0.7, seed=1))
-    teng.generate_static(s["tcfg"], MeshCfg(tp=2), None, s["tspec"], s["tstorage"], [req],
-                         plan=s["tplan"], window=8)
+def _raises_sampled(s, m):
+    assert m["sampled"]["mesh"] == m["sampled"]["one"] and len(m["sampled"]["one"][0]) == 6
 
 
-def _raises_sampled_static(s):
+def _raises_sampled_static(s, m):
     from repro_torch.launch import serve as launch
 
-    launch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "1x2", "--spec-decode",
-                 "--temperature", "0.7", "--check-static", "--device", "cpu"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "1x2", "--spec-decode",
+                     "--temperature", "0.7", "--prompt-lens", "8,6", "--gen", "4",
+                     "--check-static", "--device", "cpu"])
+    assert "check-static: 2 streams equal to the static reference" in out.getvalue()
+    assert "== serve_spec_decode_bytes" in out.getvalue()
 
 
-def _raises_int8_kv(s):
-    from repro_torch.serve.spec import build_draft
+def _raises_int8_kv(s, m):
+    """The tiny draft built on the 1x2 mesh (``build_draft(cfg, mesh_cfg)``):
+    the target's streams, as on one device."""
+    assert m["int8_kv"]["mesh"] == m["int8_kv"]["one"] == m["plain"]["one"]
 
-    build_draft(s["tcfg"], MeshCfg(tp=2), "tiny", device="cpu")
 
-
-def _raises_int8_kv_plan(s):
+def _raises_int8_kv_plan(s, m):
     PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "int8_kv": True,
                                   "kv_migration": {"round_to": 2}})
 
 
-def _raises_mesh(s):
+def _raises_mesh(s, m):
     from repro_torch.launch import serve as launch
 
-    launch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "1x2", "--window", "8",
-                 "--device", "cpu"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "1x2", "--window", "8",
+                     "--prompt-lens", "8,12", "--gen", "6", "--check-static", "--device", "cpu"])
+    assert "check-static: 2 streams equal to the static reference" in out.getvalue()
 
 
 def test_mesh_step_needs_the_mesh_groups(setup):
@@ -371,9 +424,15 @@ def test_mesh_step_needs_the_mesh_groups(setup):
     _raises_paged, _raises_draft, _raises_window, _raises_sampled,
     _raises_sampled_static, _raises_int8_kv, _raises_int8_kv_plan, _raises_mesh,
 ], ids=lambda f: f.__name__[len("_raises_"):])
-def test_deferred_options_raise(setup, case):
-    with pytest.raises(NotImplementedError, match="item 7.6|not ported"):
-        case(setup)
+def test_deferred_options_raise(setup, mesh_cases, case):
+    """The fleet's int8 page migration still raises (item 10); every other
+    case once raised on a mesh (item 7.6) and now runs there as on one
+    device."""
+    if case is _raises_int8_kv_plan:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            case(setup, mesh_cases)
+    else:
+        case(setup, mesh_cases)
 
 
 def test_unported_arch_and_flash_viability_on_cpu(setup):

@@ -49,6 +49,8 @@ from repro_torch.plan import PrecisionPlan, SamplingParams
 from repro_torch.roofline.analysis import serve_spec_decode_bytes
 from repro_torch.serve import engine as teng
 from repro_torch.serve import spec as tspec
+from repro_torch.checkpoint.sharded import leaf_entries
+from repro_torch.utils.trees import tree_map
 from repro_torch.transport import CompressionPolicy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -310,8 +312,30 @@ def test_engine_refusals(setup):
         teng.ServeEngine(s["tcfg"], s["tmesh"], None, spec_tree, storage, plan=s["tplan"],
                          max_slots=2, cache_capacity=32, window=16,
                          draft=s["tdrafts"]["self"])
-    with pytest.raises(NotImplementedError, match="7.6"):
-        tspec.build_draft(s["tcfg"], MeshCfg(tp=2), "tiny", device="cpu")
+    # on a mesh (ROADMAP item 7.6) the draft is built on the target's mesh:
+    # each rank holds its blocks of the seed-1 draft at tp 2
+    from repro_torch.dist.spec import leaf_to_local
+    from repro_torch.launch.mesh import spawn_ranks
+
+    dcfg = tspec.make_draft_config(s["tcfg"], "tiny")
+    params, metas = init_params(dcfg, 1, device="cpu", tp=2)
+    spec = build_spec_tree(params, metas, MeshCfg(tp=2))
+    for rank, got in enumerate(spawn_ranks(_draft_rank, 2, s["tcfg"])):
+        want = tree_map(lambda sp, x, r=rank: leaf_to_local(x, sp, MeshCfg(tp=2), r).numpy(),
+                        spec, params)  # in the spec tree's order, as the draft is laid out
+        assert got[0] == dcfg.name
+        got_leaves, want_leaves = dict(leaf_entries(got[1])), dict(leaf_entries(want))
+        assert sorted(got_leaves) == sorted(want_leaves)
+        for k, v in want_leaves.items():
+            np.testing.assert_array_equal(got_leaves[k], v, k)
+
+
+def _draft_rank(rank, tcfg):
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+
+    make_mesh_from_cfg(MeshCfg(tp=2))
+    draft = tspec.build_draft(tcfg, MeshCfg(tp=2), "tiny", device="cpu")
+    return draft.cfg.name, tree_map(lambda x: x.numpy(), draft.storage)
 
 
 def test_spec_launcher_twin_on_cpu(capsys):

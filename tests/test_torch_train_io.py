@@ -54,6 +54,7 @@ from repro.data.shards import write_lm_shards as j_write_lm_shards
 from repro.dist.spec import MeshCfg as JMesh
 from repro.dist.spec import build_spec_tree as j_build_spec_tree
 from repro.dist.spec import dist_elems_per_group as j_dist_elems
+from repro.dist.spec import tree_to_storage as j_tree_to_storage
 from repro.models.init import init_params as j_init_params
 from repro.optim.sgd import SGDConfig as JSGD
 from repro.optim.sgd import init_momentum as j_init_momentum
@@ -523,14 +524,29 @@ def test_train_launcher_io_flags(ref, tmp_path, capsys):
     assert jm["extra"] == jmeta["extra"] and jm["awp"]["history"] == jmeta["awp"]["history"]
 
 
-def test_train_launcher_mesh_io_raises_item_9b():
-    for flags in (["--ckpt", "x"], ["--resume", "--ckpt", "x"], ["--data-dir", "d"]):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "2x1", "--device",
-                          "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tserve_launch.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "1x2", "--device",
-                            "cpu", "--ckpt", "x"])
+def test_train_launcher_mesh_io_raises_item_9b(tmp_path, capsys):
+    """Raised on a mesh until ROADMAP item 9b; now the launchers' I/O runs on
+    two data ranks: shards in, an async checkpoint out that the reference
+    loads into its own 2x1 storage, and ``launch.serve --ckpt`` at 2x1
+    serving it (its engine equal to its static run). The parity of the
+    mesh's checkpoints and resumes is ``test_torch_mesh_io.py``'s."""
+    shards, ck = str(tmp_path / "sh"), str(tmp_path / "ck")
+    write_lm_shards(shards, vocab=512, seq=S, num_records=8)
+    mesh = ["--arch", "qwen3-1.7b", "--reduced", "--mesh", "2x1", "--device", "cpu"]
+    tlaunch.main([*mesh, "--batch", "2", "--seq", str(S), "--steps", "2", "--data-dir", shards,
+                  "--ckpt", ck, "--async-ckpt"])
+    assert "[OK]" in capsys.readouterr().out
+    jcfg = j_reduced(j_get_config("qwen3-1.7b"))
+    params, metas = j_init_params(jcfg, jax.random.PRNGKey(0), tp=1)
+    jmesh = JMesh(dp=2)
+    like = j_tree_to_storage(params, j_build_spec_tree(params, metas, jmesh), jmesh)
+    _, _, step = jckpt.load_checkpoint(ck, like, j_init_momentum(like))
+    assert step == 2 and jckpt.load_extra(ck)["data_state"]
+    tserve_launch.main([*mesh, "--prompt-lens", "8,6", "--gen", "3", "--ckpt", ck,
+                        "--check-static"])
+    out = capsys.readouterr().out
+    assert f"restored weights from {ck} (train step 2" in out
+    assert "check-static: 2 streams equal to the static reference" in out
 
 
 def test_train_lm_ckpt_reads_in_the_reference(tmp_path, capsys):

@@ -33,6 +33,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import sys
 
@@ -462,14 +463,49 @@ def test_launcher_twin_prints_the_reference_awp_line(verify_runs, capsys, tmp_pa
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"],
+    ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"], ["--chunks", "auto"],
 ], ids=lambda f: f[0])
-def test_launcher_unported_flags_raise(flags):
-    """Training I/O runs on one device (``test_torch_train_io.py``); across
-    ranks it is ROADMAP item 9b, and the flags raise before a rank starts."""
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
-                      "--mesh", "2x1", *flags])
+def test_launcher_unported_flags_raise(flags, tmp_path, capsys):
+    """``--chunks auto`` needs ``plan/sweep.py`` (ROADMAP item 12) and
+    raises before a rank starts. The training I/O flags, which raised on a
+    mesh until item 9b, run on two data ranks: ``--ckpt`` writes the mesh's
+    global storage (its shapes, its bytes), ``--resume`` continues a run
+    bit-exactly, ``--data-dir`` trains from shards with the ingest bytes
+    of ``train_ingest_bytes`` (``test_torch_mesh_io.py`` holds them to the
+    reference)."""
+    from repro_torch.checkpoint.sharded import leaf_entries, manifest_bytes, read_meta
+    from repro_torch.dist.spec import storage_shape
+
+    base = ["--arch", "qwen3-1.7b", "--reduced", "--batch", "2", "--seq", "16", "--device",
+            "cpu", "--mesh", "2x1"]
+    ck = str(tmp_path / "ck")
+    if flags[0] == "--chunks":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tlaunch.main([*base, "--steps", "1", *flags])
+    elif flags[0] == "--ckpt":
+        tlaunch.main([*base, "--steps", "1", "--ckpt", ck])
+        meta = read_meta(ck + ".ckpt")
+        assert meta["step"] == 1 and meta["plan"] is not None
+        sizes = sum(os.path.getsize(os.path.join(ck + ".ckpt", f))
+                    for f in os.listdir(ck + ".ckpt") if f.endswith(".bin"))
+        assert manifest_bytes(meta)["total"] == sizes
+        cfg, mcfg = reduced(get_config("qwen3-1.7b")), MeshCfg(dp=2)
+        shapes, metas = init_params(cfg, device="meta")
+        specs = dict(leaf_entries(build_spec_tree(shapes, metas, mcfg)))
+        for e in meta["trees"]["storage"]:
+            assert tuple(e["shape"]) == storage_shape(specs[e["path"]], mcfg), e["path"]
+    elif flags[0] == "--resume":
+        losses = str(tmp_path / "full.json")
+        tlaunch.main([*base, "--steps", "2", "--losses-out", losses])
+        tlaunch.main([*base, "--steps", "1", "--ckpt", ck])
+        tlaunch.main([*base, "--steps", "2", "--ckpt", ck, "--resume", "--check", losses])
+        assert "--check OK: losses bit-exact" in capsys.readouterr().out
+    else:
+        from repro_torch.data.shards import write_lm_shards
+
+        write_lm_shards(str(tmp_path / "sh"), vocab=512, seq=16, num_records=8)
+        tlaunch.main([*base, "--steps", "2", "--data-dir", str(tmp_path / "sh")])
+        assert re.search(r"ingest bytes measured .* \[OK\]", capsys.readouterr().out)
 
 
 # (flags, the traffic class that must move) of the flags the FSDP×TP slice

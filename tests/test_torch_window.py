@@ -246,7 +246,10 @@ def test_ring_engine_refuses_evicting_geometries(streams):
     with pytest.raises(ValueError, match="contiguous"):
         teng.ServeEngine(tcfg, tmesh, None, tspec, tstorage, plan=tplan, max_slots=1,
                          cache_capacity=12, window=12, paged=True)
-    with pytest.raises(NotImplementedError, match="7.6"):
+    # a window runs on a mesh (ROADMAP item 7.6: the launcher twin below at
+    # 1x2), but not without the mesh's process groups: refused, not run on
+    # one rank
+    with pytest.raises(ValueError, match="make_mesh_from_cfg"):
         teng.ServeEngine(tcfg, MeshCfg(tp=2), None, tspec, tstorage, plan=tplan, max_slots=1,
                          cache_capacity=12, window=12)
 
@@ -254,8 +257,12 @@ def test_ring_engine_refuses_evicting_geometries(streams):
 def test_window_launcher_twin_on_cpu(capsys):
     from repro_torch.launch import serve as launch
 
-    results = launch.main(["--arch", "qwen3-1.7b", "--reduced", "--prompt-lens", "16,10,20",
-                           "--gen", "6", "--max-slots", "2", "--window", "12",
-                           "--check-static", "--device", "cpu"])
+    argv = ["--arch", "qwen3-1.7b", "--reduced", "--prompt-lens", "16,10,20", "--gen", "6",
+            "--max-slots", "2", "--window", "12", "--check-static", "--device", "cpu"]
+    results = launch.main(argv)
     assert sorted(results) == [0, 1, 2]
     assert "check-static: 3 streams equal to the static reference" in capsys.readouterr().out
+    # at tp 2 the ring caches hold the rank's kv heads: the same streams
+    mesh = launch.main([*argv, "--mesh", "1x2"])
+    assert "check-static: 3 streams equal to the static reference" in capsys.readouterr().out
+    assert {k: r.tokens for k, r in mesh.items()} == {k: r.tokens for k, r in results.items()}
