@@ -177,10 +177,14 @@ Phases, each printing its own lines:
      more uncompressed step on rank 0 (staging copies, GEMMs, other
      kernels, idle share), beside the card's name and power limit.
 
- 14. main path — full-width qwen3-1.7b served at tp 2 (phase 7's weights
-     from seed 0, ``PrecisionPlan.build(round_to=2)``) as gloo ranks on the
-     one card, each building its blocks in turn. (a) A 1×2 mesh, phase 7's
-     requests and slots: static, engine, weight-stationary engine, paged
+ 14. main path — qwen3-1.7b at its widths and ``CUT_LAYERS`` (4) of its 28
+     layers (cut, as phases 15 (a)-(d), 16, 18 (b), (c) and 19 are, so that
+     the script fits its time limit; first phase 7's static run and engine
+     again at that depth, one device, the reference of the cut phases)
+     served at tp 2 (weights from seed 0, ``PrecisionPlan.build(round_to=
+     2)``) as gloo ranks on the one card, each building its blocks in
+     turn. (a) A 1×2 mesh, phase 7's requests and slots: static, engine,
+     weight-stationary engine, paged
      engine (page 64); then, with the TP-region all-reduces packed at
      ``act_round_to`` 2 (truncate, so that the planes go through the
      kernels), the 512-, 384- and 256-token prompts: static runs of one
@@ -211,8 +215,11 @@ Phases, each printing its own lines:
      trace of one 512-token admission and one warm decode step on rank 0 at
      1×2, beside the card's name and power limit.
 
- 15. main path — full-width qwen3-1.7b (phase 7's weights from seed 0 and
-     plan, rebuilt) served with the features of its later slice, one card:
+ 15. main path — qwen3-1.7b at its widths and ``CUT_LAYERS`` of its layers
+     (phase 14's one-device reference: weights from seed 0 and plan,
+     rebuilt; (e) at the full depth, where its exact pin of the 1×2 engine
+     to the 1×2 static run was made: at 4 layers a sampled int8 stream
+     left it) served with the features of its later slice, one card:
      (a) phase 7's prompts as sampled requests (temperature 0.8, top-p 0.95,
      top-k 40, seeds ``FEAT_SEEDS``, the last the largest uint32): static,
      contiguous engine, paged engine (page 64), held exactly; (b) phase 7's
@@ -242,8 +249,9 @@ Phases, each printing its own lines:
      each new shape to its plain version. Prints times, tokens/s, rounds,
      acceptance, memory peaks and KV bytes beside the card's name and
      power limit.
- 16. main path — the rest of dense-LM training on full-width qwen3-1.7b
-     (phase 11's weights from seed 0, batch 8 x seq 128, ``oracle:2``),
+ 16. main path — the rest of dense-LM training on qwen3-1.7b at its widths
+     and ``CUT_LAYERS`` of its layers (phase 11's weights from seed 0 and
+     settings, batch 8 x seq 128, ``oracle:2``),
      each run from fresh weights: (a) ``accum_steps`` 2 against 1, two
      steps each, losses within ``ACCUM_TOL``; (b) weights at round_to 2
      stochastic, two steps with ``PRNGKey(step)``: the embed's and a
@@ -292,9 +300,11 @@ Phases, each printing its own lines:
      to the plain version, as phase 11. Prints write / read MB/s, ingest
      steps/s, the async submit ms and save s, the load s and GB/s, the
      bytes and the phase's seconds beside the card's name and power limit.
- 18. main path — the mesh finished, full-width qwen3-1.7b. (a) A 2×2 mesh
-     of 4 gloo ranks (phase 13's, at full depth; phase 11's weights from
-     seed 0 and settings, remat on, batch 8 x seq 128), phase 17's AWP plan
+ 18. main path — the mesh finished, qwen3-1.7b. (a) A 2×2 mesh of 4 gloo
+     ranks at the model's widths and ``IO_LAYERS`` (4) of its 28 layers
+     (cut as phases 13 and 17, so that the script with phase 19 fits its
+     time limit; phase 11's weights from seed 0 and settings, remat on,
+     batch 8 x seq 128), phase 17's AWP plan
      (widening every 2 steps) off phase 17's 64 shard records, each rank
      reading the global batch through its own ``Prefetcher(depth=2)``
      (every ``io_log`` equal to ``train_ingest_bytes``, every step's wire
@@ -304,7 +314,7 @@ Phases, each printing its own lines:
      calling thread; residuals, plan and the consumed batch's data state),
      step 3 beside rank 0's writer, the manifest's bytes equal to
      ``train_checkpoint_bytes`` of the global storage and the files' sizes
-     (16,253,919,232 B), then a load across ranks into fresh tensors (equal
+     (16,253,919,232 B at full depth), then a load across ranks into fresh tensors (equal
      to the state at submit, a hash of each block), the export restored at
      ``quality="wire"`` through ``launch.serve``'s ``restore`` and served
      at 2×2 weight-stationary (phase 7's first prompt, ``MESH_GEN`` tokens)
@@ -312,7 +322,8 @@ Phases, each printing its own lines:
      the restored state and reader: the uninterrupted step's loss, AWP
      history, storage and momentum blocks, bit for bit. The steps before
      and after the save are one uninterrupted run (a save only reads).
-     (b) A 1×2 mesh: phase 15's sampled requests (``MESH_GEN`` tokens)
+     (b) A 1×2 mesh at phase 15's depth (``CUT_LAYERS``): phase 15's
+     sampled requests (``MESH_GEN`` tokens)
      through the engine and the speculative engine (``FEAT_SPEC_K``; the
      target as its own draft, and the tiny draft built on the mesh): the
      speculative streams equal to the 1×2 engine's and all to phase 15's
@@ -327,6 +338,28 @@ Phases, each printing its own lines:
      ms, save s, load s and GB/s, the gather and scatter bytes, rounds and
      acceptance, and the phase's seconds, beside the card's name and power
      limit.
+ 19. main path — the serving fleet (``repro_torch.fleet``) on one card,
+     qwen3-1.7b at its widths and ``CUT_LAYERS`` (4) of its 28 layers
+     (phase 14's one-device reference; the full depth ran 153-168 s, over
+     the script's limit beside the rest) at phase 9's geometry (round_to 2,
+     page 64, 2 slots a replica): :func:`fleet_path`. (a) Weights from
+     seed 0 published as a wire-only parcel (``train_checkpoint_bytes(
+     residuals=False)`` bytes), 2 decode replicas and 2 prefill workers;
+     phase 7's requests and (c) phase 15 (a)'s sampled ones at that
+     version, a version from seed 1 published after 2 results with phase
+     9's shared-prefix trio pinned to it, a replica joining and one
+     leaving midway: streams equal to phase 7's static run at this depth,
+     to phase 15 (a)'s engine, and the trio to ``generate_static`` under
+     the weights restored from its parcel (phase 9's near-tie rule); the
+     fabric's hop log equal to ``fleet_migration_bytes`` (2,097,152 B a
+     migrated fp32 page; 14,680,064 at full depth). (b) An int8-KV fleet
+     from the same parcel: phase 15 (b)'s paged int8 streams (1,064,960 B
+     a page; 7,454,720 at full depth). Every worker prefill and replica
+     tick launches what the local paged engine launches for the same work;
+     the first flash and ``paged_attend`` launch at each shape is held to
+     the plain version. Prints decode ms a tick, a parcel's pack, send and
+     install ms, the publish encode and decode s and the memory peak,
+     beside the card's name and power limit.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -372,7 +405,12 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
+T_START = time.perf_counter()
+
+
 def say(msg):
+    if msg.startswith("phase "):  # each phase's header carries the script's clock
+        msg = f"{msg} [t+{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -2599,6 +2637,11 @@ def tp_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
 # ---------------------------------------------------------------------------
 
 TPS_TP = 2
+# phases 14, 15 (a)-(d), 16, 18 (b), (c) and 19 serve and train qwen3-1.7b
+# at its widths and this many of its 28 layers, held to one device's runs at
+# the same depth (phase 7's runs again there), so that the script fits its
+# time limit; phases 7, 9, 11 and 15 (e) run the full depth
+CUT_LAYERS = 4
 # activations packed at round_to 2 in truncate mode, so that their planes go
 # through Bitpack and Bitunpack (nearest rounding packs on the plain version,
 # by the reference's rule)
@@ -3252,7 +3295,7 @@ def dist_per_forward(spec_tree):
 
 def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN,
                   page=PAGE, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, mesh_run=True,
-                  phase9_peak=0):
+                  e_cfg=None):
     """Full-width qwen3-1.7b (phase 7's weights from seed 0 and plan) served
     (a) with sampled requests, (b) with int8 KV, (c) with speculative
     decoding (self and tiny drafts), (d) with a sliding window, and (e) at
@@ -3260,7 +3303,9 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
     before and read after, and the first launch at each new shape is held
     to its plain version. Launch counts, memory and the sampler's card
     check are read on a card only, so the phase rehearses on the CPU at a
-    reduced config. Returns the measurements; raises on a failed check."""
+    reduced config. ``e_cfg`` runs (e) and the one-device run it is held to
+    at another model (phase 7's depth where (a)-(d) are cut). Returns the
+    measurements; raises on a failed check."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.launch.serve import check_wire, setup
     from repro_torch.plan import PrecisionPlan
@@ -3409,12 +3454,12 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
         f"first decode logits {rel:.3e} from fp32's (relative l2, bound {INT8_LOGIT_RTOL}); "
         f"KV {res['bytes_per_page'] // page} B a token == serve_paged_kv_bytes(int8_kv=True) "
         f"(fp32: {fp}), peak {res['pages_peak']} pages {res['kv_bytes_peak'] / 1e6:.1f} MB; "
-        f"memory peak {out['(b) int8 paged engine']['peak'] / 2**30:.2f} GiB against phase 9's "
-        f"{phase9_peak / 2**30:.2f} GiB")
+        f"memory peak {out['(b) int8 paged engine']['peak'] / 2**30:.2f} GiB")
     one_rows = {}
-    unkeep = keep_sampled_logits(one_rows)
-    e_one = run("(b) sampled int8 static (for (e))", sampled, plan8)
-    unkeep()
+    if e_cfg is None:
+        unkeep = keep_sampled_logits(one_rows)
+        e_one = run("(b) sampled int8 static (for (e))", sampled, plan8)
+        unkeep()
 
     # (c) speculative: (a)'s requests, spec_k 3, self and tiny drafts, then self paged
     drafts = {"self": DraftBundle(cfg, spec_tree, storage),
@@ -3465,12 +3510,27 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
         torch.cuda.empty_cache()
 
     # (e) 1×2: (a)'s requests with int8 KV, static then the engine
+    if mesh_run and e_cfg is not None:  # one device's sampled int8 static run at e_cfg
+        t0 = time.perf_counter()
+        mesh_e, spec_e, storage_e = setup(e_cfg, seed=0, device=device)
+        unkeep = keep_sampled_logits(one_rows)
+        e_one = generate_static(e_cfg, mesh_e, None, spec_e, storage_e, sampled,
+                                plan=PrecisionPlan.build(e_cfg.num_groups + 1, round_to=2,
+                                                         int8_kv=True))
+        unkeep()
+        del storage_e
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        say(f"   (e) at {e_cfg.num_layers} layers: one device's sampled int8 static run in "
+            f"{time.perf_counter() - t0:.2f} s")
+    cfg_e = e_cfg or cfg
     if mesh_run:
         runs = ({"label": "static", "plan": {"int8_kv": True}, "keep_logits": True},
                 {"label": "engine", "plan": {"int8_kv": True}, "engine": {},
                  "against": "static"})
         t0 = time.perf_counter()
-        ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), cfg, 1, sampled, runs, False,
+        ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), cfg_e, 1, sampled, runs, False,
                             threads=2 if on_card else 1, timeout_s=900)
         r0 = ranks[0]["runs"]
         for r, o in enumerate(ranks):
@@ -3481,7 +3541,7 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
                       f"(e): rank {r}'s {label} logits differ from rank 0's")
         check(r0["engine"]["streams"] == r0["static"]["streams"] and not r0["engine"]["diverged"],
               "(e): the 1×2 engine's streams differ from the 1×2 static run's")
-        cases = int8_divergences(torch, cfg, sampled, r0["static"]["streams"], e_one,
+        cases = int8_divergences(torch, cfg_e, sampled, r0["static"]["streams"], e_one,
                                  r0["static"]["logits"], one_rows)
         rec = r0["engine"]
         dec = sorted(rec["decode_ms"])
@@ -3736,7 +3796,7 @@ def _dp16_rank(rank, device_name, cfg, batch, lr, min_size):
 
 
 def lm_features_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
-                     phase11_ms=None, dp_cfg=None, dp_batch=64, dp_min_size=None):
+                     dp_cfg=None, dp_batch=64, dp_min_size=None):
     """Phase 16 (a)-(d): gradient accumulation, stochastic weights and
     gradients, and bf16 training of full-width qwen3-1.7b (and phase 12's
     AlexNet ranks for (c)). Returns the measurements; raises on a failed
@@ -3824,9 +3884,8 @@ def lm_features_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=
     warm = sorted(bf["ms"][1:])
     say(f"   (d) bf16: losses {bf['losses']}; step-0 loss against fp32's {fp32_loss!r}: "
         f"{rel:.3e} (bound {BF16_LOSS_RTOL}); step ms {[round(x, 1) for x in bf['ms']]} "
-        f"(warm median {warm[len(warm) // 2]:.1f}"
-        + (f" against phase 11's fp32 {phase11_ms:.1f})" if phase11_ms else ")")
-        + f", memory peak {bf['peak'] / 2**30:.2f} GiB, launches {bf['launches']}")
+        f"(warm median {warm[len(warm) // 2]:.1f}), memory peak {bf['peak'] / 2**30:.2f} GiB, "
+        f"launches {bf['launches']}")
     out["bf16"] = bf
     out["launches"] = {k: sum(r["launches"][k] for r in
                               [*runs.values(), first, rerun, bf]) + out["dp"]["launches"][k]
@@ -4888,7 +4947,7 @@ def _mesh_serve_rank(rank, device_name, cfg, greedy, sampled, one_device, window
 
 def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
               gen=MESH_GEN, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, min_free=IO_MIN_FREE,
-              requests=None):
+              requests=None, a_layers=None):
     """Phase 18: (a) full-width qwen3-1.7b (phase 11's weights and settings)
     trained on a 2×2 mesh of gloo ranks from phase 17's shards, with an
     export and an async checkpoint across ranks, a load and a resume, and
@@ -4896,9 +4955,11 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
     through the engine and the speculative engine; (c) a window at 1×2.
     ``phase15`` holds phase 15's one-device streams and requests (phase 7's
     prompts); without it (a run of this phase alone) (b) and (c) are held
-    to each other only. Launch counts, packing records and times are read
-    on a card only, so the phase rehearses on the CPU at a reduced config.
-    Returns the measurements; raises on a failed check."""
+    to each other only. ``a_layers`` cuts (a)'s model to that many layers
+    (widths unchanged), as phases 13 and 17 are cut. Launch counts, packing
+    records and times are read on a card only, so the phase rehearses on the
+    CPU at a reduced config. Returns the measurements; raises on a failed
+    check."""
     import shutil
     import tempfile
 
@@ -4908,8 +4969,9 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
     from repro_torch.launch.serve import build_requests
     from repro_torch.serve.engine import Request
 
-    full_width = cfg is None
+    full_width = cfg is None and a_layers is None
     cfg = cfg or get_config("qwen3-1.7b")
+    cfg_a = dataclasses.replace(cfg, num_layers=a_layers) if a_layers else cfg
     on_card = device.type == "cuda"
     t_phase = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4928,7 +4990,7 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
         shard_dir = os.path.join(root, "shards")
         write_lm_shards(shard_dir, vocab=cfg.vocab_size, seq=seq, num_records=IO_RECORDS, seed=0)
         t0 = time.perf_counter()
-        ranks = spawn_ranks(_mesh_io_rank, TP_DP * TP_TP, str(device), cfg, batch, seq, lr,
+        ranks = spawn_ranks(_mesh_io_rank, TP_DP * TP_TP, str(device), cfg_a, batch, seq, lr,
                             root, shard_dir, greedy[0].prompt_ids, gen, threads=threads,
                             timeout_s=900)
         a_s = time.perf_counter() - t0
@@ -4942,7 +5004,7 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
         check(o["losses"] == r0["losses"] and o["hist"] == r0["hist"]
               and o["stream"] == r0["stream"], f"(a): rank {r}'s losses, AWP history or stream "
                                                "differ from rank 0's")
-    check(r0["hist"][0] == (0, (8,) * (cfg.num_groups + 1)), f"(a) AWP history {r0['hist']}")
+    check(r0["hist"][0] == (0, (8,) * (cfg_a.num_groups + 1)), f"(a) AWP history {r0['hist']}")
     steps = r0["steps"]
     warm = steps[1:MIO_SAVE_AT] + steps[MIO_SAVE_AT + 1:]
     say(f"   (a) 2×2, {smi}: losses {[round(x, 6) for x in r0['losses']]} (the last, step "
@@ -5010,6 +5072,352 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
             "flash_err": max([o["flash_err"] for o in out["a"]]
                              + [o["flash_err"] for o in ranks]),
             "monitor_err": max(o["monitor_err"] for o in out["a"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the serving fleet — prefill workers, decode replicas, the router,
+# the fabric's parcels and a rolling weight refresh
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS, FLEET_WORKERS = 2, 2
+FLEET_REFRESH_AT = 2  # results before version 1 is published
+FLEET_JOIN_AT = 3  # the tick before which r2 joins and r0 leaves
+FLEET_TRIO_RID, FLEET_SAMPLED_RID = 5, 10  # rids of the shared-prefix trio, the sampled five
+
+
+def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
+    """Patch the fleet's classes so that every worker prefill and every
+    replica tick has its launch counts checked against the local paged
+    engine's for the same work (a prefill: ``flash_prefill`` at a page-padded
+    length that is a multiple of 128 and one materialization a DIST leaf;
+    a tick with live slots: one ``paged_attend`` a layer on an fp32 pool and
+    one materialization), and the pack, send, install, decode and publish
+    times land in ``rec``. Returns the undo function."""
+    from repro_torch.fleet import replica as R
+    from repro_torch.fleet import router as F
+    from repro_torch.transport import fabric
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    old = {"prefill": R.PrefillWorker.prefill, "tick": R.DecodeReplica.tick,
+           "admit": R.DecodeReplica.admit_parcel, "pack": F.pack_kv_pages,
+           "send": fabric.FabricChannel.send, "publish": F.FleetRouter.publish}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def prefill(self, storage, req, *, n_hits=0):
+        before, t0 = counts(), time.perf_counter()
+        out = old["prefill"](self, storage, req, n_hits=n_hits)
+        sync()
+        rec["prefill"].append(time.perf_counter() - t0)
+        padded = -(-len(req.prompt_ids) // self.page_size) * self.page_size
+        want = {"flash_prefill": L * (flash_ok and padded % 128 == 0), "paged_attend": 0,
+                "bitpack": per_forward * on_card, "bitunpack": per_forward * on_card,
+                "l2norm_sq": 0}
+        got = delta(before)
+        check(got == want, f"worker {self.name}, request {req.rid} (padded {padded}): launches "
+                           f"{got}, the local paged admission's {want}")
+        rec["prefills"] += 1
+        return out
+
+    def tick(self):
+        active, before, t0 = self.engine.active_slots, counts(), time.perf_counter()
+        old["tick"](self)
+        if active:
+            rec["decode"].append(time.perf_counter() - t0)
+            rec["ticks"] += 1
+        paged = L * on_card * (not self.engine.plan.int8_kv)
+        want = {"flash_prefill": 0, "paged_attend": paged * bool(active),
+                "bitpack": per_forward * on_card * bool(active),
+                "bitunpack": per_forward * on_card * bool(active), "l2norm_sq": 0}
+        got = delta(before)
+        check(got == want, f"replica {self.name}, a tick with {active} live slots: launches "
+                           f"{got}, the local paged engine's decode step's {want}")
+
+    def admit(self, req, parcel):
+        t0 = time.perf_counter()
+        old["admit"](self, req, parcel)
+        sync()
+        rec["install"].append(time.perf_counter() - t0)
+
+    def pack(pages, policy, *, meta=None):
+        t0 = time.perf_counter()
+        out = old["pack"](pages, policy, meta=meta)
+        rec["pack"].append(time.perf_counter() - t0)
+        return out
+
+    def send(self, parcel, *, cls, src, dst):
+        t0 = time.perf_counter()
+        out = old["send"](self, parcel, cls=cls, src=src, dst=dst)
+        rec["send"].append(time.perf_counter() - t0)
+        return out
+
+    def publish(self, parcel):
+        t0 = time.perf_counter()
+        old["publish"](self, parcel)
+        sync()
+        rec["publish_decode"].append(time.perf_counter() - t0)
+
+    R.PrefillWorker.prefill, R.DecodeReplica.tick = prefill, tick
+    R.DecodeReplica.admit_parcel, F.pack_kv_pages = admit, pack
+    fabric.FabricChannel.send, F.FleetRouter.publish = send, publish
+
+    def undo():
+        R.PrefillWorker.prefill, R.DecodeReplica.tick = old["prefill"], old["tick"]
+        R.DecodeReplica.admit_parcel, F.pack_kv_pages = old["admit"], old["pack"]
+        fabric.FabricChannel.send, F.FleetRouter.publish = old["send"], old["publish"]
+
+    return undo
+
+
+def _ms(xs):
+    xs = sorted(x * 1e3 for x in xs)
+    return f"median {xs[len(xs) // 2]:.2f} (min {xs[0]:.2f}, max {xs[-1]:.2f}, {len(xs)})" \
+        if xs else "none"
+
+
+def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX,
+               tails=SHARED_TAILS):
+    """qwen3-1.7b (full width) through the fleet (``repro_torch.fleet``) on
+    one device, phase 9's geometry (round_to 2, page 64, 2 slots a replica,
+    capacity the longest prompt + its tokens). ``refs`` holds what the
+    streams are held to: ``requests`` and ``static`` (phase 7's greedy
+    requests and static streams), ``sampled`` (phase 15 (a)'s engine
+    streams) and ``int8`` (phase 15 (b)'s paged int8 streams), all at the
+    fleet's depth.
+
+    (a) Weights from seed 0 published as version 0 (a wire-only parcel of
+    ``train_checkpoint_bytes(residuals=False)``), 2 replicas, 2 workers:
+    phase 7's requests and (c) phase 15 (a)'s sampled ones pinned to it;
+    after 2 results version 1 (seed 1) is published and phase 9's
+    shared-prefix trio submitted; before tick 3 a replica joins and one
+    leaves. Streams equal to phase 7's static ones, to phase 15 (a)'s, and
+    the trio to ``generate_static`` under the weights restored from the
+    version-1 parcel (a divergence passes only at a top-2 gap below
+    ``NEAR_TIE``, as phase 9's shared prefix: the resident prefix pages
+    hold the first writer's bits); the hop log equal to
+    ``fleet_migration_bytes``. (b) An int8-KV fleet from the same version-0
+    parcel: phase 7's requests equal to phase 15 (b)'s paged int8 streams.
+    Every worker prefill and replica tick has its launches checked against
+    the local paged engine's for the same work, and the first flash and
+    ``paged_attend`` launch at each shape is held to the plain version.
+    Launch counts and memory are read on a card only, so the phase
+    rehearses on the CPU at a reduced config. Returns the measurements;
+    raises on a failed check."""
+    from repro_torch.checkpoint.sharded import manifest_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.fleet import DecodeReplica, FleetRouter, PrefillWorker, WeightPublisher
+    from repro_torch.launch.serve import build_requests, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import fleet_migration_bytes, train_checkpoint_bytes
+    from repro_torch.serve.engine import Request, ServeEngine, generate_static
+
+    full_width = cfg is None
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    setup4 = (cfg, mesh_cfg, spec_tree, storage)
+    nrt, L = cfg.num_groups + 1, cfg.num_layers
+    plan = PrecisionPlan.build(nrt, round_to=2)
+    plan8 = PrecisionPlan.build(nrt, round_to=2, int8_kv=True)
+    requests = refs["requests"]
+    gen = requests[0].max_new
+    cap = max(len(r.prompt_ids) for r in requests) + gen
+    per_forward = dist_per_forward(spec_tree)
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    def new_rec():
+        return {**{k: [] for k in ("prefill", "decode", "install", "pack", "send",
+                                   "publish_decode")}, "prefills": 0, "ticks": 0}
+
+    rec, rec8 = new_rec(), new_rec()
+
+    # the two versions' parcels
+    pub = WeightPublisher(cfg, spec_tree, plan=plan)
+    t0 = time.perf_counter()
+    p0 = pub.publish(storage)
+    enc = [time.perf_counter() - t0]
+    model = train_checkpoint_bytes(storage, spec_tree=spec_tree, round_tos=plan.round_tos,
+                                   residuals=False)["total"]
+    check(p0.nbytes == manifest_bytes(p0.manifest_meta())["total"] == model and not p0.residuals,
+          f"v0 parcel {p0.nbytes} B, train_checkpoint_bytes(residuals=False) {model} B")
+    check(not full_width or p0.nbytes == QWEN3_EXPORT_BYTES,
+          f"v0 parcel {p0.nbytes} B, phase 17's width-2 export {QWEN3_EXPORT_BYTES} B")
+    storage1 = setup(cfg, seed=1, device=device)[2]
+    t0 = time.perf_counter()
+    p1 = pub.publish(storage1, step=1)
+    enc.append(time.perf_counter() - t0)
+    del storage1
+    check(p1.nbytes == p0.nbytes, f"v1 parcel {p1.nbytes} B, v0 {p0.nbytes} B")
+    say(f"   publish: v0 and v1 parcels of {p0.nbytes} B each (wire tiers at round_to 2) == "
+        f"train_checkpoint_bytes(residuals=False) == manifest_bytes; encode s "
+        f"{[round(x, 2) for x in enc]}")
+
+    def fleet(p, n_rep, n_wrk, names=None):
+        replicas = [DecodeReplica(name, ServeEngine(
+            cfg, mesh_cfg, None, spec_tree, storage, plan=p, max_slots=SERVE_SLOTS,
+            cache_capacity=cap, paged=True, page_size=page))
+            for name in names or [f"r{i}" for i in range(n_rep)]]
+        workers = [PrefillWorker(f"w{i}", cfg, mesh_cfg, None, spec_tree, plan=p,
+                                 cache_capacity=cap, page_size=page) for i in range(n_wrk)]
+        return replicas, workers
+
+    def pin(router, p, label):
+        ws = router.wire_summary()
+        model = fleet_migration_bytes(
+            p, cfg, page_size=page, migrated_pages=ws["migrated_pages"], int8_kv=p.int8_kv,
+            publish_wire_bytes=p0.nbytes, publish_installs=ws["publish_installs"])
+        for cls in ("kv_migration", "weight_publish"):
+            check(ws[cls] == model[cls], f"{label}: fabric {cls} {ws[cls]} B, "
+                                         f"fleet_migration_bytes {model[cls]} B")
+        per = 2 * page * cfg.num_kv_heads * cfg.head_dim * L
+        want_page = per * (4 if not p.int8_kv else 2) + (
+            2 * page * cfg.num_kv_heads * 4 * L if p.int8_kv else 0)
+        check(model["page_wire_bytes"] == want_page,
+              f"{label}: {model['page_wire_bytes']} B a page, expected {want_page}")
+        say(f"   {label}: fabric kv_migration {ws['kv_migration']} B over "
+            f"{ws['hops']['kv_migration']} hops ({ws['migrated_pages']} pages of "
+            f"{model['page_wire_bytes']} B at {model['kv_width']} B/elem), weight_publish "
+            f"{ws['weight_publish']} B over {ws['publish_installs']} installs == "
+            f"fleet_migration_bytes; {ws['ticks']} ticks")
+        return ws
+
+    seen_flash, seen_paged = {}, []
+    undo = [watch_flash(torch, seen_flash), _fleet_watch(torch, on_card, L, per_forward,
+                                                         flash_ok, rec)]
+    if on_card:
+        undo.append(watch_paged(torch, seen_paged, 8 * L))
+    try:
+        # (a) + (c): version 0's greedy and sampled waves, the refresh, join and leave
+        greedy = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=gen) for r in requests]
+        sampled = sampled_requests(greedy)
+        sampled_f = [dataclasses.replace(r, rid=FLEET_SAMPLED_RID + r.rid) for r in sampled]
+        trio = [dataclasses.replace(r, rid=FLEET_TRIO_RID + r.rid)
+                for r in build_requests(tails, gen, cfg.vocab_size, shared_prefix=shared)]
+        replicas, workers = fleet(plan, FLEET_REPLICAS, FLEET_WORKERS)
+        router = FleetRouter(replicas, workers)
+        router.publish(p0)
+        state = {"refresh": None, "join": None}
+
+        def on_tick(r):
+            if state["join"] is None and r.ticks + 1 >= FLEET_JOIN_AT:
+                state["join"] = r.ticks
+                joiner, _ = fleet(plan, 1, 0, names=["r2"])
+                r.add_replica(joiner[0])
+                r.remove_replica("r0")
+            if state["refresh"] is None and len(r.results) >= FLEET_REFRESH_AT:
+                state["refresh"] = r.ticks
+                r.publish(p1)
+                for req in trio:
+                    r.submit(req)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        results = router.run(greedy + sampled_f, on_tick=on_tick)
+        wall = time.perf_counter() - t0
+        got = counts()
+        check(state["refresh"] is not None and state["join"] is not None,
+              f"(a): the refresh or the join never fired ({state})")
+        check([r.name for r in router.replicas] == ["r1", "r2"],
+              f"(a): replicas {[r.name for r in router.replicas]} after the join and leave")
+        versions = {rid: m["version"] for rid, m in router.placements.items()}
+        trio_rids = {r.rid for r in trio}
+        check(versions == {r.rid: int(r.rid in trio_rids) for r in greedy + sampled_f + trio},
+              f"(a): versions at admission {versions}")
+        ws = pin(router, plan, "(a)")
+        launched_a = got
+        # the whole run's launches: the per-call checks, summed
+        want = {"flash_prefill": L * sum(
+            flash_ok and -(-len(r.prompt_ids) // page) * page % 128 == 0
+            for r in greedy + sampled_f + trio),
+            "paged_attend": L * rec["ticks"] * on_card,
+            "bitpack": per_forward * (rec["prefills"] + rec["ticks"]) * on_card,
+            "l2norm_sq": 0}
+        want["bitunpack"] = want["bitpack"]
+        check(got == want, f"(a): launches {got}, expected {want}")
+        tokens = sum(len(r.tokens) for r in results.values())
+        say(f"   (a)+(c): {len(results)} requests ({len(greedy)} greedy and {len(sampled_f)} "
+            f"sampled at v0, {len(trio)} shared-prefix at v1) in {wall:.2f} s, {tokens} tokens, "
+            f"{tokens / wall:.1f} tokens/s; v1 published at tick {state['refresh']}, r2 joined "
+            f"and r0 left at tick {state['join']}; {rec['prefills']} worker prefills, "
+            f"{rec['ticks']} replica decode ticks, launches {got} (each prefill and tick equal "
+            "to the local paged engine's)")
+        streams = {rid: r.tokens for rid, r in results.items()}
+        bad = [r for r in greedy if streams[r.rid] != refs["static"][r.rid]]
+        for r in bad:
+            report_divergence(torch, cfg, mesh_cfg, spec_tree, storage, plan, r,
+                              streams[r.rid], refs["static"][r.rid])
+        check(not bad, f"(a): streams of {[r.rid for r in bad]} differ from phase 7's static")
+        hold_streams(torch, "(c) sampled fleet",
+                     {r.rid: streams[FLEET_SAMPLED_RID + r.rid] for r in sampled},
+                     refs["sampled"], sampled, setup4, plan, what="phase 15 (a)'s engine")
+        v1 = router.versions[1]
+        check_seen_flash(seen_flash)
+    finally:
+        for u in undo:
+            u()
+    t0 = time.perf_counter()
+    tstatic = generate_static(cfg, mesh_cfg, None, spec_tree, v1, trio, plan=plan)
+    static_s = time.perf_counter() - t0
+    tdiv = [r for r in trio if streams[r.rid] != tstatic[r.rid]]
+    for r in tdiv:
+        gap = report_divergence(torch, cfg, mesh_cfg, spec_tree, v1, plan, r, streams[r.rid],
+                                tstatic[r.rid])
+        check(gap < NEAR_TIE, f"(a): trio request {r.rid} diverged at a top-2 gap of {gap:.3e} "
+                              f">= {NEAR_TIE}")
+    say(f"   (a): phase 7's {len(greedy)} streams equal to its static reference; "
+        f"{len(trio) - len(tdiv)} of {len(trio)} v1 trio streams equal to generate_static under "
+        f"the weights restored from the v1 parcel ({static_s:.2f} s); (c): phase 15 (a)'s "
+        f"{len(sampled)} sampled streams equal (seeds {list(FEAT_SEEDS)})")
+    peak_a = torch.cuda.max_memory_allocated() if on_card else 0
+    del router, replicas, workers, results, v1
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) int8 KV from the same version-0 parcel
+    undo = [watch_flash(torch, seen_flash),
+            _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec8)]
+    try:
+        replicas, workers = fleet(plan8, FLEET_REPLICAS, FLEET_WORKERS)
+        router = FleetRouter(replicas, workers)
+        router.publish(p0)
+        zero_counts()
+        t0 = time.perf_counter()
+        results = router.run(greedy)
+        wall8 = time.perf_counter() - t0
+        got8 = counts()
+    finally:
+        for u in undo:
+            u()
+    want = {"flash_prefill": L * sum(flash_ok and -(-len(r.prompt_ids) // page) * page % 128 == 0
+                                     for r in greedy),
+            "paged_attend": 0, "bitpack": per_forward * (rec8["prefills"] + rec8["ticks"]) * on_card,
+            "l2norm_sq": 0}
+    want["bitunpack"] = want["bitpack"]
+    check(got8 == want, f"(b): launches {got8}, expected {want}")
+    pin(router, plan8, "(b) int8")
+    hold_streams(torch, "(b) int8 fleet", {rid: r.tokens for rid, r in results.items()},
+                 refs["int8"], greedy, setup4, plan8, what="phase 15 (b)'s paged int8 engine")
+    say(f"   (b) int8: {len(greedy)} streams equal to phase 15 (b)'s paged int8 streams in "
+        f"{wall8:.2f} s; launches {got8}")
+    del router, replicas, workers
+    check_seen_flash(seen_flash)
+    flash_err = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
+    paged_err = check_seen_paged(seen_paged) if seen_paged else 0.0
+    peak = max(peak_a, torch.cuda.max_memory_allocated() if on_card else 0)
+    for label, r in (("(a)+(c)", rec), ("(b)", rec8)):
+        say(f"   {label} ms: decode a replica tick {_ms(r['decode'])}; worker prefill (pad + "
+            f"prefill + export + first id) {_ms(r['prefill'])}; parcel pack {_ms(r['pack'])}, "
+            f"send {_ms(r['send'])}, install (unpack + admit_pages) "
+            f"{_ms(r['install'])}; publish decode s {[round(x, 2) for x in r['publish_decode']]}")
+    say(f"   phase 19: {time.perf_counter() - t_phase:.1f} s; memory peak {peak / 2**30:.2f} GiB")
+    launches = {k: launched_a[k] + got8[k] for k in got8}
+    return {"launches": launches, "flash_err": flash_err, "paged_err": paged_err,
+            "parcel_bytes": p0.nbytes, "encode_s": enc, "ws": ws, "ok": True,
+            "decode_s": rec["publish_decode"] + rec8["publish_decode"]}
 
 
 def main() -> int:
@@ -5133,32 +5541,46 @@ def main() -> int:
     for k in ("bitpack", "bitunpack"):
         served[k] += tp["launches"][k]
 
-    say(f"phase 14: main path — full-width qwen3-1.7b served at tp {TPS_TP} on gloo ranks: "
+    say(f"phase 14: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
+        f"at tp {TPS_TP} on gloo ranks: "
         f"(a) a 1×{TPS_TP} mesh, phase 7's requests, runs {[r['label'] for r in TPS_RUNS_A]}; "
         f"(b) a 2×{TPS_TP} mesh, prompts "
         f"{[len(serve7['requests'][i].prompt_ids) for i in TPS_B_RIDS]} +{TPS_B_GEN} tokens, "
         f"runs {[r['label'] for r in TPS_RUNS_B]}")
     gc.collect()
     torch.cuda.empty_cache()
-    tps = tp_serve_path(torch, device, serve7)
+    say(f"   one device at {CUT_LAYERS} layers (phase 7's runs at this depth), what phases 14-16 "
+        "and 18 (b), (c) are held to:")
+    cut = serve_path(torch, device, cfg=dataclasses.replace(get_config("qwen3-1.7b"),
+                                                            num_layers=CUT_LAYERS))
+    for k in served:
+        served[k] += sum(run[k] for run in cut["launches"].values())
+    serve_cut = {"cfg": cut["cfg"], "static": cut["static"], "requests": cut["requests"],
+                 "runs": {"engine": {"first_logits": cut["runs"]["engine"]["first_logits"]}}}
+    cut_flash_err = cut["flash_err"]
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    tps = tp_serve_path(torch, device, serve_cut)
     for k in served:
         served[k] += tps["launches"][k]
     say(f"   the kernels at a model rank's shapes at tp {TPS_TP}:")
     time_tp_shapes(torch, device)
 
-    say(f"phase 15: main path — full-width qwen3-1.7b served with (a) sampled requests "
+    say(f"phase 15: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
+        f"with (a) sampled requests "
         f"(seeds {list(FEAT_SEEDS)}), (b) int8 KV, (c) speculative decoding (spec_k "
         f"{FEAT_SPEC_K}, self and tiny drafts), (d) a {FEAT_WINDOW}-token window, (e) sampled "
-        f"int8 requests at 1×{TPS_TP}; {smi[0]}")
+        f"int8 requests at 1×{TPS_TP} at the full depth; {smi[0]}")
     gc.collect()
     torch.cuda.empty_cache()
-    feats = features_path(torch, device, serve7,
-                          phase9_peak=paged_run["runs"]["paged engine"]["peak"])
+    feats = features_path(torch, device, serve_cut, e_cfg=serve7["cfg"])
     for k in served:
         served[k] += feats["launches"][k]
     say(f"   launches over phase 15's runs: {feats['launches']}")
 
-    say(f"phase 16: main path — full-width qwen3-1.7b training at batch {LM_BATCH} x seq "
+    say(f"phase 16: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers, "
+        f"training at batch {LM_BATCH} x seq "
         f"{LM_SEQ}: (a) accum_steps 2 against 1, (b) stochastic weights at round_to 2, (c) "
         f"{DP_RANKS} AlexNet ranks with stochastic gradients, (d) bf16 compute; (e) phase 7's "
         f"requests served under a bf16 plan (static, engine, paged engine at page {PAGE}); "
@@ -5166,11 +5588,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
-    warm11 = sorted(r.wall_s for r in lm["awp"].records + lm["oracle"].records
-                    if not r.recompiled)
-    lmf = lm_features_path(torch, device, phase11_ms=warm11[len(warm11) // 2] * 1e3)
+    lmf = lm_features_path(torch, device, cfg=serve_cut["cfg"])
     bfk = check_bf16_kernels(torch, device)
-    bfs = bf16_serve_path(torch, device, serve7)
+    bfs = bf16_serve_path(torch, device, serve_cut)
     for k in served:
         served[k] += lmf["launches"][k] + bfs["launches"][k]
     say(f"   launches over phase 16's runs: training {lmf['launches']}, bf16 serving "
@@ -5188,19 +5608,36 @@ def main() -> int:
     for k in served:
         served[k] += io["launches"][k]
 
-    say(f"phase 18: main path — the mesh finished, full-width qwen3-1.7b: (a) a {TP_DP}×{TP_TP} "
-        f"mesh training off phase 17's shards, batch {LM_BATCH} x seq {LM_SEQ}, with an async "
-        f"checkpoint across ranks, a load and a resume, the export served at 2×2; (b) phase 15's "
+    say(f"phase 18: main path — the mesh finished, qwen3-1.7b: (a) at its widths and {IO_LAYERS} "
+        f"of its layers, a {TP_DP}×{TP_TP} mesh training off phase 17's shards, batch {LM_BATCH} x "
+        f"seq {LM_SEQ}, with an async checkpoint across ranks, a load and a resume, the export "
+        f"served at 2×2; (b) at {CUT_LAYERS} layers phase 15's "
         f"sampled requests at 1×{TPS_TP} through the speculative engine (self and tiny drafts, "
         f"spec_k {FEAT_SPEC_K}); (c) a {FEAT_WINDOW}-token window at 1×{TPS_TP}; {smi[0]}")
     gc.collect()
     torch.cuda.empty_cache()
     mesh18 = mesh_path(torch, device, {
-        "requests": serve7["requests"],
+        "requests": serve_cut["requests"],
         "sampled": feats["runs"]["(a) sampled engine"]["streams"],
-        "window": feats["runs"]["(d) window engine"]["streams"]})
+        "window": feats["runs"]["(d) window engine"]["streams"]}, cfg=serve_cut["cfg"],
+        a_layers=IO_LAYERS)
     for k in served:
         served[k] += mesh18["launches"][k]
+
+    say(f"phase 19: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
+        f"by the fleet at page {PAGE}, "
+        f"{FLEET_REPLICAS} replicas of {SERVE_SLOTS} slots and {FLEET_WORKERS} prefill workers: "
+        f"(a) phase 7's requests at v0 (seed 0), a v1 (seed 1) refresh after "
+        f"{FLEET_REFRESH_AT} results with phase 9's shared-prefix trio, a join and a leave; "
+        f"(b) int8 KV; (c) phase 15 (a)'s sampled requests; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet19 = fleet_path(torch, device, {
+        "requests": serve_cut["requests"], "static": serve_cut["static"],
+        "sampled": feats["runs"]["(a) sampled engine"]["streams"],
+        "int8": feats["runs"]["(b) int8 paged engine"]["streams"]}, cfg=serve_cut["cfg"])
+    for k in served:
+        served[k] += fleet19["launches"][k]
 
     kernels = []
     for name, src, replaces in (
@@ -5219,8 +5656,9 @@ def main() -> int:
         "name": "flash_prefill", "route": "cuda", "source": "src/repro_torch/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:110",
         "launches": served["flash_prefill"],
-        "max_abs_err": max(f512["max_abs_err"], tps["errs"]["flash"], feats["flash_err"],
-                           io["flash_err"], mesh18["flash_err"]),
+        "max_abs_err": max(f512["max_abs_err"], cut_flash_err, tps["errs"]["flash"],
+                           feats["flash_err"], io["flash_err"], mesh18["flash_err"],
+                           fleet19["flash_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -5229,9 +5667,9 @@ def main() -> int:
         "name": "paged_attend", "route": "cuda", "source": "src/repro_torch/csrc/paged_attend.cu",
         "replaces": "src/repro/kernels/paged_attention.py:98",
         "launches": (paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"]
-                     + feats["launches"]["paged_attend"]),
+                     + feats["launches"]["paged_attend"] + fleet19["launches"]["paged_attend"]),
         "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"],
-                           feats["paged_err"]),
+                           feats["paged_err"], fleet19["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })
@@ -5268,6 +5706,7 @@ def main() -> int:
         "bound_ms": bfk["paged"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call reads through a page table
     })
+    say(f"   script: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -8,7 +8,10 @@ optional ``activations`` policy (the LM's TP-region all-reduces; the
 CNN's stage-boundary quantize), an optional ``seq_boundary`` policy (the
 sequence-parallel gather / scatter pair; defaults to ``activations``), an
 optional ``host_device`` policy (the serve engine's token staging and
-training ingest's; defaults to the weight entries), the execution layout (``seq_parallel``,
+training ingest's; defaults to the weight entries), the fleet fabric's
+``kv_migration`` (prefill->decode KV page parcels; defaults to the
+``host_device`` chain) and ``weight_publish`` (trainer->replica weight
+parcels; defaults to the first weights entry) policies, the execution layout (``seq_parallel``,
 ``chunks`` — the weight gather's plane blocks — ``dtype``, the compute
 dtype ``f32`` or ``bf16``, ``int8_kv``, the serve caches' int8 KV,
 ``accum_steps``, the train step's micro-batches, and ``env_overrides``,
@@ -20,18 +23,14 @@ hyper-parameters). :meth:`PrecisionPlan.wire_table` is the per-entry
 byte account of one step, from the policy formulas.
 
 Plan JSON loads across packages: :meth:`PrecisionPlan.to_json_dict`
-writes the reference's other fields (``kv_migration`` and
-``weight_publish``, the fleet's) at their defaults, and
-:meth:`PrecisionPlan.from_json_dict` accepts them only at those defaults
-(anything else raises ``NotImplementedError``: the port has no code that
-would honour it yet). :func:`policy_uses_rng` is the one rule for which
+writes the reference's layout byte for byte, and each package loads the
+other's files. :func:`policy_uses_rng` is the one rule for which
 materialization sites take a stochastic-rounding key.
 
 Invalid plans raise :class:`ValueError` at construction.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 from typing import Mapping
@@ -55,19 +54,6 @@ _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # Env knobs a plan may override (the reference's list has mlstm_chunk too,
 # for the xLSTM family, which is not ported)
 ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip")
-# The reference plan's fields this port has no code for, at the values
-# that leave a run unchanged.
-UNPORTED_DEFAULTS = {
-    "kv_migration": None,
-    "weight_publish": None,
-}
-# the reference's JSON key order
-JSON_FIELDS = (
-    "weights", "gradients", "activations", "seq_boundary", "host_device",
-    "kv_migration", "weight_publish", "schedule", "seq_parallel", "chunks",
-    "dtype", "int8_kv", "accum_steps", "env_overrides", "sampling",
-    "spec_draft", "spec_k",
-)
 
 
 def policy_uses_rng(p: CompressionPolicy) -> bool:
@@ -169,6 +155,8 @@ class PrecisionPlan:
     activations: CompressionPolicy | None = None
     seq_boundary: CompressionPolicy | None = None
     host_device: CompressionPolicy | None = None
+    kv_migration: CompressionPolicy | None = None
+    weight_publish: CompressionPolicy | None = None
     schedule: Schedule = dataclasses.field(default_factory=Schedule)
     seq_parallel: bool = False
     chunks: int = 1
@@ -188,7 +176,8 @@ class PrecisionPlan:
         if not ws or any(w is None for w in ws):
             raise ValueError("plan needs at least one weights entry")
         object.__setattr__(self, "weights", ws)
-        for name in ("gradients", "activations", "seq_boundary", "host_device"):
+        for name in ("gradients", "activations", "seq_boundary", "host_device",
+                     "kv_migration", "weight_publish"):
             object.__setattr__(self, name, _coerce_policy(getattr(self, name)))
         if isinstance(self.schedule, Mapping):
             object.__setattr__(self, "schedule", Schedule(**self.schedule))
@@ -299,6 +288,22 @@ class PrecisionPlan:
             return (self.host_device,) * len(self.weights)
         return self.weights
 
+    def kv_migration_policy(self) -> CompressionPolicy:
+        """The policy pricing prefill->decode KV page parcels on the fleet
+        fabric: ``kv_migration``, else the ``host_device`` chain (migrated
+        pages are staged bytes crossing a replica boundary)."""
+        if self.kv_migration is not None:
+            return self.kv_migration
+        return self.host_device_policies()[0]
+
+    def weight_publish_policy(self) -> CompressionPolicy:
+        """The policy pricing trainer->replica weight parcels:
+        ``weight_publish``, else the first weights entry (published planes
+        ride the checkpoint tiers at the gathers' widths)."""
+        if self.weight_publish is not None:
+            return self.weight_publish
+        return self.weights[0]
+
     @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
@@ -392,17 +397,19 @@ class PrecisionPlan:
 
     # -- serialization ---------------------------------------------------
     def to_json_dict(self) -> dict:
-        """The reference's JSON layout: this plan's fields, and the
-        reference's other fields at their defaults."""
+        """The reference's JSON layout, key for key and in its order."""
         def pol(p):
             return None if p is None else dataclasses.asdict(p)
 
-        ours = {
+        return {
+            "version": 1,
             "weights": [pol(w) for w in self.weights],
             "gradients": pol(self.gradients),
             "activations": pol(self.activations),
             "seq_boundary": pol(self.seq_boundary),
             "host_device": pol(self.host_device),
+            "kv_migration": pol(self.kv_migration),
+            "weight_publish": pol(self.weight_publish),
             "schedule": dataclasses.asdict(self.schedule),
             "seq_parallel": self.seq_parallel,
             "chunks": self.chunks,
@@ -414,10 +421,6 @@ class PrecisionPlan:
             "spec_draft": self.spec_draft,
             "spec_k": self.spec_k,
         }
-        d = {"version": 1}
-        for k in JSON_FIELDS:
-            d[k] = ours[k] if k in ours else copy.deepcopy(UNPORTED_DEFAULTS[k])
-        return d
 
     @classmethod
     def from_json_dict(cls, d: Mapping) -> "PrecisionPlan":
@@ -430,14 +433,6 @@ class PrecisionPlan:
             raise ValueError("plan JSON needs a 'weights' entry")
         if isinstance(ws, Mapping):
             ws = [ws]
-        for k in [k for k in d if k in UNPORTED_DEFAULTS]:
-            v = d.pop(k)
-            if v != UNPORTED_DEFAULTS[k]:
-                raise NotImplementedError(
-                    f"plan field {k}={v!r} is not ported (only its "
-                    f"default {UNPORTED_DEFAULTS[k]!r} runs; the fleet's fields, ROADMAP "
-                    "item 10)"
-                )
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - known
         if unknown:

@@ -1,6 +1,6 @@
 """Analytic byte models (counterpart of ``repro.roofline.analysis``, the
-serve-wire, speculative serve-wire, paged-residency, training-ingest and
-checkpoint models). Pure arithmetic on the policy formulas, the config
+serve-wire, speculative serve-wire, paged-residency, training-ingest,
+checkpoint and fleet-fabric models). Pure arithmetic on the policy formulas, the config
 and shard manifests, so their outputs must equal the reference's
 exactly."""
 from __future__ import annotations
@@ -196,3 +196,40 @@ def train_checkpoint_bytes(storage_like, opt_like=None, *, spec_tree=None, round
             if residuals and w < full:
                 residual += n * (full - w)
     return {"wire": wire, "residual": residual, "total": wire + residual}
+
+
+def fleet_migration_bytes(plan_or_policy, cfg, *, page_size: int, migrated_pages: int,
+                          int8_kv: bool = False, dtype_bytes: int = 4,
+                          publish_wire_bytes: int = 0, publish_installs: int = 0) -> dict:
+    """Fleet-fabric bytes of a disaggregated serving run; the
+    :class:`~repro_torch.transport.fabric.FabricChannel` hop log must equal
+    both classes exactly:
+
+      * ``kv_migration`` — each migrated page ships every attention layer's
+        K + V at the ``kv_migration`` policy's ``kv_wire_width`` (the
+        :func:`serve_paged_kv_bytes` geometry at wire width; int8 pools add
+        their fp32 scale rows at ``kv_wire_width(4)``); ``migrated_pages``
+        counts the run's new (not shared-prefix) prompt pages;
+      * ``weight_publish`` — each replica install (join or refresh) moves
+        one weight parcel of ``publish_wire_bytes``."""
+    pol = plan_or_policy
+    if hasattr(pol, "kv_migration_policy"):  # a PrecisionPlan
+        pol = pol.kv_migration_policy()
+    layers = cfg.num_groups * cfg.layers_per_group
+    attn_frac = sum(1 for k in cfg.pattern if k == "attn") / len(cfg.pattern)
+    attn_layers = int(layers * attn_frac)
+    kv_elems = page_size * cfg.num_kv_heads * cfg.head_dim
+    kv_width = pol.kv_wire_width(1 if int8_kv else dtype_bytes)
+    per_layer = 2 * kv_elems * kv_width
+    if int8_kv:
+        per_layer += 2 * page_size * cfg.num_kv_heads * pol.kv_wire_width(4)
+    page_wire_bytes = per_layer * attn_layers
+    table = {
+        "page_wire_bytes": page_wire_bytes,
+        "kv_width": kv_width,
+        "migrated_pages": int(migrated_pages),
+        "kv_migration": page_wire_bytes * int(migrated_pages),
+        "weight_publish": int(publish_wire_bytes) * int(publish_installs),
+    }
+    table["total"] = table["kv_migration"] + table["weight_publish"]
+    return table

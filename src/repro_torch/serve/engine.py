@@ -56,9 +56,17 @@ collectives per traffic class (``dist.comm``'s log) and
 
 Speculative decoding and sliding windows run on any mesh, as the
 reference's: the draft on the target's mesh, ring caches at the rank's kv
-heads. Not ported: the fleet's migration
-admission (``admit_pages`` / ``install_pages``) and weight swaps
-(``swap_weights``) are absent (item 10). The reference compiles one
+heads.
+
+The streaming surface (:meth:`ServeEngine.begin_stream`, :meth:`~ServeEngine.admit`,
+:meth:`~ServeEngine.admit_pages`, :meth:`~ServeEngine.decode_tick`,
+:meth:`~ServeEngine.take_completed`, :meth:`~ServeEngine.swap_weights`) is
+what the fleet router (:mod:`repro_torch.fleet`) drives:
+``admit_pages`` installs KV pages a prefill worker computed and shipped
+through the fabric instead of running a local prefill (bit-equal to a
+local paged admission), and ``swap_weights`` hot-swaps the weight tree
+between steps. Migration admission runs on one device only (the fleet
+at tp > 1 is ROADMAP item 10b). The reference compiles one
 prefill per prompt length (per page-bucket length when paged); PyTorch
 runs eagerly, so one prefill step serves every length. The paged engine still counts bucket lengths seen before
 (``prefill_hits``) and not (``prefill_misses``), as the reference counts
@@ -313,6 +321,26 @@ def page_bytes(caches) -> int:
     return per_page
 
 
+def sample_packed(logits: torch.Tensor, vocab: int, width: int, sampling=None) -> np.ndarray:
+    """Ids of the last position, packed on the device and brought to the
+    host: ``(width, B)`` u8 planes (the d2h crossing). Greedy argmax when
+    ``sampling`` is None, else :func:`~repro_torch.serve.sampling.sample_tokens`
+    with ``sampling = (temperature, top_p, top_k, seed, step)`` a row each.
+    The engine's sampler, and the fleet's prefill worker's for the first
+    id."""
+    if sampling is None:
+        tok = torch.argmax(logits[:, -1, :vocab], dim=-1)
+    else:
+        tok = sample_tokens(logits[:, -1], vocab, *sampling)
+    return pack_tokens(tok, width).cpu().numpy()
+
+
+def first_sampling(s: SamplingParams):
+    """``sample_packed``'s ``sampling`` for a request's first id (emitted
+    index 0): None (the argmax) when greedy."""
+    return None if s.greedy else ([s.temperature], [s.top_p], [s.top_k], [s.seed], [0])
+
+
 class ServeEngine:
     """Continuous-batching driver over ``make_prefill_step`` /
     ``make_decode_step`` (see the module docstring).
@@ -419,10 +447,11 @@ class ServeEngine:
         self._weights = storage
         self.weight_stationary = bool(weight_stationary)
         self.place_wire: dict[str, int] = {}
+        self._place = None
         if weight_stationary:
-            place = make_place_step(cfg, mesh_cfg, mesh, spec_tree, plan=self.plan)
+            self._place = make_place_step(cfg, mesh_cfg, mesh, spec_tree, plan=self.plan)
             first = len(comm.LOG)
-            self._weights = place(storage)
+            self._weights = self._place(storage)
             self.place_wire = comm.wire_by_traffic(comm.LOG[first:])
         self._cache_dtype = self.plan.compute_dtype
         self._page_bytes = page_bytes(global_cache_shapes(
@@ -479,16 +508,8 @@ class ServeEngine:
 
     # -- device-side plumbing --------------------------------------------
     def _sample(self, logits: torch.Tensor, sampling=None) -> np.ndarray:
-        """Ids of the last position, packed on the device and brought to
-        the host: ``(width, B)`` u8 planes (the d2h crossing). Greedy
-        argmax when ``sampling`` is None, else
-        :func:`~repro_torch.serve.sampling.sample_tokens` with ``sampling =
-        (temperature, top_p, top_k, seed, step)`` a row each."""
-        if sampling is None:
-            tok = torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1)
-        else:
-            tok = sample_tokens(logits[:, -1], self.cfg.vocab_size, *sampling)
-        return pack_tokens(tok, self.token_width).cpu().numpy()
+        """:func:`sample_packed` at the engine's vocabulary and token width."""
+        return sample_packed(logits, self.cfg.vocab_size, self.token_width, sampling)
 
     def _verify_sample(self, logits: torch.Tensor) -> np.ndarray:
         """``(width, B, T)`` planes of the target's samples over the verify
@@ -560,6 +581,28 @@ class ServeEngine:
                     ).to(b_leaf.dtype)
                 big.pos[:, slot] = pos_val
 
+    def _install_pages(self, pages, slot: int, phys: torch.Tensor, pos_val: int) -> None:
+        """Scatter migrated pool pages (a worker's export, already at pool
+        dtype and sliced as :meth:`_insert_paged` slices a prefill) into
+        the pools, in place, and stamp the slot's position as the local
+        insert does. ``pages`` is per group, per cache node, ``{"k", "v"(,
+        "k_scale", "v_scale")}`` tensors ``(R, n_new, page, ...)``."""
+        for big_g, pg in zip(self._caches, pages):
+            for key, big in big_g.items():
+                if not isinstance(big, PAGED):
+                    raise TypeError("migrated admission covers paged pools only "
+                                    f"(got {type(big).__name__})")
+                names = ("k", "v", "k_scale", "v_scale")[:len(leaves(big))]
+                for name, b_leaf in zip(names, leaves(big)):
+                    src = pg[key][name]
+                    want = (b_leaf.shape[0], phys.shape[0], *b_leaf.shape[2:])
+                    if tuple(src.shape) != want or src.dtype != b_leaf.dtype:
+                        raise ValueError(
+                            f"migrated pages {key}/{name}: {tuple(src.shape)} {src.dtype}, "
+                            f"the pool takes {want} {b_leaf.dtype}")
+                    b_leaf[:, phys] = src.to(self.device)
+                big.pos[:, slot] = pos_val
+
     def _init_caches(self):
         return init_serve_caches(
             self.cfg, self.mesh_cfg, self.max_slots, self.cache_capacity,
@@ -586,11 +629,17 @@ class ServeEngine:
                     f"{self.page_size}, the pool has {self.num_pages}"
                 )
 
+    def validate_request(self, req: Request) -> None:
+        """The admission geometry checks :meth:`run` applies up front (the
+        fleet router's submit path)."""
+        self._validate(req)
+
     # -- the streaming surface --------------------------------------------
     def begin_stream(self) -> None:
         """Reset the slot allocator, caches and accounting for a fresh
         stream (:meth:`run` calls this; a caller driving :meth:`admit` /
-        :meth:`decode_tick` itself calls it once first)."""
+        :meth:`admit_pages` / :meth:`decode_tick` itself, as the fleet
+        router does, calls it once first)."""
         self.slots = SlotManager(self.max_slots)
         B = self.max_slots
         if self.paged:
@@ -620,8 +669,8 @@ class ServeEngine:
             self._rec = {"step": self._step, "admitted": 0, "active": 0,
                          "decoded": 0, "host_device": 0}
             if self.paged:
-                # kv_migration: the fleet's migration admission, not ported,
-                # stays 0; kept so that the record equals the reference's
+                # kv_migration: the wire bytes of migrated parcels
+                # (admit_pages), never host_device
                 self._rec.update(page_table=0, prefill_hits=0,
                                  prefill_misses=0, kv_migration=0)
             if self.draft is not None:
@@ -630,8 +679,18 @@ class ServeEngine:
         return self._rec
 
     @property
+    def has_work(self) -> bool:
+        return bool(self._active)
+
+    @property
     def active_slots(self) -> int:
         return len(self._active)
+
+    @property
+    def pending_record(self) -> bool:
+        """True when admissions accumulated into a step record that no
+        :meth:`decode_tick` has finalized yet."""
+        return self._rec is not None
 
     def _prompt_hits(self, req: Request) -> list[int]:
         """Resident shared-prefix pages for this prompt (the longest run of
@@ -734,13 +793,49 @@ class ServeEngine:
             self._insert(pcaches, slot)
         self._log_wire("prefill", tokens_dev.shape[1], first_call, seq_parallel=seq)
         del pcaches
-        s = req.sampling
-        sampling = None if s.greedy else (  # the first token is emitted index 0
-            [s.temperature], [s.top_p], [s.top_k], [s.seed], [0])
-        tok_planes = self._sample(logits, sampling)  # (w, 1) — d2h first id
+        tok_planes = self._sample(logits, first_sampling(req.sampling))  # (w, 1) — d2h first id
         rec["host_device"] += tok_planes.nbytes
         first = int(unpack_tokens_host(tok_planes)[0])
         self._finish_admission(req, slot, first, rec)
+
+    def admit_pages(self, req: Request, pages, *, n_hits: int, first_tok: int,
+                    wire_bytes: int = 0) -> None:
+        """Migration admission: install KV pages a prefill worker computed
+        (``pages``, the unpacked parcel: prompt pages ``[n_hits,
+        prompt_pages)``, see :meth:`_install_pages`) and its first id
+        ``first_tok`` instead of a local prefill; bit-equal to
+        :meth:`admit`, since the worker runs the same prefill. The parcel's
+        ``wire_bytes`` land in the step record's ``kv_migration``, not
+        ``host_device``. With a draft, the draft prefills locally from the
+        prompt staged h2d (priced)."""
+        if not self.paged:
+            raise ValueError("admit_pages needs the paged engine (paged=True)")
+        if not self.mesh_cfg.trivial:
+            raise NotImplementedError("migration admission on a mesh is not ported "
+                                      "(the fleet at tp > 1, ROADMAP item 10b)")
+        ok, hits = self.can_admit(req)
+        if not ok:
+            raise CapacityError(f"request {req.rid}: no free slot/pages for migration admission")
+        if len(hits) != int(n_hits):
+            raise AllocatorError(
+                f"request {req.rid}: parcel skipped {n_hits} prefix pages but {len(hits)} are "
+                "resident — probe and admit must see the same intern table")
+        self._validate(req)
+        seed_words(req.sampling.seed)
+        rec = self._ensure_rec()
+        S, page = len(req.prompt_ids), self.page_size
+        slot, row = self._alloc_residency(req, hits)
+        phys = torch.tensor(row[len(hits):-(-S // page)], dtype=torch.int64, device=self.device)
+        rec["kv_migration"] += int(wire_bytes)
+        self._install_pages(pages, slot, phys, S)
+        if self.draft is not None:
+            # migration ships the target's KV, not tokens: the draft prefills
+            # locally, so the prompt crosses h2d here (priced)
+            planes = pack_tokens_host(np.asarray(req.prompt_ids, np.int32)[None, :],
+                                      self.token_width)
+            rec["host_device"] += planes.nbytes
+            self.draft.prefill_insert(unpack_tokens(stage(planes, self.device)), slot)
+        self._finish_admission(req, slot, int(first_tok), rec)
 
     def decode_tick(self) -> None:
         """One engine step: one batched decode when any slot is active,
@@ -845,6 +940,23 @@ class ServeEngine:
         delta_dev = torch.from_numpy(delta).to(self.device)
         rollback_caches(self._caches, delta_dev)
         self.draft.rollback(delta_dev)
+
+    def take_completed(self) -> dict[int, GenResult]:
+        """Drain the finished results (the router's stream reassembly)."""
+        out, self._results = self._results, {}
+        return out
+
+    def swap_weights(self, storage) -> None:
+        """Hot-swap the weight tree between steps (the fleet's
+        ``weight_publish`` install), re-placed when weight-stationary. The
+        swap is unconditional here: in-flight slots decode on under the new
+        weights; the fleet swaps a replica only while it is idle."""
+        if storage["embed"].device != self.device:
+            raise ValueError(f"swap_weights: weights on {storage['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.storage = storage
+        self._weights = None  # the old placement goes before the new one is built
+        self._weights = self._place(storage) if self._place is not None else storage
 
     def finish(self) -> dict[int, GenResult]:
         """End-of-stream conservation audits; returns completed results."""

@@ -174,6 +174,17 @@ class CompressionPolicy:
             return FP32_BYTES
         return min(FP32_BYTES, max(needed, self.round_to))
 
+    def kv_wire_width(self, itemsize: int) -> int:
+        """Parcel bytes per KV pool element on the fleet fabric. Migrated
+        pages must land bit-exact in the destination pool, so the width is
+        floored at the pool leaf's own ``itemsize`` (an int8 pool ships 1
+        byte an element, a bf16 pool 2, fp32 leaves and int8 scale rows
+        4); an uncompressed policy (``round_to == 4``) pads every element
+        to raw fp32 words, as it stages raw int32 token ids."""
+        if self.round_to >= FP32_BYTES:
+            return FP32_BYTES
+        return min(FP32_BYTES, max(int(itemsize), self.round_to))
+
     def token_host_bytes(self, n_tokens: int, vocab_size: int) -> int:
         """Bytes staged across the host<->device boundary for ``n_tokens``
         ids in one direction (prompts h2d, sampled ids d2h, next-step

@@ -1,4 +1,5 @@
 """Host-side plan, policy and AWP controller: port == reference exactly."""
+import dataclasses
 import json
 
 import numpy as np
@@ -88,6 +89,7 @@ def test_wire_table_equal(idx):
 
 
 PORTED_FIELDS = (dict(accum_steps=2), dict(dtype="bf16"))
+FLEET_FIELDS = (dict(kv_migration={"round_to": 2}), dict(weight_publish={"round_to": 1}))
 
 
 @pytest.mark.parametrize("kw", [
@@ -97,20 +99,25 @@ PORTED_FIELDS = (dict(accum_steps=2), dict(dtype="bf16"))
 def test_unported_plan_fields_raise(kw):
     """A reference plan that sets a field the port has no code for is
     refused, not silently run at the default (``mlstm_chunk``: an env
-    override of the unported xLSTM family; ``kv_migration`` and
-    ``weight_publish``: the fleet's). ``int8_kv`` and ``sampling``, once
-    refused here, load (``tests/test_torch_sampling.py``); so do
-    ``accum_steps`` and ``dtype`` since the train step runs them: their
-    cases hold the loaded plan's JSON to the reference's, byte for byte,
-    and the compute dtype it gives."""
+    override of the unported xLSTM family). ``int8_kv`` and ``sampling``,
+    once refused here, load (``tests/test_torch_sampling.py``); so do
+    ``accum_steps`` and ``dtype`` since the train step runs them, and the
+    fleet's ``kv_migration`` and ``weight_publish`` since the fleet
+    (``tests/test_torch_fleet.py``) reads them: their cases hold the loaded
+    plan's JSON to the reference's, byte for byte, and what it resolves to
+    (the compute dtype; the fabric's two policies)."""
     d = JPlan.build(9, round_to=2).to_json_dict()
     d.update(kw)
-    text = JPlan.from_json_dict(d).to_json()
-    if kw in PORTED_FIELDS:
+    j = JPlan.from_json_dict(d)
+    text = j.to_json()
+    if kw in PORTED_FIELDS + FLEET_FIELDS:
         t = PrecisionPlan.from_json(text)
         assert t.to_json() == text
         assert (t.accum_steps, t.compute_dtype) == (
             kw.get("accum_steps", 1), torch.bfloat16 if "dtype" in kw else torch.float32)
+        for name in ("kv_migration_policy", "weight_publish_policy"):
+            assert dataclasses.asdict(getattr(t, name)()) == \
+                dataclasses.asdict(getattr(j, name)()), name
         return
     with pytest.raises(NotImplementedError):
         PrecisionPlan.from_json(text)

@@ -394,8 +394,18 @@ def _raises_int8_kv(s, m):
 
 
 def _raises_int8_kv_plan(s, m):
-    PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "int8_kv": True,
-                                  "kv_migration": {"round_to": 2}})
+    """The fleet's int8 migration plan loads (its ``kv_migration`` entry
+    prices the pages at 2 bytes an int8 element) and serves: a paged int8
+    engine's streams equal the int8 static run's."""
+    plan = PrecisionPlan.from_json_dict({"weights": [{"round_to": 2}], "int8_kv": True,
+                                         "kv_migration": {"round_to": 2}})
+    assert plan.kv_migration_policy().kv_wire_width(1) == 2
+    reqs = _requests(s["tcfg"].vocab_size)
+    eng = teng.ServeEngine(s["tcfg"], s["tmesh"], None, s["tspec"], s["tstorage"], plan=plan,
+                           max_slots=SLOTS, cache_capacity=CAPACITY, paged=True, page_size=8)
+    got = {rid: r.tokens for rid, r in eng.run(reqs).items()}
+    assert got == teng.generate_static(s["tcfg"], s["tmesh"], None, s["tspec"], s["tstorage"],
+                                       reqs, plan=plan)
 
 
 def _raises_mesh(s, m):
@@ -425,14 +435,10 @@ def test_mesh_step_needs_the_mesh_groups(setup):
     _raises_sampled_static, _raises_int8_kv, _raises_int8_kv_plan, _raises_mesh,
 ], ids=lambda f: f.__name__[len("_raises_"):])
 def test_deferred_options_raise(setup, mesh_cases, case):
-    """The fleet's int8 page migration still raises (item 10); every other
-    case once raised on a mesh (item 7.6) and now runs there as on one
-    device."""
-    if case is _raises_int8_kv_plan:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            case(setup, mesh_cases)
-    else:
-        case(setup, mesh_cases)
+    """Every case once raised: the fleet's int8 migration plan until the
+    fleet was ported (item 10), the others on a mesh (item 7.6); each now
+    runs."""
+    case(setup, mesh_cases)
 
 
 def test_unported_arch_and_flash_viability_on_cpu(setup):
