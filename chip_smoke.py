@@ -360,6 +360,35 @@ Phases, each printing its own lines:
      the plain version. Prints decode ms a tick, a parcel's pack, send and
      install ms, the publish encode and decode s and the memory peak,
      beside the card's name and power limit.
+ 20. main path — the MoE family and the dense variants at their widths
+     (:func:`archs_path`), phase 7's requests at ``round_to`` 2 from seed
+     0's weights. (a) chatglm3-6b at its 28 layers (H 32 / Kv 2: flash
+     and ``paged_attend`` at 16 query heads a kv head): the static run,
+     the engine and the paged engine at page 64. (b) qwen2.5-14b at
+     ``CUT_LAYERS`` (4) of its 48 layers (59 GB of fp32 masters at full
+     depth do not fit beside the rest), its QKV biases drawn from a seed
+     (the reference's init leaves them zero): the static run and the paged
+     engine (G 5). (c) mixtral-8x7b at ``CUT_LAYERS`` of its 32 layers
+     (one layer is 5.8 GB): the static run made request by request (the
+     capacity dispatch ranks a batch's tokens) and the contiguous engine
+     under its 4,096-token window (no flash, no paging, by the
+     reference's rules). Streams equal the static ones; launches as phase
+     7 counts them (28 flash launches a prefill of a multiple of 128 in
+     (a), a padded page bucket in the paged engines; a layer's
+     ``paged_attend`` a paged decode step; Bitpack / Bitunpack once per
+     ``DIST`` leaf, the expert leaves included, per materialization);
+     ``host_device`` equal to ``serve_host_device_bytes``; the first
+     flash and ``paged_attend`` launch at each shape held to the plain
+     versions. (d) mixtral-8x7b at ``ARCH_TRAIN_LAYERS`` (2) layers,
+     A²DTWP training at phase 11's batch, lr and forced AWP plan for five
+     steps: finite losses, a positive aux loss a step (printed), wire
+     bytes equal to the plan's, ``l2norm_sq`` once per monitored leaf a
+     step and packing held to the plain versions at every length (the
+     expert leaf of 469,762,048 elements among them). Prints each part's
+     seconds and memory peak, decode ms/step and step ms, beside the
+     card's name and power limit. Phases 6 and 8 also check and time flash
+     at H 40 / Kv 8 and H 32 / Kv 2 (S 512) and ``paged_attend`` at Kv 8 /
+     G 5 and Kv 2 / G 16 (the decode shape) beside their bounds and SDPA.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -830,6 +859,9 @@ FLASH_TOL = 1e-5
 # a model rank's heads at tp 2 (phase 14's flash shape), which phase 16 (e)
 # also checks and times in bf16
 FLASH_TP2 = (1, 8, 4, 512, 512, 0)
+# phase 20's groupings at S 512, B 1: qwen2.5-14b's H 40 / Kv 8 (G 5, units
+# of Gc = 1 head) and chatglm3-6b's H 32 / Kv 2 (G 16, Gc = 4)
+FLASH_GQA = (("G 5", (1, 40, 8, 512, 512, 0)), ("G 16", (1, 32, 2, 512, 512, 0)))
 
 
 def flash_bound(B, H, Kv, Sq, Sk, q_offset, hd=128, elem=4, flop_rate=FP32_FLOP_PER_S):
@@ -889,6 +921,27 @@ def check_flash(torch, device):
                      f"({lib_eager * 1e3:.1f} us eager), bound {bound * 1e3:.1f} us ({by}, "
                      f"{bound / ms:.0%} of it)")
         say(line)
+    for label, (B, H, Kv, Sq, Sk, off) in FLASH_GQA:
+        q = torch.randn((B, H, Sq, 128), generator=gen, device=device)
+        k = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
+        v = torch.randn((B, Kv, Sk, 128), generator=gen, device=device)
+        got = flash_prefill(q, k, v, q_offset=off)
+        err = float((got - ref.flash_prefill_ref(q, k, v, q_offset=off)).abs().max())
+        check(math.isfinite(err) and err <= FLASH_TOL,
+              f"flash {label} (H={H} Kv={Kv}): max |err| {err:.3e} > {FLASH_TOL}")
+        check(torch.equal(got, flash_prefill(q, k, v, q_offset=off)),
+              f"flash {label}: two calls gave other bits")
+        ms = time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10)
+        plain = time_cuda(torch, lambda: ref.flash_prefill_ref(q, k, v), iters=5)
+        lib = time_graph(torch, [lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)], reps=10)
+        bound, by = flash_bound(B, H, Kv, Sq, Sk, off)
+        out[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                      "bound_by": by, "max_abs_err": err}
+        say(f"   flash {label} B={B} H={H} Kv={Kv} Sq={Sq} Sk={Sk}: max |kernel - plain| "
+            f"{err:.3e}; kernel {ms * 1e3:.1f} us in a CUDA graph, plain {plain * 1e3:.1f} us, "
+            f"sdpa {lib * 1e3:.1f} us in a graph, bound {bound * 1e3:.1f} us ({by}, "
+            f"{bound / ms:.0%} of it)")
     check_flash_rows(torch, device, gen)
     return out
 
@@ -1223,6 +1276,10 @@ COLD_COPIES = 10
 PAGED_TIMED = (
     ("main path", (2, 8, 2, 64, 9, 19, (528, 528))),
     ("4096 tokens", (16, 8, 2, 64, 64, 1025, (4096,) * 16)),
+    # phase 20's groupings at the decode shape: qwen2.5-14b's Kv 8, G 5 and
+    # chatglm3-6b's Kv 2, G 16 (the kernel's MAX_G)
+    ("G 5", (2, 8, 5, 64, 9, 19, (528, 528))),
+    ("G 16", (2, 2, 16, 64, 9, 19, (528, 528))),
 )
 
 
@@ -5420,6 +5477,302 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
             "decode_s": rec["publish_decode"] + rec8["publish_decode"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the MoE family and the dense variants at their widths
+# ---------------------------------------------------------------------------
+
+ARCH_SLOTS = SERVE_SLOTS
+# (b): the QKV biases of qwen2.5-14b drawn from a seed before the run (the
+# reference initialises them to zeros, which would hide a missing or
+# misplaced bias)
+ARCH_BIAS_STD, ARCH_BIAS_SEED = 0.1, 20
+# (d): mixtral-8x7b's layers in training (3.16 B parameters; masters,
+# momentum and gradients ~38 GB) and the steps of the forced AWP plan
+ARCH_TRAIN_LAYERS, ARCH_TRAIN_STEPS = 2, 5
+
+
+def _set_biases(torch, storage, seed):
+    """Draw every layer's ``bq`` / ``bk`` / ``bv`` from ``seed`` (normal,
+    std ``ARCH_BIAS_STD``) in place (trivial mesh: storage is the stacked
+    logical tensor)."""
+    gen = torch.Generator(device=storage["embed"].device).manual_seed(seed)
+    for g in storage["groups"]:
+        for key in ("bq", "bk", "bv"):
+            g["p0"]["attn"][key].normal_(0.0, ARCH_BIAS_STD, generator=gen)
+
+
+def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LENS,
+               gen=SERVE_GEN, page=PAGE, bias_seed=None):
+    """``cfg`` served through the serve twin's functions from seed 0's
+    weights at ``round_to`` 2: the static reference (request by request for
+    a MoE model, as the serve launcher runs it), then the contiguous engine
+    and / or the paged engine at ``page``, every stream equal to the static
+    one. Launches are zeroed before and read after each run: per prefill
+    whose length (padded to whole pages in the paged engine, unless the
+    model has experts) is a multiple of 128, one flash launch a layer (none
+    under a sliding window, by the reference's rule); one ``paged_attend``
+    a layer per paged decode step; Bitpack / Bitunpack once per ``DIST``
+    leaf per materialization. The first flash launch at each shape and the
+    first ``paged_attend`` launch at each shape, and every 8th decode
+    step's first, are held to the plain versions on their own inputs.
+    Returns the measurements; raises on a failed check."""
+    from repro_torch.dist.spec import DIST
+    from repro_torch.launch.serve import build_requests, check_wire, run_static, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils.trees import tree_leaves
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    if bias_seed is not None:
+        _set_biases(torch, storage, bias_seed)
+    setup_s = time.perf_counter() - t0
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    requests = build_requests(lens, gen, cfg.vocab_size)
+    cap = max(lens) + gen
+    n_params = sum(x.numel() for x in tree_leaves(storage))
+    per_forward = sum(s.reps for g in spec_tree["groups"] for s in tree_leaves(g)
+                      if s.kind == DIST) + sum(
+        1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
+
+    def viable(S):  # the reference's flash rule for a prefill of S tokens
+        return on_card and cfg.head_dim % 128 == 0 and S % 128 == 0 and not cfg.sliding_window
+
+    say(f"   {cfg.name} at {L} of its layers: {n_params:,} fp32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB), H {cfg.num_heads} / Kv {cfg.num_kv_heads} "
+        f"(G {cfg.num_heads // cfg.num_kv_heads}), init {setup_s:.2f} s; {per_forward} DIST "
+        f"materializations per forward")
+    seen_f, seen_p, launches, runs = {}, [], {}, {}
+    unwatch_f = watch_flash(torch, seen_f)
+    unwatch_p = watch_paged(torch, seen_p, L * 8)
+    zero_counts()
+    t0 = time.perf_counter()
+    static = run_static(cfg, mesh_cfg, None, spec_tree, storage, requests, plan, None)
+    static_s = time.perf_counter() - t0
+    launches["static"] = got = counts()
+    check_seen_flash(seen_f)
+    prefills = [len(r.prompt_ids) for r in requests] if cfg.num_experts else sorted(set(lens))
+    want = {"flash_prefill": L * sum(map(viable, prefills)),
+            "bitpack": per_forward * len(prefills) * gen * on_card,
+            "paged_attend": 0, "l2norm_sq": 0}
+    want["bitunpack"] = want["bitpack"]
+    check(got == want, f"{cfg.name} static: launches {got}, expected {want}")
+    say(f"   {cfg.name} static ({'request by request' if cfg.num_experts else 'grouped'}): "
+        f"{len(prefills)} prefills in {static_s:.2f} s; launches {got}")
+
+    for kind in [k for k, on in (("engine", contiguous), ("paged engine", paged)) if on]:
+        timings = {"admit": [], "decode": []}
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, mesh_cfg, None, spec_tree, storage, plan=plan,
+                             max_slots=ARCH_SLOTS, cache_capacity=cap,
+                             paged=kind == "paged engine", page_size=page)
+        instrument(engine, timings)
+        results = engine.run(requests)
+        wall = time.perf_counter() - t0
+        launches[kind] = got = counts()
+        check_seen_flash(seen_f)
+        streams = {k: r.tokens for k, r in results.items()}
+        bad = [r.rid for r in requests if streams[r.rid] != static[r.rid]]
+        for rid in bad:
+            report_divergence(torch, cfg, mesh_cfg, spec_tree, storage, plan, requests[rid],
+                              streams[rid], static[rid])
+        check(not bad, f"{cfg.name} {kind}: streams of {bad} differ from the static reference")
+        summary = engine.wire_summary()
+        analytic = check_wire(engine, plan, requests)
+        pad = kind == "paged engine" and not cfg.num_experts
+        admitted = [-(-S // page) * page if pad else S for S in (len(r.prompt_ids)
+                                                                  for r in requests)]
+        packed = (summary["admissions"] + summary["decode_steps"]) * per_forward * on_card
+        want = {"flash_prefill": L * sum(map(viable, admitted)), "bitpack": packed,
+                "bitunpack": packed, "l2norm_sq": 0,
+                "paged_attend": L * summary["decode_steps"] * on_card * (kind == "paged engine")}
+        check(got == want, f"{cfg.name} {kind}: launches {got}, expected {want}")
+        if kind == "paged engine":
+            check(summary["prefill_misses"] == len(set(admitted)),
+                  f"{cfg.name}: {summary['prefill_misses']} prefill lengths first seen, "
+                  f"expected {len(set(admitted))}")
+        dec = sorted(timings["decode"])
+        adm = sorted(t for _, t in timings["admit"])
+        new_tokens = sum(len(s) for s in streams.values())
+        say(f"   {cfg.name} {kind}: {summary['steps']} steps ({summary['decode_steps']} decode) "
+            f"in {wall:.2f} s, {new_tokens / wall:.1f} tokens/s; decode ms/step median "
+            f"{dec[len(dec) // 2] * 1e3:.2f}, admission ms median {adm[len(adm) // 2] * 1e3:.2f}; "
+            f"streams equal to the static reference; host_device {summary['host_device']} B == "
+            f"serve_host_device_bytes {analytic['total']} B; launches {got}")
+        runs[kind] = {"decode_ms": dec[len(dec) // 2] * 1e3, "admit_ms": adm[len(adm) // 2] * 1e3,
+                      "wall_s": wall, "tokens": new_tokens}
+        del engine
+    unwatch_f()
+    unwatch_p()
+    paged_err = check_seen_paged(seen_p) if paged else 0.0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say(f"   {cfg.name}: memory peak {peak / 2**30:.2f} GiB")
+    total = {k: sum(run[k] for run in launches.values()) for k in launches["static"]}
+    return {"launches": total, "runs": runs, "peak": peak, "static": static,
+            "flash_err": max((r["max_abs_err"] for r in seen_f.values()), default=0.0),
+            "paged_err": paged_err, "flash_shapes": sorted(seen_f)}
+
+
+def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+               steps=ARCH_TRAIN_STEPS):
+    """A²DTWP training of ``cfg`` from seed 0's weights through ``Trainer``
+    and ``make_train_step`` at phase 11's batch, lr and forced AWP plan
+    (widening every 2 steps): losses finite, each step's MoE aux loss (the
+    layers' sum, the ``StepRecord``'s ``aux``) positive, each
+    ``StepRecord``'s wire bytes equal to the plan's table, and launches:
+    Bitpack / Bitunpack once per ``DIST`` leaf per materialization below 32
+    bits (the remat backward's included), ``l2norm_sq`` once per monitored
+    leaf a step. Each step's first monitor call and the first packing
+    launch at each (length, round_to) are held to the plain versions."""
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import setup
+    from repro_torch.optim.sgd import SGDConfig
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.trees import tree_leaves
+
+    on_card = device.type == "cuda"
+    mesh_cfg = MeshCfg()
+    t0 = time.perf_counter()
+    spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device)
+    setup_s = time.perf_counter() - t0
+    nrt = cfg.num_groups + 1
+    elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
+    group_dist = [s for g in spec_tree["groups"] for s in tree_leaves(g) if s.kind == DIST]
+    top_dist = [k for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST]
+    per_forward = sum(s.reps for s in group_dist) + len(top_dist)
+    recomputed = sum(s.reps for s in group_dist) if cfg.remat else 0
+    n_monitor = len(group_dist) + len(top_dist)
+    n_params = sum(x.numel() for x in tree_leaves(storage))
+    biggest = max(math.prod(s.logical) for s in group_dist)
+    say(f"   {cfg.name} at {cfg.num_layers} of its layers: {n_params:,} fp32 parameters, init "
+        f"{setup_s:.2f} s; per step {per_forward} + {recomputed} (remat) DIST "
+        f"materializations, {n_monitor} monitor calls, the largest packed leaf {biggest:,} "
+        f"elements; batch {batch} x seq {seq}, lr {lr:g}")
+    opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
+                               awp_interval=2)
+
+    def builder(rts):
+        return make_train_step(cfg, mesh_cfg, None, spec_tree, opt, shapes,
+                               plan=plan.with_round_tos(rts))
+
+    trainer = Trainer(builder, nrt, plan=plan, dist_elems_per_group=elems)
+    seen, packs, errs, peaks = [], {}, [], []
+    unwatch = watch_monitor(torch, seen, n_monitor)
+    unwatch_packing = watch_packing(torch, packs)
+    zero_counts()
+    try:
+        for i in range(steps):
+            tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+            n_packs = len(packs)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            storage, mom, _ = trainer.run_step(storage, mom, {"tokens": tokens, "labels": labels},
+                                               lr)
+            if on_card and len(packs) == n_packs:
+                peaks.append(torch.cuda.max_memory_allocated())
+            for w, out in seen:
+                p, k = float(ref.l2norm_sq_ref(w)), float(out)
+                check(abs(k - p) <= L2_RTOL * abs(p), f"{cfg.name} step {i}: monitor call: "
+                                                      f"kernel {k!r}, plain {p!r}")
+                errs.append(abs(k - p))
+            seen.clear()
+            check_seen_packing(torch, packs)
+    finally:
+        unwatch()
+        unwatch_packing()
+    got = counts()
+    records = trainer.records
+    losses = [r.loss for r in records]
+    aux_steps = [r.aux for r in records]
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name}: non-finite loss in {losses}")
+    check(all(math.isfinite(a) and a > 0 for a in aux_steps), f"{cfg.name}: aux {aux_steps}")
+    for r in records:
+        want = plan.with_round_tos(r.round_tos).wire_table(elems, 1)["total"]
+        check(r.wire_bytes == want, f"{cfg.name} step {r.step}: wire {r.wire_bytes} != plan "
+                                    f"{want}")
+    packed = sum(r.round_tos[0] < 4 for r in records) * (per_forward + recomputed) * on_card
+    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
+            "l2norm_sq": n_monitor * len(records) * on_card}
+    check(got == want, f"{cfg.name} training: launches {got}, expected {want}")
+    if on_card:
+        check(len(errs) == len(records), f"{len(errs)} monitor calls held, {len(records)} steps")
+    for r, aux in zip(records, aux_steps):
+        say(f"   step {r.step} round_to {r.round_tos[0]} loss {r.loss:.5f} aux {aux:.5f} wire "
+            f"{r.wire_bytes} B  {r.wall_s * 1e3:.1f} ms"
+            f"{'  (first at these formats)' if r.recompiled else ''}")
+    warm = sorted(r.wall_s for r in records if not r.recompiled)
+    peak = max(peaks, default=0)
+    say(f"   {cfg.name} training: launches {got}; monitor within {max(errs, default=0.0):.3e} "
+        f"of its plain version; packing equal to its plain versions at {len(packs)} (kernel, "
+        f"length, round_to); step ms median of warm steps "
+        f"{warm[len(warm) // 2] * 1e3 if warm else float('nan'):.2f}; memory peak of the "
+        f"{len(peaks)} steps with no packing copy {peak / 2**30:.2f} GiB")
+    return {"launches": got, "losses": losses, "aux": aux_steps, "peak": peak,
+            "monitor_err": max(errs, default=0.0),
+            "step_ms": warm[len(warm) // 2] * 1e3 if warm else None}
+
+
+def archs_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=None, lens=SERVE_LENS,
+               gen=SERVE_GEN, page=PAGE):
+    """Phase 20: (a) chatglm3-6b at full depth (static, engine, paged
+    engine; G 16), (b) qwen2.5-14b at ``CUT_LAYERS`` with seeded QKV biases
+    (static, paged engine; G 5), (c) mixtral-8x7b at ``CUT_LAYERS`` (the
+    per-request static run and the contiguous windowed engine), (d)
+    mixtral-8x7b at ``ARCH_TRAIN_LAYERS`` in A²DTWP training. The configs
+    default to the registry's at those depths (widths not cut). Returns the
+    launches summed over the phase and the measurements."""
+    from repro_torch.configs.registry import get_config
+
+    def cut(name, layers):
+        return dataclasses.replace(get_config(name), num_layers=layers)
+
+    a_cfg = a_cfg or get_config("chatglm3-6b")
+    b_cfg = b_cfg or cut("qwen2.5-14b", CUT_LAYERS)
+    c_cfg = c_cfg or cut("mixtral-8x7b", CUT_LAYERS)
+    d_cfg = d_cfg or cut("mixtral-8x7b", ARCH_TRAIN_LAYERS)
+    on_card = device.type == "cuda"
+    out, clock = {}, {}
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    for label, fn in (
+        ("a", lambda: arch_serve(torch, device, a_cfg, lens=lens, gen=gen, page=page)),
+        ("b", lambda: arch_serve(torch, device, b_cfg, contiguous=False, lens=lens, gen=gen,
+                                 page=page, bias_seed=ARCH_BIAS_SEED)),
+        ("c", lambda: arch_serve(torch, device, c_cfg, paged=False, lens=lens, gen=gen)),
+        ("d", lambda: arch_train(torch, device, d_cfg)),
+    ):
+        free()
+        t0 = time.perf_counter()
+        say(f"   ({label})")
+        out[label] = fn()
+        clock[label] = time.perf_counter() - t0
+    free()
+    launches = {k: sum(out[x]["launches"][k] for x in out) for k in out["a"]["launches"]}
+    say(f"   phase 20 launches {launches}; seconds (a) {clock['a']:.1f}, (b) {clock['b']:.1f}, "
+        f"(c) {clock['c']:.1f}, (d) {clock['d']:.1f}; peaks (a) "
+        f"{out['a']['peak'] / 2**30:.2f}, (b) {out['b']['peak'] / 2**30:.2f}, (c) "
+        f"{out['c']['peak'] / 2**30:.2f}, (d) {out['d']['peak'] / 2**30:.2f} GiB")
+    return {"launches": launches, "seconds": clock, **out,
+            "flash_err": max(out[x]["flash_err"] for x in "abc"),
+            "paged_err": max(out[x]["paged_err"] for x in "abc"),
+            "monitor_err": out["d"]["monitor_err"]}
+
+
 def main() -> int:
     import torch
 
@@ -5639,6 +5992,21 @@ def main() -> int:
     for k in served:
         served[k] += fleet19["launches"][k]
 
+    say(f"phase 20: main path — the MoE family and the dense variants at their widths: (a) "
+        f"chatglm3-6b at its 28 layers served (static, engine, paged engine at page {PAGE}; "
+        f"G 16), (b) qwen2.5-14b at {CUT_LAYERS} of its 48 layers with seeded QKV biases "
+        f"(static, paged engine; G 5), (c) mixtral-8x7b at {CUT_LAYERS} of its 32 layers "
+        f"(static request by request, the windowed engine), (d) mixtral-8x7b at "
+        f"{ARCH_TRAIN_LAYERS} layers in A²DTWP training, batch {LM_BATCH} x seq {LM_SEQ}; "
+        f"phase 7's requests; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    archs = archs_path(torch, device)
+    for k in served:
+        served[k] += archs["launches"][k]
+    say(f"   phase 20 took {time.perf_counter() - t20:.1f} s on {smi[0]}")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -5658,7 +6026,8 @@ def main() -> int:
         "launches": served["flash_prefill"],
         "max_abs_err": max(f512["max_abs_err"], cut_flash_err, tps["errs"]["flash"],
                            feats["flash_err"], io["flash_err"], mesh18["flash_err"],
-                           fleet19["flash_err"]),
+                           fleet19["flash_err"], archs["flash_err"],
+                           flash["G 5"]["max_abs_err"], flash["G 16"]["max_abs_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -5667,9 +6036,10 @@ def main() -> int:
         "name": "paged_attend", "route": "cuda", "source": "src/repro_torch/csrc/paged_attend.cu",
         "replaces": "src/repro/kernels/paged_attention.py:98",
         "launches": (paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"]
-                     + feats["launches"]["paged_attend"] + fleet19["launches"]["paged_attend"]),
+                     + feats["launches"]["paged_attend"] + fleet19["launches"]["paged_attend"]
+                     + archs["launches"]["paged_attend"]),
         "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"],
-                           feats["paged_err"], fleet19["paged_err"]),
+                           feats["paged_err"], fleet19["paged_err"], archs["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })
@@ -5680,9 +6050,9 @@ def main() -> int:
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
                      + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]
-                     + mesh18["launches"]["l2norm_sq"]),
+                     + mesh18["launches"]["l2norm_sq"] + archs["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"],
-                           mesh18["monitor_err"]),
+                           mesh18["monitor_err"], archs["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

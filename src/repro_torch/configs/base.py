@@ -1,10 +1,12 @@
 """Model configuration (counterpart of ``repro.configs.base``, the
-dense-attention fields).
+dense-attention and MoE fields).
 
-``ModelConfig`` describes one decoder: widths, the attention flavour, and
-the precision-group layout that AWP and the ADT transfer read. The port
-runs the ``attn`` block pattern only; the reference's MoE, recurrent,
-cross-attention and audio fields come with their slice. ``InputShape``
+``ModelConfig`` describes one decoder: widths, the attention flavour, the
+channel mixer (a SwiGLU, or top-k experts with an optional dense
+residual) and the precision-group layout that AWP and the ADT transfer
+read. The port runs the ``attn`` block pattern only; the reference's
+recurrent, cross-attention and audio fields come with their slice
+(ROADMAP items 11b and 11c). ``InputShape``
 and ``INPUT_SHAPES`` are the assigned workload geometries
 (``configs.shapes`` gives their input stand-ins).
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-ArchType = Literal["dense"]
+ArchType = Literal["dense", "moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +57,13 @@ class ModelConfig:
     sliding_window: int | None = None
     causal: bool = True
 
+    # --- channel mixer -----------------------------------------------------
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dense_ff: int = 0            # arctic: parallel dense residual MLP
+    moe_impl: Literal["tp", "ep"] = "tp"
+
     # --- embeddings / output -------------------------------------------------
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -68,10 +77,10 @@ class ModelConfig:
     remat: bool = True               # activation checkpointing per layer (train)
 
     def __post_init__(self):
-        if self.arch_type != "dense":
+        if self.arch_type not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                "(only dense attention models; ROADMAP item 11)"
+                f"(dense and MoE attention models only; ROADMAP item 11)"
             )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -93,10 +102,26 @@ class ModelConfig:
     def num_groups(self) -> int:
         return self.num_layers // self.layers_per_group
 
+    def active_params(self) -> int:
+        """Approximate active parameter count (MoE: ``top_k`` experts)."""
+        return self._param_count(active_only=True)
+
     def total_params(self) -> int:
+        return self._param_count(active_only=False)
+
+    def _param_count(self, active_only: bool) -> int:
+        """The reference's count: projections, experts (``top_k`` of them
+        when ``active_only``) and the dense residual, embeddings; no norm
+        scales, router or biases."""
         d, hd = self.d_model, self.head_dim
         h, kv = self.num_heads, self.num_kv_heads
-        attn = d * hd * h + 2 * d * hd * kv + hd * h * d  # q, k, v, o
-        per_layer = attn + 3 * d * self.d_ff
+        per_layer = d * hd * h + 2 * d * hd * kv + hd * h * d  # q, k, v, o
+        if self.num_experts:
+            e = self.top_k if active_only else self.num_experts
+            per_layer += 3 * d * self.d_ff * e
+            if self.moe_dense_ff:
+                per_layer += 3 * d * self.moe_dense_ff
+        elif self.d_ff:
+            per_layer += 3 * d * self.d_ff
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.num_layers * per_layer + embed

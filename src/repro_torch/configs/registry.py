@@ -1,29 +1,51 @@
 """--arch registry + reduced (smoke) variants (counterpart of
 ``repro.configs.registry``).
 
-The port serves qwen3-1.7b; the reference's other architectures raise
-``NotImplementedError`` until their model families are ported.
+The port trains and serves the dense and MoE attention archs; the
+reference's other architectures raise ``NotImplementedError`` naming the
+ROADMAP item that ports their family (11b: the recurrent families, 11c:
+vision cross-attention and the audio encoder).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs import (
+    arctic_480b,
+    chatglm3_6b,
+    mixtral_8x7b,
+    qwen2_5_14b,
+    qwen3_1_7b,
+    qwen3_14b,
+)
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [qwen3_1_7b.CONFIG]}
-# the reference's other --arch ids, whose families are not ported yet
-UNPORTED_ARCHS = (
-    "arctic-480b", "chatglm3-6b", "hubert-xlarge", "llama-3.2-vision-90b",
-    "mixtral-8x7b", "qwen2.5-14b", "qwen3-14b", "recurrentgemma-9b",
-    "xlstm-1.3b",
-)
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c
+    for c in [
+        qwen3_14b.CONFIG,
+        mixtral_8x7b.CONFIG,
+        chatglm3_6b.CONFIG,
+        qwen3_1_7b.CONFIG,
+        arctic_480b.CONFIG,
+        qwen2_5_14b.CONFIG,
+    ]
+}
+# the reference's other --arch ids, whose families are not ported yet, and
+# the ROADMAP item that ports each
+UNPORTED_ARCHS = {
+    "hubert-xlarge": "11c (the hubert encoder)",
+    "llama-3.2-vision-90b": "11c (vision cross-attention)",
+    "recurrentgemma-9b": "11b (RG-LRU with local attention)",
+    "xlstm-1.3b": "11b (mLSTM / sLSTM)",
+}
 
 
 def get_config(name: str) -> ModelConfig:
     if name in UNPORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}; ROADMAP item 11)"
+            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}; ROADMAP item "
+            f"{UNPORTED_ARCHS[name]})"
         )
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
@@ -39,7 +61,8 @@ def get_shape(name: str) -> InputShape:
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference shrinks it:
     2 layers (or ``layers``), d_model <= 256, <= 4 heads, d_ff <= 512,
-    vocab <= 512, no layer scan and no activation checkpointing."""
+    vocab <= 512, <= 4 experts, top_k <= 2, a 256-wide dense residual, no
+    layer scan and no activation checkpointing."""
     num_heads = min(cfg.num_heads, 4)
     num_kv = max(1, min(cfg.num_kv_heads, num_heads))
     while num_heads % num_kv:
@@ -54,6 +77,9 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
         head_dim=max(8, d_model // num_heads),
         d_ff=0 if cfg.d_ff == 0 else min(cfg.d_ff, 512),
         vocab_size=min(cfg.vocab_size, 512),
+        num_experts=min(cfg.num_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        moe_dense_ff=0 if cfg.moe_dense_ff == 0 else 256,
         sliding_window=None if cfg.sliding_window is None else 32,
         num_precision_groups=min(cfg.num_precision_groups, 2),
         scan_layers=False,

@@ -4,7 +4,9 @@
 numpy arrays (``{"groups": [{"p0": {...}}], "embed", "head",
 "final_norm"}``) and returns the port's tree on ``device``. The port keeps
 the reference's ``(in, out)`` weight layouts and its per-group stacking,
-so this is an exact copy: same keys, shapes and values.
+so this is an exact copy: same keys, shapes and values, the QKV biases,
+the router, the ``(E, ...)`` expert leaves and arctic's ``dense_*`` among
+them.
 
 ``convert_cnn_params`` takes ``repro.models.cnn.init_cnn``'s params as
 numpy arrays (``{"layers": {name: {key: array}}}``, as ``np.asarray`` gives

@@ -26,7 +26,8 @@ scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
 step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums),
 ``logits`` (a serve step's gather of its vocabulary-sharded, and under a
 sharded batch row-sharded, logits), ``relayout`` (the lossless
-sequence split and merge) and ``checkpoint`` (a checkpoint's leaves
+sequence split and merge, and the MoE ``ep`` layout's token split, merge
+and expert exchanges) and ``checkpoint`` (a checkpoint's leaves
 gathered to rank 0 on a save and scattered from it on a load, between
 steps: :func:`gather` and :func:`scatter`). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output

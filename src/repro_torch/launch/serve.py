@@ -23,7 +23,9 @@ blocks) override either, as in the reference. The requests are
 ``--prompt-lens``' lengths, else ``--requests`` prompts of
 ``--prompt-len`` tokens (the reference's defaults, 8 of 64);
 ``--static`` runs only the static one-shot path and prints its first
-streams; ``--contiguous`` names the default slotted layout (exclusive with
+streams (a MoE model's static run goes request by request, as the
+reference launcher's: its capacity dispatch ranks a batch's tokens);
+``--contiguous`` names the default slotted layout (exclusive with
 ``--paged``). A
 plan's ``"dtype": "bf16"`` serves in bf16: weights cast after the unpack,
 bf16 KV caches, and the bf16 attention kernels on the card. ``--temperature`` (> 0) switches every
@@ -263,6 +265,21 @@ def restore(path: str, storage, spec_tree, mesh_cfg: MeshCfg):
     return load_storage(path, storage, quality=quality, spec_tree=spec_tree, mesh_cfg=mesh_cfg)
 
 
+def run_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests, plan, window) -> dict:
+    """The static reference's streams. A MoE model's capacity dispatch ranks
+    a whole batch's tokens per expert, so a grouped static prefill is no
+    target for the engine's batch-of-1 prefills: its static run goes
+    request by request, as the reference launcher's does."""
+    if not cfg.num_experts:
+        return generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests, plan=plan,
+                               window=window)
+    streams = {}
+    for r in requests:
+        streams.update(generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, [r],
+                                       plan=plan, window=window))
+    return streams
+
+
 def _serve(rank: int, args, params=None) -> dict:
     """The static reference (``--check-static``) and the engine run of
     :func:`main` on rank ``rank`` (the only one on ``1x1``); checks the
@@ -297,9 +314,10 @@ def _serve(rank: int, args, params=None) -> dict:
            "mesh": mesh_cfg.shape, "trivial": mesh_cfg.trivial, "static": None}
     if args.check_static or args.static:
         t0 = time.perf_counter()
-        out["static"] = generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests,
-                                        plan=plan, window=window)
+        out["static"] = run_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests, plan,
+                                   window)
         out["static_s"] = time.perf_counter() - t0
+        out["static_kind"] = "per-request static" if cfg.num_experts else "static one-shot"
         if args.static:
             return out
     draft = None
@@ -341,7 +359,7 @@ def main(argv=None, *, params=None):
     if out["restored"]:
         print(out["restored"])
     if out["static"] is not None:
-        print(f"static one-shot reference: {len(out['static'])} requests in "
+        print(f"{out['static_kind']} reference: {len(out['static'])} requests in "
               f"{out['static_s']:.2f}s")
     if args.static:
         for rid in sorted(out["static"])[:4]:

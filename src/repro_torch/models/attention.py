@@ -12,8 +12,8 @@ multi-token verify block of speculative decoding over per-slot linear
 caches, one-token and verify-block decode over the block-paged pool
 through a page table, and the int8 variants of both layouts
 (:class:`QuantKVCache`, :class:`PagedQuantKVCache`: per-(token, head)
-fp32 scales, ``_quantize_kv``). Cross-attention raises
-``NotImplementedError`` (ROADMAP item 11).
+fp32 scales, ``_quantize_kv``), with the QKV biases of the qwen2.5
+family. Cross-attention raises ``NotImplementedError`` (ROADMAP item 11c).
 
 Training (``mode="train"``) runs the prefill's projections, qk-norm and
 RoPE with no cache, and always attends through :func:`attend_tiled`,
@@ -556,7 +556,7 @@ def mha(
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mha mode={mode!r} (train, prefill, decode)")
     if is_cross or kv_ext is not None:
-        raise NotImplementedError("cross-attention is not ported (ROADMAP item 11)")
+        raise NotImplementedError("cross-attention is not ported (ROADMAP item 11c)")
     paged = isinstance(cache, PAGED)
     if mode == "train" and cache is not None:
         raise ValueError("train mode takes no KV cache")
@@ -575,8 +575,6 @@ def mha(
             "paged KV keeps the full context: sliding-window decode "
             "stays on the contiguous ring layout"
         )
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported (ROADMAP item 11)")
     if cache is None and mode != "train":
         raise ValueError(f"{mode} needs a pre-allocated KV cache")
     hd = cfg.head_dim
@@ -586,9 +584,12 @@ def mha(
 
     xin = env.enter(x)
     B, S, _ = xin.shape
-    q = (xin @ w["wq"]).reshape(B, S, Hq_l, hd)
-    k = (xin @ w["wk"]).reshape(B, S, Kv_l, hd)
-    v = (xin @ w["wv"]).reshape(B, S, Kv_l, hd)
+    q, k, v = xin @ w["wq"], xin @ w["wk"], xin @ w["wv"]
+    if cfg.qkv_bias:  # the rank's slices on a TP rank, as the weights
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.reshape(B, S, Hq_l, hd)
+    k = k.reshape(B, S, Kv_l, hd)
+    v = v.reshape(B, S, Kv_l, hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, w["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, w["k_norm"], cfg.norm_eps)

@@ -1,14 +1,20 @@
-"""Parameter initialization + metadata for the dense LM (counterpart of
-``repro.models.init``, the ``attn`` pattern).
+"""Parameter initialization + metadata for the attention LMs, dense and
+MoE (counterpart of ``repro.models.init``, the ``attn`` pattern).
 
 ``init_params(cfg, seed, device, tp)`` returns ``(params, metas)``, two
 trees of the reference's structure: ``{"groups": [{"p0": {"attn": {...},
 "mix": {...}}}, ...], "embed", "head", "final_norm"}``, each group's
-leaves stacked over its layers (leading dim ``layers_per_group``). Shapes
-and metas equal the reference's; the values are drawn from an explicit
-``torch.Generator`` seeded with ``seed`` on ``device`` (normal, std 0.02;
-output projections 0.02/sqrt(2L); norm scales ones), so they are not the
-reference's ``jax.random`` draws — carry those across with
+leaves stacked over its layers (leading dim ``layers_per_group``). The
+mixer is the SwiGLU's ``w_gate`` / ``w_up`` / ``w_down``, or under
+``num_experts`` the router ``(d, E)`` and the experts' ``(E, d, ff)`` /
+``(E, ff, d)`` leaves (with ``moe_dense_ff``, arctic's ``dense_*``
+residual); ``qkv_bias`` adds ``bq`` / ``bk`` / ``bv``. Shapes and metas
+equal the reference's; the values are drawn from one explicit
+``torch.Generator`` seeded with ``seed`` on ``device``, leaf after leaf
+(normal, std 0.02; output projections 0.02/sqrt(2L); norm scales ones,
+biases zeros), so they are not the reference's ``jax.random`` draws (the
+reference folds a key per layer and per mixer; one generator has no key
+tree to keep in step with) — carry those across with
 :func:`repro_torch.convert.convert_lm_params`. Shapes are global logical
 at ``tp``: head counts and the vocabulary are padded up to TP
 divisibility as in the reference (:func:`eff_heads`, :func:`eff_kv_heads`,
@@ -64,6 +70,9 @@ class Maker:
     def ones(self, shape):
         return torch.ones(shape, dtype=torch.float32, device=self.device)
 
+    def zeros(self, shape):
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
     def masked_heads(self, w, real_heads, padded_heads, hd, dim):
         """Zero the padded head rows/cols so that padding is inert."""
         if self.device.type == "meta" or real_heads == padded_heads:
@@ -75,8 +84,6 @@ class Maker:
 def _attn_params(mk: Maker, cfg: ModelConfig, tp: int):
     d, hd = cfg.d_model, cfg.head_dim
     H, Kv = eff_heads(cfg, tp), eff_kv_heads(cfg, tp)
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported (qwen2.5 family, ROADMAP item 11)")
     p = {
         "wq": mk.masked_heads(mk.normal((d, H * hd)), cfg.num_heads, H, hd, 1),
         "wk": mk.normal((d, Kv * hd)),
@@ -91,6 +98,13 @@ def _attn_params(mk: Maker, cfg: ModelConfig, tp: int):
         "wo": ParamMeta(tp_dim=0, tp_units=H),
         "ln": SEQ_NORM,
     }
+    if cfg.qkv_bias:
+        p["bq"] = mk.zeros((H * hd,))
+        p["bk"] = mk.zeros((Kv * hd,))
+        p["bv"] = mk.zeros((Kv * hd,))
+        m["bq"] = ParamMeta(tp_dim=0, tp_units=H, compress=False)
+        m["bk"] = ParamMeta(tp_dim=0, tp_units=Kv, compress=False)
+        m["bv"] = ParamMeta(tp_dim=0, tp_units=Kv, compress=False)
     if cfg.qk_norm:
         p["q_norm"] = mk.ones((hd,))
         p["k_norm"] = mk.ones((hd,))
@@ -116,10 +130,48 @@ def _mlp_params(mk: Maker, cfg: ModelConfig):
     return p, m
 
 
+def _moe_params(mk: Maker, cfg: ModelConfig):
+    """Router, experts and (arctic) the dense residual. The ``tp`` layout
+    slices every expert's ``d_ff`` over the model group; ``ep`` gives each
+    model rank ``E / tp`` whole experts."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    if cfg.moe_impl == "ep":
+        gate_meta = ParamMeta(tp_dim=0, tp_units=E)
+        down_meta = ParamMeta(tp_dim=0, tp_units=E)
+    else:
+        gate_meta = ParamMeta(tp_dim=2)
+        down_meta = ParamMeta(tp_dim=1)
+    p = {
+        "ln": mk.ones((d,)),
+        "router": mk.normal((d, E)),
+        "w_gate": mk.normal((E, d, ff)),
+        "w_up": mk.normal((E, d, ff)),
+        "w_down": mk.out_proj((E, ff, d)),
+    }
+    m = {
+        "ln": SEQ_NORM,
+        "router": ParamMeta(tp_dim=None, compress=d * E >= 65536, grad_sync_model=True),
+        "w_gate": gate_meta,
+        "w_up": gate_meta,
+        "w_down": down_meta,
+    }
+    if cfg.moe_dense_ff:
+        dff = cfg.moe_dense_ff
+        p["dense_gate"] = mk.normal((d, dff))
+        p["dense_up"] = mk.normal((d, dff))
+        p["dense_down"] = mk.out_proj((dff, d))
+        m["dense_gate"] = ParamMeta(tp_dim=1)
+        m["dense_up"] = ParamMeta(tp_dim=1)
+        m["dense_down"] = ParamMeta(tp_dim=0)
+    return p, m
+
+
 def _block_params(mk: Maker, cfg: ModelConfig, tp: int):
     pa, ma = _attn_params(mk, cfg, tp)
     p, m = {"attn": pa}, {"attn": ma}
-    if cfg.d_ff:
+    if cfg.num_experts:
+        p["mix"], m["mix"] = _moe_params(mk, cfg)
+    elif cfg.d_ff:
         p["mix"], m["mix"] = _mlp_params(mk, cfg)
     return p, m
 

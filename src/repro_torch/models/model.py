@@ -1,8 +1,13 @@
 """Model assembly: embedding -> layer groups -> head / loss (counterpart
-of ``repro.models.model``, the ``attn`` pattern). Under tensor
-parallelism (``env.model_group``) every weight a function sees is the
-rank's TP slice: heads, ``d_ff`` and the vocabulary are split over the
-model group, and ``env``'s boundaries carry the collectives. Prefill and
+of ``repro.models.model``, the ``attn`` pattern, with a SwiGLU or a
+mixture of experts, :mod:`repro_torch.models.moe`, as the channel mixer).
+Under tensor parallelism (``env.model_group``) every weight a function
+sees is the rank's TP slice: heads, ``d_ff`` (each expert's under the
+MoE ``tp`` layout, whole experts under ``ep``) and the vocabulary are
+split over the model group, and ``env``'s boundaries carry the
+collectives. Every block returns the MoE auxiliary loss beside its
+output (0 for a SwiGLU); :func:`run_group` sums it over a group's layers
+and :func:`forward_loss` over the groups, in the reference's order. Prefill and
 decode run on every rank of the model group alike, each on its heads and
 its vocabulary slice: the logits they return are the rank's ``(B, 1, V /
 tp)`` slice (``serve.step`` gathers them). A decode step has one token,
@@ -56,6 +61,7 @@ from repro_torch.models.env import Env
 from repro_torch.models.layers import embed_lookup_vp, rms_norm
 from repro_torch.models.loss import lm_loss
 from repro_torch.models.mlp import swiglu
+from repro_torch.models.moe import moe_block
 
 
 def _window(cfg: ModelConfig, window_override):
@@ -68,11 +74,15 @@ def _window(cfg: ModelConfig, window_override):
 
 
 def _channel_mix(x, w, cfg: ModelConfig, env: Env):
-    """Post-attention channel mixer (SwiGLU; none when ``d_ff == 0``)."""
+    """Post-attention channel mixer -> ``(delta, aux)``: the experts
+    (``num_experts``) or a SwiGLU (aux 0.0); none when ``d_ff == 0``."""
     if "mix" not in w:
-        return torch.zeros_like(x)
+        return torch.zeros_like(x), 0.0
     wm = w["mix"]
-    return swiglu(rms_norm(x, wm["ln"], cfg.norm_eps), wm, env)
+    xn = rms_norm(x, wm["ln"], cfg.norm_eps)
+    if cfg.num_experts:
+        return moe_block(xn, wm, cfg, env)
+    return swiglu(xn, wm, env), 0.0
 
 
 def apply_block(
@@ -88,18 +98,19 @@ def apply_block(
     pos_offset=0,
     page_table=None,
 ):
-    """One block of the pattern. Returns (x', cache'); the reference's
-    third value, the MoE auxiliary loss, has no counterpart here."""
+    """One block of the pattern. Returns (x', cache', aux), ``aux`` the
+    MoE auxiliary loss (0.0 for a SwiGLU)."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported (attn only; ROADMAP "
-                                  "item 11)")
+                                  "items 11b, 11c)")
     window = _window(cfg, window_override)
     wa = w["attn"]
     xn = rms_norm(x, wa["ln"], cfg.norm_eps)
     y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, window=window,
                    pos_offset=pos_offset, page_table=page_table)
     x = x + y
-    return x + _channel_mix(x, w, cfg, env), cache
+    dy, aux = _channel_mix(x, w, cfg, env)
+    return x + dy, cache, aux
 
 
 def run_group(
@@ -115,7 +126,8 @@ def run_group(
     pos_offset=0,
     page_table=None,         # (B, n_pages) int32 — paged decode only
 ):
-    """Run the group's pattern repetitions. Returns (x, caches').
+    """Run the group's pattern repetitions. Returns (x, caches', aux),
+    ``aux`` the blocks' auxiliary losses summed in order from 0.0.
     ``mat_fn(key, storage, rep=rep)`` materializes a repetition's weights
     (``rep`` names the layer's stochastic-rounding site).
 
@@ -124,29 +136,33 @@ def run_group(
     repetition's gradient is its own tensor)."""
 
     def body(x, rep):
+        aux_rep = 0.0
         for pi, kind in enumerate(cfg.pattern):
             key = f"p{pi}"
             w = mat_fn(key, _index(group_params[key], rep), rep=rep)
             c_in = caches[key].rep(rep) if caches is not None else None
-            x, _ = apply_block(
+            x, _, aux = apply_block(
                 kind, x, w, cfg, env, mode=mode, cache=c_in,
                 window_override=window_override, pos_offset=pos_offset,
                 page_table=page_table,
             )
+            aux_rep = aux_rep + aux
             del w  # one layer's materialized weights alive at a time
-        return x
+        return x, aux_rep
 
     remat = cfg.remat and mode == "train"
+    aux_total = 0.0
     for rep in range(cfg.layers_per_group // len(cfg.pattern)):
         if remat:
             # early stop pinned: the recomputation ends once the backward has
             # every tensor it saved, so a layer's last TP-region exit (whose
             # output nothing in the layer reads) is not run again
             with set_checkpoint_early_stop(True):
-                x = checkpoint(body, x, rep, use_reentrant=False)
+                x, aux = checkpoint(body, x, rep, use_reentrant=False)
         else:
-            x = body(x, rep)
-    return x, caches
+            x, aux = body(x, rep)
+        aux_total = aux_total + aux
+    return x, caches, aux_total
 
 
 def _index(tree, i):
@@ -185,16 +201,18 @@ def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
                  mat_top: Callable[[str], Any]):
     """Training forward: summed token NLL. Returns ``(nll_sum, metrics)``
     with ``metrics = {"nll_sum", "token_count", "aux"}``; the train step
-    divides by the token count (``aux``, the reference's MoE loss, is 0 for
-    the dense model)."""
+    divides by the token count and adds the MoE auxiliary loss ``aux``
+    (summed over every layer; 0.0 for a dense model)."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
+    aux_total = 0.0
     for g, gp in enumerate(params["groups"]):
-        x, _ = run_group(x, gp, cfg, env, mode="train",
-                         mat_fn=functools.partial(mat_group, g))
+        x, _, aux = run_group(x, gp, cfg, env, mode="train",
+                              mat_fn=functools.partial(mat_group, g))
+        aux_total = aux_total + aux
     logits = _logits(x, params, cfg, env, mat_top)
     vocab_start = env.model_rank() * logits.shape[-1]
     nll_sum, count = lm_loss(logits, batch["labels"], env, vocab_start, cfg.vocab_size)
-    return nll_sum, {"nll_sum": nll_sum, "token_count": count, "aux": 0.0}
+    return nll_sum, {"nll_sum": nll_sum, "token_count": count, "aux": aux_total}
 
 
 def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
@@ -208,13 +226,14 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
     ``batch["last"]`` (an int or a 0-d integer tensor, optional) marks the
     last *real* token when the prompt is right-padded to a page-bucket
     length: the logits are read there instead of at ``S - 1``. Padding is
-    causal-safe for pure-attention patterns, the only ones ported."""
+    causal-safe for pure-attention patterns without experts: the serve
+    engine pads MoE prompts no more than the reference's does."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     B, S = x.shape[:2]
     check_cache_geometry(cache_capacity, _window(cfg, window_override), S)
     caches = init_caches(cfg, env, B, cache_capacity, env.dtype, device=x.device)
     for g, gp in enumerate(params["groups"]):
-        x, _ = run_group(
+        x, _, _ = run_group(
             x, gp, cfg, env, mode="prefill",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
         )
@@ -253,7 +272,7 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top,
     pos = batch["pos"]
     page_table = batch.get("page_table")
     for g, gp in enumerate(params["groups"]):
-        x, _ = run_group(
+        x, _, _ = run_group(
             x, gp, cfg, env, mode="decode",
             mat_fn=functools.partial(mat_group, g), caches=caches[g],
             window_override=window_override, pos_offset=pos, page_table=page_table,
@@ -288,7 +307,8 @@ def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
         entry = {}
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP item 11)")
+                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP items "
+                                          "11b, 11c)")
             one = init_cache(batch, capacity, kv_l, cfg.head_dim,
                              torch.int8 if env.int8_kv else dtype,
                              per_slot=per_slot, device=device)
@@ -315,7 +335,8 @@ def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
         entry = {}
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP item 11)")
+                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP items "
+                                          "11b, 11c)")
             one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
                                    torch.int8 if env.int8_kv else dtype, device=device)
             entry[f"p{pi}"] = _stack(one, reps)

@@ -206,7 +206,7 @@ class PrecisionPlan:
             if k == "mlstm_chunk":
                 raise NotImplementedError(
                     "env override mlstm_chunk: the xLSTM family is not ported "
-                    "(ROADMAP Queue 1 item 11)")
+                    "(ROADMAP Queue 1 item 11b)")
             if k not in ENV_OVERRIDE_KEYS:
                 raise ValueError(f"unknown env override {k!r} (allowed: {ENV_OVERRIDE_KEYS})")
         # activation-path stochastic rounding has no PRNG plumbing

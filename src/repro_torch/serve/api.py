@@ -7,7 +7,7 @@ identical request objects. A request carries its prompt ids, its stop
 conditions and its :class:`~repro_torch.plan.SamplingParams` (greedy, or
 seeded sampling under the reference's key-fold contract,
 :mod:`repro_torch.serve.sampling`). Vision features (cross-attention
-archs, ROADMAP item 11) raise ``NotImplementedError``.
+archs, ROADMAP item 11c) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ class Request:
         if image_features is not None:
             raise NotImplementedError(
                 f"request {rid}: image features (vision cross-attention) are not ported "
-                "(ROADMAP item 11)"
+                "(ROADMAP item 11c)"
             )
         object.__setattr__(self, "rid", rid)
         object.__setattr__(self, "prompt_ids", prompt_ids)

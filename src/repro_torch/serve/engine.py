@@ -19,8 +19,13 @@ under the key ``fold_in(PRNGKey(seed), n)``
 (:mod:`repro_torch.serve.sampling`, row by row), so a request's token
 stream is a function of its prompt and :class:`SamplingParams` alone, and
 equals the static one-shot reference (:func:`generate_static`) for the
-same requests. ``plan.int8_kv`` keeps the KV caches in int8 with fp32
-scales (either layout); ``window`` gives the contiguous layout a sliding
+same requests. A MoE model keeps the contract per request only: its
+capacity dispatch ranks a whole batch's tokens per expert, so its engine
+is held to a static run made request by request (the serve launcher
+makes it so), and a decode batch whose ``max_slots · top_k`` passes the
+capacity floor of 8 may drop a congested expert's tokens and couple slots
+(:class:`CapacityWarning` at construction). ``plan.int8_kv`` keeps the
+KV caches in int8 with fp32 scales (either layout); ``window`` gives the contiguous layout a sliding
 window, whose caches ring when ``cache_capacity <= window``.
 
 ``draft=`` (a :class:`~repro_torch.serve.spec.DraftBundle`) adds
@@ -38,7 +43,10 @@ page table staged every decode step, a refcounted
 :class:`PageAllocator` (the page-granular twin of :class:`SlotManager`),
 shared-prefix page interning (a common prompt prefix is resident once)
 and prompts padded to whole pages before prefill. Streams equal the
-contiguous engine's and :func:`generate_static`'s.
+contiguous engine's and :func:`generate_static`'s. A MoE model's prompts
+are neither padded nor share prefix pages, as in the reference: the
+capacity ranking sees the whole sequence, pads included, so position i
+depends on more than the tokens up to i.
 
 On a mesh (``mesh`` from ``launch.mesh.make_mesh_from_cfg``; every rank a
 process running this same engine on its TP slice) the decode step shards
@@ -76,6 +84,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -115,6 +124,7 @@ from repro_torch.transport.hostdev import (
 __all__ = [
     "AllocatorError",
     "CapacityError",
+    "CapacityWarning",
     "GenResult",
     "InvariantError",
     "PageAllocator",
@@ -150,6 +160,13 @@ class _ReqState:
         if self.req.eos_id is not None and tok == self.req.eos_id:
             return True
         return len(self.tokens) >= self.req.max_new
+
+
+class CapacityWarning(UserWarning):
+    """A configuration passes a soft capacity floor (the MoE dispatch
+    capacity at engine construction): decode may couple slots and break the
+    per-request determinism contract. Typed, so that callers and tests
+    filter or assert it rather than match a string."""
 
 
 class CapacityError(RuntimeError):
@@ -391,6 +408,15 @@ class ServeEngine:
                 )
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
+        if cfg.num_experts and max_slots * cfg.top_k > 8:
+            warnings.warn(
+                f"{cfg.name}: max_slots={max_slots} x top_k={cfg.top_k} "
+                "exceeds the MoE dispatch capacity floor (8) — congested "
+                "experts may drop ranked decode tokens, coupling slots "
+                "(see the determinism contract in repro_torch.serve.engine)",
+                CapacityWarning,
+                stacklevel=2,
+            )
         self.cfg = cfg
         self.mesh_cfg = mesh_cfg
         self.mesh = mesh
@@ -425,7 +451,11 @@ class ServeEngine:
             int(num_pages) if num_pages is not None
             else self.max_slots * self._table_width
         )
-        self.share_prefix = bool(share_prefix) and self.paged
+        # page-bucketed (padded) prompts and shared prefix pages are exact
+        # only when position i depends on tokens <= i alone; the MoE
+        # capacity dispatch ranks tokens across the whole sequence
+        self._bucket = self.paged and not cfg.num_experts
+        self.share_prefix = bool(share_prefix) and self.paged and not cfg.num_experts
         self.pages = PageAllocator(self.num_pages) if self.paged else None
         self._intern: dict[tuple, int] = {}  # prompt-prefix key -> page
         self._page_key: dict[int, tuple] = {}  # page -> interned key
@@ -777,11 +807,12 @@ class ServeEngine:
         first_call = len(comm.LOG)
         if self.paged:
             # pad on the device to whole pages (causal-safe for the
-            # attention-only pattern, the one ported); logits are read at S - 1
-            Spad = -(-S // page) * page
+            # attention-only pattern without experts); logits are read at S - 1
+            Spad = -(-S // page) * page if self._bucket else S
             rec["prefill_hits" if Spad in self._buckets_seen else "prefill_misses"] += 1
             self._buckets_seen.add(Spad)
-            tokens_dev = torch.nn.functional.pad(tokens_dev, (0, Spad - S))
+            if Spad > S:
+                tokens_dev = torch.nn.functional.pad(tokens_dev, (0, Spad - S))
             prefill, seq = self._prefill_for(Spad)
             logits, pcaches = prefill(self.storage, {"tokens": tokens_dev, "last": S - 1})
             phys = torch.tensor(row[len(hits):-(-S // page)], dtype=torch.int64,

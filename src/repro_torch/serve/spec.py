@@ -69,7 +69,7 @@ def check_spec_arch(cfg: ModelConfig, *, window=None) -> None:
     caches physically overwrite on advance)."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
-    if any(kind != "attn" for kind in cfg.pattern):
+    if cfg.num_experts or any(kind != "attn" for kind in cfg.pattern):
         raise ValueError(
             f"{cfg.name}: speculative decoding needs a pure-attention "
             "pattern (MoE capacity dispatch and recurrent state make "

@@ -49,7 +49,7 @@ from repro_torch.train.step import (
     check_seq_parallel,
     make_mat_fns,
     resolve_plan,
-    tp_boundaries,
+    mixer_boundaries,
 )
 from repro_torch.transport import CompressionPolicy
 from repro_torch.transport.policy import FP32_BYTES
@@ -296,8 +296,9 @@ def serve_wire_table(plan: PrecisionPlan, cfg: ModelConfig, spec_tree, mesh_cfg:
     :meth:`~repro_torch.plan.PrecisionPlan.wire_table` without gradients,
     whose weight gathers are dropped when ``gathers`` is false (a
     weight-stationary decode step; the placement is one forward's
-    gathers), with one forward's TP-region exits, the forward half of
-    ``train.step.tp_boundaries``, at ``act elems = rows · tokens · d``.
+    gathers), with one forward's TP-region exits (the embedding's, and
+    each layer's attention and mixer exits,
+    ``train.step.mixer_boundaries``), at ``act elems = rows · tokens · d``.
     Under the sequence-parallel layout of a prefill the embedding's and
     every block's exit is a scatter and every block's enter a gather; the
     logits entry takes the last token through the lossless merge instead
@@ -310,7 +311,7 @@ def serve_wire_table(plan: PrecisionPlan, cfg: ModelConfig, spec_tree, mesh_cfg:
     elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
     if not gathers:
         elems = [0] * nrt
-    exits = tp_boundaries(cfg) // 2
+    exits = 1 + cfg.num_layers * (1 + mixer_boundaries(cfg)[0])
     act_elems = rows * tokens * cfg.d_model if tp > 1 else 0
     table = plan.wire_table(elems, n, training=False, tp=tp, act_elems=act_elems,
                             act_collectives=0 if seq_parallel else exits)

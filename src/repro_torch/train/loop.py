@@ -57,6 +57,9 @@ class StepRecord:
     # the plan's host_device policy), from the prefetcher's io_log; None
     # for batches made inline
     io_by_entry: dict | None = None
+    # the step's MoE auxiliary loss (the step's metrics["aux"]); 0.0 for a
+    # step without one
+    aux: float = 0.0
 
 
 class Trainer:
@@ -140,6 +143,7 @@ class Trainer:
                     {k: v for k, v in io_log.items() if isinstance(v, int)}
                     if io_log is not None else None
                 ),
+                aux=float(metrics.get("aux", 0.0)),
             )
         )
         return storage, opt_state, metrics

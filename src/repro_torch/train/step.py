@@ -271,20 +271,46 @@ def _split_reps(tree, spec_tree, leaf_fn):
     return {"groups": groups, **top}
 
 
+# the weight of the MoE auxiliary (load-balance) loss, the reference's
+AUX_COEF = 1e-2
+
 # the plan's traffic classes that a step's collectives carry (the plan's
 # host_device row, at one FSDP rank, is its staging model, not a collective)
 COLLECTIVE_CLASSES = ("weights", "gradients", "activations", "seq_boundary")
 
 
-def tp_boundaries(cfg) -> int:
-    """TP-region boundaries of one train step of the dense LM, each moving
-    one ``(B / dshards, S, d)`` activation over the model group: the
-    embedding's exit and every block's exit (attention, and the MLP when
-    ``d_ff``) in the forward, every block's enter and the logits' enter in
-    the backward. Under the sequence-parallel layout each is one
-    gather/scatter pair, as :meth:`PrecisionPlan.wire_table` prices it."""
-    blocks = cfg.num_layers * (2 if cfg.d_ff else 1)
-    return 2 * blocks + 2
+def _expert_parallel(cfg) -> bool:
+    """The MoE ``ep`` layout (in force at tp > 1, where these counts apply)."""
+    return bool(cfg.num_experts) and cfg.moe_impl == "ep"
+
+
+def mixer_boundaries(cfg, seq_parallel: bool = False,
+                     ep_split: bool = True) -> tuple[int, int]:
+    """``(forward, backward)`` TP-region boundaries of one layer's channel
+    mixer at tp > 1: a SwiGLU's (and the MoE ``tp`` layout's) exit and
+    enter; under the MoE ``ep`` layout arctic's dense residual's exit and
+    enter, plus, when the rank's tokens do not split over the model group
+    (``ep_split`` false: replicated EP, psum layout only), the
+    ``psum_enter`` whose backward is an all-reduce (the expert exchanges
+    are ``relayout``, priced by no table); none without ``d_ff``."""
+    if not cfg.d_ff:
+        return 0, 0
+    if _expert_parallel(cfg):
+        dense = 1 if cfg.moe_dense_ff else 0
+        return dense, dense + (0 if seq_parallel or ep_split else 1)
+    return 1, 1
+
+
+def tp_boundaries(cfg, seq_parallel: bool = False, ep_split: bool = True) -> int:
+    """TP-region boundaries of one train step of the LM, each moving one
+    ``(B / dshards, S, d)`` activation over the model group: the
+    embedding's exit and every block's exit (attention, and the mixer's,
+    :func:`mixer_boundaries`) in the forward, every block's enter and the
+    logits' enter in the backward. Under the sequence-parallel layout each
+    is one gather/scatter pair, as :meth:`PrecisionPlan.wire_table` prices
+    it."""
+    fwd, bwd = mixer_boundaries(cfg, seq_parallel, ep_split)
+    return cfg.num_layers * (2 + fwd + bwd) + 2
 
 
 def remat_tp_collectives(cfg) -> tuple[int, int]:
@@ -292,9 +318,14 @@ def remat_tp_collectives(cfg) -> tuple[int, int]:
     backward runs again in the recomputed forward: every block's enter
     (a collective only under the sequence-parallel layout) and every
     block's exit but each layer's last, whose output nothing in the layer
-    reads (the recomputation stops once it has what the backward saved)."""
+    reads (the recomputation stops once it has what the backward saved).
+    Under the MoE ``ep`` layout the layer ends in the expert exchanges,
+    so every exit runs again."""
     if not cfg.remat:
         return 0, 0
+    if _expert_parallel(cfg):
+        per_layer = 2 if cfg.moe_dense_ff else 1
+        return cfg.num_layers * per_layer, cfg.num_layers * per_layer
     per_layer = 2 if cfg.d_ff else 1
     return cfg.num_layers * per_layer, cfg.num_layers * (per_layer - 1)
 
@@ -319,8 +350,11 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
     n, tp = mesh_cfg.dshards, mesh_cfg.tp
     act_elems = (B // n) * S * cfg.d_model if tp > 1 else 0
     width = plan.compute_dtype.itemsize  # an uncompressed activation's bytes
+    tokens = B // n // plan.accum_steps * S  # a micro-batch's, on the rank
     table = plan.wire_table(elems, n, tp=tp, act_elems=act_elems,
-                            act_collectives=tp_boundaries(cfg), act_bytes=width)
+                            act_collectives=tp_boundaries(cfg, plan.seq_parallel,
+                                                          tokens % tp == 0 and tokens >= tp),
+                            act_bytes=width)
     extra = {}
     if cfg.remat and n > 1:
         extra["weights"] = plan.wire_table(elems[:-1] + [0], n, training=False)["weights"]
@@ -399,12 +433,16 @@ def make_train_step(
     plan: PrecisionPlan | None = None,
 ):
     """Returns ``step(storage, momentum, batch, lr[, key]) -> (storage,
-    momentum, metrics)`` with ``metrics = {"loss", "token_count",
-    "group_norms_sq"}`` (0-d, 0-d and ``(num_groups + 1,)`` tensors on the
-    storage's device, equal on every rank). ``batch`` holds ``tokens``
-    and ``labels``, the global ``(B, S)`` integer tensors (on a mesh the
-    rank takes its FSDP slice of the rows); the loss is the summed NLL
-    over ``B * S`` (the reference's static token count). Storage and
+    momentum, metrics)`` with ``metrics = {"loss", "token_count", "aux",
+    "group_norms_sq"}`` (0-d, 0-d, 0-d and ``(num_groups + 1,)`` tensors
+    on the storage's device, equal on every rank). ``batch`` holds
+    ``tokens`` and ``labels``, the global ``(B, S)`` integer tensors (on a
+    mesh the rank takes its FSDP slice of the rows); the loss is the
+    summed NLL over ``B * S`` (the reference's static token count) plus,
+    for a MoE model, :data:`AUX_COEF` times the layers' summed auxiliary
+    loss over ``num_layers``, averaged over the micro-batches and the FSDP
+    ranks, as the reference weighs it; ``aux`` is that average (0 for a
+    dense model). Storage and
     momentum (on a mesh, the rank's blocks) are updated in place and
     returned. The trailing ``key`` (a ``repro_torch.random`` key) exists
     exactly when ``plan.needs_rng``; every micro-batch uses it alike.
@@ -442,22 +480,26 @@ def make_train_step(
         nll_sum, metrics = M.forward_loss(
             live, batch, cfg, env, mat_group=mat_group, mat_top=mat_top_factory(live)
         )
-        loss = nll_sum / total  # local tokens x dshards
+        # nll over local tokens x dshards; the MoE aux (0.0 when dense) as
+        # the mean over the micro-batches and ranks, weighed as the reference's
+        aux = metrics["aux"] / (n * plan.accum_steps)
+        loss = nll_sum / total + AUX_COEF * aux / cfg.num_layers
         grads = list(torch.autograd.grad(loss, tree_leaves(live)))
-        return loss.detach(), metrics["token_count"].detach(), grads
+        aux = torch.as_tensor(aux, device=loss.device).detach()
+        return loss.detach(), metrics["token_count"].detach(), aux, grads
 
     def _step(storage, momentum, batch, lr, rng):
         B, S = batch["labels"].shape
         if n > 1:
             batch = {k: _rank_rows(v, fsdp, n) for k, v in batch.items()}
         live = _split_reps(storage, spec_tree, lambda t: t.detach().requires_grad_(True))
-        loss = count = grads = None
+        loss = count = aux = grads = None
         for mb in micro_batches(batch, plan.accum_steps):
-            l, c, g = grad_one(live, mb, float(B * S), rng)
+            l, c, a, g = grad_one(live, mb, float(B * S), rng)
             if grads is None:
-                loss, count, grads = l, c, g
+                loss, count, aux, grads = l, c, a, g
             else:  # summed in micro-batch order, as the reference's scan
-                loss, count = loss + l, count + c
+                loss, count, aux = loss + l, count + c, aux + a
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)
                 del g
@@ -476,9 +518,12 @@ def make_train_step(
         if n > 1:
             loss = comm.all_reduce(loss, fsdp, traffic="metrics")
             count = comm.all_reduce(count, fsdp, traffic="metrics")
+            if cfg.num_experts:
+                aux = comm.all_reduce(aux, fsdp, traffic="metrics")
         return storage, momentum, {
             "loss": loss,
             "token_count": count,
+            "aux": aux,
             "group_norms_sq": norms,
         }
 

@@ -487,11 +487,14 @@ def _worker(s, name="w0", page_size=PAGE, plan=None):
 
 
 def test_check_fleet_arch_rejects_non_fleet_families():
-    """The families the reference refuses (its configs; the port has none
-    of them) are refused with the port's typed error."""
+    """The families the reference refuses are refused with the port's typed
+    error: the reference's configs, and the port's own MoE configs."""
     for name in ("hubert-xlarge", "mixtral-8x7b", "llama-3.2-vision-90b", "xlstm-1.3b"):
         with pytest.raises(ReplicaError):
             check_fleet_arch(j_reduced(j_get_config(name)))
+    for name in ("mixtral-8x7b", "arctic-480b"):
+        with pytest.raises(ReplicaError, match="MoE"):
+            check_fleet_arch(reduced(get_config(name)))
     check_fleet_arch(reduced(get_config("qwen3-1.7b")))
     with pytest.raises(ReplicaError, match="sliding"):
         check_fleet_arch(dataclasses.replace(reduced(get_config("qwen3-1.7b")),
