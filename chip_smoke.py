@@ -217,9 +217,7 @@ Phases, each printing its own lines:
 
  15. main path — qwen3-1.7b at its widths and ``CUT_LAYERS`` of its layers
      (phase 14's one-device reference: weights from seed 0 and plan,
-     rebuilt; (e) at the full depth, where its exact pin of the 1×2 engine
-     to the 1×2 static run was made: at 4 layers a sampled int8 stream
-     left it) served with the features of its later slice, one card:
+     rebuilt) served with the features of its later slice, one card:
      (a) phase 7's prompts as sampled requests (temperature 0.8, top-p 0.95,
      top-k 40, seeds ``FEAT_SEEDS``, the last the largest uint32): static,
      contiguous engine, paged engine (page 64), held exactly; (b) phase 7's
@@ -236,9 +234,14 @@ Phases, each printing its own lines:
      run, host_device equal to ``serve_spec_decode_bytes``; (d) a
      ``FEAT_WINDOW``-token window: the static run (linear cache, window
      mask) against the ring engine, exactly; (e) (a)'s requests with int8
-     KV on a 1×2 mesh of two gloo ranks (phase 14's rank function): the
-     engine equal to the 1×2 static run, both to (b)'s one-device run
-     under the near-tie rule, hashes and streams equal on both ranks. The
+     KV on a 1×2 mesh of two gloo ranks (phase 14's rank function), every
+     int8 KV code of both runs recorded (``kv_probe``): the engine equal to
+     the 1×2 static run but where ``int8_tie`` holds (a code flipped on
+     some rank, each within ``INT8_TIE_MIDPOINT`` code steps of a rounding
+     midpoint, the draw within ``INT8_TIE_DRAW`` × cw[-1] of a CDF step in
+     both runs;
+     ``int8_probe_report`` prints each parting), both to (b)'s one-device
+     run under the near-tie rule, hashes and streams equal on both ranks. The
      sampler's rows are checked alone against a batch of 8 on the card.
      Every run checks its launches (Bitpack/Bitunpack once per ``DIST``
      leaf per materialization, the draft's prefills and micro steps
@@ -977,6 +980,15 @@ def check_flash_rows(torch, device, gen, dtype=None):
 # ---------------------------------------------------------------------------
 
 SERVE_LENS, SERVE_GEN, SERVE_SLOTS = (512, 512, 384, 256, 200), 16, 2
+
+
+def kernel_layers(cfg):
+    """Layers whose attention can take the CUDA kernels (flash prefill,
+    paged decode): plain ``attn`` blocks without a window (none in xLSTM;
+    recurrentgemma's ``local`` blocks always carry a window)."""
+    if cfg.sliding_window:
+        return 0
+    return cfg.num_layers // len(cfg.pattern) * cfg.pattern.count("attn")
 
 
 def _wrappers():
@@ -2694,10 +2706,12 @@ def tp_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
 # ---------------------------------------------------------------------------
 
 TPS_TP = 2
-# phases 14, 15 (a)-(d), 16, 18 (b), (c) and 19 serve and train qwen3-1.7b
-# at its widths and this many of its 28 layers, held to one device's runs at
-# the same depth (phase 7's runs again there), so that the script fits its
-# time limit; phases 7, 9, 11 and 15 (e) run the full depth
+# phases 14, 15, 16, 18 (b), (c) and 19 serve and train qwen3-1.7b at its
+# widths and this many of its 28 layers, held to one device's runs at the
+# same depth (phase 7's runs again there), so that the script fits its time
+# limit; phases 7, 9 and 11 run the full depth. Phase 15 (e) holds its 1×2
+# int8 engine to the 1×2 static run under the int8 tie rule
+# (``INT8_TIE_DRAW``), which the 4-layer run needs (request 0, token 6)
 CUT_LAYERS = 4
 # activations packed at round_to 2 in truncate mode, so that their planes go
 # through Bitpack and Bitunpack (nearest rounding packs on the plain version,
@@ -2809,7 +2823,7 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
     per_forward = sum(s.reps for s in dist_specs)
     per_place = len(dist_specs)
     exits = tp_boundaries(cfg) // 2
-    flash_ok = on_card and cfg.head_dim % 128 == 0
+    flash_ok = on_card and kernel_layers(cfg) > 0
     cap = max(len(r.prompt_ids) for r in all_requests) + max(r.max_new for r in all_requests)
     seen_flash, seen_paged, packs = {}, [], {}
     undo = [watch_flash(torch, seen_flash)]
@@ -2828,19 +2842,23 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
         zero_counts()
         sync()
         t0 = time.perf_counter()
+        probe, unprobe = kv_probe() if run.get("probe") else (None, None)
+        rows = {}
+        unkeep = keep_sampled_logits(rows) if run.get("keep_logits") and rank == 0 else None
         if eng_kw is None:
             groups = static_groups(requests, run.get("per_request", False))
-            streams, rows = {}, {}
-            unkeep = keep_sampled_logits(rows) if run.get("keep_logits") and rank == 0 else None
+            streams = {}
             for g in groups:
+                if probe is not None:
+                    probe["tag"] = ("prefill", tuple(r.rid for r in g), len(g[0].prompt_ids))
                 streams.update(generate_static(cfg, mesh_cfg, mesh, spec_tree, storage, g,
                                                plan=plan))
-            if unkeep is not None:
-                unkeep()
         else:
             engine = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
                                  cache_capacity=cap, **{"max_slots": SERVE_SLOTS, **eng_kw})
             instrument(engine, timings)
+            if probe is not None:
+                probe_engine(engine, probe)
             sample = engine._sample
 
             def hashed(logits, *sampling, sample=sample, hashes=hashes):
@@ -2852,13 +2870,18 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
             streams = {k: r.tokens for k, r in engine.run(requests).items()}
         sync()
         wall = time.perf_counter() - t0
+        for undo_run in (unkeep, unprobe):
+            if undo_run is not None:
+                undo_run()
         got = counts()
         calls = comm.LOG[first:]
         stage_s = sum(c.stage_s for c in calls)
         rec = {"streams": streams, "wall_s": wall, "stage_s": stage_s, "launches": got,
                "hashes": hashes, "peak": torch.cuda.max_memory_allocated() if on_card else 0}
-        if eng_kw is None and run.get("keep_logits") and rank == 0:
+        if run.get("keep_logits") and rank == 0:
             rec["logits"] = rows
+        if probe is not None:
+            out.setdefault("probes", {})[label] = probe["calls"]
         # launches as the run's forwards require
         if engine is None:
             forwards = sum(max(r.max_new for r in g) for g in groups)
@@ -2919,9 +2942,9 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
                       f"serve_wire_table {want_wire[k]} B")
         rec["wire"] = comm.wire_by_traffic(calls)
         rec["forwards"] = forwards
-        want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0
+        want = {"flash_prefill": kernel_layers(cfg) * sum(flash_ok and S % 128 == 0
                                                       for S in prefills),
-                "paged_attend": cfg.num_layers * paged_steps * on_card,
+                "paged_attend": kernel_layers(cfg) * paged_steps * on_card,
                 "bitpack": packed * on_card, "bitunpack": packed * on_card, "l2norm_sq": 0}
         check(got == want, f"rank {rank} {label}: launches {got}, expected {want}")
         check_seen_flash(seen_flash)
@@ -2934,6 +2957,13 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
             torch.cuda.empty_cache()
     for u in undo:
         u()
+    if "probes" in out:  # the int8 diagnosis of phase 15 (e): report, keep no tensors
+        probes = out.pop("probes")
+        kept = {label: out["runs"][label].get("logits") for label in probes}
+        out["probe"] = int8_probe_report(
+            torch, cfg, all_requests, cfg.num_layers,
+            {label: out["runs"][label]["streams"] for label in probes}, probes,
+            kept if rank == 0 else None)
     out["flash_err"] = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
     out["flash_shapes"] = sorted(seen_flash)
     out["paged_err"] = check_seen_paged(seen_paged) if seen_paged else 0.0
@@ -3139,6 +3169,19 @@ FEAT_WINDOW = 256  # (d): the 512- and 384-token prompts ring
 # a row's GEMM bits depend on the batch's row count on the card (PERF.md §6)
 FEAT_NEAR_TIE = 1e-4
 INT8_LOGIT_RTOL = 0.05  # scenario_perf_levers.py's bar for int8 decode logits
+# (e): the 1×2 int8 engine may leave the 1×2 static run only at an int8 tie
+# (``int8_tie``). The static run prefills the two 512-token prompts as one
+# batch of 2, the engine each alone; cuBLAS's row bits depend on the row
+# count, so every K and V differs by ulps and a code whose x / scale sits
+# on a rounding midpoint moves by a step. Measured on an H100 at 4 layers
+# (tools/int8_probe.py, twice, the same both times): request 0 (seed 100)
+# parts at token 6; 179 and 223 codes flipped on ranks 0 and 1 over the
+# 518 positions read, each within 8.4e-3 / 1.37e-2 code steps of a
+# midpoint; the logits rows there 8.4e-4 apart; the draw 1.405e-4 (static)
+# and 1.445e-4 (engine) of cw[-1] from its nearest CDF step. The bounds
+# are those margins; at 28 layers the same pair held exactly
+INT8_TIE_MIDPOINT = 1.4e-2
+INT8_TIE_DRAW = 1.5e-4
 
 
 def keep_sampled_logits(store):
@@ -3340,6 +3383,177 @@ def int8_divergences(torch, cfg, requests, got, want, got_rows, want_rows):
     return cases
 
 
+def kv_probe():
+    """Record every int8 KV quantization (``models.attention._quantize_kv``)
+    under the tag the caller sets in ``rec["tag"]``: ``(tag, x, codes,
+    scales)`` on the host, ``x`` the fp32 K or V before the codes. A
+    forward quantizes K then V at each layer in turn. Returns ``(rec,
+    undo)``."""
+    from repro_torch.models import attention as A
+
+    quant, rec = A._quantize_kv, {"tag": None, "calls": []}
+
+    def recorded(x):
+        q, s = quant(x)
+        rec["calls"].append((rec["tag"], x.detach().float().cpu(), q.cpu(), s.cpu()))
+        return q, s
+
+    A._quantize_kv = recorded
+    return rec, lambda: setattr(A, "_quantize_kv", quant)
+
+
+def probe_engine(engine, rec):
+    """Tag ``kv_probe``'s records of ``engine``: an admission by its request,
+    a decode tick by ``{slot: (rid, position written)}``."""
+    admit, tick = engine.admit, engine.decode_tick
+
+    def tagged_admit(req):
+        rec["tag"] = ("prefill", (req.rid,), 0)
+        admit(req)
+
+    def tagged_tick():
+        rec["tag"] = ("decode", {slot: (st.req.rid, int(engine._pos_host[slot]))
+                                 for slot, st in engine._active.items()})
+        tick()
+
+    engine.admit, engine.decode_tick = tagged_admit, tagged_tick
+
+
+def kv_by_request(calls, layers):
+    """``kv_probe`` records -> ``{(rid, layer, "k" | "v"): {position: (x, codes,
+    scales)}}`` (each a ``(Kv, hd)`` / ``(Kv,)`` row). Tags: ``("prefill",
+    rids, S)`` a static group's calls in order (its prefill, then a decode
+    a forward, writing position S + i), ``("prefill", (rid,), 0)`` an
+    admission, ``("decode", {slot: (rid, position)})`` an engine tick."""
+    out, per_tag = {}, {}
+    for tag, x, q, s in calls:
+        if x.ndim == 3:  # a per-slot decode write: (B, Kv, hd), one token a slot
+            x, q, s = x[:, None], q[:, None], s[:, None]
+        key = id(tag)
+        j = per_tag.setdefault(key, [tag, 0])[1]
+        per_tag[key][1] += 1
+        layer, kv = (j % (2 * layers)) // 2, "kv"[j % 2]
+        fwd = j // (2 * layers)
+        if tag[0] == "decode":
+            rows = {slot: (rid, pos) for slot, (rid, pos) in tag[1].items()}
+        elif fwd == 0:  # a prefill: every position of each row
+            rows = None
+        else:  # a static group's decode step fwd - 1
+            rows = {b: (rid, tag[2] + fwd - 1) for b, rid in enumerate(tag[1])}
+        if rows is None:
+            for b, rid in enumerate(tag[1]):
+                d = out.setdefault((rid, layer, kv), {})
+                for p in range(x.shape[1]):
+                    d[p] = (x[b, p], q[b, p], s[b, p])
+        else:
+            for b, (rid, pos) in rows.items():
+                out.setdefault((rid, layer, kv), {})[pos] = (x[b, 0], q[b, 0], s[b, 0])
+    return out
+
+
+def top2_margin(torch, row, vocab, s, step):
+    """``(top-2 gap, the gap in fp32 ulps of the top logit, the draw's
+    distance to its nearest cumulative boundary as a share of cw[-1])``."""
+    import numpy as np
+
+    top = torch.topk(torch.as_tensor(row)[:vocab].float(), 2).values
+    gap = float(top[0] - top[1])
+    return gap, gap / float(np.spacing(np.float32(top[0]))), draw_distance(
+        torch, torch.as_tensor(row), vocab, s, step)
+
+
+def midpoint_gap(y: float) -> float:
+    """How far ``y = x / scale`` lies from the nearest rounding midpoint
+    (k + 0.5), in code steps: where an int8 code can flip on an ulp."""
+    return abs(abs(y) % 1.0 - 0.5)
+
+
+def int8_tie(case) -> bool:
+    """``INT8_TIE``'s rule on one parting of phase 15 (e): some rank saw an
+    int8 code differ between the runs, every such code sat within
+    ``INT8_TIE_MIDPOINT`` code steps of a rounding midpoint in one of them
+    (a rank with no flip has gap ``None``), and the draw at the parting
+    token lies within ``INT8_TIE_DRAW`` of ``cw[-1]`` of a CDF step in
+    both runs."""
+    gaps = [g for g in case["mid_gaps"] if g is not None]
+    return (bool(gaps) and all(g <= INT8_TIE_MIDPOINT for g in gaps)
+            and max(case["static_margin"][2], case["engine_margin"][2]) <= INT8_TIE_DRAW)
+
+
+def int8_probe_report(torch, cfg, requests, layers, streams, probes, rows):
+    """Where the 1×2 engine's int8 streams leave the static run's, and
+    why, request by request: the token at which they part, both runs' top-2
+    logit gaps there (absolute and in fp32 ulps of the top logit) and the
+    draw's distance to its nearest CDF step, and the int8 KV codes and
+    scales that differ between the runs over the positions that token
+    reads, by layer, with ``x / scale`` on either side of each flipped
+    code step. ``streams``, ``probes`` (``kv_probe`` calls) and ``rows``
+    (kept logits rows by ``(seed, step)``, rank 0 only, else None) by run
+    label. Returns ``{"lines", "cases"}``: printable lines, and per parting
+    its numbers (``diverged`` (rid, t), the margins on rank 0,
+    ``mid_gap`` the largest midpoint gap of a flipped code, ``flips``)."""
+    import numpy as np
+
+    lines, cases = [], []
+    kv = None
+    for r in requests:
+        t = diverged_at(streams["engine"][r.rid], streams["static"][r.rid])
+        if t is None:
+            continue
+        kv = kv or {label: kv_by_request(probes[label], layers) for label in ("static", "engine")}
+        S = len(r.prompt_ids)
+        case = {"diverged": (r.rid, t)}
+        lines.append(f"request {r.rid} (prompt {S}) at token {t}: engine "
+                     f"{streams['engine'][r.rid][t]}, static {streams['static'][r.rid][t]}")
+        if rows is not None:
+            key = (r.sampling.seed & 0xFFFFFFFF, t)
+            for label in ("static", "engine"):
+                gap, ulps, dist = top2_margin(torch, rows[label][key], cfg.vocab_size, r.sampling,
+                                              t)
+                case[f"{label}_margin"] = (gap, ulps, dist)
+                lines.append(f"  {label}: top-2 gap {gap:.6e} ({ulps:.1f} fp32 ulps of the top "
+                             f"logit), the draw {dist:.6e} of cw[-1] from its nearest CDF step")
+            a, b = (torch.as_tensor(rows[label][key]) for label in ("engine", "static"))
+            lines.append(f"  logits rows at token {t}: max |engine - static| "
+                         f"{float((a - b).abs().max()):.6e}")
+            for i in range(t + 1):
+                k = (r.sampling.seed & 0xFFFFFFFF, i)
+                if not np.array_equal(rows["engine"][k], rows["static"][k]):
+                    d = float(np.abs(rows["engine"][k] - rows["static"][k]).max())
+                    lines.append(f"  first logits row that differs: token {i} (max {d:.6e})")
+                    break
+        mids = []
+        for layer in range(layers):
+            n = {"code": 0, "scale": 0, "x": 0}
+            shown = []
+            for which in "kv":
+                a, b = kv["engine"][(r.rid, layer, which)], kv["static"][(r.rid, layer, which)]
+                for p in range(S + t):
+                    xa, qa, sa = a[p]
+                    xb, qb, sb = b[p]
+                    n["x"] += int((xa != xb).any(dim=-1).sum())
+                    n["scale"] += int((sa != sb).sum())
+                    diff = (qa != qb).nonzero().tolist()
+                    n["code"] += len(diff)
+                    for h, e in diff:
+                        ya, yb = float(xa[h, e] / sa[h]), float(xb[h, e] / sb[h])
+                        mids.append(min(midpoint_gap(ya), midpoint_gap(yb)))
+                        if len(shown) < 3:
+                            shown.append(f"{which} pos {p} head {h} elem {e}: codes "
+                                         f"{int(qa[h, e])}/{int(qb[h, e])}, x/scale "
+                                         f"{ya:.7f}/{yb:.7f}, x {float(xa[h, e]):.9e}/"
+                                         f"{float(xb[h, e]):.9e}")
+            lines.append(f"  layer {layer}: {n['code']} int8 codes, {n['scale']} scales and "
+                         f"{n['x']} (position, head) K/V rows differ over positions [0, {S + t}) "
+                         f"(engine/static){'; ' + '; '.join(shown) if shown else ''}")
+        case["flips"], case["mid_gap"] = len(mids), (max(mids) if mids else None)
+        if mids:
+            lines.append(f"  {len(mids)} flipped codes; every flip's x/scale lies within "
+                         f"{max(mids):.3e} of a rounding midpoint (.5) in one run")
+        cases.append(case)
+    return {"lines": lines, "cases": cases}
+
+
 def dist_per_forward(spec_tree):
     """Bitpack/Bitunpack launches a forward: each stacked DIST leaf once a
     layer, each top-level DIST leaf once."""
@@ -3350,9 +3564,27 @@ def dist_per_forward(spec_tree):
             + sum(1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST))
 
 
+def mesh_int8_runs(device, cfg, sampled):
+    """Phase 15 (e)'s 1×2 runs: ``sampled`` with int8 KV through the static
+    path, then the 2-slot engine, on two gloo ranks, both probed
+    (``kv_probe``) and their logits rows kept on rank 0. Where the engine
+    leaves the static run, prints ``int8_probe_report``'s diagnosis of
+    each rank. Returns the ranks' records."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    runs = ({"label": "static", "plan": {"int8_kv": True}, "keep_logits": True, "probe": True},
+            {"label": "engine", "plan": {"int8_kv": True}, "engine": {}, "against": "static",
+             "keep_logits": True, "probe": True})
+    ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), cfg, 1, sampled, runs, False,
+                        threads=2 if device.type == "cuda" else 1, timeout_s=900)
+    for rank, o in enumerate(ranks):
+        for line in o["probe"]["lines"]:
+            say(f"   (e) int8 probe, rank {rank}: {line}")
+    return ranks
+
+
 def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN,
-                  page=PAGE, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, mesh_run=True,
-                  e_cfg=None):
+                  page=PAGE, window=FEAT_WINDOW, spec_k=FEAT_SPEC_K, mesh_run=True):
     """Full-width qwen3-1.7b (phase 7's weights from seed 0 and plan) served
     (a) with sampled requests, (b) with int8 KV, (c) with speculative
     decoding (self and tiny drafts), (d) with a sliding window, and (e) at
@@ -3360,10 +3592,7 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
     before and read after, and the first launch at each new shape is held
     to its plain version. Launch counts, memory and the sampler's card
     check are read on a card only, so the phase rehearses on the CPU at a
-    reduced config. ``e_cfg`` runs (e) and the one-device run it is held to
-    at another model (phase 7's depth where (a)-(d) are cut). Returns the
-    measurements; raises on a failed check."""
-    from repro_torch.launch.mesh import spawn_ranks
+    reduced config. Returns the measurements; raises on a failed check."""
     from repro_torch.launch.serve import check_wire, setup
     from repro_torch.plan import PrecisionPlan
     from repro_torch.roofline.analysis import serve_paged_kv_bytes
@@ -3513,10 +3742,9 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
         f"(fp32: {fp}), peak {res['pages_peak']} pages {res['kv_bytes_peak'] / 1e6:.1f} MB; "
         f"memory peak {out['(b) int8 paged engine']['peak'] / 2**30:.2f} GiB")
     one_rows = {}
-    if e_cfg is None:
-        unkeep = keep_sampled_logits(one_rows)
-        e_one = run("(b) sampled int8 static (for (e))", sampled, plan8)
-        unkeep()
+    unkeep = keep_sampled_logits(one_rows)
+    e_one = run("(b) sampled int8 static (for (e))", sampled, plan8)
+    unkeep()
 
     # (c) speculative: (a)'s requests, spec_k 3, self and tiny drafts, then self paged
     drafts = {"self": DraftBundle(cfg, spec_tree, storage),
@@ -3567,28 +3795,9 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
         torch.cuda.empty_cache()
 
     # (e) 1×2: (a)'s requests with int8 KV, static then the engine
-    if mesh_run and e_cfg is not None:  # one device's sampled int8 static run at e_cfg
-        t0 = time.perf_counter()
-        mesh_e, spec_e, storage_e = setup(e_cfg, seed=0, device=device)
-        unkeep = keep_sampled_logits(one_rows)
-        e_one = generate_static(e_cfg, mesh_e, None, spec_e, storage_e, sampled,
-                                plan=PrecisionPlan.build(e_cfg.num_groups + 1, round_to=2,
-                                                         int8_kv=True))
-        unkeep()
-        del storage_e
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-        say(f"   (e) at {e_cfg.num_layers} layers: one device's sampled int8 static run in "
-            f"{time.perf_counter() - t0:.2f} s")
-    cfg_e = e_cfg or cfg
     if mesh_run:
-        runs = ({"label": "static", "plan": {"int8_kv": True}, "keep_logits": True},
-                {"label": "engine", "plan": {"int8_kv": True}, "engine": {},
-                 "against": "static"})
         t0 = time.perf_counter()
-        ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), cfg_e, 1, sampled, runs, False,
-                            threads=2 if on_card else 1, timeout_s=900)
+        ranks = mesh_int8_runs(device, cfg, sampled)
         r0 = ranks[0]["runs"]
         for r, o in enumerate(ranks):
             for label in r0:
@@ -3596,13 +3805,27 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
                       f"(e): rank {r}'s {label} streams differ from rank 0's")
                 check(o["runs"][label]["hashes"] == r0[label]["hashes"],
                       f"(e): rank {r}'s {label} logits differ from rank 0's")
-        check(r0["engine"]["streams"] == r0["static"]["streams"] and not r0["engine"]["diverged"],
-              "(e): the 1×2 engine's streams differ from the 1×2 static run's")
-        cases = int8_divergences(torch, cfg_e, sampled, r0["static"]["streams"], e_one,
+        parted = {rid for rid, *_ in r0["engine"]["diverged"]}
+        cases = [dict(c, mid_gaps=[next(x["mid_gap"] for x in o["probe"]["cases"]
+                                        if x["diverged"] == c["diverged"]) for o in ranks])
+                 for c in ranks[0]["probe"]["cases"]]
+        check({c["diverged"][0] for c in cases} == parted,
+              f"(e): the probe saw partings {[c['diverged'] for c in cases]}, the engine {parted}")
+        for c in cases:
+            check(int8_tie(c), f"(e): the 1×2 engine left the 1×2 static run at request "
+                               f"{c['diverged'][0]} token {c['diverged'][1]} outside the int8 "
+                               f"tie (draws {c['static_margin'][2]:.3e} / "
+                               f"{c['engine_margin'][2]:.3e}, bound {INT8_TIE_DRAW}; flips "
+                               f"{c['mid_gaps']} code steps from a midpoint, bound "
+                               f"{INT8_TIE_MIDPOINT})")
+        out["int8_ties"] = cases
+        ties = [c["diverged"] for c in out["int8_ties"]]
+        cases = int8_divergences(torch, cfg, sampled, r0["static"]["streams"], e_one,
                                  r0["static"]["logits"], one_rows)
         rec = r0["engine"]
         dec = sorted(rec["decode_ms"])
-        say(f"   (e) 1×2 ({time.perf_counter() - t0:.1f} s): engine == static, streams and "
+        say(f"   (e) 1×2 ({time.perf_counter() - t0:.1f} s): engine == static but at int8 ties "
+            f"(request, token) {ties}, streams and "
             f"logits' hashes equal on both ranks, {len(sampled) - len(cases)} of {len(sampled)} "
             f"equal to one device's; engine decode ms/step median {dec[len(dec) // 2]:.2f}, "
             f"{sum(len(s) for s in rec['streams'].values()) / rec['wall_s']:.1f} tokens/s, "
@@ -5502,7 +5725,7 @@ def _set_biases(torch, storage, seed):
 
 
 def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LENS,
-               gen=SERVE_GEN, page=PAGE, bias_seed=None):
+               gen=SERVE_GEN, page=PAGE, bias_seed=None, keep=False):
     """``cfg`` served through the serve twin's functions from seed 0's
     weights at ``round_to`` 2: the static reference (request by request for
     a MoE model, as the serve launcher runs it), then the contiguous engine
@@ -5515,7 +5738,8 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
     leaf per materialization. The first flash launch at each shape and the
     first ``paged_attend`` launch at each shape, and every 8th decode
     step's first, are held to the plain versions on their own inputs.
-    Returns the measurements; raises on a failed check."""
+    ``keep`` also returns the weights (``setup``: config, mesh, specs,
+    storage). Returns the measurements; raises on a failed check."""
     from repro_torch.dist.spec import DIST
     from repro_torch.launch.serve import build_requests, check_wire, run_static, setup
     from repro_torch.plan import PrecisionPlan
@@ -5540,7 +5764,7 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
         1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
 
     def viable(S):  # the reference's flash rule for a prefill of S tokens
-        return on_card and cfg.head_dim % 128 == 0 and S % 128 == 0 and not cfg.sliding_window
+        return on_card and S % 128 == 0 and kernel_layers(cfg) > 0
 
     say(f"   {cfg.name} at {L} of its layers: {n_params:,} fp32 parameters "
         f"({n_params * 4 / 1e9:.2f} GB), H {cfg.num_heads} / Kv {cfg.num_kv_heads} "
@@ -5556,7 +5780,7 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
     launches["static"] = got = counts()
     check_seen_flash(seen_f)
     prefills = [len(r.prompt_ids) for r in requests] if cfg.num_experts else sorted(set(lens))
-    want = {"flash_prefill": L * sum(map(viable, prefills)),
+    want = {"flash_prefill": kernel_layers(cfg) * sum(map(viable, prefills)),
             "bitpack": per_forward * len(prefills) * gen * on_card,
             "paged_attend": 0, "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
@@ -5584,13 +5808,15 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
         check(not bad, f"{cfg.name} {kind}: streams of {bad} differ from the static reference")
         summary = engine.wire_summary()
         analytic = check_wire(engine, plan, requests)
-        pad = kind == "paged engine" and not cfg.num_experts
+        # the paged engine pads the prompts of a dense model of attention blocks only
+        pad = kind == "paged engine" and not cfg.num_experts and set(cfg.pattern) == {"attn"}
         admitted = [-(-S // page) * page if pad else S for S in (len(r.prompt_ids)
                                                                   for r in requests)]
         packed = (summary["admissions"] + summary["decode_steps"]) * per_forward * on_card
-        want = {"flash_prefill": L * sum(map(viable, admitted)), "bitpack": packed,
-                "bitunpack": packed, "l2norm_sq": 0,
-                "paged_attend": L * summary["decode_steps"] * on_card * (kind == "paged engine")}
+        want = {"flash_prefill": kernel_layers(cfg) * sum(map(viable, admitted)),
+                "bitpack": packed, "bitunpack": packed, "l2norm_sq": 0,
+                "paged_attend": (kernel_layers(cfg) * summary["decode_steps"] * on_card
+                                 * (kind == "paged engine"))}
         check(got == want, f"{cfg.name} {kind}: launches {got}, expected {want}")
         if kind == "paged engine":
             check(summary["prefill_misses"] == len(set(admitted)),
@@ -5615,15 +5841,18 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
     total = {k: sum(run[k] for run in launches.values()) for k in launches["static"]}
     return {"launches": total, "runs": runs, "peak": peak, "static": static,
             "flash_err": max((r["max_abs_err"] for r in seen_f.values()), default=0.0),
-            "paged_err": paged_err, "flash_shapes": sorted(seen_f)}
+            "paged_err": paged_err, "flash_shapes": sorted(seen_f),
+            "requests": requests, "setup": (cfg, mesh_cfg, spec_tree, storage) if keep else None}
 
 
 def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
-               steps=ARCH_TRAIN_STEPS):
+               steps=ARCH_TRAIN_STEPS, env_overrides=()):
     """A²DTWP training of ``cfg`` from seed 0's weights through ``Trainer``
     and ``make_train_step`` at phase 11's batch, lr and forced AWP plan
-    (widening every 2 steps): losses finite, each step's MoE aux loss (the
-    layers' sum, the ``StepRecord``'s ``aux``) positive, each
+    (widening every 2 steps; ``env_overrides`` the plan's, e.g. the
+    chunkwise mLSTM): losses finite, each step's MoE aux loss (the
+    layers' sum, the ``StepRecord``'s ``aux``) positive (0 without
+    experts), each
     ``StepRecord``'s wire bytes equal to the plan's table, and launches:
     Bitpack / Bitunpack once per ``DIST`` leaf per materialization below 32
     bits (the remat backward's included), ``l2norm_sq`` once per monitored
@@ -5660,7 +5889,7 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
     shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
     plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
-                               awp_interval=2)
+                               awp_interval=2, env_overrides=dict(env_overrides))
 
     def builder(rts):
         return make_train_step(cfg, mesh_cfg, None, spec_tree, opt, shapes,
@@ -5696,7 +5925,8 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     losses = [r.loss for r in records]
     aux_steps = [r.aux for r in records]
     check(all(math.isfinite(x) for x in losses), f"{cfg.name}: non-finite loss in {losses}")
-    check(all(math.isfinite(a) and a > 0 for a in aux_steps), f"{cfg.name}: aux {aux_steps}")
+    check(all(math.isfinite(a) and (a > 0) == bool(cfg.num_experts) for a in aux_steps),
+          f"{cfg.name}: aux {aux_steps}")
     for r in records:
         want = plan.with_round_tos(r.round_tos).wire_table(elems, 1)["total"]
         check(r.wire_bytes == want, f"{cfg.name} step {r.step}: wire {r.wire_bytes} != plan "
@@ -5771,6 +6001,170 @@ def archs_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=None,
             "flash_err": max(out[x]["flash_err"] for x in "abc"),
             "paged_err": max(out[x]["paged_err"] for x in "abc"),
             "monitor_err": out["d"]["monitor_err"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the recurrent families — xlstm-1.3b and recurrentgemma-9b
+# ---------------------------------------------------------------------------
+
+# (a) and (c): prompts shorter than phase 7's (a recurrent prefill runs its
+# layers' steps one token at a time: ~20 launches a token in each sLSTM)
+REC_LENS, REC_GEN = (128, 96, 64), 16
+# (a): the chunkwise mLSTM's chunk (the plan's env override); its first
+# logits within this share of the largest |logit| of the sequential
+# form's (the CPU saw 6.6e-7 at reduced width and 1.3e-6 at d 2048, 2
+# layers; 48 layers sum more steps in another order), and its greedy stream
+# may leave the sequential one only where the latter's top-2 logit gap
+# there is below the same share of its largest |logit|
+REC_CHUNK, REC_CHUNK_RTOL = 64, 1e-4
+# (b): A²DTWP steps at batch 4 x phase 11's sequence, the chunkwise mLSTM
+REC_TRAIN_STEPS, REC_TRAIN_BATCH = 5, 4
+# (c): recurrentgemma-9b's smallest cut: one whole pattern, 19 of 38 layers
+RG_LAYERS = 19
+# (d): xlstm-1.3b's depth on the 1×2 mesh
+REC_MESH_LAYERS = 4
+
+
+def chunkwise_check(torch, device, cfg, setup4, req, seq_stream, chunk=REC_CHUNK):
+    """(a)'s chunkwise mLSTM on one prompt against the sequential form at
+    ``round_to`` 2: the prefill's last-token logits within
+    ``REC_CHUNK_RTOL`` of the largest |logit|, and the greedy stream (a
+    static run of the request alone) equal to ``seq_stream`` or parting
+    only where a batch-1 sequential decode's top-2 gap is below the same
+    bar. Prints both prefills' seconds. Returns the numbers."""
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import generate_static
+    from repro_torch.serve.step import make_prefill_step
+
+    _, mesh_cfg, spec_tree, storage = setup4
+    nrt = cfg.num_groups + 1
+    plans = {"sequential": PrecisionPlan.build(nrt, round_to=2),
+             "chunkwise": PrecisionPlan.build(nrt, round_to=2,
+                                              env_overrides={"mlstm_chunk": chunk})}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    tokens = torch.tensor([req.prompt_ids], dtype=torch.int32, device=device)
+    logits, secs = {}, {}
+    for name, plan in plans.items():
+        pre = make_prefill_step(cfg, mesh_cfg, None, spec_tree, plan=plan,
+                                cache_capacity=len(req.prompt_ids) + req.max_new)
+        sync()
+        t0 = time.perf_counter()
+        logits[name] = pre(storage, {"tokens": tokens})[0][0, -1, :cfg.vocab_size].float()
+        sync()
+        secs[name] = time.perf_counter() - t0
+    scale = float(logits["sequential"].abs().max())
+    gap = float((logits["chunkwise"] - logits["sequential"]).abs().max())
+    check(gap <= REC_CHUNK_RTOL * scale, f"(a) chunkwise: first logits {gap:.3e} from the "
+                                         f"sequential form's (bound {REC_CHUNK_RTOL} x {scale:.3f})")
+    stream = generate_static(cfg, mesh_cfg, None, spec_tree, storage, [req],
+                             plan=plans["chunkwise"])[req.rid]
+    t = diverged_at(stream, seq_stream)
+    line = (f"   (a) chunkwise mLSTM (chunk {chunk}) on the {len(req.prompt_ids)}-token prompt: "
+            f"first logits max |chunkwise - sequential| {gap:.3e} ({gap / scale:.3e} of the "
+            f"largest |logit| {scale:.3f}); prefill {secs['chunkwise'] * 1e3:.1f} ms against "
+            f"{secs['sequential'] * 1e3:.1f} ms sequential (host clock, warm)")
+    if t is None:
+        say(line + "; greedy stream equal")
+        return {"gap": gap, "scale": scale, "secs": secs, "parted": None}
+    _, gaps = top2_gaps(torch, cfg, mesh_cfg, spec_tree, storage, plans["sequential"], req)
+    say(line + f"; greedy stream parts at token {t} where the sequential top-2 gap is "
+               f"{gaps[t]:.3e}")
+    check(gaps[t] <= REC_CHUNK_RTOL * scale, f"(a) chunkwise: stream left the sequential one "
+                                             f"at token {t}, top-2 gap {gaps[t]:.3e}")
+    return {"gap": gap, "scale": scale, "secs": secs, "parted": (t, gaps[t])}
+
+
+def recurrent_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=None,
+                   lens=REC_LENS, gen=REC_GEN, chunk=REC_CHUNK, steps=REC_TRAIN_STEPS,
+                   batch=REC_TRAIN_BATCH, seq=LM_SEQ):
+    """Phase 21: (a) xlstm-1.3b at its widths and depth served (static, the
+    2-slot contiguous engine; streams equal) and one prompt's prefill in
+    the chunkwise form (``chunkwise_check``); (b) xlstm-1.3b in A²DTWP
+    training (``arch_train``) with the plan's ``mlstm_chunk``; (c)
+    recurrentgemma-9b at ``RG_LAYERS`` (static and engine, streams equal;
+    the ``local`` blocks' rings at the engine's capacity); (d) xlstm-1.3b
+    at ``REC_MESH_LAYERS`` on a 1×2 mesh of gloo ranks (phase 14's rank
+    function: static and engine equal, wire per forward equal to
+    ``serve_wire_table``), held to one device's static streams at that
+    depth. The configs default to the registry's at those depths. Returns
+    the launches summed over the phase and the measurements."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.serve import build_requests
+
+    def cut(name, layers):
+        return dataclasses.replace(get_config(name), num_layers=layers)
+
+    a_cfg = a_cfg or get_config("xlstm-1.3b")
+    b_cfg = b_cfg or get_config("xlstm-1.3b")
+    c_cfg = c_cfg or cut("recurrentgemma-9b", RG_LAYERS)
+    d_cfg = d_cfg or cut("xlstm-1.3b", REC_MESH_LAYERS)
+    on_card = device.type == "cuda"
+    out, clock = {}, {}
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def a():
+        res = arch_serve(torch, device, a_cfg, paged=False, lens=lens, gen=gen, keep=True)
+        req = res["requests"][0]
+        zero_counts()
+        res["chunk"] = chunkwise_check(torch, device, a_cfg, res.pop("setup"), req,
+                                       res["static"][req.rid], chunk)
+        res["launches"] = {k: v + counts()[k] for k, v in res["launches"].items()}
+        return res
+
+    def d():
+        requests = build_requests(lens, gen, d_cfg.vocab_size)
+        one = arch_serve(torch, device, d_cfg, paged=False, contiguous=False, lens=lens, gen=gen)
+        free()
+        runs = ({"label": "static"}, {"label": "engine", "engine": {}, "against": "static"})
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_serve_rank, TPS_TP, str(device), d_cfg, 1, requests, runs,
+                            False, threads=2 if on_card else 1, timeout_s=900)
+        r0 = ranks[0]["runs"]
+        for r, o in enumerate(ranks):
+            for label in r0:
+                check(o["runs"][label]["streams"] == r0[label]["streams"],
+                      f"(d): rank {r}'s {label} streams differ from rank 0's")
+        check(r0["engine"]["streams"] == r0["static"]["streams"],
+              "(d): the 1×2 engine's streams differ from the 1×2 static run's")
+        check(r0["static"]["streams"] == one["static"], "(d): the 1×2 streams differ from one "
+                                                        "device's at the same depth")
+        dec = sorted(r0["engine"]["decode_ms"])
+        say(f"   (d) 1×{TPS_TP} ({time.perf_counter() - t0:.1f} s): engine == static == one "
+            f"device's static streams, both ranks equal; wire per forward == serve_wire_table "
+            f"({r0['engine']['wire_by_forward']}); engine decode ms/step median "
+            f"{dec[len(dec) // 2]:.2f}; memory peak per rank "
+            f"{[round(o['runs']['engine']['peak'] / 2**30, 2) for o in ranks]} GiB")
+        launches = {k: one["launches"][k] + sum(o["runs"][label]["launches"][k] for o in ranks
+                                                for label in o["runs"])
+                    for k in one["launches"]}
+        return {"launches": launches, "ranks": ranks, "one": one, "peak": one["peak"]}
+
+    for label, fn in (
+        ("a", a),
+        ("b", lambda: arch_train(torch, device, b_cfg, steps=steps, batch=batch, seq=seq,
+                                 env_overrides={"mlstm_chunk": chunk})),
+        ("c", lambda: arch_serve(torch, device, c_cfg, paged=False, lens=lens, gen=gen)),
+        ("d", d),
+    ):
+        free()
+        t0 = time.perf_counter()
+        say(f"   ({label})")
+        out[label] = fn()
+        clock[label] = time.perf_counter() - t0
+        say(f"   ({label}) took {clock[label]:.1f} s")
+    free()
+    launches = {k: sum(out[x]["launches"][k] for x in out) for k in out["a"]["launches"]}
+    say(f"   phase 21 launches {launches}; seconds (a) {clock['a']:.1f}, (b) {clock['b']:.1f}, "
+        f"(c) {clock['c']:.1f}, (d) {clock['d']:.1f}; peaks (a) "
+        f"{out['a']['peak'] / 2**30:.2f}, (b) {out['b']['peak'] / 2**30:.2f}, (c) "
+        f"{out['c']['peak'] / 2**30:.2f} GiB")
+    return {"launches": launches, "seconds": clock, **out,
+            "monitor_err": out["b"]["monitor_err"]}
 
 
 def main() -> int:
@@ -5924,13 +6318,15 @@ def main() -> int:
         f"with (a) sampled requests "
         f"(seeds {list(FEAT_SEEDS)}), (b) int8 KV, (c) speculative decoding (spec_k "
         f"{FEAT_SPEC_K}, self and tiny drafts), (d) a {FEAT_WINDOW}-token window, (e) sampled "
-        f"int8 requests at 1×{TPS_TP} at the full depth; {smi[0]}")
+        f"int8 requests at 1×{TPS_TP} (engine == static but at an int8 tie); {smi[0]}")
     gc.collect()
     torch.cuda.empty_cache()
-    feats = features_path(torch, device, serve_cut, e_cfg=serve7["cfg"])
+    t15 = time.perf_counter()
+    feats = features_path(torch, device, serve_cut)
     for k in served:
         served[k] += feats["launches"][k]
-    say(f"   launches over phase 15's runs: {feats['launches']}")
+    say(f"   launches over phase 15's runs: {feats['launches']}; phase 15 took "
+        f"{time.perf_counter() - t15:.1f} s")
 
     say(f"phase 16: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers, "
         f"training at batch {LM_BATCH} x seq "
@@ -6007,6 +6403,20 @@ def main() -> int:
         served[k] += archs["launches"][k]
     say(f"   phase 20 took {time.perf_counter() - t20:.1f} s on {smi[0]}")
 
+    say(f"phase 21: main path — the recurrent families at their widths: (a) xlstm-1.3b at its "
+        f"48 layers served (static, engine; prompts {list(REC_LENS)} +{REC_GEN} tokens), one "
+        f"prefill chunkwise (chunk {REC_CHUNK}); (b) xlstm-1.3b in A²DTWP training, batch "
+        f"{REC_TRAIN_BATCH} x seq {LM_SEQ}, {REC_TRAIN_STEPS} steps, mlstm_chunk {REC_CHUNK}; (c) "
+        f"recurrentgemma-9b at {RG_LAYERS} of its 38 layers served (static, engine); (d) "
+        f"xlstm-1.3b at {REC_MESH_LAYERS} layers on a 1×{TPS_TP} mesh; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    rec21 = recurrent_path(torch, device)
+    for k in served:
+        served[k] += rec21["launches"][k]
+    say(f"   phase 21 took {time.perf_counter() - t21:.1f} s on {smi[0]}")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -6037,7 +6447,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention.py:98",
         "launches": (paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"]
                      + feats["launches"]["paged_attend"] + fleet19["launches"]["paged_attend"]
-                     + archs["launches"]["paged_attend"]),
+                     + archs["launches"]["paged_attend"] + rec21["launches"]["paged_attend"]),
         "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"],
                            feats["paged_err"], fleet19["paged_err"], archs["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
@@ -6050,9 +6460,10 @@ def main() -> int:
         "launches": (run["launches"]["l2norm_sq"] + lm["launches"]["l2norm_sq"]
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
                      + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]
-                     + mesh18["launches"]["l2norm_sq"] + archs["launches"]["l2norm_sq"]),
+                     + mesh18["launches"]["l2norm_sq"] + archs["launches"]["l2norm_sq"]
+                     + rec21["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"],
-                           mesh18["monitor_err"], archs["monitor_err"]),
+                           mesh18["monitor_err"], archs["monitor_err"], rec21["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

@@ -1,12 +1,13 @@
 """Model configuration (counterpart of ``repro.configs.base``, the
-dense-attention and MoE fields).
+dense-attention, MoE and recurrent fields).
 
 ``ModelConfig`` describes one decoder: widths, the attention flavour, the
 channel mixer (a SwiGLU, or top-k experts with an optional dense
-residual) and the precision-group layout that AWP and the ADT transfer
-read. The port runs the ``attn`` block pattern only; the reference's
-recurrent, cross-attention and audio fields come with their slice
-(ROADMAP items 11b and 11c). ``InputShape``
+residual), the block pattern of the recurrent families (``mlstm`` /
+``slstm`` for xLSTM, ``rglru`` / ``local`` for RecurrentGemma) and the
+precision-group layout that AWP and the ADT transfer read. The
+reference's cross-attention and audio fields come with their slice
+(ROADMAP item 11c). ``InputShape``
 and ``INPUT_SHAPES`` are the assigned workload geometries
 (``configs.shapes`` gives their input stand-ins).
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-ArchType = Literal["dense", "moe"]
+ArchType = Literal["dense", "moe", "ssm", "hybrid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +65,14 @@ class ModelConfig:
     moe_dense_ff: int = 0            # arctic: parallel dense residual MLP
     moe_impl: Literal["tp", "ep"] = "tp"
 
+    # --- recurrent families --------------------------------------------------
+    # block_pattern: cycle of per-layer mixer kinds; "attn" | "local" |
+    # "mlstm" | "slstm" | "rglru".  Empty -> all "attn".
+    block_pattern: tuple[str, ...] = ()
+    lru_dim: int = 0                 # RG-LRU recurrence width (0 -> d_model)
+    conv1d_width: int = 4            # temporal conv in RG-LRU block
+    mlstm_proj_factor: float = 2.0   # xLSTM up-projection factor
+
     # --- embeddings / output -------------------------------------------------
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -77,19 +86,25 @@ class ModelConfig:
     remat: bool = True               # activation checkpointing per layer (train)
 
     def __post_init__(self):
-        if self.arch_type not in ("dense", "moe"):
+        if self.arch_type not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                f"(dense and MoE attention models only; ROADMAP item 11)"
+                f"(vlm and audio: ROADMAP item 11c)"
             )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError("num_heads must be divisible by num_kv_heads")
+        if self.block_pattern:
+            if self.num_layers % len(self.block_pattern):
+                raise ValueError(
+                    f"{self.name}: num_layers ({self.num_layers}) must be a "
+                    f"multiple of the block pattern ({len(self.block_pattern)})"
+                )
 
     @property
     def pattern(self) -> tuple[str, ...]:
-        return ("attn",)
+        return self.block_pattern or ("attn",)
 
     @property
     def layers_per_group(self) -> int:
@@ -110,18 +125,36 @@ class ModelConfig:
         return self._param_count(active_only=False)
 
     def _param_count(self, active_only: bool) -> int:
-        """The reference's count: projections, experts (``top_k`` of them
-        when ``active_only``) and the dense residual, embeddings; no norm
-        scales, router or biases."""
+        """The reference's count, term for term: attention projections,
+        experts (``top_k`` of them when ``active_only``) and the dense
+        residual, the recurrent blocks' terms, embeddings; no norm scales,
+        router or biases. Its mLSTM and sLSTM terms undercount those
+        blocks' leaves (``models.init`` has their true sizes)."""
         d, hd = self.d_model, self.head_dim
         h, kv = self.num_heads, self.num_kv_heads
-        per_layer = d * hd * h + 2 * d * hd * kv + hd * h * d  # q, k, v, o
-        if self.num_experts:
-            e = self.top_k if active_only else self.num_experts
-            per_layer += 3 * d * self.d_ff * e
-            if self.moe_dense_ff:
-                per_layer += 3 * d * self.moe_dense_ff
-        elif self.d_ff:
-            per_layer += 3 * d * self.d_ff
+        counts = {}
+        for kind in self.pattern:
+            counts[kind] = counts.get(kind, 0) + 1
+        reps = self.num_layers // len(self.pattern)
+        total = 0
+        for kind, n in counts.items():
+            n *= reps
+            if kind in ("attn", "local"):
+                total += n * (d * hd * h + 2 * d * hd * kv + hd * h * d)  # q, k, v, o
+                if self.num_experts:
+                    e = self.top_k if active_only else self.num_experts
+                    total += n * (3 * d * self.d_ff * e)
+                    if self.moe_dense_ff:
+                        total += n * 3 * d * self.moe_dense_ff
+                elif self.d_ff:
+                    total += n * 3 * d * self.d_ff
+            elif kind == "mlstm":
+                dv = int(self.mlstm_proj_factor * d)
+                total += n * (d * dv * 3 + dv * d + 3 * d * dv // hd)
+            elif kind == "slstm":
+                total += n * (8 * d * d // max(1, self.num_heads))
+            elif kind == "rglru":
+                dr = self.lru_dim or d
+                total += n * (2 * d * dr + dr * d + 2 * dr)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.num_layers * per_layer + embed
+        return total + embed

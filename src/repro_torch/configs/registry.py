@@ -1,10 +1,10 @@
 """--arch registry + reduced (smoke) variants (counterpart of
 ``repro.configs.registry``).
 
-The port trains and serves the dense and MoE attention archs; the
-reference's other architectures raise ``NotImplementedError`` naming the
-ROADMAP item that ports their family (11b: the recurrent families, 11c:
-vision cross-attention and the audio encoder).
+The port trains and serves the dense and MoE attention archs and the
+recurrent families (xlstm-1.3b, recurrentgemma-9b); the reference's other
+architectures raise ``NotImplementedError`` naming the ROADMAP item that
+ports their family (11c: vision cross-attention and the audio encoder).
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ from repro_torch.configs import (
     qwen2_5_14b,
     qwen3_1_7b,
     qwen3_14b,
+    recurrentgemma_9b,
+    xlstm_1_3b,
 )
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 
@@ -29,6 +31,8 @@ ARCHS: dict[str, ModelConfig] = {
         qwen3_1_7b.CONFIG,
         arctic_480b.CONFIG,
         qwen2_5_14b.CONFIG,
+        xlstm_1_3b.CONFIG,
+        recurrentgemma_9b.CONFIG,
     ]
 }
 # the reference's other --arch ids, whose families are not ported yet, and
@@ -36,8 +40,6 @@ ARCHS: dict[str, ModelConfig] = {
 UNPORTED_ARCHS = {
     "hubert-xlarge": "11c (the hubert encoder)",
     "llama-3.2-vision-90b": "11c (vision cross-attention)",
-    "recurrentgemma-9b": "11b (RG-LRU with local attention)",
-    "xlstm-1.3b": "11b (mLSTM / sLSTM)",
 }
 
 
@@ -61,15 +63,17 @@ def get_shape(name: str) -> InputShape:
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference shrinks it:
     2 layers (or ``layers``), d_model <= 256, <= 4 heads, d_ff <= 512,
-    vocab <= 512, <= 4 experts, top_k <= 2, a 256-wide dense residual, no
-    layer scan and no activation checkpointing."""
+    vocab <= 512, <= 4 experts, top_k <= 2, a 256-wide dense residual, an
+    RG-LRU as wide as d_model, no layer scan and no activation
+    checkpointing. A block pattern sets the depth whatever ``layers`` says:
+    two repetitions of a pattern up to 4 long, else of its distinct kinds
+    in order of first appearance."""
     num_heads = min(cfg.num_heads, 4)
     num_kv = max(1, min(cfg.num_kv_heads, num_heads))
     while num_heads % num_kv:
         num_kv -= 1
     d_model = min(cfg.d_model, 256)
-    return dataclasses.replace(
-        cfg,
+    changes = dict(
         num_layers=2 if layers is None else layers,
         d_model=d_model,
         num_heads=num_heads,
@@ -80,8 +84,17 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
         num_experts=min(cfg.num_experts, 4),
         top_k=min(cfg.top_k, 2),
         moe_dense_ff=0 if cfg.moe_dense_ff == 0 else 256,
+        lru_dim=0 if cfg.lru_dim == 0 else d_model,
         sliding_window=None if cfg.sliding_window is None else 32,
         num_precision_groups=min(cfg.num_precision_groups, 2),
         scan_layers=False,
         remat=False,
     )
+    if cfg.block_pattern:
+        if len(cfg.block_pattern) > 4:
+            base = tuple(dict.fromkeys(cfg.block_pattern))  # distinct kinds, in order
+            changes["block_pattern"] = base
+            changes["num_layers"] = len(base) * 2
+        else:
+            changes["num_layers"] = len(cfg.block_pattern) * 2
+    return dataclasses.replace(cfg, **changes)

@@ -1,12 +1,14 @@
 """Carry weights across from the reference package's layouts.
 
 ``convert_lm_params`` takes ``repro.models.init.init_params``'s params as
-numpy arrays (``{"groups": [{"p0": {...}}], "embed", "head",
-"final_norm"}``) and returns the port's tree on ``device``. The port keeps
-the reference's ``(in, out)`` weight layouts and its per-group stacking,
-so this is an exact copy: same keys, shapes and values, the QKV biases,
-the router, the ``(E, ...)`` expert leaves and arctic's ``dense_*`` among
-them.
+numpy arrays (``{"groups": [{"p0": {...}, "p1": ...}], "embed", "head",
+"final_norm"}``, one ``p<i>`` per position of the block pattern) and
+returns the port's tree on ``device``. The port keeps the reference's
+``(in, out)`` weight layouts, its ``(dvh, H)`` mLSTM value columns and its
+per-group stacking, so this is an exact copy: same keys, shapes and
+values — the QKV biases, the router, the ``(E, ...)`` expert leaves and
+arctic's ``dense_*``, the ``mlstm`` / ``slstm`` / ``rglru`` leaves (the
+RG-LRU's ``lam`` constant among them) and the ``local`` attention blocks.
 
 ``convert_cnn_params`` takes ``repro.models.cnn.init_cnn``'s params as
 numpy arrays (``{"layers": {name: {key: array}}}``, as ``np.asarray`` gives
@@ -69,6 +71,10 @@ def convert_lm_params(cfg, params, *, device="cuda", tp: int = 1):
 
     if len(params["groups"]) != cfg.num_groups:
         raise ValueError(f"{len(params['groups'])} groups, config has {cfg.num_groups}")
+    keys = {f"p{i}" for i in range(len(cfg.pattern))}
+    if any(set(g) != keys for g in params["groups"]):
+        raise ValueError(f"group keys {sorted(params['groups'][0])} do not match {cfg.name}'s "
+                         f"{len(cfg.pattern)}-block pattern")
     if tuple(np.shape(params["embed"])) != (eff_vocab(cfg, tp), cfg.d_model):
         raise ValueError(f"embed {np.shape(params['embed'])} does not match {cfg.name}")
     out = {k: walk(v) for k, v in params.items() if k != "groups"}

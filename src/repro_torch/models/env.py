@@ -44,6 +44,7 @@ class Env:
     act_policy: Any = None                # activation CompressionPolicy
     seq_policy: Any = None                # seq-boundary policy (None = act)
     int8_kv: bool = False                 # int8 KV caches (serving)
+    mlstm_chunk: int = 0                  # chunkwise mLSTM (0 = sequential)
 
     def __post_init__(self):
         if self.tp > 1 and self.model_group is None:

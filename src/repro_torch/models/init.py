@@ -1,15 +1,21 @@
-"""Parameter initialization + metadata for the attention LMs, dense and
-MoE (counterpart of ``repro.models.init``, the ``attn`` pattern).
+"""Parameter initialization + metadata for the LMs: attention, dense and
+MoE, and the recurrent families (counterpart of ``repro.models.init``).
 
 ``init_params(cfg, seed, device, tp)`` returns ``(params, metas)``, two
 trees of the reference's structure: ``{"groups": [{"p0": {"attn": {...},
-"mix": {...}}}, ...], "embed", "head", "final_norm"}``, each group's
-leaves stacked over its layers (leading dim ``layers_per_group``). The
-mixer is the SwiGLU's ``w_gate`` / ``w_up`` / ``w_down``, or under
-``num_experts`` the router ``(d, E)`` and the experts' ``(E, d, ff)`` /
-``(E, ff, d)`` leaves (with ``moe_dense_ff``, arctic's ``dense_*``
-residual); ``qkv_bias`` adds ``bq`` / ``bk`` / ``bv``. Shapes and metas
-equal the reference's; the values are drawn from one explicit
+"mix": {...}}, "p1": ...}, ...], "embed", "head", "final_norm"}``, one
+``p<i>`` per position of the block pattern, each position's leaves
+stacked over its repetitions in the group (leading dim
+``layers_per_group / len(pattern)``). An attention block (``attn`` or
+``local``) has ``attn`` and a mixer ``mix``: the SwiGLU's ``w_gate`` /
+``w_up`` / ``w_down``, or under ``num_experts`` the router ``(d, E)`` and
+the experts' ``(E, d, ff)`` / ``(E, ff, d)`` leaves (with
+``moe_dense_ff``, arctic's ``dense_*`` residual); ``qkv_bias`` adds
+``bq`` / ``bk`` / ``bv``. An ``mlstm`` block has ``mlstm``, an ``slstm``
+block ``slstm`` (replicated over the model group), an ``rglru`` block
+``rglru`` and a SwiGLU ``mix``; the RG-LRU's ``lam`` is the reference's
+constant, drawn from ``np.random.default_rng(0)``. Shapes and metas
+equal the reference's; the other values are drawn from one explicit
 ``torch.Generator`` seeded with ``seed`` on ``device``, leaf after leaf
 (normal, std 0.02; output projections 0.02/sqrt(2L); norm scales ones,
 biases zeros), so they are not the reference's ``jax.random`` draws (the
@@ -27,10 +33,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.meta import SEQ_NORM, ParamMeta
+from repro_torch.models.meta import REPLICATED_BIG, REPLICATED_SMALL, SEQ_NORM, ParamMeta
 from repro_torch.utils.trees import round_up
 
 
@@ -72,6 +79,11 @@ class Maker:
 
     def zeros(self, shape):
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def const(self, values: np.ndarray):
+        if self.device.type == "meta":
+            return torch.empty(values.shape, device="meta")
+        return torch.from_numpy(values.astype(np.float32)).to(self.device)
 
     def masked_heads(self, w, real_heads, padded_heads, hd, dim):
         """Zero the padded head rows/cols so that padding is inert."""
@@ -166,14 +178,114 @@ def _moe_params(mk: Maker, cfg: ModelConfig):
     return p, m
 
 
-def _block_params(mk: Maker, cfg: ModelConfig, tp: int):
-    pa, ma = _attn_params(mk, cfg, tp)
-    p, m = {"attn": pa}, {"attn": ma}
-    if cfg.num_experts:
-        p["mix"], m["mix"] = _moe_params(mk, cfg)
-    elif cfg.d_ff:
-        p["mix"], m["mix"] = _mlp_params(mk, cfg)
+def _mlstm_params(mk: Maker, cfg: ModelConfig):
+    d = cfg.d_model
+    dv = int(cfg.mlstm_proj_factor * d)
+    H = cfg.num_heads
+    p = {
+        "ln": mk.ones((d,)),
+        "wq": mk.normal((d, dv)),
+        "wk": mk.normal((d, dv)),
+        "wv": mk.normal((d, dv)),
+        "wi": mk.normal((d, H)),
+        "wf": mk.normal((d, H)),
+        "wog": mk.normal((d, dv)),
+        "w_down": mk.out_proj((dv, d)),
+    }
+    m = {
+        "ln": SEQ_NORM,
+        "wq": ParamMeta(tp_dim=None, grad_sync_model=True),  # full keys on every rank
+        "wk": ParamMeta(tp_dim=None, grad_sync_model=True),
+        "wv": ParamMeta(tp_dim=1),
+        "wi": ParamMeta(tp_dim=None, compress=False, grad_sync_model=True),
+        "wf": ParamMeta(tp_dim=None, compress=False, grad_sync_model=True),
+        "wog": ParamMeta(tp_dim=1),
+        "w_down": ParamMeta(tp_dim=0),
+    }
     return p, m
+
+
+def _slstm_params(mk: Maker, cfg: ModelConfig):
+    d, H = cfg.d_model, cfg.num_heads
+    dh = d // H
+    p = {
+        "ln": mk.ones((d,)),
+        "w_in": mk.normal((d, 4 * d)),
+        "r": mk.normal((H, dh, 4 * dh)),
+        "b": mk.zeros((4 * d,)),
+        "w_out": mk.out_proj((d, d)),
+    }
+    m = {
+        "ln": REPLICATED_SMALL,
+        "w_in": REPLICATED_BIG,
+        "r": REPLICATED_BIG,
+        "b": REPLICATED_SMALL,
+        "w_out": REPLICATED_BIG,
+    }
+    return p, m
+
+
+def rglru_lambda(r: int) -> np.ndarray:
+    """The reference's Λ init, so that a ∈ (0.9, 0.999) at r_gate ≈ 0.5
+    (Griffin appendix), from its own seeded generator."""
+    a = np.random.default_rng(0).uniform(0.9, 0.999, r)
+    return np.log(np.expm1(-np.log(a) / (0.5 * 8.0))).astype(np.float32)
+
+
+def _rglru_params(mk: Maker, cfg: ModelConfig):
+    d = cfg.d_model
+    r = cfg.lru_dim or d
+    W = cfg.conv1d_width
+    p = {
+        "ln": mk.ones((d,)),
+        "w_x": mk.normal((d, r)),
+        "w_y": mk.normal((d, r)),
+        "conv_w": mk.normal((W, r)),
+        "conv_b": mk.zeros((r,)),
+        "w_a": mk.normal((d, r)),
+        "b_a": mk.zeros((r,)),
+        "w_i": mk.normal((d, r)),
+        "b_i": mk.zeros((r,)),
+        "lam": mk.const(rglru_lambda(r)),
+        "w_down": mk.out_proj((r, d)),
+    }
+    m = {
+        "ln": SEQ_NORM,
+        "w_x": ParamMeta(tp_dim=1),
+        "w_y": ParamMeta(tp_dim=1),
+        "conv_w": ParamMeta(tp_dim=1, compress=False),
+        "conv_b": ParamMeta(tp_dim=0, compress=False),
+        "w_a": ParamMeta(tp_dim=1),
+        "b_a": ParamMeta(tp_dim=0, compress=False),
+        "w_i": ParamMeta(tp_dim=1),
+        "b_i": ParamMeta(tp_dim=0, compress=False),
+        "lam": ParamMeta(tp_dim=0, compress=False),
+        "w_down": ParamMeta(tp_dim=0),
+    }
+    return p, m
+
+
+def _block_params(mk: Maker, kind: str, cfg: ModelConfig, tp: int):
+    """(params, metas) of one block of the pattern kind ``kind``."""
+    if kind in ("attn", "local"):
+        pa, ma = _attn_params(mk, cfg, tp)
+        p, m = {"attn": pa}, {"attn": ma}
+        if cfg.num_experts:
+            p["mix"], m["mix"] = _moe_params(mk, cfg)
+        elif cfg.d_ff:
+            p["mix"], m["mix"] = _mlp_params(mk, cfg)
+        return p, m
+    if kind == "mlstm":
+        p, m = _mlstm_params(mk, cfg)
+    elif kind == "slstm":
+        p, m = _slstm_params(mk, cfg)
+    elif kind == "rglru":
+        pr, mr = _rglru_params(mk, cfg)
+        pc, mc = _mlp_params(mk, cfg)
+        return {"rglru": pr, "mix": pc}, {"rglru": mr, "mix": mc}
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return {kind: p}, {kind: m}
 
 
 def _stack(trees):
@@ -191,15 +303,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1):
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
     mk = Maker(gen, cfg.num_layers, device)
-    reps = cfg.layers_per_group // len(cfg.pattern)
+    pat = cfg.pattern
+    reps = cfg.layers_per_group // len(pat)
     groups_p, groups_m = [], []
     for _ in range(cfg.num_groups):
-        stack_p, meta = [], None
+        stacks, metas = [[] for _ in pat], [None] * len(pat)
         for _ in range(reps):
-            p, meta = _block_params(mk, cfg, tp)
-            stack_p.append(p)
-        groups_p.append({"p0": _stack(stack_p)})
-        groups_m.append({"p0": meta})
+            for pi, kind in enumerate(pat):
+                p, metas[pi] = _block_params(mk, kind, cfg, tp)
+                stacks[pi].append(p)
+        groups_p.append({f"p{pi}": _stack(s) for pi, s in enumerate(stacks)})
+        groups_m.append({f"p{pi}": m for pi, m in enumerate(metas)})
 
     d, V = cfg.d_model, eff_vocab(cfg, tp)
     params = {"groups": groups_p, "embed": mk.normal((V, d))}

@@ -63,6 +63,8 @@ class ParamMeta:
         return (rank * units // tp) * unit_w
 
 
+REPLICATED_SMALL = ParamMeta(tp_dim=None, compress=False)
+REPLICATED_BIG = ParamMeta(tp_dim=None, compress=True)
 # RMSNorm scales applied before a TP-region enter (token-partial grads
 # under the sequence-parallel layout)
 SEQ_NORM = ParamMeta(tp_dim=None, compress=False, grad_sync_seq=True)

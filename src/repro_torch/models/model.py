@@ -1,6 +1,10 @@
 """Model assembly: embedding -> layer groups -> head / loss (counterpart
-of ``repro.models.model``, the ``attn`` pattern, with a SwiGLU or a
-mixture of experts, :mod:`repro_torch.models.moe`, as the channel mixer).
+of ``repro.models.model``): attention blocks (``attn``, and ``local``
+with the config's sliding window) with a SwiGLU or a mixture of experts
+(:mod:`repro_torch.models.moe`) as the channel mixer, and the recurrent
+blocks of the block pattern: xLSTM's ``mlstm`` / ``slstm``
+(:mod:`repro_torch.models.ssm`) and RecurrentGemma's ``rglru``
+(:mod:`repro_torch.models.rglru`, followed by the SwiGLU).
 Under tensor parallelism (``env.model_group``) every weight a function
 sees is the rank's TP slice: heads, ``d_ff`` (each expert's under the
 MoE ``tp`` layout, whole experts under ``ep``) and the vocabulary are
@@ -32,7 +36,9 @@ not run again (``train.step.remat_tp_collectives``).
 
 Caches are stacked per group (leading repetition dim) and updated in
 place; the returned caches are the same tensors; ``env.int8_kv`` makes
-them int8 with fp32 scales. The serve engine's paged layout
+the attention KV int8 with fp32 scales. A recurrent block's cache is its
+state (``MLSTMState``, ``SLSTMState``, ``RGLRUState``, O(1) per slot,
+never int8), also updated in place. The serve engine's paged layout
 (:func:`init_paged_caches`) gives every attention block a page pool
 instead, read through the ``page_table`` a decode step carries. A
 decode's ``window_override`` (the serve engine's sliding window, merged
@@ -51,10 +57,12 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
 from repro_torch.models.attention import (
     check_cache_geometry,
     init_cache,
     init_paged_cache,
+    leaves,
     mha,
 )
 from repro_torch.models.env import Env
@@ -62,12 +70,18 @@ from repro_torch.models.layers import embed_lookup_vp, rms_norm
 from repro_torch.models.loss import lm_loss
 from repro_torch.models.mlp import swiglu
 from repro_torch.models.moe import moe_block
+from repro_torch.models.rglru import RGLRUState, init_rglru_state, rglru_block
+
+RECURRENT_STATES = (ssm.MLSTMState, ssm.SLSTMState, RGLRUState)
 
 
-def _window(cfg: ModelConfig, window_override):
+def _window(cfg: ModelConfig, window_override, kind: str = "attn"):
     """The attention window: the config's ``sliding_window`` merged with
-    an override, as the reference's ``apply_block`` merges them."""
+    an override, as the reference's ``apply_block`` merges them (a
+    ``local`` block always carries the config's window)."""
     window = cfg.sliding_window or None
+    if kind == "local":
+        window = cfg.sliding_window
     if window_override is not None:
         window = window_override if window is None else min(window, window_override)
     return window
@@ -99,18 +113,28 @@ def apply_block(
     page_table=None,
 ):
     """One block of the pattern. Returns (x', cache', aux), ``aux`` the
-    MoE auxiliary loss (0.0 for a SwiGLU)."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported (attn only; ROADMAP "
-                                  "items 11b, 11c)")
-    window = _window(cfg, window_override)
-    wa = w["attn"]
-    xn = rms_norm(x, wa["ln"], cfg.norm_eps)
-    y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, window=window,
-                   pos_offset=pos_offset, page_table=page_table)
-    x = x + y
-    dy, aux = _channel_mix(x, w, cfg, env)
-    return x + dy, cache, aux
+    MoE auxiliary loss (0.0 for a SwiGLU and the recurrent blocks)."""
+    if kind in ("attn", "local"):
+        wa = w["attn"]
+        xn = rms_norm(x, wa["ln"], cfg.norm_eps)
+        y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache,
+                       window=_window(cfg, window_override, kind),
+                       pos_offset=pos_offset, page_table=page_table)
+        x = x + y
+        dy, aux = _channel_mix(x, w, cfg, env)
+        return x + dy, cache, aux
+    if kind == "mlstm":
+        y, cache = ssm.mlstm_block(x, w["mlstm"], cfg, env, mode=mode, state=cache)
+        return x + y, cache, 0.0
+    if kind == "slstm":
+        y, cache = ssm.slstm_block(x, w["slstm"], cfg, env, mode=mode, state=cache)
+        return x + y, cache, 0.0
+    if kind == "rglru":
+        y, cache = rglru_block(x, w["rglru"], cfg, env, mode=mode, state=cache)
+        x = x + y
+        dy, _ = _channel_mix(x, w, cfg, env)
+        return x + dy, cache, 0.0
+    raise ValueError(f"block kind {kind!r} is not ported (cross: ROADMAP item 11c)")
 
 
 def run_group(
@@ -230,8 +254,8 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
     engine pads MoE prompts no more than the reference's does."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
     B, S = x.shape[:2]
-    check_cache_geometry(cache_capacity, _window(cfg, window_override), S)
-    caches = init_caches(cfg, env, B, cache_capacity, env.dtype, device=x.device)
+    caches = init_caches(cfg, env, B, cache_capacity, env.dtype, device=x.device, context=S,
+                         window_override=window_override)
     for g, gp in enumerate(params["groups"]):
         x, _, _ = run_group(
             x, gp, cfg, env, mode="prefill",
@@ -285,6 +309,15 @@ def forward_decode(params, batch, caches, cfg, env, *, mat_group, mat_top,
 # ---------------------------------------------------------------------------
 
 
+def node_leaves(node) -> tuple:
+    """The data leaves of any cache node: an attention cache's
+    (:func:`~repro_torch.models.attention.leaves`, no ``pos``) or every
+    leaf of a recurrent state."""
+    if isinstance(node, RECURRENT_STATES):
+        return ssm.state_leaves(node)
+    return leaves(node)
+
+
 def _stack(one, reps: int):
     """A cache node with every leaf repeated ``reps`` times along a new
     leading dim (fresh storage)."""
@@ -292,53 +325,93 @@ def _stack(one, reps: int):
         getattr(one, f.name) for f in dataclasses.fields(one))))
 
 
+def _block_cache(kind, cfg: ModelConfig, env: Env, batch, capacity, dtype, *, per_slot,
+                 device, kv_l, tp, context=None, window_override=None):
+    """One block's cache: the attention KV (a ``local`` block's capacity
+    capped at the config's window, where it rings), or the recurrent
+    state at the rank's widths (``tp``: the mLSTM's value columns and the
+    RG-LRU's channels split over the model group)."""
+    if kind in ("attn", "local"):
+        cap = min(capacity, cfg.sliding_window) if kind == "local" else capacity
+        if context is not None:
+            check_cache_geometry(cap, _window(cfg, window_override), context)
+        return init_cache(batch, cap, kv_l, cfg.head_dim,
+                          torch.int8 if env.int8_kv else dtype,
+                          per_slot=per_slot, device=device)
+    if kind == "mlstm":
+        dv = int(cfg.mlstm_proj_factor * cfg.d_model)
+        H = cfg.num_heads
+        return ssm.init_mlstm_state(batch, H, dv // H, max(1, dv // tp) // H, dtype,
+                                    device=device)
+    if kind == "slstm":
+        return ssm.init_slstm_state(batch, cfg.d_model, dtype, device=device)
+    if kind == "rglru":
+        r_l = max(1, (cfg.lru_dim or cfg.d_model) // tp)
+        return init_rglru_state(batch, r_l, cfg.conv1d_width, dtype, device=device)
+    raise ValueError(f"block kind {kind!r} is not ported (cross: ROADMAP item 11c)")
+
+
 def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
-                per_slot: bool = False, *, device="cpu", kv_heads: int | None = None):
-    """Stacked caches per group: ``groups[g]["p0"]`` is a :class:`KVCache`
-    (a :class:`QuantKVCache` under ``env.int8_kv``) with leading dim =
-    repetitions (``k (R, B, C, Kv, hd)``; ``pos (R,)``, or ``(R, B)`` with
-    ``per_slot=True`` — the serve engine's slotted layout, where every
-    slot tracks its own absorbed-token count). ``Kv`` is ``kv_heads``, by
-    default the env's rank-local count."""
+                per_slot: bool = False, *, device="cpu", kv_heads: int | None = None,
+                tp: int | None = None, context: int | None = None, window_override=None):
+    """Stacked caches per group: ``groups[g]["p<i>"]`` is, for an attention
+    block, a :class:`KVCache` (a :class:`QuantKVCache` under
+    ``env.int8_kv``) with leading dim = repetitions (``k (R, B, C, Kv,
+    hd)``; ``pos (R,)``, or ``(R, B)`` with ``per_slot=True`` — the serve
+    engine's slotted layout, where every slot tracks its own
+    absorbed-token count), and for a recurrent block its state, stacked
+    alike (``MLSTMState``, ``SLSTMState``, ``RGLRUState``; no position:
+    the state has absorbed every token it was fed). ``Kv`` is
+    ``kv_heads``, by default the env's rank-local count; ``tp`` (default
+    the env's) sizes the recurrent states' rank-local widths.
+    ``context`` (the tokens the caches will absorb, when known) runs
+    :func:`check_cache_geometry` on each attention block against its
+    window (``window_override`` merged as :func:`apply_block` merges it),
+    as the reference's construction does."""
     reps = cfg.layers_per_group // len(cfg.pattern)
     kv_l = kv_heads or env.heads_local(cfg.num_kv_heads)
+    tp = tp or env.tp
     groups = []
     for _ in range(cfg.num_groups):
-        entry = {}
-        for pi, kind in enumerate(cfg.pattern):
-            if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP items "
-                                          "11b, 11c)")
-            one = init_cache(batch, capacity, kv_l, cfg.head_dim,
-                             torch.int8 if env.int8_kv else dtype,
-                             per_slot=per_slot, device=device)
-            entry[f"p{pi}"] = _stack(one, reps)
-        groups.append(entry)
+        groups.append({
+            f"p{pi}": _stack(_block_cache(kind, cfg, env, batch, capacity, dtype,
+                                          per_slot=per_slot, device=device, kv_l=kv_l, tp=tp,
+                                          context=context, window_override=window_override),
+                             reps)
+            for pi, kind in enumerate(cfg.pattern)})
     return groups
 
 
 def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
-                      page_size: int, dtype, *, device="cpu", kv_heads: int | None = None):
+                      page_size: int, dtype, *, device="cpu", kv_heads: int | None = None,
+                      tp: int | None = None):
     """Paged twin of ``init_caches(per_slot=True)``: every "attn" block
     gets a page pool (:func:`~repro_torch.models.attention.init_paged_cache`,
     ``num_pages`` allocatable rows plus the trash row) instead of per-slot
     contiguous arrays, stacked per group (``k (R, P, page, Kv, hd)``,
-    ``pos (R, B)``; ``Kv`` as in :func:`init_caches`). The reference's
-    recurrent kinds keep their slotted state there; the port has only
-    "attn" blocks."""
-    if cfg.sliding_window:
-        raise ValueError("sliding-window blocks have no paged layout")
+    ``pos (R, B)``; ``Kv`` as in :func:`init_caches`). Recurrent blocks
+    keep their slotted state (O(1) a slot: nothing to page), so an
+    attention-free pattern (xLSTM) has no pool at all, as in the
+    reference. ``local`` blocks have no paged layout (their rings stay
+    contiguous): ``ValueError``, as the reference raises."""
     reps = cfg.layers_per_group // len(cfg.pattern)
     kv_l = kv_heads or env.heads_local(cfg.num_kv_heads)
+    tp = tp or env.tp
     groups = []
     for _ in range(cfg.num_groups):
         entry = {}
         for pi, kind in enumerate(cfg.pattern):
-            if kind != "attn":
-                raise NotImplementedError(f"block kind {kind!r} is not ported (ROADMAP items "
-                                          "11b, 11c)")
-            one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
-                                   torch.int8 if env.int8_kv else dtype, device=device)
+            if kind == "attn":
+                if cfg.sliding_window:
+                    raise ValueError("sliding-window blocks have no paged layout")
+                one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
+                                       torch.int8 if env.int8_kv else dtype, device=device)
+            elif kind == "local":
+                raise ValueError(f"{kind!r} blocks have no paged layout (sliding-window "
+                                 "rings stay contiguous)")
+            else:
+                one = _block_cache(kind, cfg, env, batch, 1, dtype, per_slot=True,
+                                   device=device, kv_l=kv_l, tp=tp)
             entry[f"p{pi}"] = _stack(one, reps)
         groups.append(entry)
     return groups

@@ -15,7 +15,7 @@ parcels; defaults to the first weights entry) policies, the execution layout (``
 ``chunks`` — the weight gather's plane blocks — ``dtype``, the compute
 dtype ``f32`` or ``bf16``, ``int8_kv``, the serve caches' int8 KV,
 ``accum_steps``, the train step's micro-batches, and ``env_overrides``,
-the ``Env`` knobs ``attn_chunk`` and ``causal_skip``), the serving defaults (``sampling``, a
+the ``Env`` knobs ``attn_chunk``, ``causal_skip`` and ``mlstm_chunk``), the serving defaults (``sampling``, a
 :class:`SamplingParams`; ``spec_draft`` and ``spec_k``, the speculative
 engine's draft name and proposals a round) and a schedule source
 (``static`` — the paper's oracle — or ``awp``, with Algorithm 1's
@@ -51,9 +51,8 @@ TRAFFIC_CLASSES = (
 VALID_SCHEDULES = ("static", "awp")
 VALID_DTYPES = ("f32", "bf16")
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# Env knobs a plan may override (the reference's list has mlstm_chunk too,
-# for the xLSTM family, which is not ported)
-ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip")
+# Env knobs a plan may override (the reference's list)
+ENV_OVERRIDE_KEYS = ("attn_chunk", "causal_skip", "mlstm_chunk")
 
 
 def policy_uses_rng(p: CompressionPolicy) -> bool:
@@ -203,10 +202,6 @@ class PrecisionPlan:
         object.__setattr__(self, "env_overrides",
                            tuple(tuple(kv) for kv in self.env_overrides))
         for k, _ in self.env_overrides:
-            if k == "mlstm_chunk":
-                raise NotImplementedError(
-                    "env override mlstm_chunk: the xLSTM family is not ported "
-                    "(ROADMAP Queue 1 item 11b)")
             if k not in ENV_OVERRIDE_KEYS:
                 raise ValueError(f"unknown env override {k!r} (allowed: {ENV_OVERRIDE_KEYS})")
         # activation-path stochastic rounding has no PRNG plumbing

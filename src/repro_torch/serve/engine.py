@@ -94,6 +94,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import comm
 from repro_torch.dist.spec import MeshCfg, mesh_coords
 from repro_torch.models.attention import PAGED, check_cache_geometry, leaves
+from repro_torch.models.model import RECURRENT_STATES
 from repro_torch.plan import PrecisionPlan
 from repro_torch.serve.api import Request, SamplingParams
 from repro_torch.serve.sampling import sample_tokens, seed_words
@@ -451,10 +452,12 @@ class ServeEngine:
             int(num_pages) if num_pages is not None
             else self.max_slots * self._table_width
         )
-        # page-bucketed (padded) prompts and shared prefix pages are exact
-        # only when position i depends on tokens <= i alone; the MoE
-        # capacity dispatch ranks tokens across the whole sequence
-        self._bucket = self.paged and not cfg.num_experts
+        # page-bucketed (padded) prompts are exact only for pure-attention
+        # patterns, and shared prefix pages only when position i depends on
+        # tokens <= i alone: the MoE capacity dispatch ranks tokens across
+        # the whole sequence, and a recurrent state absorbs pad positions
+        self._bucket = (self.paged and not cfg.num_experts
+                        and all(k == "attn" for k in cfg.pattern))
         self.share_prefix = bool(share_prefix) and self.paged and not cfg.num_experts
         self.pages = PageAllocator(self.num_pages) if self.paged else None
         self._intern: dict[tuple, int] = {}  # prompt-prefix key -> page
@@ -604,6 +607,9 @@ class ServeEngine:
         for big_g, small_g in zip(self._caches, small):
             for key, big in big_g.items():
                 s = small_g[key]
+                if isinstance(big, RECURRENT_STATES):  # slotted state: the slot insert
+                    insert_slot([{key: big}], [{key: s}], slot)
+                    continue
                 for b_leaf, s_leaf in zip(leaves(big), leaves(s)):
                     seg = s_leaf[:, 0, start:start + n_new * page]  # (R, n_new·page, ...)
                     b_leaf[:, phys] = seg.reshape(
@@ -808,6 +814,7 @@ class ServeEngine:
         if self.paged:
             # pad on the device to whole pages (causal-safe for the
             # attention-only pattern without experts); logits are read at S - 1
+            # (a recurrent pattern's prompt is never padded)
             Spad = -(-S // page) * page if self._bucket else S
             rec["prefill_hits" if Spad in self._buckets_seen else "prefill_misses"] += 1
             self._buckets_seen.add(Spad)

@@ -41,6 +41,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.spec import MeshCfg
 from repro_torch.models import attention as A
+from repro_torch.models.model import RECURRENT_STATES, node_leaves
 from repro_torch.plan import PrecisionPlan
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.step import init_serve_caches, make_decode_step, make_prefill_step
@@ -160,13 +161,14 @@ def rollback_caches(caches, delta: torch.Tensor) -> None:
 def insert_slot(big, small, slot: int) -> None:
     """Batch-of-1 prefill caches ``small`` -> slot ``slot`` of the slotted
     caches ``big``, in place; the pos leaves are the one rank mismatch:
-    ``(R,)`` from prefill against ``(R, B)``."""
+    ``(R,)`` from prefill against ``(R, B)`` (a recurrent state has none)."""
     for big_g, small_g in zip(big, small):
         for key, node in big_g.items():
             s = small_g[key]
-            for b_leaf, s_leaf in zip(A.leaves(node), A.leaves(s)):
+            for b_leaf, s_leaf in zip(node_leaves(node), node_leaves(s)):
                 b_leaf[:, slot] = s_leaf[:, 0]
-            node.pos[:, slot] = s.pos
+            if not isinstance(node, RECURRENT_STATES):
+                node.pos[:, slot] = s.pos
 
 
 class DraftRunner:

@@ -47,9 +47,9 @@ from repro_torch.train.step import (
     batch_rows,
     check_mesh,
     check_seq_parallel,
+    layer_boundaries,
     make_mat_fns,
     resolve_plan,
-    mixer_boundaries,
 )
 from repro_torch.transport import CompressionPolicy
 from repro_torch.transport.policy import FP32_BYTES
@@ -97,10 +97,13 @@ def init_serve_caches(
     device="cpu",
 ):
     """Zeroed caches of one rank of the mesh (the counterpart of the
-    reference's ``cache_pspecs``: its ``heads_local`` kv heads, and its
+    reference's ``cache_pspecs``: its ``heads_local`` kv heads, the
+    recurrent states' rank-local widths — the mLSTM's ``C`` split on its
+    value dim, the RG-LRU's channels, the sLSTM's state whole — and its
     ``batch / dshards`` rows when the batch is sharded; a page pool keeps
     every slot). ``int8_kv`` gives int8 KV leaves with fp32 scales per
-    (slot or page row, position, local kv head). ``paged_pages`` +
+    (slot or page row, position, local kv head); recurrent states keep
+    ``dtype``. ``paged_pages`` +
     ``page_size`` select ``model.init_paged_caches`` (``capacity`` is then
     not read)."""
     paged = paged_pages is not None
@@ -113,9 +116,9 @@ def init_serve_caches(
     env = Env(int8_kv=int8_kv)
     if paged:
         return M.init_paged_caches(cfg, env, batch, paged_pages, page_size, dtype,
-                                   device=device, kv_heads=kv_l)
+                                   device=device, kv_heads=kv_l, tp=mesh_cfg.tp)
     return M.init_caches(cfg, env, batch, capacity, dtype, per_slot=per_slot,
-                         device=device, kv_heads=kv_l)
+                         device=device, kv_heads=kv_l, tp=mesh_cfg.tp)
 
 
 def global_cache_shapes(cfg: ModelConfig, mesh_cfg: MeshCfg, batch: int, capacity: int,
@@ -297,8 +300,8 @@ def serve_wire_table(plan: PrecisionPlan, cfg: ModelConfig, spec_tree, mesh_cfg:
     whose weight gathers are dropped when ``gathers`` is false (a
     weight-stationary decode step; the placement is one forward's
     gathers), with one forward's TP-region exits (the embedding's, and
-    each layer's attention and mixer exits,
-    ``train.step.mixer_boundaries``), at ``act elems = rows · tokens · d``.
+    each layer's block and mixer exits, ``train.step.layer_boundaries``;
+    an sLSTM has none), at ``act elems = rows · tokens · d``.
     Under the sequence-parallel layout of a prefill the embedding's and
     every block's exit is a scatter and every block's enter a gather; the
     logits entry takes the last token through the lossless merge instead
@@ -311,7 +314,7 @@ def serve_wire_table(plan: PrecisionPlan, cfg: ModelConfig, spec_tree, mesh_cfg:
     elems = dist_elems_per_group(spec_tree, mesh_cfg, nrt)
     if not gathers:
         elems = [0] * nrt
-    exits = 1 + cfg.num_layers * (1 + mixer_boundaries(cfg)[0])
+    exits = 1 + layer_boundaries(cfg)[0]
     act_elems = rows * tokens * cfg.d_model if tp > 1 else 0
     table = plan.wire_table(elems, n, training=False, tp=tp, act_elems=act_elems,
                             act_collectives=0 if seq_parallel else exits)

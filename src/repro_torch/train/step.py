@@ -301,24 +301,48 @@ def mixer_boundaries(cfg, seq_parallel: bool = False,
     return 1, 1
 
 
+def _kind_boundaries(kind: str, cfg, seq_parallel: bool, ep_split: bool) -> tuple[int, int]:
+    """``(forward, backward)`` TP-region boundaries of one layer of the
+    pattern kind ``kind``: an attention block's or RG-LRU's exit and enter
+    plus its channel mixer's (:func:`mixer_boundaries`); an mLSTM's exit
+    and enter; none for the sLSTM, which runs replicated (its
+    ``seq_unshard`` / ``seq_shard`` are ``relayout``, priced by no
+    table)."""
+    if kind == "slstm":
+        return 0, 0
+    if kind == "mlstm":
+        return 1, 1
+    fwd, bwd = mixer_boundaries(cfg, seq_parallel, ep_split)
+    return 1 + fwd, 1 + bwd
+
+
+def layer_boundaries(cfg, seq_parallel: bool = False, ep_split: bool = True) -> tuple[int, int]:
+    """``(forward, backward)`` TP-region boundaries of all of the model's
+    layers, kind by kind over the block pattern."""
+    reps = cfg.num_layers // len(cfg.pattern)
+    parts = [_kind_boundaries(k, cfg, seq_parallel, ep_split) for k in cfg.pattern]
+    return reps * sum(f for f, _ in parts), reps * sum(b for _, b in parts)
+
+
 def tp_boundaries(cfg, seq_parallel: bool = False, ep_split: bool = True) -> int:
     """TP-region boundaries of one train step of the LM, each moving one
     ``(B / dshards, S, d)`` activation over the model group: the
-    embedding's exit and every block's exit (attention, and the mixer's,
-    :func:`mixer_boundaries`) in the forward, every block's enter and the
-    logits' enter in the backward. Under the sequence-parallel layout each
-    is one gather/scatter pair, as :meth:`PrecisionPlan.wire_table` prices
-    it."""
-    fwd, bwd = mixer_boundaries(cfg, seq_parallel, ep_split)
-    return cfg.num_layers * (2 + fwd + bwd) + 2
+    embedding's exit and every block's exit (attention, RG-LRU or mLSTM,
+    and the mixer's, :func:`layer_boundaries`) in the forward, every
+    block's enter and the logits' enter in the backward. Under the
+    sequence-parallel layout each is one gather/scatter pair, as
+    :meth:`PrecisionPlan.wire_table` prices it."""
+    fwd, bwd = layer_boundaries(cfg, seq_parallel, ep_split)
+    return fwd + bwd + 2
 
 
 def remat_tp_collectives(cfg) -> tuple[int, int]:
     """``(enters, exits)`` of the TP-region boundaries that the ``remat``
     backward runs again in the recomputed forward: every block's enter
     (a collective only under the sequence-parallel layout) and every
-    block's exit but each layer's last, whose output nothing in the layer
-    reads (the recomputation stops once it has what the backward saved).
+    block's exit but each checkpointed repetition's last, whose output
+    nothing in the repetition reads (the recomputation stops once it has
+    what the backward saved).
     Under the MoE ``ep`` layout the layer ends in the expert exchanges,
     so every exit runs again."""
     if not cfg.remat:
@@ -326,8 +350,13 @@ def remat_tp_collectives(cfg) -> tuple[int, int]:
     if _expert_parallel(cfg):
         per_layer = 2 if cfg.moe_dense_ff else 1
         return cfg.num_layers * per_layer, cfg.num_layers * per_layer
-    per_layer = 2 if cfg.d_ff else 1
-    return cfg.num_layers * per_layer, cfg.num_layers * (per_layer - 1)
+    # a checkpointed repetition of the pattern: its regions' enters, and
+    # their exits but the last, unless a block without one (the sLSTM)
+    # ends it and reads that exit's output
+    regions = sum(_kind_boundaries(k, cfg, False, True)[0] for k in cfg.pattern)
+    last = 1 if _kind_boundaries(cfg.pattern[-1], cfg, False, True)[0] else 0
+    reps = cfg.num_layers // len(cfg.pattern)
+    return reps * regions, reps * (regions - last)
 
 
 def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,

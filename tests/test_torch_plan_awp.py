@@ -98,18 +98,23 @@ FLEET_FIELDS = (dict(kv_migration={"round_to": 2}), dict(weight_publish={"round_
 ])
 def test_unported_plan_fields_raise(kw):
     """A reference plan that sets a field the port has no code for is
-    refused, not silently run at the default (``mlstm_chunk``: an env
-    override of the unported xLSTM family). ``int8_kv`` and ``sampling``,
-    once refused here, load (``tests/test_torch_sampling.py``); so do
-    ``accum_steps`` and ``dtype`` since the train step runs them, and the
+    refused, not silently run at the default. Every case here once was and
+    now loads: ``int8_kv`` and ``sampling`` (``tests/test_torch_sampling.py``),
+    ``accum_steps`` and ``dtype`` since the train step runs them, the
     fleet's ``kv_migration`` and ``weight_publish`` since the fleet
-    (``tests/test_torch_fleet.py``) reads them: their cases hold the loaded
-    plan's JSON to the reference's, byte for byte, and what it resolves to
-    (the compute dtype; the fabric's two policies)."""
+    (``tests/test_torch_fleet.py``) reads them, and ``mlstm_chunk`` since
+    the xLSTM family is ported: their cases hold the loaded plan's JSON to
+    the reference's, byte for byte, and what it resolves to (the compute
+    dtype; the fabric's two policies; the env's chunk)."""
     d = JPlan.build(9, round_to=2).to_json_dict()
     d.update(kw)
     j = JPlan.from_json_dict(d)
     text = j.to_json()
+    if "env_overrides" in kw:
+        t = PrecisionPlan.from_json(text)
+        assert t.to_json() == text
+        assert t.make_env(MeshCfg()).mlstm_chunk == 64 == dict(j.env_overrides)["mlstm_chunk"]
+        return
     if kw in PORTED_FIELDS + FLEET_FIELDS:
         t = PrecisionPlan.from_json(text)
         assert t.to_json() == text

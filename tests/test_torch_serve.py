@@ -443,7 +443,7 @@ def test_deferred_options_raise(setup, mesh_cases, case):
 
 def test_unported_arch_and_flash_viability_on_cpu(setup):
     with pytest.raises(NotImplementedError):
-        get_config("xlstm-1.3b")  # the recurrent families (ROADMAP item 11b)
+        get_config("hubert-xlarge")  # the audio encoder (ROADMAP item 11c)
     q = torch.zeros(1, 128, 2, 2, 128)
     k = torch.zeros(1, 128, 2, 128)
     assert not ta._flash_prefill_viable(True, None, False, 0, q, k)  # a CPU tensor
