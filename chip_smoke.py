@@ -392,6 +392,33 @@ Phases, each printing its own lines:
      card's name and power limit. Phases 6 and 8 also check and time flash
      at H 40 / Kv 8 and H 32 / Kv 2 (S 512) and ``paged_attend`` at Kv 8 /
      G 5 and Kv 2 / G 16 (the decode shape) beside their bounds and SDPA.
+ 21. main path — the recurrent families at their widths
+     (:func:`recurrent_path`): xlstm-1.3b served and trained (the
+     chunkwise mLSTM beside the sequential one), recurrentgemma-9b at 19
+     of its 38 layers served, xlstm-1.3b at 4 layers on a 1×2 mesh.
+ 22. main path — vision cross-attention and the audio encoder at their
+     widths (:func:`vision_path`). (a) llama-3.2-vision-90b at
+     ``VLM_LAYERS`` (5) of its 100 layers, one whole ``(attn × 4, cross)``
+     pattern (22.74 GB of fp32 masters; 4 layers leave no precision
+     group), its cross gates drawn from a seed (the reference's zero init
+     makes a cross block add nothing), served on the static path (the
+     engine refuses image requests): phase 7's requests with request 1 on
+     request 0's prompt, each with 4,096 image tokens of width 1,280 drawn
+     as the serve launcher draws them. Every logit finite; requests 0 and
+     1's first logits apart by more than 1e-4 of the largest |logit|;
+     request 0's first decode step within 1e-4 of the largest |logit| of a
+     fresh prefill of the same tokens; 4 flash launches (the
+     self-attention layers, H 64 / Kv 8, G 8) a prefill of a multiple of
+     128, held to the plain version; Bitpack / Bitunpack once per ``DIST``
+     leaf per forward. (b) hubert-xlarge at its 48 layers (946,126,080
+     parameters) in A²DTWP training at batch 4 × 512 frames of
+     ``synthetic_feature_batch`` for five steps of the forced AWP plan:
+     finite losses (ln 504 ≈ 6.22 is where they start), wire bytes equal
+     to the plan's, ``l2norm_sq`` once per monitored leaf a step, packing
+     held to the plain versions. Prints admission ms by length, decode
+     ms/step, the losses, formats and step seconds and each part's memory
+     peak, beside the card's name and power limit. Phase 6 also checks and
+     times flash at H 64 / Kv 8 (S 512).
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -863,8 +890,10 @@ FLASH_TOL = 1e-5
 # also checks and times in bf16
 FLASH_TP2 = (1, 8, 4, 512, 512, 0)
 # phase 20's groupings at S 512, B 1: qwen2.5-14b's H 40 / Kv 8 (G 5, units
-# of Gc = 1 head) and chatglm3-6b's H 32 / Kv 2 (G 16, Gc = 4)
-FLASH_GQA = (("G 5", (1, 40, 8, 512, 512, 0)), ("G 16", (1, 32, 2, 512, 512, 0)))
+# of Gc = 1 head) and chatglm3-6b's H 32 / Kv 2 (G 16, Gc = 4); phase 22's
+# llama-3.2-vision-90b self-attention, H 64 / Kv 8 (G 8)
+FLASH_GQA = (("G 5", (1, 40, 8, 512, 512, 0)), ("G 16", (1, 32, 2, 512, 512, 0)),
+             ("G 8", (1, 64, 8, 512, 512, 0)))
 
 
 def flash_bound(B, H, Kv, Sq, Sk, q_offset, hd=128, elem=4, flop_rate=FP32_FLOP_PER_S):
@@ -5850,7 +5879,8 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     """A²DTWP training of ``cfg`` from seed 0's weights through ``Trainer``
     and ``make_train_step`` at phase 11's batch, lr and forced AWP plan
     (widening every 2 steps; ``env_overrides`` the plan's, e.g. the
-    chunkwise mLSTM): losses finite, each step's MoE aux loss (the
+    chunkwise mLSTM), on ``synthetic_lm_batch`` (an input-stub arch's on
+    ``synthetic_feature_batch``'s frames): losses finite, each step's MoE aux loss (the
     layers' sum, the ``StepRecord``'s ``aux``) positive (0 without
     experts), each
     ``StepRecord``'s wire bytes equal to the plan's table, and launches:
@@ -5858,7 +5888,7 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     bits (the remat backward's included), ``l2norm_sq`` once per monitored
     leaf a step. Each step's first monitor call and the first packing
     launch at each (length, round_to) are held to the plain versions."""
-    from repro_torch.data.pipeline import synthetic_lm_batch
+    from repro_torch.data.pipeline import synthetic_feature_batch, synthetic_lm_batch
     from repro_torch.dist.spec import DIST, MeshCfg, dist_elems_per_group
     from repro_torch.kernels import ref
     from repro_torch.launch.train import setup
@@ -5887,7 +5917,9 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
         f"materializations, {n_monitor} monitor calls, the largest packed leaf {biggest:,} "
         f"elements; batch {batch} x seq {seq}, lr {lr:g}")
     opt = SGDConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
-    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    stub = cfg.embed_is_input_stub
+    shapes = {"features": (batch, seq, cfg.vision_dim)} if stub else {"tokens": (batch, seq)}
+    shapes["labels"] = (batch, seq)
     plan = PrecisionPlan.build(nrt, round_to=4, schedule="awp", awp_threshold=1.0,
                                awp_interval=2, env_overrides=dict(env_overrides))
 
@@ -5902,12 +5934,16 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
     zero_counts()
     try:
         for i in range(steps):
-            tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
+            if stub:
+                x, labels = synthetic_feature_batch(cfg.vision_dim, cfg.vocab_size, batch, seq, i,
+                                                    device=device)
+            else:
+                x, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
             n_packs = len(packs)
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
-            storage, mom, _ = trainer.run_step(storage, mom, {"tokens": tokens, "labels": labels},
-                                               lr)
+            storage, mom, _ = trainer.run_step(
+                storage, mom, {"features" if stub else "tokens": x, "labels": labels}, lr)
             if on_card and len(packs) == n_packs:
                 peaks.append(torch.cuda.max_memory_allocated())
             for w, out in seen:
@@ -5950,6 +5986,8 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
         f"{len(peaks)} steps with no packing copy {peak / 2**30:.2f} GiB")
     return {"launches": got, "losses": losses, "aux": aux_steps, "peak": peak,
             "monitor_err": max(errs, default=0.0),
+            "round_tos": [r.round_tos[0] for r in records],
+            "step_s": [r.wall_s for r in records],
             "step_ms": warm[len(warm) // 2] * 1e3 if warm else None}
 
 
@@ -6165,6 +6203,225 @@ def recurrent_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=N
         f"{out['c']['peak'] / 2**30:.2f} GiB")
     return {"launches": launches, "seconds": clock, **out,
             "monitor_err": out["b"]["monitor_err"]}
+
+# ---------------------------------------------------------------------------
+# phase 22: vision cross-attention (llama-3.2-vision-90b) and the audio encoder
+# (hubert-xlarge)
+# ---------------------------------------------------------------------------
+
+# (a): llama-3.2-vision-90b's smallest cut, one whole (attn x 4, cross)
+# pattern: 5 of its 100 layers (5,685,460,993 parameters, 22.74 GB fp32);
+# 4 layers leave no precision group
+VLM_LAYERS = 5
+# (a): the cross gates drawn from this seed, uniform in (0.5, 1.0): the
+# reference initialises them to zero, and tanh(0) = 0 makes a cross block
+# add nothing, so a broken cross path would pass
+VLM_GATE_SEED = 22
+# (a): one decode step's logits against a fresh prefill of the same tokens,
+# and requests 0 and 1 (one prompt, two images) apart by more than it:
+# this share of the largest |logit|
+VLM_DECODE_RTOL = 1e-4
+# (b): hubert-xlarge at its 48 layers, A²DTWP steps at batch 4 x 512 frames
+AUDIO_STEPS, AUDIO_BATCH, AUDIO_SEQ = 5, 4, 512
+
+
+def _set_gates(torch, storage, seed):
+    """Draw every cross block's gate from ``seed`` (uniform in (0.5, 1.0))
+    in place (trivial mesh: storage is the stacked logical tensor)."""
+    gen = torch.Generator(device=storage["embed"].device).manual_seed(seed)
+    for g in storage["groups"]:
+        for blk in g.values():
+            gate = blk["attn"].get("gate")
+            if gate is not None:
+                gate.uniform_(0.5, 1.0, generator=gen)
+
+
+def watch_static_steps(torch, rec):
+    """Route ``generate_static``'s prefill and decode steps through
+    recorders: every logit they return must be finite; each prefill's
+    host-clocked seconds (synced) by prompt length and its logits, each
+    decode step's seconds and the first decode step's logits of each
+    group are kept in ``rec``. Returns the undo function."""
+    from repro_torch.serve import engine
+
+    make_pre, make_dec = engine.make_prefill_step, engine.make_decode_step
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed(step, kind):
+        def run(*args):
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = step(*args)
+            sync()
+            secs = time.perf_counter() - t0
+            check(bool(torch.isfinite(logits).all()), f"non-finite logits in a {kind} step")
+            batch = args[-1]
+            if kind == "prefill":
+                S = batch["tokens"].shape[1]
+                rec["prefill"].append((S, secs))
+                rec["prefill_logits"][S] = logits[:, -1].float().clone()
+                rec["pending"] = S
+            else:
+                rec["decode"].append(secs)
+                if rec.get("pending") is not None:
+                    rec["decode_logits"][rec.pop("pending")] = logits[:, -1].float().clone()
+            return logits, caches
+        return run
+
+    engine.make_prefill_step = lambda *a, **k: timed(make_pre(*a, **k), "prefill")
+    engine.make_decode_step = lambda *a, **k: timed(make_dec(*a, **k), "decode")
+
+    def undo():
+        engine.make_prefill_step, engine.make_decode_step = make_pre, make_dec
+    return undo
+
+
+def vlm_serve(torch, device, cfg, *, lens=SERVE_LENS, gen=SERVE_GEN):
+    """(a): ``cfg`` (llama-3.2-vision-90b) from seed 0's weights, the cross
+    gates from ``VLM_GATE_SEED``, served through the serve launcher's
+    functions at ``round_to`` 2 on the static path (the engine refuses
+    image requests): phase 7's requests, request 1's prompt made request
+    0's, each with ``(num_image_tokens, vision_dim)`` image features from
+    the launcher's draw. Checks: every logit finite; requests 0 and 1's
+    first logits apart by more than ``VLM_DECODE_RTOL`` of the largest
+    |logit| (the cross path is live); request 0's first decode step within
+    that of a fresh prefill of its prompt and first token; launches: one
+    flash launch a self-attention layer per prefill of a multiple of 128
+    (the cross blocks never take it), Bitpack / Bitunpack once per ``DIST``
+    leaf per forward (``img_proj`` in a prefill only: decode reads the
+    cached image KV); the first flash launch at each shape held to the
+    plain version. Returns the measurements."""
+    from repro_torch.dist.spec import DIST
+    from repro_torch.launch.serve import build_requests, image_features_for, run_static, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.utils.trees import tree_leaves
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh_cfg, spec_tree, storage = setup(cfg, seed=0, device=device)
+    _set_gates(torch, storage, VLM_GATE_SEED)
+    setup_s = time.perf_counter() - t0
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    requests = build_requests(lens, gen, cfg.vocab_size)
+    requests[1] = dataclasses.replace(requests[1], prompt_ids=requests[0].prompt_ids)
+    feats = image_features_for(cfg, requests)
+    requests = [dataclasses.replace(r, image_features=feats[r.rid]) for r in requests]
+    n_params = sum(x.numel() for x in tree_leaves(storage))
+    per_forward = sum(s.reps for g in spec_tree["groups"] for s in tree_leaves(g)
+                      if s.kind == DIST) + sum(
+        1 for k in spec_tree if k != "groups" and spec_tree[k].kind == DIST)
+    say(f"   {cfg.name} at {cfg.num_layers} of its layers: {n_params:,} fp32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB), H {cfg.num_heads} / Kv {cfg.num_kv_heads} (G "
+        f"{cfg.num_heads // cfg.num_kv_heads}), {cfg.num_image_tokens} image tokens of width "
+        f"{cfg.vision_dim} a request, init {setup_s:.2f} s; {per_forward} DIST materializations "
+        f"per forward")
+    seen_f, rec = {}, {"prefill": [], "decode": [], "prefill_logits": {}, "decode_logits": {}}
+    unwatch_f = watch_flash(torch, seen_f)
+    unwatch_s = watch_static_steps(torch, rec)
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        static = run_static(cfg, mesh_cfg, None, spec_tree, storage, requests, plan, None)
+        static_s = time.perf_counter() - t0
+        launches = counts()
+        check_seen_flash(seen_f)
+    finally:
+        unwatch_s()
+    prefills = sorted(set(lens))
+    # a decode step reads the cross blocks' cached image KV: no img_proj
+    per_decode = per_forward - (spec_tree["img_proj"].kind == DIST)
+    want = {"flash_prefill": kernel_layers(cfg) * sum(on_card and S % 128 == 0 for S in prefills),
+            "bitpack": len(prefills) * (per_forward + (gen - 1) * per_decode) * on_card,
+            "paged_attend": 0, "l2norm_sq": 0}
+    want["bitunpack"] = want["bitpack"]
+    check(launches == want, f"{cfg.name} static: launches {launches}, expected {want}")
+    S0 = len(requests[0].prompt_ids)
+    first = rec["prefill_logits"][S0]  # the group of requests 0 and 1, in request order
+    scale = float(first[0].abs().max())
+    apart = float((first[0] - first[1]).abs().max())
+    check(apart > VLM_DECODE_RTOL * scale, f"{cfg.name}: requests 0 and 1 (one prompt, two "
+                                           f"images) have first logits {apart:.3e} apart, at "
+                                           f"most {VLM_DECODE_RTOL} x {scale:.3f}")
+    # request 0's first decode step against a fresh prefill of its prompt and
+    # first token (not a multiple of 128: attend_tiled, no flash launch)
+    zero_counts()
+    tokens = torch.tensor([requests[0].prompt_ids + (static[0][0],)], dtype=torch.int32,
+                          device=device)
+    img = torch.from_numpy(feats[0][None]).to(device)
+    fresh = make_prefill_step(cfg, mesh_cfg, None, spec_tree, plan=plan,
+                              cache_capacity=S0 + 1)(storage, {"tokens": tokens,
+                                                               "image_features": img})[0]
+    fresh = fresh[0, -1].float()
+    extra = counts()
+    unwatch_f()
+    check(extra == {"flash_prefill": 0, "bitpack": per_forward * on_card,
+                    "bitunpack": per_forward * on_card, "paged_attend": 0, "l2norm_sq": 0},
+          f"{cfg.name} fresh prefill: launches {extra}")
+    for k in launches:
+        launches[k] += extra[k]
+    dscale = float(fresh.abs().max())
+    dgap = float((rec["decode_logits"][S0][0] - fresh).abs().max())
+    check(dgap <= VLM_DECODE_RTOL * dscale, f"{cfg.name}: decode step {dgap:.3e} from a fresh "
+                                            f"prefill (bound {VLM_DECODE_RTOL} x {dscale:.3f})")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    admit = {S: round(t * 1e3, 2) for S, t in rec["prefill"]}
+    dec = sorted(rec["decode"])
+    say(f"   {cfg.name} static: {len(prefills)} prefills, {len(rec['decode'])} decode steps in "
+        f"{static_s:.2f} s; admission ms by prompt length {admit}; decode ms/step median "
+        f"{dec[len(dec) // 2] * 1e3:.2f}; launches {launches}")
+    say(f"   requests 0 and 1 (one prompt, two images): first logits {apart:.3e} apart (largest "
+        f"|logit| {scale:.3f}); request 0's first decode step {dgap:.3e} from a fresh prefill "
+        f"(largest |logit| {dscale:.3f}); every logit finite; streams {[static[r.rid][:4] for r in requests]}")
+    say(f"   {cfg.name}: memory peak {peak / 2**30:.2f} GiB")
+    return {"launches": launches, "peak": peak, "static": static, "admit_ms": admit,
+            "decode_ms": dec[len(dec) // 2] * 1e3, "apart": apart, "decode_gap": dgap,
+            "scale": scale, "flash_err": max((r["max_abs_err"] for r in seen_f.values()),
+                                             default=0.0), "flash_shapes": sorted(seen_f)}
+
+
+def vision_path(torch, device, *, a_cfg=None, b_cfg=None, lens=SERVE_LENS, gen=SERVE_GEN,
+                steps=AUDIO_STEPS, batch=AUDIO_BATCH, seq=AUDIO_SEQ):
+    """Phase 22: (a) llama-3.2-vision-90b at ``VLM_LAYERS`` served on the
+    static path (:func:`vlm_serve`); (b) hubert-xlarge at its 48 layers in
+    A²DTWP training on ``synthetic_feature_batch``'s frames
+    (:func:`arch_train`, the AWP monitor on ``l2norm_sq``): finite losses.
+    The configs default to the registry's at those depths (widths not
+    cut). Returns the launches summed over the phase and the
+    measurements."""
+    from repro_torch.configs.registry import get_config
+
+    a_cfg = a_cfg or dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                                         num_layers=VLM_LAYERS)
+    b_cfg = b_cfg or get_config("hubert-xlarge")
+    on_card = device.type == "cuda"
+    out, clock = {}, {}
+    for label, fn in (
+        ("a", lambda: vlm_serve(torch, device, a_cfg, lens=lens, gen=gen)),
+        ("b", lambda: arch_train(torch, device, b_cfg, steps=steps, batch=batch, seq=seq)),
+    ):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        say(f"   ({label})")
+        out[label] = fn()
+        clock[label] = time.perf_counter() - t0
+        say(f"   ({label}) took {clock[label]:.1f} s")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    b = out["b"]
+    say(f"   (b) {b_cfg.name} losses {[round(x, 5) for x in b['losses']]} (ln {b_cfg.vocab_size} = "
+        f"{math.log(b_cfg.vocab_size):.3f}), formats {b['round_tos']}, step s "
+        f"{[round(x, 3) for x in b['step_s']]}, memory peak {b['peak'] / 2**30:.2f} GiB")
+    launches = {k: out["a"]["launches"][k] + b["launches"][k] for k in out["a"]["launches"]}
+    say(f"   phase 22 launches {launches}; seconds (a) {clock['a']:.1f}, (b) {clock['b']:.1f}; "
+        f"peaks (a) {out['a']['peak'] / 2**30:.2f}, (b) {b['peak'] / 2**30:.2f} GiB")
+    return {"launches": launches, "seconds": clock, **out, "flash_err": out["a"]["flash_err"],
+            "monitor_err": b["monitor_err"]}
 
 
 def main() -> int:
@@ -6417,6 +6674,19 @@ def main() -> int:
         served[k] += rec21["launches"][k]
     say(f"   phase 21 took {time.perf_counter() - t21:.1f} s on {smi[0]}")
 
+    say(f"phase 22: main path — vision cross-attention and the audio encoder at their widths: "
+        f"(a) llama-3.2-vision-90b at {VLM_LAYERS} of its 100 layers served on the static path "
+        f"(cross gates from seed {VLM_GATE_SEED}; phase 7's requests, 0 and 1 on one prompt, "
+        f"each with 4,096 image tokens of width 1,280); (b) hubert-xlarge at its 48 layers in "
+        f"A²DTWP training, batch {AUDIO_BATCH} x {AUDIO_SEQ} frames, {AUDIO_STEPS} steps; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    vis22 = vision_path(torch, device)
+    for k in served:
+        served[k] += vis22["launches"][k]
+    say(f"   phase 22 took {time.perf_counter() - t22:.1f} s on {smi[0]}")
+
     kernels = []
     for name, src, replaces in (
         ("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:52"),
@@ -6436,8 +6706,9 @@ def main() -> int:
         "launches": served["flash_prefill"],
         "max_abs_err": max(f512["max_abs_err"], cut_flash_err, tps["errs"]["flash"],
                            feats["flash_err"], io["flash_err"], mesh18["flash_err"],
-                           fleet19["flash_err"], archs["flash_err"],
-                           flash["G 5"]["max_abs_err"], flash["G 16"]["max_abs_err"]),
+                           fleet19["flash_err"], archs["flash_err"], vis22["flash_err"],
+                           flash["G 5"]["max_abs_err"], flash["G 16"]["max_abs_err"],
+                           flash["G 8"]["max_abs_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
     })
@@ -6461,9 +6732,10 @@ def main() -> int:
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
                      + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]
                      + mesh18["launches"]["l2norm_sq"] + archs["launches"]["l2norm_sq"]
-                     + rec21["launches"]["l2norm_sq"]),
+                     + rec21["launches"]["l2norm_sq"] + vis22["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"],
-                           mesh18["monitor_err"], archs["monitor_err"], rec21["monitor_err"]),
+                           mesh18["monitor_err"], archs["monitor_err"], rec21["monitor_err"],
+                           vis22["monitor_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": t["library_ms"],
     })

@@ -1,13 +1,14 @@
-"""Model configuration (counterpart of ``repro.configs.base``, the
-dense-attention, MoE and recurrent fields).
+"""Model configuration (counterpart of ``repro.configs.base``).
 
-``ModelConfig`` describes one decoder: widths, the attention flavour, the
-channel mixer (a SwiGLU, or top-k experts with an optional dense
-residual), the block pattern of the recurrent families (``mlstm`` /
-``slstm`` for xLSTM, ``rglru`` / ``local`` for RecurrentGemma) and the
-precision-group layout that AWP and the ADT transfer read. The
-reference's cross-attention and audio fields come with their slice
-(ROADMAP item 11c). ``InputShape``
+``ModelConfig`` describes one model: widths, the attention flavour
+(causal, or bidirectional for the hubert encoder), the channel mixer (a
+SwiGLU, hubert's GeLU MLP, or top-k experts with an optional dense
+residual), the block pattern (``mlstm`` / ``slstm`` for xLSTM, ``rglru``
+/ ``local`` for RecurrentGemma; ``cross_attn_every`` makes every k-th
+layer a gated ``cross`` block over ``num_image_tokens`` image embeddings
+of width ``vision_dim``), the input stub (``embed_is_input_stub``: the
+inputs are ``vision_dim``-wide frame embeddings, not token ids) and the
+precision-group layout that AWP and the ADT transfer read. ``InputShape``
 and ``INPUT_SHAPES`` are the assigned workload geometries
 (``configs.shapes`` gives their input stand-ins).
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-ArchType = Literal["dense", "moe", "ssm", "hybrid"]
+ArchType = Literal["dense", "moe", "vlm", "ssm", "hybrid", "audio"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +57,10 @@ class ModelConfig:
     rope_theta: float = 1e4
     rotary_pct: float = 1.0
     sliding_window: int | None = None
-    causal: bool = True
+    causal: bool = True              # False -> encoder-only (hubert)
+    cross_attn_every: int = 0        # VLM: every k-th layer cross-attends
+    num_image_tokens: int = 0
+    vision_dim: int = 0              # stub frontend embedding width
 
     # --- channel mixer -----------------------------------------------------
     num_experts: int = 0
@@ -67,7 +71,7 @@ class ModelConfig:
 
     # --- recurrent families --------------------------------------------------
     # block_pattern: cycle of per-layer mixer kinds; "attn" | "local" |
-    # "mlstm" | "slstm" | "rglru".  Empty -> all "attn".
+    # "cross" | "mlstm" | "slstm" | "rglru".  Empty -> all "attn".
     block_pattern: tuple[str, ...] = ()
     lru_dim: int = 0                 # RG-LRU recurrence width (0 -> d_model)
     conv1d_width: int = 4            # temporal conv in RG-LRU block
@@ -76,6 +80,7 @@ class ModelConfig:
     # --- embeddings / output -------------------------------------------------
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    embed_is_input_stub: bool = False  # audio/vlm-frontend: inputs are embeddings
 
     # --- AWP ----------------------------------------------------------------
     num_precision_groups: int = 4    # AWP group granularity (paper: block level)
@@ -86,11 +91,6 @@ class ModelConfig:
     remat: bool = True               # activation checkpointing per layer (train)
 
     def __post_init__(self):
-        if self.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                f"(vlm and audio: ROADMAP item 11c)"
-            )
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_heads % max(self.num_kv_heads, 1):
@@ -104,7 +104,11 @@ class ModelConfig:
 
     @property
     def pattern(self) -> tuple[str, ...]:
-        return self.block_pattern or ("attn",)
+        if self.block_pattern:
+            return self.block_pattern
+        if self.cross_attn_every:
+            return ("attn",) * (self.cross_attn_every - 1) + ("cross",)
+        return ("attn",)
 
     @property
     def layers_per_group(self) -> int:
@@ -117,6 +121,16 @@ class ModelConfig:
     def num_groups(self) -> int:
         return self.num_layers // self.layers_per_group
 
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode (a recurrent state or a window variant);
+        encoder-only archs do not decode at all."""
+        return self.is_decoder
+
     def active_params(self) -> int:
         """Approximate active parameter count (MoE: ``top_k`` experts)."""
         return self._param_count(active_only=True)
@@ -128,8 +142,11 @@ class ModelConfig:
         """The reference's count, term for term: attention projections,
         experts (``top_k`` of them when ``active_only``) and the dense
         residual, the recurrent blocks' terms, embeddings; no norm scales,
-        router or biases. Its mLSTM and sLSTM terms undercount those
-        blocks' leaves (``models.init`` has their true sizes)."""
+        router, biases, gates, ``embed_in`` or ``img_proj``. Its mLSTM and
+        sLSTM terms undercount those blocks' leaves, and it prices a
+        SwiGLU on every cross block (which has no mixer) and three
+        matrices for hubert's two-matrix GeLU MLP (``models.init`` has
+        the true sizes)."""
         d, hd = self.d_model, self.head_dim
         h, kv = self.num_heads, self.num_kv_heads
         counts = {}
@@ -139,7 +156,7 @@ class ModelConfig:
         total = 0
         for kind, n in counts.items():
             n *= reps
-            if kind in ("attn", "local"):
+            if kind in ("attn", "local", "cross"):
                 total += n * (d * hd * h + 2 * d * hd * kv + hd * h * d)  # q, k, v, o
                 if self.num_experts:
                     e = self.top_k if active_only else self.num_experts

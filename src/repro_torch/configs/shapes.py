@@ -3,8 +3,8 @@
 
 The reference returns ``jax.ShapeDtypeStruct``s; here each input is a
 tensor on the ``meta`` device: shape and dtype, no storage, nothing
-allocated. The dense LM takes token ids (the reference's audio and vision
-stubs come with their model families).
+allocated. The modality frontends are stubs, as in the reference: audio
+supplies frame embeddings, VLM supplies patch embeddings.
 """
 from __future__ import annotations
 
@@ -19,13 +19,23 @@ def _spec(shape, dtype) -> torch.Tensor:
 
 def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """``{name: meta tensor}`` of one step's inputs at ``shape``: train
-    ``tokens`` and ``labels`` ``(B, S)``; prefill ``tokens`` ``(B, S)``;
-    decode ``tokens`` ``(B, 1)`` and a 0-d ``pos``; all int32."""
+    ``tokens`` (or, under the input stub, fp32 ``features`` ``(B, S,
+    vision_dim)``) and ``labels`` ``(B, S)``; prefill the same without
+    labels; a VLM's train and prefill also fp32 ``image_features`` ``(B,
+    num_image_tokens, vision_dim)``; decode ``tokens`` ``(B, 1)`` and a
+    0-d ``pos``; ids int32."""
     B, S = shape.global_batch, shape.seq_len
-    if shape.kind == "train":
-        return {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
-    if shape.kind == "prefill":
-        return {"tokens": _spec((B, S), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        if cfg.embed_is_input_stub:
+            batch = {"features": _spec((B, S, cfg.vision_dim), torch.float32)}
+        else:
+            batch = {"tokens": _spec((B, S), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = _spec((B, S), torch.int32)
+        if cfg.num_image_tokens:
+            batch["image_features"] = _spec((B, cfg.num_image_tokens, cfg.vision_dim),
+                                            torch.float32)
+        return batch
     if shape.kind == "decode":
         return {"tokens": _spec((B, 1), torch.int32), "pos": _spec((), torch.int32)}
     raise ValueError(shape.kind)

@@ -2,13 +2,15 @@
 
 ``convert_lm_params`` takes ``repro.models.init.init_params``'s params as
 numpy arrays (``{"groups": [{"p0": {...}, "p1": ...}], "embed", "head",
-"final_norm"}``, one ``p<i>`` per position of the block pattern) and
+"final_norm"}``, one ``p<i>`` per position of the block pattern; the
+input stub's ``embed_in`` in place of ``embed``, a VLM's ``img_proj``) and
 returns the port's tree on ``device``. The port keeps the reference's
 ``(in, out)`` weight layouts, its ``(dvh, H)`` mLSTM value columns and its
 per-group stacking, so this is an exact copy: same keys, shapes and
 values — the QKV biases, the router, the ``(E, ...)`` expert leaves and
 arctic's ``dense_*``, the ``mlstm`` / ``slstm`` / ``rglru`` leaves (the
-RG-LRU's ``lam`` constant among them) and the ``local`` attention blocks.
+RG-LRU's ``lam`` constant among them), the ``local`` attention blocks,
+the cross blocks' 0-d ``gate`` and the GeLU MLP's ``w_up`` / ``w_down``.
 
 ``convert_cnn_params`` takes ``repro.models.cnn.init_cnn``'s params as
 numpy arrays (``{"layers": {name: {key: array}}}``, as ``np.asarray`` gives
@@ -75,7 +77,11 @@ def convert_lm_params(cfg, params, *, device="cuda", tp: int = 1):
     if any(set(g) != keys for g in params["groups"]):
         raise ValueError(f"group keys {sorted(params['groups'][0])} do not match {cfg.name}'s "
                          f"{len(cfg.pattern)}-block pattern")
-    if tuple(np.shape(params["embed"])) != (eff_vocab(cfg, tp), cfg.d_model):
+    if cfg.embed_is_input_stub:
+        if tuple(np.shape(params["embed_in"])) != (cfg.vision_dim, cfg.d_model):
+            raise ValueError(f"embed_in {np.shape(params['embed_in'])} does not match "
+                             f"{cfg.name}")
+    elif tuple(np.shape(params["embed"])) != (eff_vocab(cfg, tp), cfg.d_model):
         raise ValueError(f"embed {np.shape(params['embed'])} does not match {cfg.name}")
     out = {k: walk(v) for k, v in params.items() if k != "groups"}
     return {"groups": [walk(g) for g in params["groups"]], **out}

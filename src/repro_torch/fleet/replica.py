@@ -37,14 +37,13 @@ from repro_torch.transport.fabric import unpack_kv_pages
 def check_fleet_arch(cfg) -> None:
     """The fleet serves pure-attention causal token models only: the
     family where paged prompt padding, prefix sharing and therefore
-    migrated prefill are causal-safe and slot-independent. Takes any
-    config with the reference's fields (those the port lacks count as
-    unset)."""
+    migrated prefill are causal-safe and slot-independent. Takes the
+    port's configs and the reference's alike."""
     if not cfg.causal:
         raise ReplicaError(f"{cfg.name} is encoder-only: nothing to serve")
-    if getattr(cfg, "num_image_tokens", 0) or getattr(cfg, "embed_is_input_stub", False):
+    if cfg.num_image_tokens or cfg.embed_is_input_stub:
         raise ReplicaError(f"{cfg.name}: fleet serving stages token payloads only")
-    if getattr(cfg, "num_experts", 0) or any(k != "attn" for k in cfg.pattern):
+    if cfg.num_experts or any(k != "attn" for k in cfg.pattern):
         raise ReplicaError(
             f"{cfg.name}: fleet serving needs a pure-attention pattern (MoE capacity "
             "dispatch and recurrent state couple positions, breaking migrated-prefill "

@@ -52,7 +52,11 @@ residual tiers is read at ``quality="wire"`` (the widths it was priced at;
 the reference's launcher reads every checkpoint at ``exact`` and raises on
 such an export). Speculative decoding and windows run on any mesh: the
 draft on the target's mesh, every rank's acceptance decided on the
-gathered logits.
+gathered logits. A vision arch (llama-3.2-vision-90b) serves with
+``--static`` only, each request with ``(num_image_tokens, vision_dim)``
+image features drawn from ``default_rng(0)`` in request order (the
+reference's draw); an encoder-only arch (hubert-xlarge) has no decode
+path and exits.
 """
 from __future__ import annotations
 
@@ -265,6 +269,17 @@ def restore(path: str, storage, spec_tree, mesh_cfg: MeshCfg):
     return load_storage(path, storage, quality=quality, spec_tree=spec_tree, mesh_cfg=mesh_cfg)
 
 
+def image_features_for(cfg, requests) -> dict | None:
+    """A vision arch's ``{rid: (num_image_tokens, vision_dim) fp32}``
+    image features, normals from one ``default_rng(0)`` in request order
+    (the reference launcher's draw); ``None`` for the other archs."""
+    if not cfg.num_image_tokens:
+        return None
+    frng = np.random.default_rng(0)
+    return {r.rid: frng.normal(0, 1, (cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
+            for r in requests}
+
+
 def run_static(cfg, mesh_cfg, mesh, spec_tree, storage, requests, plan, window) -> dict:
     """The static reference's streams. A MoE model's capacity dispatch ranks
     a whole batch's tokens per expert, so a grouped static prefill is no
@@ -303,6 +318,9 @@ def _serve(rank: int, args, params=None) -> dict:
                               cfg.vocab_size, shared_prefix=args.shared_prefix,
                               temperature=args.temperature, top_p=args.top_p,
                               top_k=args.top_k, seed=args.seed)
+    feats = image_features_for(cfg, requests)
+    if feats is not None:
+        requests = [dataclasses.replace(r, image_features=feats[r.rid]) for r in requests]
     lens = [len(r.prompt_ids) for r in requests]
     slots = args.max_slots or min(4, len(requests))
     window = args.window or None
@@ -348,6 +366,13 @@ def main(argv=None, *, params=None):
     ``--static``, its ``{rid: ids}``). ``params`` replaces the seeded
     weights (a port LM tree at the mesh's ``tp``)."""
     args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if not cfg.causal:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
+    if cfg.num_image_tokens and not args.static:
+        # image payloads are not token-stageable through the engine's boundary
+        raise SystemExit(f"{args.arch} has image inputs: serve it with --static (the "
+                         "continuous-batching engine stages token payloads only)")
     mesh_cfg = parse_mesh(args.mesh)
     if mesh_cfg.trivial:
         out = _serve(0, args, params)

@@ -8,7 +8,11 @@ stream, on one GPU or on an FSDP×TP mesh of ranks.
       --reduced --mesh 2x2 --steps 2 --policy oracle:2 --act-round-to 2 [--device cpu]
 
 Weights are random, from seed 0 (``repro_torch.models.init``); batches
-are ``synthetic_lm_batch(vocab, batch, seq, step)``, the reference's.
+are ``synthetic_lm_batch(vocab, batch, seq, step)``, the reference's (an
+audio arch's ``synthetic_feature_batch(vision_dim, vocab, batch, seq,
+step)``; a vision arch adds each step's ``image_features``, ``(batch,
+num_image_tokens, vision_dim)`` normals from one ``default_rng(0)`` drawn
+step after step, as the reference's launcher draws them).
 ``--mesh`` is ``DPxTP`` or ``PODSxDPxTP``: anything but ``1x1`` runs
 ``pods × dp × tp`` ranks, processes spawned by
 ``repro_torch.launch.mesh.spawn_ranks`` that meet in a gloo group (on
@@ -67,6 +71,7 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -76,7 +81,7 @@ from repro_torch.checkpoint.ckpt import (
     AsyncCheckpointer, load_checkpoint, load_extra, save_checkpoint,
 )
 from repro_torch.configs.registry import ARCHS, get_config, reduced
-from repro_torch.data.pipeline import synthetic_lm_batch
+from repro_torch.data.pipeline import synthetic_feature_batch, synthetic_lm_batch
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.shards import ShardReader, batches
 from repro_torch.dist.spec import (
@@ -230,8 +235,9 @@ def open_shards(args, cfg, plan, device, *, data_state=None, steps: int):
     analytic ingest bytes of ``steps`` batches priced from its position
     before the prefetcher reads ahead, and the prefetcher."""
     reader = ShardReader(args.data_dir, quality=args.data_quality, seed=0)
-    if reader.kind != "lm":
-        raise SystemExit(f"--data-dir holds {reader.kind!r} shards, arch needs 'lm'")
+    want_kind = "feature" if cfg.embed_is_input_stub else "lm"
+    if reader.kind != want_kind:
+        raise SystemExit(f"--data-dir holds {reader.kind!r} shards, arch needs {want_kind!r}")
     for key, want in (("vocab", cfg.vocab_size), ("seq", args.seq)):
         got = reader.meta.get(key)
         if got is not None and got != want:
@@ -239,7 +245,7 @@ def open_shards(args, cfg, plan, device, *, data_state=None, steps: int):
     if data_state is not None:
         reader.load_state(data_state)
     ingest = train_ingest_bytes(plan, cfg.vocab_size, kind=reader.kind, batch=args.batch,
-                                seq=args.seq, steps=steps, reader=reader)
+                                seq=args.seq, steps=steps, dim=cfg.vision_dim, reader=reader)
     prefetcher = Prefetcher(batches(reader, args.batch), kind=reader.kind, vocab=cfg.vocab_size,
                             plan=plan, depth=args.prefetch_depth, device=device)
     return reader, prefetcher, ingest
@@ -262,7 +268,11 @@ def _train(rank: int, args, params=None) -> dict:
     plan = plan_from_args(args, nrt)
     B, S = args.batch, args.seq
     opt = SGDConfig(lr=args.lr, momentum=0.9, weight_decay=1e-4)
-    batch_shapes = {"tokens": (B, S), "labels": (B, S)}
+    audio = cfg.embed_is_input_stub
+    batch_shapes = {"features": (B, S, cfg.vision_dim)} if audio else {"tokens": (B, S)}
+    batch_shapes["labels"] = (B, S)
+    if cfg.num_image_tokens:
+        batch_shapes["image_features"] = (B, cfg.num_image_tokens, cfg.vision_dim)
 
     def builder(round_tos):
         return make_train_step(cfg, mesh_cfg, mesh, spec_tree, opt, batch_shapes,
@@ -295,6 +305,7 @@ def _train(rank: int, args, params=None) -> dict:
                         extra={"data_state": data_state} if data_state else None,
                         async_ckpt=async_ckpt, mesh_cfg=mesh_cfg)
 
+    rngi = np.random.default_rng(0)  # the vision archs' image features, step after step
     t0, elapsed, step_tables = time.time(), [], []
     try:
         for step in range(start_step, args.steps):
@@ -303,9 +314,16 @@ def _train(rank: int, args, params=None) -> dict:
                 batch, io_log = prefetcher.next()
                 # the consumed batch's position: the reader is ahead by the queue
                 data_state = io_log["data_state"]
+            elif audio:
+                feats, labels = synthetic_feature_batch(cfg.vision_dim, cfg.vocab_size, B, S,
+                                                        step, device=device)
+                batch = {"features": feats, "labels": labels}
             else:
                 tokens, labels = synthetic_lm_batch(cfg.vocab_size, B, S, step, device=device)
                 batch = {"tokens": tokens, "labels": labels}
+            if cfg.num_image_tokens and "image_features" not in batch:
+                img = rngi.normal(0, 1, (B, cfg.num_image_tokens, cfg.vision_dim))
+                batch["image_features"] = torch.from_numpy(img.astype(np.float32)).to(device)
             extra = (_random.PRNGKey(step),) if plan.needs_rng else ()
             storage, mom, _ = trainer.run_step(storage, mom, batch, args.lr, *extra,
                                                io_log=io_log)

@@ -13,7 +13,14 @@ caches, one-token and verify-block decode over the block-paged pool
 through a page table, and the int8 variants of both layouts
 (:class:`QuantKVCache`, :class:`PagedQuantKVCache`: per-(token, head)
 fp32 scales, ``_quantize_kv``), with the QKV biases of the qwen2.5
-family. Cross-attention raises ``NotImplementedError`` (ROADMAP item 11c).
+family; bidirectional attention (the hubert encoder, ``cfg.causal``
+false: ``attend_tiled`` in every mode); and the gated cross-attention of
+the vision archs (``is_cross``): K and V from the image embeddings
+``kv_ext`` through ``env.psum_enter`` (never sequence-sharded), no
+rotary, no causal mask, the output scaled by ``tanh(gate)``; a prefill
+fills the cross block's pre-allocated cache with the image KV (``pos =
+N``, in the compute dtype even under int8 KV), and decode reads that
+cache through :func:`_cross_decode`.
 
 Training (``mode="train"``) runs the prefill's projections, qk-norm and
 RoPE with no cache, and always attends through :func:`attend_tiled`,
@@ -555,8 +562,9 @@ def mha(
     returns no cache."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mha mode={mode!r} (train, prefill, decode)")
-    if is_cross or kv_ext is not None:
-        raise NotImplementedError("cross-attention is not ported (ROADMAP item 11c)")
+    is_cross = is_cross or kv_ext is not None
+    if is_cross and mode != "decode" and kv_ext is None:
+        raise ValueError(f"cross-attention {mode} needs the image KV source kv_ext")
     paged = isinstance(cache, PAGED)
     if mode == "train" and cache is not None:
         raise ValueError("train mode takes no KV cache")
@@ -584,25 +592,37 @@ def mha(
 
     xin = env.enter(x)
     B, S, _ = xin.shape
-    q, k, v = xin @ w["wq"], xin @ w["wk"], xin @ w["wv"]
+    q = xin @ w["wq"]
     if cfg.qkv_bias:  # the rank's slices on a TP rank, as the weights
-        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+        q = q + w["bq"]
     q = q.reshape(B, S, Hq_l, hd)
-    k = k.reshape(B, S, Kv_l, hd)
-    v = v.reshape(B, S, Kv_l, hd)
+    k = v = None  # a cross block's decode reads its image KV from the cache
+    if not (is_cross and mode == "decode"):
+        # image KV are replicated (never sequence-sharded): the psum pair
+        kv_src = env.psum_enter(kv_ext) if is_cross else xin
+        k, v = kv_src @ w["wk"], kv_src @ w["wv"]
+        if cfg.qkv_bias:
+            k, v = k + w["bk"], v + w["bv"]
+        k = k.reshape(B, kv_src.shape[1], Kv_l, hd)
+        v = v.reshape(B, kv_src.shape[1], Kv_l, hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, w["q_norm"], cfg.norm_eps)
-        k = head_rms_norm(k, w["k_norm"], cfg.norm_eps)
-    positions = _positions(pos_offset, S, xin.device)
-    q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
+        if k is not None:
+            k = head_rms_norm(k, w["k_norm"], cfg.norm_eps)
+    if not is_cross:
+        positions = _positions(pos_offset, S, xin.device)
+        q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
     qg = q.reshape(B, S, Kv_l, G, hd)
+    causal = cfg.causal and not is_cross
 
     if mode == "train":  # no backward kernel: never the flash branch
         out = attend_tiled(
-            qg, k, v, causal=cfg.causal, window=window, q_offset=0,  # q and k: one sequence
+            qg, k, v, causal=causal, window=window, q_offset=0,  # q and k: one sequence
             chunk=min(env.attn_chunk, S), causal_skip=env.causal_skip,
         )
+    elif is_cross and mode == "decode":
+        out = _cross_decode(qg, cache)
     elif paged:
         _paged_write(cache, k, v, page_table)
         out = attend_decode_paged(qg, cache, page_table)
@@ -633,26 +653,50 @@ def mha(
         out = attend_decode(qg, cache, ring=ring, window=window)
     else:
         C = cache.capacity
-        causal = cfg.causal
         q_off = int(pos_offset) if isinstance(pos_offset, int) else 0
-        if _flash_prefill_viable(causal, window, False, pos_offset, qg, k):
+        if _flash_prefill_viable(causal, window, is_cross, pos_offset, qg, k):
             out = _flash_prefill_call(qg, k, v, q_offset=q_off)
         else:
             out = attend_tiled(
                 qg, k, v, causal=causal, window=window, q_offset=q_off,
                 chunk=min(env.attn_chunk, S), causal_skip=env.causal_skip,
             )
-        # C < S keeps the trailing C tokens, ROLLED so that absolute
-        # position p sits at slot p % C: the layout of the ring decode's
-        # mask and of its write index pos % C
-        if C >= S:
-            for leaf, val in zip(leaves(cache), _values(cache, k, v)):
-                leaf[:, :S] = val
+        if is_cross:
+            # the static image KV, all N tokens (the cache's capacity is N):
+            # the reference's KVCache(k, v, N)
+            N = k.shape[1]
+            if C != N or isinstance(cache, QUANT):
+                raise ValueError(f"a cross block's cache holds its {N} image tokens in the "
+                                 f"compute dtype; got capacity {C}, {type(cache).__name__}")
+            cache.k.copy_(k)
+            cache.v.copy_(v)
+            cache.pos.fill_(N)
         else:
-            for leaf, val in zip(leaves(cache), _values(cache, k[:, S - C:], v[:, S - C:])):
-                leaf.copy_(torch.roll(val, S % C, dims=1))
-        cache.pos.fill_(S)
+            # C < S keeps the trailing C tokens, ROLLED so that absolute
+            # position p sits at slot p % C: the layout of the ring decode's
+            # mask and of its write index pos % C
+            if C >= S:
+                for leaf, val in zip(leaves(cache), _values(cache, k, v)):
+                    leaf[:, :S] = val
+            else:
+                for leaf, val in zip(leaves(cache), _values(cache, k[:, S - C:], v[:, S - C:])):
+                    leaf.copy_(torch.roll(val, S % C, dims=1))
+            cache.pos.fill_(S)
 
     out = out.reshape(B, S, Hq_l * hd)
     y = out @ w["wo"]
+    if is_cross and "gate" in w:
+        y = torch.tanh(w["gate"]) * y
     return env.exit(y), cache
+
+
+def _cross_decode(qg, cache: KVCache):
+    """Decode-time gated cross attention over the static image KV that
+    the prefill left in the cache: fp32 scores, softmax over every image
+    token, the output cast to q's dtype (the reference's op order)."""
+    scale = qg.shape[-1] ** -0.5
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                     cache.k.to(torch.float32)) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bkgqh", p, cache.v.to(torch.float32)).to(qg.dtype)
+    return out.permute(0, 3, 1, 2, 4)

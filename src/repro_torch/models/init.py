@@ -1,5 +1,6 @@
 """Parameter initialization + metadata for the LMs: attention, dense and
-MoE, and the recurrent families (counterpart of ``repro.models.init``).
+MoE, the recurrent families, vision cross-attention and the audio encoder
+(counterpart of ``repro.models.init``).
 
 ``init_params(cfg, seed, device, tp)`` returns ``(params, metas)``, two
 trees of the reference's structure: ``{"groups": [{"p0": {"attn": {...},
@@ -8,10 +9,16 @@ trees of the reference's structure: ``{"groups": [{"p0": {"attn": {...},
 stacked over its repetitions in the group (leading dim
 ``layers_per_group / len(pattern)``). An attention block (``attn`` or
 ``local``) has ``attn`` and a mixer ``mix``: the SwiGLU's ``w_gate`` /
-``w_up`` / ``w_down``, or under ``num_experts`` the router ``(d, E)`` and
+``w_up`` / ``w_down`` (an ``audio`` arch's GeLU MLP: ``w_up`` /
+``w_down``), or under ``num_experts`` the router ``(d, E)`` and
 the experts' ``(E, d, ff)`` / ``(E, ff, d)`` leaves (with
 ``moe_dense_ff``, arctic's ``dense_*`` residual); ``qkv_bias`` adds
-``bq`` / ``bk`` / ``bv``. An ``mlstm`` block has ``mlstm``, an ``slstm``
+``bq`` / ``bk`` / ``bv``. A ``cross`` block has ``attn`` only, with a
+0-d ``gate`` (zero, as the reference initialises it: ``tanh(0) = 0``, so
+a fresh cross block adds nothing). Under the input stub the top level
+has ``embed_in`` ``(vision_dim, d)`` instead of ``embed``; a VLM adds
+``img_proj`` ``(vision_dim, d)``; both replicated and compressed
+(``REPLICATED_BIG``). An ``mlstm`` block has ``mlstm``, an ``slstm``
 block ``slstm`` (replicated over the model group), an ``rglru`` block
 ``rglru`` and a SwiGLU ``mix``; the RG-LRU's ``lam`` is the reference's
 constant, drawn from ``np.random.default_rng(0)``. Shapes and metas
@@ -93,7 +100,7 @@ class Maker:
         return w * (keep[None, :] if dim == 1 else keep[:, None]).to(w.dtype)
 
 
-def _attn_params(mk: Maker, cfg: ModelConfig, tp: int):
+def _attn_params(mk: Maker, cfg: ModelConfig, tp: int, is_cross: bool = False):
     d, hd = cfg.d_model, cfg.head_dim
     H, Kv = eff_heads(cfg, tp), eff_kv_heads(cfg, tp)
     p = {
@@ -122,11 +129,26 @@ def _attn_params(mk: Maker, cfg: ModelConfig, tp: int):
         p["k_norm"] = mk.ones((hd,))
         m["q_norm"] = ParamMeta(tp_dim=None, compress=False, grad_sync_model=True)
         m["k_norm"] = ParamMeta(tp_dim=None, compress=False, grad_sync_model=True)
+    if is_cross:
+        p["gate"] = mk.zeros(())
+        m["gate"] = ParamMeta(tp_dim=None, compress=False, grad_sync_model=True)
     return p, m
 
 
-def _mlp_params(mk: Maker, cfg: ModelConfig):
+def _mlp_params(mk: Maker, cfg: ModelConfig, audio: bool = False):
     d, ff = cfg.d_model, cfg.d_ff
+    if audio:
+        p = {
+            "ln": mk.ones((d,)),
+            "w_up": mk.normal((d, ff)),
+            "w_down": mk.out_proj((ff, d)),
+        }
+        m = {
+            "ln": SEQ_NORM,
+            "w_up": ParamMeta(tp_dim=1),
+            "w_down": ParamMeta(tp_dim=0),
+        }
+        return p, m
     p = {
         "ln": mk.ones((d,)),
         "w_gate": mk.normal((d, ff)),
@@ -267,13 +289,15 @@ def _rglru_params(mk: Maker, cfg: ModelConfig):
 
 def _block_params(mk: Maker, kind: str, cfg: ModelConfig, tp: int):
     """(params, metas) of one block of the pattern kind ``kind``."""
-    if kind in ("attn", "local"):
-        pa, ma = _attn_params(mk, cfg, tp)
+    if kind in ("attn", "local", "cross"):
+        pa, ma = _attn_params(mk, cfg, tp, is_cross=kind == "cross")
         p, m = {"attn": pa}, {"attn": ma}
+        if kind == "cross":  # no channel mixer
+            return p, m
         if cfg.num_experts:
             p["mix"], m["mix"] = _moe_params(mk, cfg)
         elif cfg.d_ff:
-            p["mix"], m["mix"] = _mlp_params(mk, cfg)
+            p["mix"], m["mix"] = _mlp_params(mk, cfg, audio=cfg.arch_type == "audio")
         return p, m
     if kind == "mlstm":
         p, m = _mlstm_params(mk, cfg)
@@ -316,11 +340,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1):
         groups_m.append({f"p{pi}": m for pi, m in enumerate(metas)})
 
     d, V = cfg.d_model, eff_vocab(cfg, tp)
-    params = {"groups": groups_p, "embed": mk.normal((V, d))}
-    metas = {"groups": groups_m, "embed": ParamMeta(tp_dim=0, tp_units=V)}
+    params, metas = {"groups": groups_p}, {"groups": groups_m}
+    if cfg.embed_is_input_stub:
+        params["embed_in"] = mk.normal((cfg.vision_dim, d))
+        metas["embed_in"] = REPLICATED_BIG
+    else:
+        params["embed"] = mk.normal((V, d))
+        metas["embed"] = ParamMeta(tp_dim=0, tp_units=V)
     if not cfg.tie_embeddings:
         params["head"] = mk.normal((d, V))
         metas["head"] = ParamMeta(tp_dim=1, tp_units=V)
+    if cfg.num_image_tokens:
+        params["img_proj"] = mk.normal((cfg.vision_dim, d))
+        metas["img_proj"] = REPLICATED_BIG
     params["final_norm"] = mk.ones((d,))
     metas["final_norm"] = SEQ_NORM
     return params, metas

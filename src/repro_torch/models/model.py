@@ -4,7 +4,11 @@ with the config's sliding window) with a SwiGLU or a mixture of experts
 (:mod:`repro_torch.models.moe`) as the channel mixer, and the recurrent
 blocks of the block pattern: xLSTM's ``mlstm`` / ``slstm``
 (:mod:`repro_torch.models.ssm`) and RecurrentGemma's ``rglru``
-(:mod:`repro_torch.models.rglru`, followed by the SwiGLU).
+(:mod:`repro_torch.models.rglru`, followed by the SwiGLU); the vision
+archs' gated ``cross`` blocks (attention over the image embeddings
+``image_features @ img_proj``, no channel mixer) and the hubert encoder
+(bidirectional attention with a GeLU MLP, its inputs ``features @
+embed_in`` through the input stub).
 Under tensor parallelism (``env.model_group``) every weight a function
 sees is the rank's TP slice: heads, ``d_ff`` (each expert's under the
 MoE ``tp`` layout, whole experts under ``ep``) and the vocabulary are
@@ -68,7 +72,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.env import Env
 from repro_torch.models.layers import embed_lookup_vp, rms_norm
 from repro_torch.models.loss import lm_loss
-from repro_torch.models.mlp import swiglu
+from repro_torch.models.mlp import gelu_mlp, swiglu
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import RGLRUState, init_rglru_state, rglru_block
 
@@ -89,13 +93,16 @@ def _window(cfg: ModelConfig, window_override, kind: str = "attn"):
 
 def _channel_mix(x, w, cfg: ModelConfig, env: Env):
     """Post-attention channel mixer -> ``(delta, aux)``: the experts
-    (``num_experts``) or a SwiGLU (aux 0.0); none when ``d_ff == 0``."""
+    (``num_experts``), an ``audio`` arch's GeLU MLP or a SwiGLU (aux 0.0);
+    none when ``d_ff == 0``."""
     if "mix" not in w:
         return torch.zeros_like(x), 0.0
     wm = w["mix"]
     xn = rms_norm(x, wm["ln"], cfg.norm_eps)
     if cfg.num_experts:
         return moe_block(xn, wm, cfg, env)
+    if cfg.arch_type == "audio":
+        return gelu_mlp(xn, wm, env), 0.0
     return swiglu(xn, wm, env), 0.0
 
 
@@ -108,12 +115,21 @@ def apply_block(
     *,
     mode: str,
     cache: Any = None,
+    img_kv=None,
     window_override=None,
     pos_offset=0,
     page_table=None,
 ):
     """One block of the pattern. Returns (x', cache', aux), ``aux`` the
-    MoE auxiliary loss (0.0 for a SwiGLU and the recurrent blocks)."""
+    MoE auxiliary loss (0.0 for a SwiGLU and the recurrent blocks). A
+    ``cross`` block attends over ``img_kv`` (``(B, N, d)``; ``None`` in
+    decode, which reads the cache) and takes no window."""
+    if kind == "cross":
+        wa = w["attn"]
+        xn = rms_norm(x, wa["ln"], cfg.norm_eps)
+        y, cache = mha(xn, wa, cfg, env, mode=mode, cache=cache, kv_ext=img_kv,
+                       is_cross=True, pos_offset=pos_offset)
+        return x + y, cache, 0.0  # no channel mixer
     if kind in ("attn", "local"):
         wa = w["attn"]
         xn = rms_norm(x, wa["ln"], cfg.norm_eps)
@@ -134,7 +150,7 @@ def apply_block(
         x = x + y
         dy, _ = _channel_mix(x, w, cfg, env)
         return x + dy, cache, 0.0
-    raise ValueError(f"block kind {kind!r} is not ported (cross: ROADMAP item 11c)")
+    raise ValueError(kind)
 
 
 def run_group(
@@ -146,6 +162,7 @@ def run_group(
     mode: str,
     mat_fn: Callable[..., dict],  # (pattern key, rep storage, rep=) -> weights
     caches: Any = None,      # {p<i>: stacked cache nodes} or None
+    img_kv=None,             # (B, N, d) image KV source of the cross blocks
     window_override=None,
     pos_offset=0,
     page_table=None,         # (B, n_pages) int32 — paged decode only
@@ -166,7 +183,7 @@ def run_group(
             w = mat_fn(key, _index(group_params[key], rep), rep=rep)
             c_in = caches[key].rep(rep) if caches is not None else None
             x, _, aux = apply_block(
-                kind, x, w, cfg, env, mode=mode, cache=c_in,
+                kind, x, w, cfg, env, mode=mode, cache=c_in, img_kv=img_kv,
                 window_override=window_override, pos_offset=pos_offset,
                 page_table=page_table,
             )
@@ -201,13 +218,26 @@ def _index(tree, i):
 
 
 def _embed(params, batch, cfg: ModelConfig, env: Env, mat_top):
-    """Vocab-parallel token embedding in the env's activation layout:
+    """Token or feature embedding in the env's activation layout. Tokens:
     each model rank looks up its vocabulary slice, and ``env.exit`` sums
     the rows over the model group (under ``seq_parallel`` a
-    reduce-scatter onto this rank's sequence shard)."""
+    reduce-scatter onto this rank's sequence shard). The input stub:
+    ``features @ embed_in``, replicated, then sliced to the rank's
+    sequence shard under ``seq_parallel``."""
+    if cfg.embed_is_input_stub:
+        return env.seq_shard(batch["features"] @ mat_top("embed_in"))
     table = mat_top("embed")  # (V / tp, d)
     vocab_start = env.model_rank() * table.shape[0]
     return embed_lookup_vp(batch["tokens"], table, vocab_start, env)
+
+
+def _img_kv(params, batch, cfg: ModelConfig, env: Env, mat_top):
+    """The cross blocks' image KV source ``image_features @ img_proj``
+    ``(B, N, d)``, replicated over the model group; ``None`` without
+    image tokens."""
+    if not cfg.num_image_tokens:
+        return None
+    return batch["image_features"] @ mat_top("img_proj")
 
 
 def _logits(x, params, cfg: ModelConfig, env: Env, mat_top):
@@ -228,10 +258,11 @@ def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
     divides by the token count and adds the MoE auxiliary loss ``aux``
     (summed over every layer; 0.0 for a dense model)."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
+    img_kv = _img_kv(params, batch, cfg, env, mat_top)
     aux_total = 0.0
     for g, gp in enumerate(params["groups"]):
         x, _, aux = run_group(x, gp, cfg, env, mode="train",
-                              mat_fn=functools.partial(mat_group, g))
+                              mat_fn=functools.partial(mat_group, g), img_kv=img_kv)
         aux_total = aux_total + aux
     logits = _logits(x, params, cfg, env, mat_top)
     vocab_start = env.model_rank() * logits.shape[-1]
@@ -253,13 +284,14 @@ def forward_prefill(params, batch, cfg, env, *, mat_group, mat_top,
     causal-safe for pure-attention patterns without experts: the serve
     engine pads MoE prompts no more than the reference's does."""
     x = _embed(params, batch, cfg, env, mat_top).to(env.dtype)
+    img_kv = _img_kv(params, batch, cfg, env, mat_top)
     B, S = x.shape[:2]
     caches = init_caches(cfg, env, B, cache_capacity, env.dtype, device=x.device, context=S,
                          window_override=window_override)
     for g, gp in enumerate(params["groups"]):
         x, _, _ = run_group(
             x, gp, cfg, env, mode="prefill",
-            mat_fn=functools.partial(mat_group, g), caches=caches[g],
+            mat_fn=functools.partial(mat_group, g), caches=caches[g], img_kv=img_kv,
         )
     if env.seq_parallel_active:
         if "last" in batch:
@@ -328,9 +360,14 @@ def _stack(one, reps: int):
 def _block_cache(kind, cfg: ModelConfig, env: Env, batch, capacity, dtype, *, per_slot,
                  device, kv_l, tp, context=None, window_override=None):
     """One block's cache: the attention KV (a ``local`` block's capacity
-    capped at the config's window, where it rings), or the recurrent
-    state at the rank's widths (``tp``: the mLSTM's value columns and the
-    RG-LRU's channels split over the model group)."""
+    capped at the config's window, where it rings; a ``cross`` block's
+    the ``max(N, 1)`` image tokens, in ``dtype`` under int8 KV too, with a
+    scalar ``pos``), or the recurrent state at the rank's widths (``tp``:
+    the mLSTM's value columns and the RG-LRU's channels split over the
+    model group)."""
+    if kind == "cross":
+        return init_cache(batch, max(cfg.num_image_tokens, 1), kv_l, cfg.head_dim, dtype,
+                          device=device)
     if kind in ("attn", "local"):
         cap = min(capacity, cfg.sliding_window) if kind == "local" else capacity
         if context is not None:
@@ -348,7 +385,7 @@ def _block_cache(kind, cfg: ModelConfig, env: Env, batch, capacity, dtype, *, pe
     if kind == "rglru":
         r_l = max(1, (cfg.lru_dim or cfg.d_model) // tp)
         return init_rglru_state(batch, r_l, cfg.conv1d_width, dtype, device=device)
-    raise ValueError(f"block kind {kind!r} is not ported (cross: ROADMAP item 11c)")
+    raise ValueError(kind)
 
 
 def init_caches(cfg: ModelConfig, env: Env, batch: int, capacity: int, dtype,
@@ -406,9 +443,9 @@ def init_paged_caches(cfg: ModelConfig, env: Env, batch: int, num_pages: int,
                     raise ValueError("sliding-window blocks have no paged layout")
                 one = init_paged_cache(batch, num_pages, page_size, kv_l, cfg.head_dim,
                                        torch.int8 if env.int8_kv else dtype, device=device)
-            elif kind == "local":
+            elif kind in ("local", "cross"):
                 raise ValueError(f"{kind!r} blocks have no paged layout (sliding-window "
-                                 "rings stay contiguous)")
+                                 "rings and image KV stay contiguous)")
             else:
                 one = _block_cache(kind, cfg, env, batch, 1, dtype, per_slot=True,
                                    device=device, kv_l=kv_l, tp=tp)

@@ -6,8 +6,9 @@ generate_static`, the launcher), so a static-vs-engine check compares
 identical request objects. A request carries its prompt ids, its stop
 conditions and its :class:`~repro_torch.plan.SamplingParams` (greedy, or
 seeded sampling under the reference's key-fold contract,
-:mod:`repro_torch.serve.sampling`). Vision features (cross-attention
-archs, ROADMAP item 11c) raise ``NotImplementedError``.
+:mod:`repro_torch.serve.sampling`), and optionally its image features
+(a ``(num_image_tokens, vision_dim)`` array) for the vision
+cross-attention archs, which serve on the static path only.
 """
 from __future__ import annotations
 
@@ -44,15 +45,10 @@ class Request:
             sampling = SamplingParams()
         if not isinstance(sampling, SamplingParams):
             raise ValueError(f"request {rid}: sampling must be a SamplingParams")
-        if image_features is not None:
-            raise NotImplementedError(
-                f"request {rid}: image features (vision cross-attention) are not ported "
-                "(ROADMAP item 11c)"
-            )
         object.__setattr__(self, "rid", rid)
         object.__setattr__(self, "prompt_ids", prompt_ids)
         object.__setattr__(self, "max_new", int(max_new))
         object.__setattr__(self, "eos_id", eos_id)
         object.__setattr__(self, "sampling", sampling)
-        object.__setattr__(self, "image_features", None)
+        object.__setattr__(self, "image_features", image_features)
 

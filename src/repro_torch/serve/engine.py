@@ -409,6 +409,11 @@ class ServeEngine:
                 )
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
+        if cfg.num_image_tokens or cfg.embed_is_input_stub:
+            raise ValueError(
+                f"{cfg.name}: the serve engine stages token payloads only "
+                "(no image/feature requests)"
+            )
         if cfg.num_experts and max_slots * cfg.top_k > 8:
             warnings.warn(
                 f"{cfg.name}: max_slots={max_slots} x top_k={cfg.top_k} "
@@ -1128,6 +1133,7 @@ def generate_static(
     *,
     plan: PrecisionPlan,
     window: int | None = None,
+    image_features=None,
 ) -> dict[int, list[int]]:
     """Classic static batching, the engine's reference: requests are
     grouped by prompt length, each group runs one batched prefill into a
@@ -1141,8 +1147,32 @@ def generate_static(
     attention (the engine's ring holds the same tokens). On a mesh a
     group's rows are sharded over the data ranks when they split evenly,
     and a length the model group does not divide takes the psum layout,
-    as in the reference, and a window masks the rank's heads alike."""
+    as in the reference, and a window masks the rank's heads alike.
+
+    A vision arch's requests carry their image features
+    (``Request.image_features``, ``(num_image_tokens, vision_dim)``), which
+    a group stacks into its prefill's ``image_features`` batch; a request
+    without them raises ``ValueError``. The reference's older
+    ``image_features={rid: array}`` keyword still works, behind a
+    ``DeprecationWarning``."""
     plan = plan.broadcast(cfg.num_groups + 1)
+    if image_features is not None:
+        warnings.warn(
+            "generate_static(image_features=...) is deprecated — set "
+            "Request.image_features per request instead",
+            DeprecationWarning, stacklevel=2,
+        )
+
+    def feats(r):
+        if r.image_features is not None:
+            return r.image_features
+        return None if image_features is None else image_features.get(r.rid)
+
+    if cfg.num_image_tokens and any(feats(r) is None for r in requests):
+        raise ValueError(
+            f"{cfg.name} needs image_features per request (Request.image_features, "
+            f"({cfg.num_image_tokens}, {cfg.vision_dim}) array)"
+        )
     device = storage["embed"].device
     groups: dict[int, list[Request]] = {}
     for r in requests:
@@ -1172,8 +1202,12 @@ def generate_static(
                 return sample_tokens(lg[:, -1], cfg.vocab_size, temp, topp, topk, seed,
                                      np.full((len(rows),), step, np.int32))
 
-        toks = torch.tensor([r.prompt_ids for r in reqs], dtype=torch.int32, device=device)
-        logits, caches = prefill(storage, {"tokens": toks})
+        batch = {"tokens": torch.tensor([r.prompt_ids for r in reqs], dtype=torch.int32,
+                                        device=device)}
+        if cfg.num_image_tokens:
+            batch["image_features"] = torch.from_numpy(
+                np.stack([np.asarray(feats(r), np.float32) for r in reqs])).to(device)
+        logits, caches = prefill(storage, batch)
         tok = pick(logits, 0)[:, None].to(torch.int32)
         streams = [tok.cpu().numpy()[:, 0]]
         for i in range(gen - 1):

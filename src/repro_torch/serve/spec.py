@@ -66,10 +66,14 @@ __all__ = [
 
 def check_spec_arch(cfg: ModelConfig, *, window=None) -> None:
     """Speculative decoding serves pure-attention causal token models —
-    the family where a k-token block write + pos rollback is exact (ring
-    caches physically overwrite on advance)."""
+    the family where a k-token block write + pos rollback is exact
+    (recurrent state and MoE capacity dispatch couple positions, image and
+    feature payloads are not token-stageable, and ring caches physically
+    overwrite on advance)."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
+    if cfg.num_image_tokens or cfg.embed_is_input_stub:
+        raise ValueError(f"{cfg.name}: speculative decoding stages token payloads only")
     if cfg.num_experts or any(kind != "attn" for kind in cfg.pattern):
         raise ValueError(
             f"{cfg.name}: speculative decoding needs a pure-attention "

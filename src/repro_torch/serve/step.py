@@ -102,8 +102,9 @@ def init_serve_caches(
     value dim, the RG-LRU's channels, the sLSTM's state whole — and its
     ``batch / dshards`` rows when the batch is sharded; a page pool keeps
     every slot). ``int8_kv`` gives int8 KV leaves with fp32 scales per
-    (slot or page row, position, local kv head); recurrent states keep
-    ``dtype``. ``paged_pages`` +
+    (slot or page row, position, local kv head); recurrent states and the
+    cross blocks' image KV (``num_image_tokens`` rows of local kv heads, a
+    scalar ``pos``) keep ``dtype``. ``paged_pages`` +
     ``page_size`` select ``model.init_paged_caches`` (``capacity`` is then
     not read)."""
     paged = paged_pages is not None

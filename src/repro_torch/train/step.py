@@ -106,7 +106,10 @@ def fold_sites(cfg, spec_tree, policies) -> dict:
     uses a key (:func:`~repro_torch.plan.policy_uses_rng`), DIST or not,
     in the order its forward traces them: the embedding; then each
     group's layers, a pattern key's leaves in jax's order (sorted keys);
-    the final norm; the head (or, tied, the embedding again). A group's
+    the final norm; the head (or, tied, the embedding again). The input
+    stub's ``embed_in`` takes the embedding's place, and a VLM's
+    ``img_proj`` comes right after it (its ``_img_kv`` runs before the
+    groups). A group's
     layer body is traced once under ``cfg.scan_layers`` (the scan), and
     also under ``cfg.remat`` (``jax.checkpoint`` traces the body once and
     reuses it for every repetition of the group), so then every layer of
@@ -116,7 +119,10 @@ def fold_sites(cfg, spec_tree, policies) -> dict:
     site, the same key. Top-level sites are ``("top", name, n)``, the
     ``n``-th materialization of ``name`` in the forward."""
     sites, top = [], policies[-1]
-    tops = ["embed", "final_norm", "embed" if cfg.tie_embeddings else "head"]
+    first = ["embed_in" if cfg.embed_is_input_stub else "embed"]
+    if cfg.num_image_tokens:
+        first.append("img_proj")
+    last = ["final_norm", "embed" if cfg.tie_embeddings else "head"]
     seen: dict = {}
 
     def add_top(name):
@@ -124,7 +130,8 @@ def fold_sites(cfg, spec_tree, policies) -> dict:
         if policy_uses_rng(top):
             sites.append(("top", name, seen[name]))
 
-    add_top(tops[0])
+    for name in first:
+        add_top(name)
     for g, gs in enumerate(spec_tree["groups"]):
         if not policy_uses_rng(policies[g]):
             continue
@@ -133,7 +140,7 @@ def fold_sites(cfg, spec_tree, policies) -> dict:
             for pi in range(len(cfg.pattern)):
                 key = f"p{pi}"
                 sites += [("group", g, rep, key, p) for p in _jax_paths(gs[key])]
-    for name in tops[1:]:
+    for name in last:
         add_top(name)
     return {site: i for i, site in enumerate(sites)}
 
@@ -304,13 +311,14 @@ def mixer_boundaries(cfg, seq_parallel: bool = False,
 def _kind_boundaries(kind: str, cfg, seq_parallel: bool, ep_split: bool) -> tuple[int, int]:
     """``(forward, backward)`` TP-region boundaries of one layer of the
     pattern kind ``kind``: an attention block's or RG-LRU's exit and enter
-    plus its channel mixer's (:func:`mixer_boundaries`); an mLSTM's exit
-    and enter; none for the sLSTM, which runs replicated (its
-    ``seq_unshard`` / ``seq_shard`` are ``relayout``, priced by no
-    table)."""
+    plus its channel mixer's (:func:`mixer_boundaries`); an mLSTM's or a
+    cross block's exit and enter (a cross block has no mixer; its image
+    KV's ``psum_enter`` is :func:`image_kv_enters`'); none for the sLSTM,
+    which runs replicated (its ``seq_unshard`` / ``seq_shard`` are
+    ``relayout``, priced by no table)."""
     if kind == "slstm":
         return 0, 0
-    if kind == "mlstm":
+    if kind in ("mlstm", "cross"):
         return 1, 1
     fwd, bwd = mixer_boundaries(cfg, seq_parallel, ep_split)
     return 1 + fwd, 1 + bwd
@@ -327,13 +335,23 @@ def layer_boundaries(cfg, seq_parallel: bool = False, ep_split: bool = True) -> 
 def tp_boundaries(cfg, seq_parallel: bool = False, ep_split: bool = True) -> int:
     """TP-region boundaries of one train step of the LM, each moving one
     ``(B / dshards, S, d)`` activation over the model group: the
-    embedding's exit and every block's exit (attention, RG-LRU or mLSTM,
-    and the mixer's, :func:`layer_boundaries`) in the forward, every
-    block's enter and the logits' enter in the backward. Under the
+    embedding's exit and every block's exit (attention, cross, RG-LRU or
+    mLSTM, and the mixer's, :func:`layer_boundaries`) in the forward,
+    every block's enter and the logits' enter in the backward. Under the
     sequence-parallel layout each is one gather/scatter pair, as
-    :meth:`PrecisionPlan.wire_table` prices it."""
+    :meth:`PrecisionPlan.wire_table` prices it. The input stub has no
+    embedding exit (``features @ embed_in`` is replicated; its slice to
+    the sequence shard is ``relayout``), so one boundary less."""
     fwd, bwd = layer_boundaries(cfg, seq_parallel, ep_split)
-    return fwd + bwd + 2
+    return fwd + bwd + (1 if cfg.embed_is_input_stub else 2)
+
+
+def image_kv_enters(cfg) -> int:
+    """The image KV's ``psum_enter``s of one train step: one a cross
+    block, each an all-reduce over the model group in the backward of a
+    ``(B / dshards, N, d)`` cotangent (the ``activations`` class under
+    either layout: the image KV is never sequence-sharded)."""
+    return cfg.num_layers // len(cfg.pattern) * cfg.pattern.count("cross")
 
 
 def remat_tp_collectives(cfg) -> tuple[int, int]:
@@ -364,7 +382,9 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
     """Per-class wire bytes of one train step of ``make_train_step`` on a
     rank: the plan's :meth:`~repro_torch.plan.PrecisionPlan.wire_table`
     with the step's TP-region boundaries (:func:`tp_boundaries`) at ``act
-    elems = (B / dshards) · S · d``; under ``remat`` the recomputed
+    elems = (B / dshards) · S · d``, plus the cross blocks' image-KV
+    enters (:func:`image_kv_enters`) at ``(B / dshards) · N · d``; under
+    ``remat`` the recomputed
     forward's collectives are added by the same policy formulas: the
     group leaves' gathers (the top-level leaves are gathered outside the
     recomputed layers) and :func:`remat_tp_collectives`; with
@@ -387,6 +407,11 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
     extra = {}
     if cfg.remat and n > 1:
         extra["weights"] = plan.wire_table(elems[:-1] + [0], n, training=False)["weights"]
+    if tp > 1 and image_kv_enters(cfg):
+        act = plan.activations or CompressionPolicy()
+        img_elems = (B // n) * cfg.num_image_tokens * cfg.d_model
+        extra["activations"] = image_kv_enters(cfg) * act.all_reduce_wire_bytes(
+            img_elems, tp, width)
     enters, exits = remat_tp_collectives(cfg)
     if tp > 1 and plan.seq_parallel:
         seq = plan.seq_policy() or CompressionPolicy()
@@ -395,7 +420,8 @@ def step_wire_table(plan: PrecisionPlan, cfg, spec_tree, mesh_cfg: MeshCfg,
             + exits * seq.seq_scatter_wire_bytes(act_elems, tp, uncompressed_bytes=width))
     elif tp > 1:
         act = plan.activations or CompressionPolicy()
-        extra["activations"] = exits * act.all_reduce_wire_bytes(act_elems, tp, width)
+        extra["activations"] = (extra.get("activations", 0)
+                                + exits * act.all_reduce_wire_bytes(act_elems, tp, width))
     for k, v in extra.items():
         table[k] += v
         table["total"] += v
@@ -465,8 +491,10 @@ def make_train_step(
     momentum, metrics)`` with ``metrics = {"loss", "token_count", "aux",
     "group_norms_sq"}`` (0-d, 0-d, 0-d and ``(num_groups + 1,)`` tensors
     on the storage's device, equal on every rank). ``batch`` holds
-    ``tokens`` and ``labels``, the global ``(B, S)`` integer tensors (on a
-    mesh the rank takes its FSDP slice of the rows); the loss is the
+    ``tokens`` (or, under the input stub, fp32 ``features`` ``(B, S,
+    vision_dim)``) and ``labels``, the global ``(B, S)`` integer tensors,
+    and a VLM's fp32 ``image_features`` ``(B, N, vision_dim)`` (on a mesh
+    the rank takes its FSDP slice of the rows); the loss is the
     summed NLL over ``B * S`` (the reference's static token count) plus,
     for a MoE model, :data:`AUX_COEF` times the layers' summed auxiliary
     loss over ``num_layers``, averaged over the micro-batches and the FSDP
@@ -483,7 +511,7 @@ def make_train_step(
 
     with ``mesh`` None on one device, else
     ``launch.mesh.make_mesh_from_cfg(mesh_cfg)``'s. ``batch_shapes`` maps
-    ``tokens`` / ``labels`` to their ``(B, S)`` shapes (the
+    the batch's keys to their shapes (the
     sequence-parallel precondition reads them); nothing is traced.
 
     With ``plan.accum_steps > 1`` the rank's rows are cut into that many

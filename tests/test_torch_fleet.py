@@ -488,13 +488,15 @@ def _worker(s, name="w0", page_size=PAGE, plan=None):
 
 def test_check_fleet_arch_rejects_non_fleet_families():
     """The families the reference refuses are refused with the port's typed
-    error: the reference's configs, and the port's own MoE and recurrent
+    error: the reference's configs, and the port's own MoE, recurrent, audio and vision
     configs."""
     for name in ("hubert-xlarge", "mixtral-8x7b", "llama-3.2-vision-90b", "xlstm-1.3b"):
         with pytest.raises(ReplicaError):
             check_fleet_arch(j_reduced(j_get_config(name)))
-    for name in ("mixtral-8x7b", "arctic-480b", "xlstm-1.3b", "recurrentgemma-9b"):
-        with pytest.raises(ReplicaError, match="MoE"):
+    for name, match in (("mixtral-8x7b", "MoE"), ("arctic-480b", "MoE"), ("xlstm-1.3b", "MoE"),
+                        ("recurrentgemma-9b", "MoE"), ("hubert-xlarge", "encoder-only"),
+                        ("llama-3.2-vision-90b", "token payloads only")):
+        with pytest.raises(ReplicaError, match=match):
             check_fleet_arch(reduced(get_config(name)))
     check_fleet_arch(reduced(get_config("qwen3-1.7b")))
     with pytest.raises(ReplicaError, match="sliding"):

@@ -442,8 +442,12 @@ def test_deferred_options_raise(setup, mesh_cases, case):
 
 
 def test_unported_arch_and_flash_viability_on_cpu(setup):
-    with pytest.raises(NotImplementedError):
-        get_config("hubert-xlarge")  # the audio encoder (ROADMAP item 11c)
+    from repro_torch.launch import train as tlaunch_train
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        # every arch is ported; --chunks auto still needs the plan sweep
+        tlaunch_train.main(["--arch", "qwen3-1.7b", "--reduced", "--chunks", "auto",
+                            "--device", "cpu"])
     q = torch.zeros(1, 128, 2, 2, 128)
     k = torch.zeros(1, 128, 2, 128)
     assert not ta._flash_prefill_viable(True, None, False, 0, q, k)  # a CPU tensor
