@@ -393,9 +393,10 @@ Phases, each printing its own lines:
      at H 40 / Kv 8 and H 32 / Kv 2 (S 512) and ``paged_attend`` at Kv 8 /
      G 5 and Kv 2 / G 16 (the decode shape) beside their bounds and SDPA.
  21. main path — the recurrent families at their widths
-     (:func:`recurrent_path`): xlstm-1.3b served and trained (the
-     chunkwise mLSTM beside the sequential one), recurrentgemma-9b at 19
-     of its 38 layers served, xlstm-1.3b at 4 layers on a 1×2 mesh.
+     (:func:`recurrent_path`): xlstm-1.3b served (the chunkwise mLSTM
+     beside the sequential one) and trained at 12 of its 48 layers,
+     recurrentgemma-9b at 19 of its 38 layers served, xlstm-1.3b at 4
+     layers on a 1×2 mesh.
  22. main path — vision cross-attention and the audio encoder at their
      widths (:func:`vision_path`). (a) llama-3.2-vision-90b at
      ``VLM_LAYERS`` (5) of its 100 layers, one whole ``(attn × 4, cross)``
@@ -419,6 +420,30 @@ Phases, each printing its own lines:
      ms/step, the losses, formats and step seconds and each part's memory
      peak, beside the card's name and power limit. Phase 6 also checks and
      times flash at H 64 / Kv 8 (S 512).
+ 23. accounting and tooling (:func:`accounting_path`), qwen3-1.7b at its
+     widths and ``CUT_LAYERS`` (4) of its 28 layers. (a) Two gloo ranks on
+     the card (the processes that then run (c)): the host-clock medians of a 1 KiB and a 64 MiB-a-rank u8
+     ``comm.all_gather`` (the latency and the ring-wire rate behind
+     ``roofline.analysis.COLLECTIVE_LATENCY`` and ``LINK_BW``), then one
+     chunked weight gather of the model's largest ``DIST`` shard at full
+     width (the embed, 155,582,464 fp32 a rank over 2 FSDP ranks, round_to
+     2) at chunks 1, 2 and 4: the measured best beside ``pick_chunks``'s.
+     (b) The training launcher's rank loop (``launch.train._train`` on its
+     parsed flags) at 2×2 with ``--chunks auto`` and ``oracle:2`` for
+     ``ACCT_STEPS`` (2) steps: its count equal to ``pick_chunks`` at the
+     largest ``DIST`` shard, every step's measured ``weights`` wire equal
+     to ``step_wire_table``, Bitpack, Bitunpack and ``l2norm_sq`` launched
+     on every rank, finite losses. (c) The speculative engine (``spec_k``
+     3, the tiny draft) at 1×2 over prompts ``ACCT_LENS``: every
+     ``wire_log`` entry (the draft's ``draft_prefill`` and ``draft_decode``
+     ones included, one a draft forward) equal to its ``wire_tables()``
+     row, ``wire_summary()["wire"]`` equal to the tables' sum in every
+     priced class and to ``comm.LOG`` over the run in every class, the
+     streams equal on both ranks. Then the port's first MFU:
+     ``model_flops_estimate`` of phase 11's step over its median warm
+     step time and the fp32 peak, beside ``count_flops`` of the same step
+     run on fake tensors (nothing allocated; counted on the host in a
+     thread of this process while the ranks of (a)–(c) run).
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -427,6 +452,7 @@ exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -1993,7 +2019,8 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
             f"({profiled['l2norm_ms'] / busy:.2%} of kernel time), bitpack+bitunpack "
             f"{profiled['packing_ms']:.3f} ms ({profiled['packing_ms'] / busy:.2%})")
     return {"awp": awp, "oracle": oracle, "launches": got, "peak": peak,
-            "monitor_err": max(errs, default=0.0), "profile": profiled}
+            "monitor_err": max(errs, default=0.0), "profile": profiled,
+            "warm_step_s": warm[len(warm) // 2], "cfg": cfg, "batch": batch, "seq": seq}
 
 
 # ---------------------------------------------------------------------------
@@ -6055,8 +6082,10 @@ REC_LENS, REC_GEN = (128, 96, 64), 16
 # may leave the sequential one only where the latter's top-2 logit gap
 # there is below the same share of its largest |logit|
 REC_CHUNK, REC_CHUNK_RTOL = 64, 1e-4
-# (b): A²DTWP steps at batch 4 x phase 11's sequence, the chunkwise mLSTM
-REC_TRAIN_STEPS, REC_TRAIN_BATCH = 5, 4
+# (b): A²DTWP steps at batch 4 x phase 11's sequence, the chunkwise mLSTM,
+# at a quarter of the depth (the script's time: a step at 48 layers took
+# 8.8-14.6 s, the sLSTM's per-token autograd)
+REC_TRAIN_STEPS, REC_TRAIN_BATCH, REC_TRAIN_LAYERS = 5, 4, 12
 # (c): recurrentgemma-9b's smallest cut: one whole pattern, 19 of 38 layers
 RG_LAYERS = 19
 # (d): xlstm-1.3b's depth on the 1×2 mesh
@@ -6117,8 +6146,8 @@ def recurrent_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=N
                    batch=REC_TRAIN_BATCH, seq=LM_SEQ):
     """Phase 21: (a) xlstm-1.3b at its widths and depth served (static, the
     2-slot contiguous engine; streams equal) and one prompt's prefill in
-    the chunkwise form (``chunkwise_check``); (b) xlstm-1.3b in A²DTWP
-    training (``arch_train``) with the plan's ``mlstm_chunk``; (c)
+    the chunkwise form (``chunkwise_check``); (b) xlstm-1.3b at ``REC_TRAIN_LAYERS``
+    in A²DTWP training (``arch_train``) with the plan's ``mlstm_chunk``; (c)
     recurrentgemma-9b at ``RG_LAYERS`` (static and engine, streams equal;
     the ``local`` blocks' rings at the engine's capacity); (d) xlstm-1.3b
     at ``REC_MESH_LAYERS`` on a 1×2 mesh of gloo ranks (phase 14's rank
@@ -6134,7 +6163,7 @@ def recurrent_path(torch, device, *, a_cfg=None, b_cfg=None, c_cfg=None, d_cfg=N
         return dataclasses.replace(get_config(name), num_layers=layers)
 
     a_cfg = a_cfg or get_config("xlstm-1.3b")
-    b_cfg = b_cfg or get_config("xlstm-1.3b")
+    b_cfg = b_cfg or cut("xlstm-1.3b", REC_TRAIN_LAYERS)
     c_cfg = c_cfg or cut("recurrentgemma-9b", RG_LAYERS)
     d_cfg = d_cfg or cut("xlstm-1.3b", REC_MESH_LAYERS)
     on_card = device.type == "cuda"
@@ -6424,6 +6453,279 @@ def vision_path(torch, device, *, a_cfg=None, b_cfg=None, lens=SERVE_LENS, gen=S
             "monitor_err": b["monitor_err"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: accounting and tooling — the collective path's rates, --chunks
+# auto, the draft's wire at tp 2, the first MFU
+# ---------------------------------------------------------------------------
+
+ACCT_SIZES = (1 << 10, 64 << 20)  # u8 bytes a rank: the latency, then the rate
+ACCT_REPS = (30, 5)
+ACCT_CHUNKS = (1, 2, 4)
+ACCT_GATHER_REPS = 2
+ACCT_STEPS = 2
+ACCT_LENS, ACCT_GEN = (128, 64), 6
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _gloo_rank(rank, device_name, s_loc, round_to):
+    """One of phase 23 (a)'s two ranks: host-clock medians of u8
+    ``comm.all_gather`` at ``ACCT_SIZES`` bytes a rank, then of one
+    chunked weight gather (``transport.all_gather`` of an ``s_loc`` fp32
+    shard at ``round_to``) per chunk count of ``ACCT_CHUNKS``, each call
+    between a barrier and a device sync."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.transport import CompressionPolicy
+    from repro_torch.transport import transport as T
+
+    device = torch.device(device_name)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23 + rank)
+
+    def timed(fn, reps, warm=2):
+        out = []
+        for i in range(warm + reps):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            if i >= warm:
+                out.append(time.perf_counter() - t0)
+        return out
+
+    res = {"all_gather": {}, "chunks": {}}
+    for size, reps in zip(ACCT_SIZES, ACCT_REPS):
+        x = torch.randint(0, 256, (size,), dtype=torch.uint8, device=device, generator=gen)
+        res["all_gather"][size] = timed(lambda: comm.all_gather(x, traffic="weights"), reps)
+        del x
+    w = torch.randn(s_loc, device=device, generator=gen)
+    with torch.no_grad():
+        for c in ACCT_CHUNKS:
+            pol = CompressionPolicy(round_to=round_to, chunks=c)
+            res["chunks"][c] = timed(lambda: T.all_gather(w, None, pol, 0), ACCT_GATHER_REPS,
+                                     warm=1)
+    comm.clear_log()
+    return res
+
+
+def _pair_rank(rank, device_name, s_loc, round_to, cfg, lens, gen, spec_k):
+    """One of the two ranks of phase 23 (a) then (c), in one process each."""
+    return {"a": _gloo_rank(rank, device_name, s_loc, round_to),
+            "c": _spec_wire_rank(rank, device_name, cfg, lens, gen, spec_k)}
+
+
+def _auto_rank(rank, device_name, argv, cfg):
+    """One rank of phase 23 (b): the training launcher's rank loop
+    (``launch.train._train``) on its parsed flags at ``cfg``'s depth, with
+    the kernels' launch counts zeroed before and read after."""
+    from repro_torch.launch import train as T
+
+    zero_counts()
+    out = T._train(rank, T.build_parser().parse_args(argv), None, cfg)
+    out["launches"] = counts()
+    return out
+
+
+def _spec_wire_rank(rank, device_name, cfg, lens, gen, spec_k):
+    """One rank of phase 23 (c) (a 1×2 mesh): the speculative engine with the
+    tiny draft; every wire_log entry against its table, the summary against
+    the tables and against ``comm.LOG`` over the run."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.serve import build_requests, check_wire, setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.spec import build_draft
+    from repro_torch.train.step import COLLECTIVE_CLASSES
+
+    fp32_math()
+    device = torch.device(device_name)
+    mesh_cfg = MeshCfg(tp=TPS_TP)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank)
+    draft = build_draft(cfg, mesh_cfg, "tiny", seed=1, device=device)
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    requests = build_requests(lens, gen, cfg.vocab_size)
+    zero_counts()
+    first = len(comm.LOG)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan,
+                      max_slots=SERVE_SLOTS, cache_capacity=max(lens) + gen, draft=draft,
+                      spec_k=spec_k)
+    streams = {k: r.tokens for k, r in eng.run(requests).items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    summary = eng.wire_summary()
+    check_wire(eng, plan, requests)
+    tables = eng.wire_tables()
+    for r, t in zip(eng.wire_log, tables, strict=True):
+        for k in COLLECTIVE_CLASSES:
+            check(r["wire"].get(k, 0) == t[k], f"rank {rank} (c) step {r['step']} {r['kind']}: "
+                  f"measured {k} {r['wire'].get(k, 0)} B != serve_wire_table {t[k]} B")
+    priced = {k: sum(t[k] for t in tables) for k in COLLECTIVE_CLASSES}
+    logged = comm.wire_by_traffic(comm.LOG[first:])
+    kinds = {}
+    for r in eng.wire_log:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    return {"streams": streams, "wire": summary["wire"], "priced": priced, "logged": logged,
+            "kinds": kinds, "rounds": summary["spec_rounds"],
+            "acceptance": summary["acceptance_rate"], "launches": counts(), "wall_s": wall_s}
+
+
+def mfu_line(torch, cfg, batch, seq, step_s):
+    """``(model_flops, counted_flops, mfu)`` of one fp32 A²DTWP step of
+    ``cfg`` at ``batch`` x ``seq`` on one device taking ``step_s``:
+    ``model_flops_estimate`` (6·N·D) over the step time and the fp32 peak,
+    beside ``count_flops`` of the same step run on fake tensors (the remat
+    backward's forward again included; nothing is allocated; the
+    optimizer's update counts no FLOPs, so its settings do not matter)."""
+    from repro_torch.audit.cases import build_case
+    from repro_torch.audit.record import recording
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import PEAK_FLOPS_FP32, model_flops_estimate
+    from repro_torch.roofline.cost import count_flops
+
+    model = model_flops_estimate(cfg, InputShape("phase 11", seq, batch, "train"), 1)
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    with recording(MeshCfg()) as rec:
+        case = build_case(cfg.name, "train", MeshCfg(), plan, mesh=rec.mesh, cfg=cfg,
+                          seq_len=seq, global_batch=batch)
+        counted = count_flops(case.step, *case.args)
+    return model, counted, model / step_s / PEAK_FLOPS_FP32
+
+
+def accounting_path(torch, device, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS, gen=ACCT_GEN,
+                    spec_k=FEAT_SPEC_K, round_to=2):
+    """Phase 23: (a) the gloo rates behind ``LINK_BW`` and
+    ``COLLECTIVE_LATENCY`` and a chunked weight gather of qwen3-1.7b's
+    largest ``DIST`` leaf at chunks 1, 2, 4 (two ranks on the card, which
+    then run (c)); (b)
+    the training launcher at 2×2 with ``--chunks auto`` at ``cfg``'s depth
+    for ``steps`` steps: its count equal to ``pick_chunks``, the weights'
+    wire equal to ``step_wire_table``, Bitpack, Bitunpack and ``l2norm_sq``
+    launched; (c) the speculative engine with the tiny draft at 1×2: the
+    wire summary equal to the tables' sum and to ``comm.LOG``, the draft's
+    entries in both. Returns the measurements; raises on a failed check.
+    Rehearses on the CPU at a reduced config (launches read on a card
+    only)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.spec import MeshCfg, build_spec_tree
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import auto_chunks
+    from repro_torch.models.init import param_shapes
+    from repro_torch.plan import pick_chunks, sweep_chunks
+    from repro_torch.roofline import analysis as A
+    from repro_torch.transport.policy import ring_wire_bytes
+
+    def chunks_at(cfg, mesh_cfg):  # (--chunks auto's count, its shard) under the constants
+        shapes, metas = param_shapes(cfg, tp=mesh_cfg.tp)
+        return auto_chunks(build_spec_tree(shapes, metas, mesh_cfg), mesh_cfg, round_to)
+
+    on_card = device.type == "cuda"
+    cfg = cfg or dataclasses.replace(get_config("qwen3-1.7b"), num_layers=CUT_LAYERS)
+    full = dataclasses.replace(cfg, num_layers=get_config(cfg.name).num_layers)
+    threads = 1 if not on_card else max(1, (os.cpu_count() or 1) // 4)
+    out = {"launches": {k: 0 for k in counts()}}
+
+    # (a) two ranks: the u8 all-gather's latency and rate, and a chunked
+    # gather; then (c) in the same two processes
+    t0 = time.perf_counter()
+    _, s_loc = chunks_at(full, MeshCfg(dp=2))
+    pair = spawn_ranks(_pair_rank, TPS_TP, str(device), s_loc, round_to, cfg, lens, gen, spec_k,
+                       threads=max(1, threads * 2))
+    ranks = [o["a"] for o in pair]
+    lat = _median([t for r in ranks for t in r["all_gather"][ACCT_SIZES[0]]])
+    big = _median([t for r in ranks for t in r["all_gather"][ACCT_SIZES[1]]])
+    wire = ring_wire_bytes("all-gather", 2 * ACCT_SIZES[1], 2)
+    rate = wire / max(big - lat, 1e-9)
+    measured = {c: _median([t for r in ranks for t in r["chunks"][c]]) for c in ACCT_CHUNKS}
+    best = min(measured, key=measured.get)
+    hw_run = dict(link_bw=rate, latency=lat)
+    picked = pick_chunks(s_loc, 2, round_to, candidates=ACCT_CHUNKS)
+    picked_run = pick_chunks(s_loc, 2, round_to, candidates=ACCT_CHUNKS, **hw_run)
+    model = sweep_chunks(s_loc, 2, round_to, candidates=ACCT_CHUNKS)
+    say(f"   (a) gloo u8 comm.all_gather, 2 ranks on {device.type}: {ACCT_SIZES[0]} B a rank median "
+        f"{lat * 1e6:.1f} us ({ACCT_REPS[0]} x 2 ranks), {ACCT_SIZES[1]} B a rank median "
+        f"{big * 1e3:.2f} ms -> {rate / 1e9:.4f} GB/s of ring wire; constants "
+        f"COLLECTIVE_LATENCY {A.COLLECTIVE_LATENCY * 1e6:.1f} us, LINK_BW "
+        f"{A.LINK_BW / 1e9:.4f} GB/s")
+    say(f"   (a) chunked weight gather of qwen3-1.7b's largest DIST shard (s_loc {s_loc:,} fp32 "
+        f"a rank, 2 FSDP ranks, round_to {round_to}): measured ms "
+        f"{ {c: round(v * 1e3, 2) for c, v in measured.items()} } -> best {best}; modeled ms "
+        f"{ {c: round(v * 1e3, 3) for c, v in model.items()} } -> pick_chunks {picked} "
+        f"(constants), {picked_run} (this run's rates)")
+    out["a"] = {"latency_s": lat, "big_s": big, "link_bw": rate, "measured": measured,
+                "best": best, "picked": picked, "picked_run": picked_run, "s_loc": s_loc}
+
+    # (c) the draft's wire at tp 2
+    ranks = [o["c"] for o in pair]
+    for r, o in enumerate(ranks):
+        check(o["streams"] == ranks[0]["streams"], f"rank {r}: streams differ from rank 0's")
+        check(o["kinds"].get("draft_prefill") == len(lens) and o["kinds"].get("draft_decode")
+              == o["rounds"] * (spec_k + 1), f"rank {r}: wire_log kinds {o['kinds']}")
+        check(o["wire"] == o["logged"], f"rank {r}: wire_summary {o['wire']} != comm.LOG "
+                                        f"{o['logged']}")
+        for k, v in o["priced"].items():
+            check(o["wire"].get(k, 0) == v, f"rank {r}: wire_summary {k} "
+                                            f"{o['wire'].get(k, 0)} B != wire_tables {v} B")
+        for k, v in o["launches"].items():
+            out["launches"][k] += v
+    say(f"   (c) spec_k {spec_k} with the tiny draft at 1x{TPS_TP}, prompts {list(lens)} "
+        f"+{gen}: {ranks[0]['rounds']} rounds, acceptance {ranks[0]['acceptance']:.3f}; "
+        f"wire_log kinds {ranks[0]['kinds']}; wire_summary {ranks[0]['wire']} B = comm.LOG = "
+        f"wire_tables (priced {ranks[0]['priced']}); (a) and (c) "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["c"] = {"wire": ranks[0]["wire"], "kinds": ranks[0]["kinds"]}
+
+    # (b) the launcher's rank loop at 2x2, --chunks auto
+    t0 = time.perf_counter()
+    mesh_cfg = MeshCfg(dp=TP_DP, tp=TP_TP)
+    argv = ["--arch", cfg.name, "--mesh", f"{TP_DP}x{TP_TP}", "--steps", str(steps),
+            "--policy", f"oracle:{round_to}", "--chunks", "auto", "--batch", str(LM_BATCH),
+            "--seq", str(LM_SEQ), "--device", device.type]
+    runs = spawn_ranks(_auto_rank, TP_DP * TP_TP, str(device), argv, cfg, threads=threads)
+    want_chunks, s_loc_b = chunks_at(cfg, mesh_cfg)
+    launches_b = {k: 0 for k in out["launches"]}
+    for r, o in enumerate(runs):
+        check(o["chunks"] == want_chunks, f"rank {r}: --chunks auto took {o['chunks']}, "
+                                          f"pick_chunks gives {want_chunks}")
+        for i, (rec, table) in enumerate(zip(o["records"], o["step_tables"], strict=True)):
+            got = rec["measured"].get("weights", 0)
+            check(got == table["weights"], f"rank {r} step {i}: measured weights {got} B != "
+                                           f"step_wire_table {table['weights']} B")
+        for k in ("bitpack", "bitunpack", "l2norm_sq"):
+            check(o["launches"][k] > 0 or not on_card, f"rank {r}: no {k} launch")
+        for k, v in o["launches"].items():
+            launches_b[k] += v
+            out["launches"][k] += v
+    losses = [rec["loss"] for rec in runs[0]["records"]]
+    check(all(math.isfinite(x) for x in losses), f"(b) losses {losses}")
+    say(f"   (b) launch.train --chunks auto at {TP_DP}x{TP_TP}, {cfg.num_layers} layers: "
+        f"chunks {runs[0]['chunks']} (pick_chunks at s_loc {s_loc_b:,}: {want_chunks}); "
+        f"weights wire a step {[rec['measured'].get('weights', 0) for rec in runs[0]['records']]}"
+        f" B = step_wire_table; losses {losses}; launches over the 4 ranks "
+        f"{ {k: v for k, v in launches_b.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["b"] = {"chunks": runs[0]["chunks"], "losses": losses}
+
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6662,8 +6964,8 @@ def main() -> int:
 
     say(f"phase 21: main path — the recurrent families at their widths: (a) xlstm-1.3b at its "
         f"48 layers served (static, engine; prompts {list(REC_LENS)} +{REC_GEN} tokens), one "
-        f"prefill chunkwise (chunk {REC_CHUNK}); (b) xlstm-1.3b in A²DTWP training, batch "
-        f"{REC_TRAIN_BATCH} x seq {LM_SEQ}, {REC_TRAIN_STEPS} steps, mlstm_chunk {REC_CHUNK}; (c) "
+        f"prefill chunkwise (chunk {REC_CHUNK}); (b) xlstm-1.3b at {REC_TRAIN_LAYERS} layers in "
+        f"A²DTWP training, batch {REC_TRAIN_BATCH} x seq {LM_SEQ}, {REC_TRAIN_STEPS} steps, mlstm_chunk {REC_CHUNK}; (c) "
         f"recurrentgemma-9b at {RG_LAYERS} of its 38 layers served (static, engine); (d) "
         f"xlstm-1.3b at {REC_MESH_LAYERS} layers on a 1×{TPS_TP} mesh; {smi[0]}")
     gc.collect()
@@ -6686,6 +6988,29 @@ def main() -> int:
     for k in served:
         served[k] += vis22["launches"][k]
     say(f"   phase 22 took {time.perf_counter() - t22:.1f} s on {smi[0]}")
+
+    say(f"phase 23: accounting and tooling at {CUT_LAYERS} of qwen3-1.7b's layers: (a) the gloo "
+        f"all-gather's latency and rate and a chunked weight gather at chunks "
+        f"{list(ACCT_CHUNKS)} (2 ranks), (b) launch.train --chunks auto at {TP_DP}x{TP_TP} for "
+        f"{ACCT_STEPS} steps, (c) spec_k {FEAT_SPEC_K} with the tiny draft at 1x{TPS_TP}; the "
+        f"first MFU; {smi[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    # the MFU's FLOP count runs on fake tensors in a thread while the ranks run
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        mfu_job = pool.submit(mfu_line, torch, lm["cfg"], lm["batch"], lm["seq"],
+                              lm["warm_step_s"])
+        acct = accounting_path(torch, device)
+        model_flops, counted, mfu = mfu_job.result()
+    for k in served:
+        served[k] += acct["launches"][k]
+    say(f"   MFU of phase 11's step (full-width qwen3-1.7b, fp32, batch {lm['batch']} x seq "
+        f"{lm['seq']}, oracle:2, remat on): model_flops_estimate {model_flops:.4e} FLOP / "
+        f"median warm step {lm['warm_step_s'] * 1e3:.2f} ms / PEAK_FLOPS_FP32 67e12 = "
+        f"{mfu:.4f}; count_flops of the same step {counted:.4e} FLOP "
+        f"({counted / model_flops:.3f}x the estimate); {smi[0]}")
+    say(f"   phase 23 took {time.perf_counter() - t23:.1f} s on {smi[0]}")
 
     kernels = []
     for name, src, replaces in (
@@ -6732,7 +7057,8 @@ def main() -> int:
                      + dp["launches"]["l2norm_sq"] + tp["launches"]["l2norm_sq"]
                      + lmf["launches"]["l2norm_sq"] + io["launches"]["l2norm_sq"]
                      + mesh18["launches"]["l2norm_sq"] + archs["launches"]["l2norm_sq"]
-                     + rec21["launches"]["l2norm_sq"] + vis22["launches"]["l2norm_sq"]),
+                     + rec21["launches"]["l2norm_sq"] + vis22["launches"]["l2norm_sq"]
+                     + acct["launches"]["l2norm_sq"]),
         "max_abs_err": max(l2_err, lm["monitor_err"], tp["monitor_err"], io["monitor_err"],
                            mesh18["monitor_err"], archs["monitor_err"], rec21["monitor_err"],
                            vis22["monitor_err"]),

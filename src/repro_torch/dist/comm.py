@@ -19,7 +19,8 @@ reaction to an error, and its host-clock seconds are logged beside the
 call (it is not the cost NVLink would show).
 
 Log: every call appends a :class:`CommRecord` (kind, traffic class,
-payload bytes, staging seconds) to :data:`LOG`. The traffic classes are
+payload bytes, group size, staging seconds, and the payload's dtype and
+shape and the group's global ranks) to :data:`LOG`. The traffic classes are
 the plan's (``weights``, ``gradients``, ``activations`` — the TP-region
 all-reduces — and ``seq_boundary`` — the sequence-parallel gather and
 scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
@@ -33,7 +34,11 @@ steps: :func:`gather` and :func:`scatter`). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output
 of an all-gather or all-to-all, the input of a reduce-scatter or
 all-reduce), so :func:`wire_by_traffic` of the log is a measured count of
-the wire, independent of the plan's analytic ``wire_table``.
+the wire, independent of the plan's analytic ``wire_table``. The dtype,
+shape and group let an auditor (``repro_torch.audit``) attribute a call
+from what it moved and where, without trusting its ``traffic`` label.
+Nothing here reads a tensor's storage address, so the functions also run
+on fake tensors under a fake process group (the audit's recorder).
 """
 from __future__ import annotations
 
@@ -60,6 +65,10 @@ class CommRecord:
     nbytes: int        # payload, as ring_wire_bytes reads it
     group_size: int
     stage_s: float     # host clock of the device <-> host copies (0 on the CPU)
+    dtype: str = ""    # the payload's dtype ("float32", "uint8", ...)
+    shape: tuple = ()  # the payload's shape (what nbytes counts)
+    group: tuple = ()  # the group's global ranks, in group-rank order
+    op: str = ""       # an all-reduce's reduction: "sum" | "max"
 
 
 LOG: list[CommRecord] = []
@@ -96,8 +105,20 @@ def _to_device(x: torch.Tensor, device: torch.device):
     return out, time.perf_counter() - t0
 
 
-def _log(kind, traffic, nbytes, n, stage_s):
-    LOG.append(CommRecord(kind, traffic, int(nbytes), n, stage_s))
+def _ranks(group) -> tuple:
+    if group is None:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _log(kind, traffic, payload: torch.Tensor, n, stage_s, group=None, *, copies: int = 1,
+         op: str = ""):
+    """One record of a call whose wire payload is ``payload`` (``copies``
+    times over for a gather's or scatter's blocks)."""
+    shape = tuple(payload.shape) if copies == 1 else (copies, *payload.shape)
+    LOG.append(CommRecord(kind, traffic, copies * payload.numel() * payload.element_size(),
+                          n, stage_s, str(payload.dtype).removeprefix("torch."), shape,
+                          _ranks(group), op))
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -116,7 +137,7 @@ def all_gather(x: torch.Tensor, group=None, *, axis: int = 0, traffic: str) -> t
     shape[axis] *= n
     out = out.movedim(0, axis).reshape(shape)
     out, s_out = _to_device(out, x.device)
-    _log("all-gather", traffic, out.numel() * out.element_size(), n, s_in + s_out)
+    _log("all-gather", traffic, out, n, s_in + s_out, group)
     return out
 
 
@@ -135,7 +156,7 @@ def all_to_all(x: torch.Tensor, group=None, *, axis: int, traffic: str) -> torch
     dist.all_to_all_single(out, host.reshape(-1), group=group)  # equal blocks of dim 0
     out = out.view(host.shape).movedim(0, axis).contiguous()
     out, s_out = _to_device(out, x.device)
-    _log("all-to-all", traffic, out.numel() * out.element_size(), n, s_in + s_out)
+    _log("all-to-all", traffic, out, n, s_in + s_out, group)
     return out
 
 
@@ -153,7 +174,7 @@ def reduce_scatter(x: torch.Tensor, group=None, *, axis: int = 0,
     _reduce_scatter(out, host.reshape(-1), op=dist.ReduceOp.SUM, group=group)
     out = out.view(host.shape[0] // n, *host.shape[1:]).movedim(0, axis).contiguous()
     out, s_out = _to_device(out, x.device)
-    _log("reduce-scatter", traffic, x.numel() * x.element_size(), n, s_in + s_out)
+    _log("reduce-scatter", traffic, x, n, s_in + s_out, group)
     return out
 
 
@@ -162,10 +183,10 @@ def all_reduce(x: torch.Tensor, group=None, *, traffic: str, op: str = "sum") ->
     over the group; returns a new tensor, equal on every rank."""
     n = dist.get_world_size(group)
     host, s_in = _to_host(x)
-    host = host.clone() if host.data_ptr() == x.data_ptr() else host
+    host = host.clone() if host is x else host  # all_reduce writes in place
     dist.all_reduce(host, op=_OPS[op], group=group)
     out, s_out = _to_device(host, x.device)
-    _log("all-reduce", traffic, x.numel() * x.element_size(), n, s_in + s_out)
+    _log("all-reduce", traffic, x, n, s_in + s_out, group, op=op)
     return out
 
 
@@ -177,7 +198,7 @@ def gather(x: torch.Tensor, *, traffic: str) -> list | None:
     host, s_in = _to_host(x)
     out = [torch.empty_like(host) for _ in range(n)] if dist.get_rank() == 0 else None
     dist.gather(host, out, dst=0)
-    _log("gather", traffic, n * host.numel() * host.element_size(), n, s_in)
+    _log("gather", traffic, host, n, s_in, copies=n)
     return out
 
 
@@ -190,5 +211,5 @@ def scatter(blocks, like: torch.Tensor, *, traffic: str) -> torch.Tensor:
     src = [b.contiguous() for b in blocks] if dist.get_rank() == 0 else None
     dist.scatter(out, src, src=0)
     out, s_out = _to_device(out, like.device)
-    _log("scatter", traffic, n * out.numel() * out.element_size(), n, s_out)
+    _log("scatter", traffic, out, n, s_out, copies=n)
     return out

@@ -22,7 +22,10 @@ others waiting, so that one whole model at a time is on a card. The
 precision flags build the plan as the reference's do: ``--grad-round-to``
 / ``--grad-mode`` (truncate or nearest) the gradient reduce-scatter,
 ``--act-round-to`` the TP-region all-reduces, ``--seq-parallel`` the
-sequence-parallel layout, ``--chunks`` the gather's plane blocks,
+sequence-parallel layout, ``--chunks`` the gather's plane blocks
+(``auto``: :func:`~repro_torch.plan.sweep.pick_chunks` at the largest
+``DIST`` shard, under the port's hardware constants, the count printed as
+the reference's launcher prints it),
 ``--bf16`` the bf16 compute dtype, ``--accum`` the micro-batches a step
 sums. ``--grad-mode stochastic`` (or a plan with a stochastic entry)
 gives each step the key ``PRNGKey(step)``, as the reference's launcher.
@@ -58,10 +61,6 @@ state saved is the consumed batch's, checked equal on every rank.
       --steps 6 --data-dir shards/ --ckpt ck --ckpt-every 3 --async-ckpt [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
       --steps 6 --data-dir shards/ --ckpt ck --resume [--device cpu]
-
-Every flag of the reference that needs a module the port does not have
-raises ``NotImplementedError`` naming its ROADMAP item: ``--chunks auto``
-(item 12).
 """
 from __future__ import annotations
 
@@ -85,12 +84,12 @@ from repro_torch.data.pipeline import synthetic_feature_batch, synthetic_lm_batc
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.shards import ShardReader, batches
 from repro_torch.dist.spec import (
-    MeshCfg, build_spec_tree, dist_elems_per_group, leaf_to_local, tree_to_storage,
+    DIST, MeshCfg, build_spec_tree, dist_elems_per_group, leaf_to_local, tree_to_storage,
 )
 from repro_torch.launch.mesh import make_mesh_from_cfg, spawn_ranks
 from repro_torch.models.init import init_params
 from repro_torch.optim.sgd import SGDConfig, init_momentum
-from repro_torch.plan import PrecisionPlan
+from repro_torch.plan import PrecisionPlan, pick_chunks
 from repro_torch.roofline.analysis import train_ingest_bytes
 from repro_torch.train.loop import Trainer
 from repro_torch.train.step import COLLECTIVE_CLASSES, make_train_step, step_wire_table
@@ -107,16 +106,20 @@ def parse_mesh(spec: str) -> MeshCfg:
     raise SystemExit(f"bad --mesh {spec!r}")
 
 
-def _unported(args) -> list[str]:
-    """The set flags that need a module the port does not have."""
-    checks = (
-        (args.chunks == "auto", "--chunks auto (plan/sweep.py's pick_chunks, ROADMAP item 12)"),
-    )
-    return [what for cond, what in checks if cond]
+def auto_chunks(spec_tree, mesh_cfg: MeshCfg, round_to: int, **hw) -> tuple[int, int]:
+    """``(chunks, s_loc)`` of ``--chunks auto``: :func:`pick_chunks` at the
+    largest ``DIST`` leaf's flat shard ``s_loc`` over the FSDP ranks, for a
+    gather at ``round_to`` (the reference's representative shard). ``hw``:
+    the sweep's hardware keywords (the port's constants by default)."""
+    s_loc = max((s.s_loc for s in tree_leaves(spec_tree) if s.kind == DIST), default=0)
+    return pick_chunks(s_loc, max(mesh_cfg.dshards, 1), round_to, **hw), s_loc
 
 
-def plan_from_args(args, nrt: int) -> PrecisionPlan:
-    """CLI flags -> PrecisionPlan (``--plan`` wins outright)."""
+def plan_from_args(args, nrt: int, spec_tree, mesh_cfg: MeshCfg, *,
+                   say=print) -> PrecisionPlan:
+    """CLI flags -> PrecisionPlan (``--plan`` wins outright). ``--chunks
+    auto`` reads ``spec_tree`` and ``mesh_cfg`` and reports its choice
+    through ``say``."""
     if args.plan:
         return PrecisionPlan.from_file(args.plan).broadcast(nrt)
     schedule, round_to = "awp", 4
@@ -126,10 +129,16 @@ def plan_from_args(args, nrt: int) -> PrecisionPlan:
         schedule, round_to = "static", int(args.policy.split(":")[1])
     elif args.policy != "awp":
         raise SystemExit(f"bad --policy {args.policy!r}")
+    if args.chunks == "auto":
+        # under AWP the gather starts at 8 bits: round_to 1
+        chunks, s_loc = auto_chunks(spec_tree, mesh_cfg, round_to if schedule == "static" else 1)
+        say(f"--chunks auto -> {chunks} (roofline sweep, s_loc={s_loc})")
+    else:
+        chunks = int(args.chunks)
     return PrecisionPlan.build(
         nrt, round_to=round_to, grad_round_to=args.grad_round_to,
         grad_mode=args.grad_mode, act_round_to=args.act_round_to,
-        seq_parallel=args.seq_parallel, chunks=int(args.chunks),
+        seq_parallel=args.seq_parallel, chunks=chunks,
         dtype="bf16" if args.bf16 else "f32", accum_steps=args.accum, schedule=schedule,
         awp_threshold=args.awp_threshold, awp_interval=args.awp_interval,
     )
@@ -251,21 +260,24 @@ def open_shards(args, cfg, plan, device, *, data_state=None, steps: int):
     return reader, prefetcher, ingest
 
 
-def _train(rank: int, args, params=None) -> dict:
+def _train(rank: int, args, params=None, cfg=None) -> dict:
     """The training loop of :func:`main` on rank ``rank`` (the only one on
     ``1x1``); returns plain data: the header, the trainer's summary, the
-    step records, the per-step step-wire tables and the I/O lines."""
+    step records, the per-step step-wire tables, the I/O lines and the
+    plan's chunk count. ``cfg`` replaces ``--arch``'s config."""
     fp32_math()
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     mesh_cfg = parse_mesh(args.mesh)
     world = mesh_cfg.dshards * mesh_cfg.tp
     device = rank_device(args, rank, world)
     mesh = make_mesh_from_cfg(mesh_cfg)
     spec_tree, storage, mom = setup(cfg, mesh_cfg, device=device, params=params, rank=rank)
     nrt = cfg.num_groups + 1
-    plan = plan_from_args(args, nrt)
+    plan = plan_from_args(args, nrt, spec_tree, mesh_cfg,
+                          say=print if rank == 0 else (lambda _: None))
     B, S = args.batch, args.seq
     opt = SGDConfig(lr=args.lr, momentum=0.9, weight_decay=1e-4)
     audio = cfg.embed_is_input_stub
@@ -367,6 +379,7 @@ def _train(rank: int, args, params=None) -> dict:
         "trivial": mesh_cfg.trivial,
         "start_step": start_step,
         "notes": notes,
+        "chunks": plan.chunks,
     }
 
 
@@ -377,9 +390,6 @@ def main(argv=None, *, params=None) -> dict:
     ``params`` replaces the seeded weights (the parity tests start both
     packages from one state)."""
     args = build_parser().parse_args(argv)
-    bad = _unported(args)
-    if bad:
-        raise NotImplementedError(f"not ported: {'; '.join(bad)}")
     mesh_cfg = parse_mesh(args.mesh)
     if mesh_cfg.trivial:
         out = _train(0, args, params)
@@ -441,6 +451,7 @@ def main(argv=None, *, params=None) -> dict:
     s["step_wire_bytes"] = [r["wire_bytes"] for r in records]
     s["measured"] = [r["measured"] for r in records]
     s["step_tables"] = out["step_tables"]
+    s["chunks"] = out["chunks"]
     return s
 
 

@@ -356,3 +356,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1):
     params["final_norm"] = mk.ones((d,))
     metas["final_norm"] = SEQ_NORM
     return params, metas
+
+
+def param_shapes(cfg: ModelConfig, tp: int = 1):
+    """``(params, metas)`` with every leaf a ``meta``-device tensor: the
+    shapes and dtypes of :func:`init_params` at ``tp``, nothing allocated
+    (the reference's abstract ``ShapeDtypeStruct`` tree)."""
+    return init_params(cfg, device="meta", tp=tp)

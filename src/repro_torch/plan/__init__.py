@@ -6,6 +6,13 @@ from repro_torch.plan.plan import (
     Schedule,
     policy_uses_rng,
 )
+from repro_torch.plan.sweep import (
+    CHUNK_CANDIDATES,
+    modeled_gather_time,
+    pick_chunks,
+    sweep_chunks,
+)
 
-__all__ = ["PrecisionPlan", "SamplingParams", "Schedule", "TRAFFIC_CLASSES",
-           "policy_uses_rng"]
+__all__ = ["CHUNK_CANDIDATES", "PrecisionPlan", "SamplingParams", "Schedule",
+           "TRAFFIC_CLASSES", "modeled_gather_time", "pick_chunks", "policy_uses_rng",
+           "sweep_chunks"]

@@ -1,11 +1,39 @@
-"""Analytic byte models (counterpart of ``repro.roofline.analysis``, the
-serve-wire, speculative serve-wire, paged-residency, training-ingest,
-checkpoint and fleet-fabric models). Pure arithmetic on the policy formulas, the config
-and shard manifests, so their outputs must equal the reference's
-exactly."""
+"""Roofline and analytic byte models (counterpart of
+``repro.roofline.analysis``): the hardware constants of the card the port
+runs on, :func:`model_flops_estimate`, the three-term
+:func:`roofline_from_run`, and the serve-wire, speculative serve-wire,
+paged-residency, training-ingest, checkpoint and fleet-fabric models.
+The byte models and ``model_flops_estimate`` are pure arithmetic on the
+policy formulas, the config and shard manifests, so their outputs must
+equal the reference's exactly.
+
+The reference's HLO readers have no counterpart: ``parse_collectives``
+and ``shape_bytes`` parse XLA's HLO text, which PyTorch does not make.
+:func:`roofline_from_run` takes the same inputs from a run instead
+(:mod:`repro_torch.roofline.cost`: FLOPs from ``FlopCounterMode``, bytes
+from every op's inputs and outputs, wire from the recorded collectives).
+"""
 from __future__ import annotations
 
+import dataclasses
 import math
+
+# The card: NVIDIA H100 SXM (NVIDIA's data sheet, dense rates), the figures
+# every bound of the kernel table uses; they assume the full 700 W power
+# limit (the H100 80GB HBM3 the port is measured on reports 700.00 W).
+PEAK_FLOPS_FP32 = 67e12     # FLOP/s, fp32 outside the tensor cores (TF32 is off)
+PEAK_FLOPS_BF16 = 989e12    # FLOP/s, bf16 on the tensor cores
+HBM_BW = 3.35e12            # bytes/s
+# The collective path every ``dist.comm`` call takes today: gloo through
+# host memory, ranks sharing one card, each CUDA tensor staged to the
+# host and back. Measured by ``chip_smoke.py`` phase 23 (a) on an NVIDIA
+# H100 80GB HBM3 at a 700.00 W power limit: the median of a 1 KiB u8
+# ``comm.all_gather`` over two ranks is the latency (1,451.1 us); the
+# ring wire bytes of a 64 MiB-a-rank one (67,108,864 B) over its median
+# (202.64 ms) less the latency is the rate. NCCL with one rank per card
+# will change both.
+LINK_BW = 3.336e8             # bytes/s of ring wire
+COLLECTIVE_LATENCY = 1.4511e-3  # s per collective call
 
 
 def serve_host_device_bytes(
@@ -233,3 +261,93 @@ def fleet_migration_bytes(plan_or_policy, cfg, *, page_size: int, migrated_pages
     }
     table["total"] = table["kv_migration"] + table["weight_publish"]
     return table
+
+
+def model_flops_estimate(cfg, shape, chips: int) -> float:
+    """6·N_active·D per device (decode: D = new tokens = batch)."""
+    n_active = cfg.active_params()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens / chips
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens / chips
+    # decode: one token per sequence
+    return 2.0 * n_active * shape.global_batch / chips
+
+
+@dataclasses.dataclass
+class Roofline:
+    """The reference's ``Roofline`` fields, from a run on one rank."""
+
+    flops: float
+    hbm_bytes: float
+    wire_bytes: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    dominant: str
+    model_flops: float
+    useful_ratio: float
+    collectives: dict
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+def roofline_from_run(cost, calls, model_flops_per_device: float, *, plan=None,
+                      plan_geometry: dict | None = None,
+                      peak_flops: float = PEAK_FLOPS_FP32) -> Roofline:
+    """Three-term roofline of one step on one rank (the counterpart of
+    ``roofline_from_compiled``):
+
+      compute term    = FLOPs / ``peak_flops``
+      memory term     = bytes / ``HBM_BW``
+      collective term = ring wire bytes / ``LINK_BW``
+
+    ``cost`` is a :class:`~repro_torch.roofline.cost.Cost` of the step
+    (its ``flops`` and ``bytes``); ``calls`` the step's recorded
+    collectives (``dist.comm`` records), whose ring wire bytes are
+    summed by kind and split into packed planes (uint8 payloads: the
+    compressed weight, gradient and activation pipelines) and the rest.
+    Every call is charged at the width it moved: the port's collectives
+    run in the compute dtype, so no correction for a promoted psum
+    applies (the reference's ``act_bytes``). ``plan`` + ``plan_geometry``
+    (``dist_elems_per_group``, ``gather_axis_size``, optional
+    ``training``) add the wire per plan entry
+    (:func:`~repro_torch.roofline.cost.plan_wire_split`) in
+    ``collectives["per_plan_entry"]``. The terms use the card's constants
+    above; pass ``peak_flops=PEAK_FLOPS_BF16`` for a bf16 step."""
+    from repro_torch.roofline.cost import plan_wire_split, wire_by_kind
+
+    wire, plane = wire_by_kind(calls)
+    counts: dict[str, int] = {}
+    for c in calls:
+        counts[c.kind] = counts.get(c.kind, 0) + 1
+    wire_total = sum(wire.values())
+    compute_s = cost.flops / peak_flops
+    memory_s = cost.bytes / HBM_BW
+    coll_s = wire_total / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s, "collective": coll_s}
+    per_plan_entry = None
+    if plan is not None:
+        per_plan_entry = plan_wire_split(calls, plan, **(plan_geometry or {}))
+    return Roofline(
+        flops=cost.flops,
+        hbm_bytes=cost.bytes,
+        wire_bytes=float(wire_total),
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=coll_s,
+        dominant=max(terms, key=terms.get),
+        model_flops=model_flops_per_device,
+        useful_ratio=model_flops_per_device / cost.flops if cost.flops else 0.0,
+        collectives={
+            "counts": counts,
+            "wire_bytes": wire,
+            # packed-plane (compressed transport) share of wire_bytes
+            "plane_wire_bytes": plane,
+            "plane_wire_total": sum(plane.values()),
+            "per_plan_entry": per_plan_entry,
+        },
+    )

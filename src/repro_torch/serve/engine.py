@@ -59,7 +59,9 @@ gathered global logits on every rank, so every rank samples the same
 ids and runs the same host loop: admissions, retirements, page
 allocations and the collectives they issue are identical and in the same
 order on all ranks. :attr:`ServeEngine.wire_log` records each forward's
-collectives per traffic class (``dist.comm``'s log) and
+collectives per traffic class (``dist.comm``'s log; a speculative
+engine's draft forwards too, kinds ``draft_prefill`` and
+``draft_decode``) and
 :attr:`ServeEngine.place_wire` the placement's.
 
 Speculative decoding and sliding windows run on any mesh, as the
@@ -509,7 +511,7 @@ class ServeEngine:
             self.draft = DraftRunner(
                 draft, mesh_cfg, mesh, plan=self.plan, max_slots=B,
                 capacity=self.cache_capacity + self.spec_k, spec_k=self.spec_k,
-                token_width=self.token_width, device=self.device,
+                token_width=self.token_width, device=self.device, log_wire=self._log_wire,
             )
 
         # streaming state (populated by begin_stream; run() wraps it)
@@ -1089,10 +1091,19 @@ class ServeEngine:
         """:func:`~repro_torch.serve.step.serve_wire_table` of each
         :attr:`wire_log` entry: what its collectives move per class by the
         plan's formulas (a prefill of its tokens in one row, a decode step
-        over the rank's rows, without weights when weight-stationary)."""
+        over the rank's rows, without weights when weight-stationary; a
+        draft's prefill or micro decode step under the draft's plan, config
+        and spec tree, over one row or every slot)."""
         rows = self.max_slots // (self.mesh_cfg.dshards if self._shard_batch else 1)
         out = []
         for r in self.wire_log:
+            if r["kind"].startswith("draft_"):  # the draft's own plan, config and weights
+                d = self.draft
+                out.append(serve_wire_table(
+                    d.plan, d.cfg, d.spec_tree, self.mesh_cfg,
+                    rows=1 if r["kind"] == "draft_prefill" else d.max_slots,
+                    tokens=r["tokens"]))
+                continue
             prefill = r["kind"] == "prefill"
             out.append(serve_wire_table(
                 self.plan, self.cfg, self.spec_tree, self.mesh_cfg,

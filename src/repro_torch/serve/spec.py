@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import comm
 from repro_torch.dist.spec import MeshCfg
 from repro_torch.models import attention as A
 from repro_torch.models.model import RECURRENT_STATES, node_leaves
@@ -185,10 +186,16 @@ class DraftRunner:
     samples proposal ``d_{j+1}`` with the request key at emitted index
     ``n + j``, the key the target uses for that position, so a draft that
     equals the target proposes the target's stream (acceptance 1.0). The
-    last micro step only absorbs the last proposal into the cache."""
+    last micro step only absorbs the last proposal into the cache.
+
+    ``log_wire(kind, tokens, first)``, if given, is called after each
+    draft forward with ``len(comm.LOG)`` from just before it (kind
+    ``draft_prefill`` or ``draft_decode``): the engine's ``wire_log``
+    entry of that forward's collectives."""
 
     def __init__(self, bundle: DraftBundle, mesh_cfg: MeshCfg, mesh, *, plan: PrecisionPlan,
-                 max_slots: int, capacity: int, spec_k: int, token_width: int, device):
+                 max_slots: int, capacity: int, spec_k: int, token_width: int, device,
+                 log_wire=None):
         check_spec_arch(bundle.cfg)
         cfg = bundle.cfg
         self.cfg = cfg
@@ -210,6 +217,7 @@ class DraftRunner:
         self._prefill = make_prefill_step(cfg, mesh_cfg, mesh, self.spec_tree, plan=self.plan,
                                           cache_capacity=self.capacity, shard_batch=False)
         self.caches = None
+        self._log_wire = log_wire or (lambda kind, tokens, first: None)
 
     def reset(self) -> None:
         self.caches = None  # free the previous stream's caches first
@@ -222,7 +230,9 @@ class DraftRunner:
     def prefill_insert(self, tokens_dev, slot: int) -> None:
         """Absorb an admitted prompt into the draft's slot caches from the
         engine's already staged device tokens (no second h2d crossing)."""
+        first = len(comm.LOG)
         _, pcaches = self._prefill(self.storage, {"tokens": tokens_dev})
+        self._log_wire("draft_prefill", tokens_dev.shape[1], first)
         insert_slot(self.caches, pcaches, slot)
 
     def propose(self, next_tok, pos_host, nemit, temp, top_p, top_k, seed, rec) -> np.ndarray:
@@ -238,7 +248,9 @@ class DraftRunner:
             rec["host_device"] += planes.nbytes
             batch = {"tokens": unpack_tokens(stage(planes, self.device)),
                      "pos": stage(pos_host + j, self.device)}
+            first = len(comm.LOG)
             logits, self.caches = self._decode(self.storage, self.caches, batch)
+            self._log_wire("draft_decode", 1, first)
             if j == k:
                 break  # absorb the last proposal only; its logits are the next round's
             tok = sample_tokens(logits[:, -1], self.cfg.vocab_size, temp, top_p, top_k,

@@ -210,6 +210,7 @@ def _serve_runs(tcfg, mcfg, mesh, spec, storage, inputs, device="cpu") -> dict:
     """Every stream the port serves on one rank of ``mcfg`` (the trivial
     mesh included): ``{(label, sampled): {rid: ids}}``, plus the self
     draft's acceptance."""
+    from repro_torch.dist import comm
     from repro_torch.plan import PrecisionPlan
     from repro_torch.serve.engine import Request, SamplingParams, ServeEngine, generate_static
     from repro_torch.models.init import init_params
@@ -226,9 +227,16 @@ def _serve_runs(tcfg, mcfg, mesh, spec, storage, inputs, device="cpu") -> dict:
     out = {}
 
     def engine(requests, **kw):
+        first = len(comm.LOG)
         eng = ServeEngine(tcfg, mcfg, mesh, spec, storage, plan=plan, max_slots=SLOTS, **kw)
         res = eng.run(requests)
-        return {rid: r.tokens for rid, r in res.items()}, eng.wire_summary()
+        summary = eng.wire_summary()
+        if not mcfg.trivial:  # what the wire log, its tables and comm.LOG say
+            tables = eng.wire_tables()
+            summary["tables"] = {k: sum(t[k] for t in tables) for k in tables[0]}
+            summary["logged"] = comm.wire_by_traffic(comm.LOG[first:])
+            summary["kinds"] = sorted({r["kind"] for r in eng.wire_log})
+        return {rid: r.tokens for rid, r in res.items()}, summary
 
     for sampled in (False, True):
         requests = _requests(Request, SamplingParams, inputs, sampled)
@@ -238,6 +246,8 @@ def _serve_runs(tcfg, mcfg, mesh, spec, storage, inputs, device="cpu") -> dict:
                 requests, cache_capacity=cap, draft=drafts[label.split("-")[0]],
                 spec_k=SPEC_K, paged=label.endswith("paged"), page_size=8)
             out["acceptance", label, sampled] = summary["acceptance_rate"]
+            out["wire", label, sampled] = {k: summary.get(k)
+                                           for k in ("wire", "tables", "logged", "kinds")}
         out["window-static", sampled] = generate_static(tcfg, mcfg, mesh, spec, storage,
                                                         requests, plan=plan, window=WINDOW)
         out["window", sampled], _ = engine(requests, cache_capacity=WINDOW, window=WINDOW)
@@ -358,6 +368,25 @@ def test_self_draft_accepts_everything_at_tp2(runs, sampled):
         assert [p["acceptance", label, sampled] for p in lm] == [
             one["acceptance", label, sampled]] * 2, label
     assert one["acceptance", "self", sampled] == one["acceptance", "self-paged", sampled] == 1.0
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("draft", DRAFTS)
+def test_draft_wire_is_logged_and_priced_at_tp2(runs, draft, sampled):
+    """At tp 2 every draft forward has a ``wire_log`` entry of its own
+    (``draft_prefill``, ``draft_decode``): ``wire_summary()["wire"]``
+    equals everything ``comm.LOG`` holds of the run, class by class, and
+    in each class ``serve_wire_table`` prices (the draft's under its own
+    plan, config and spec tree) the sum of ``wire_tables()``. Before, the
+    draft's collectives were in no entry."""
+    _, lm, _, _, _ = runs
+    for r, p in enumerate(lm):
+        w = p["wire", draft, sampled]
+        assert w["kinds"] == ["draft_decode", "draft_prefill", "prefill", "verify"], f"rank {r}"
+        assert w["wire"] == w["logged"], f"rank {r}"
+        for k in ("weights", "gradients", "activations", "seq_boundary"):
+            assert w["wire"].get(k, 0) == w["tables"][k], f"rank {r} {k}"
+        assert set(w["wire"]) <= {"weights", "activations", "logits"}, f"rank {r}"
 
 
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])

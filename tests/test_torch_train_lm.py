@@ -466,8 +466,9 @@ def test_launcher_twin_prints_the_reference_awp_line(verify_runs, capsys, tmp_pa
     ["--ckpt", "x"], ["--resume"], ["--data-dir", "x"], ["--chunks", "auto"],
 ], ids=lambda f: f[0])
 def test_launcher_unported_flags_raise(flags, tmp_path, capsys):
-    """``--chunks auto`` needs ``plan/sweep.py`` (ROADMAP item 12) and
-    raises before a rank starts. The training I/O flags, which raised on a
+    """``--chunks auto``, which raised until ``plan/sweep.py`` was ported
+    (ROADMAP item 12), takes ``pick_chunks`` at the largest ``DIST`` shard
+    on two data ranks. The training I/O flags, which raised on a
     mesh until item 9b, run on two data ranks: ``--ckpt`` writes the mesh's
     global storage (its shapes, its bytes), ``--resume`` continues a run
     bit-exactly, ``--data-dir`` trains from shards with the ingest bytes
@@ -480,8 +481,14 @@ def test_launcher_unported_flags_raise(flags, tmp_path, capsys):
             "cpu", "--mesh", "2x1"]
     ck = str(tmp_path / "ck")
     if flags[0] == "--chunks":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tlaunch.main([*base, "--steps", "1", *flags])
+        from repro_torch.plan import pick_chunks
+
+        out = tlaunch.main([*base, "--steps", "1", *flags])
+        cfg, mcfg = reduced(get_config("qwen3-1.7b")), MeshCfg(dp=2)
+        shapes, metas = init_params(cfg, device="meta")
+        s_loc = max(s.s_loc for s in tree_leaves(build_spec_tree(shapes, metas, mcfg))
+                    if s.kind == "dist")
+        assert out["chunks"] == pick_chunks(s_loc, 2, 1)  # AWP starts at 8 bits
     elif flags[0] == "--ckpt":
         tlaunch.main([*base, "--steps", "1", "--ckpt", ck])
         meta = read_meta(ck + ".ckpt")
