@@ -325,7 +325,9 @@ Phases, each printing its own lines:
      the restored state and reader: the uninterrupted step's loss, AWP
      history, storage and momentum blocks, bit for bit. The steps before
      and after the save are one uninterrupted run (a save only reads).
-     (b) A 1×2 mesh at phase 15's depth (``CUT_LAYERS``): phase 15's
+     (b) A 1×2 mesh at phase 15's depth (``CUT_LAYERS``; run by phase
+     23's two rank processes after its (c), so no pair is spawned for it,
+     and printed after phase 23 by :func:`mesh_serve_report`): phase 15's
      sampled requests (``MESH_GEN`` tokens)
      through the engine and the speculative engine (``FEAT_SPEC_K``; the
      target as its own draft, and the tiny draft built on the mesh): the
@@ -422,7 +424,8 @@ Phases, each printing its own lines:
      times flash at H 64 / Kv 8 (S 512).
  23. accounting and tooling (:func:`accounting_path`), qwen3-1.7b at its
      widths and ``CUT_LAYERS`` (4) of its 28 layers. (a) Two gloo ranks on
-     the card (the processes that then run (c)): the host-clock medians of a 1 KiB and a 64 MiB-a-rank u8
+     the card (the processes that then run (c), phase 18 (b) and (c), and
+     phase 24): the host-clock medians of a 1 KiB and a 64 MiB-a-rank u8
      ``comm.all_gather`` (the latency and the ring-wire rate behind
      ``roofline.analysis.COLLECTIVE_LATENCY`` and ``LINK_BW``), then one
      chunked weight gather of the model's largest ``DIST`` shard at full
@@ -444,6 +447,31 @@ Phases, each printing its own lines:
      step time and the fp32 peak, beside ``count_flops`` of the same step
      run on fake tensors (nothing allocated; counted on the host in a
      thread of this process while the ranks of (a)–(c) run).
+ 24. main path — the serving fleet at tp 2 (:func:`_fleet_mesh_rank`, run
+     by phase 23's two rank processes after its (c), so no rank is spawned
+     for it; printed after phase 23 by :func:`fleet_mesh_report`),
+     qwen3-1.7b at its widths and ``CUT_LAYERS`` (4) of its 28 layers on a
+     1×2 mesh, phase 19's scenario from the same seeds at phase 9's
+     geometry: 2 replicas of 2 slots and 2 workers, phase 7's greedy and
+     phase 15 (a)'s sampled requests at v0, v1 published after 2 results
+     with the shared-prefix trio pinned to it, a join and a leave. Each
+     rank publishes both versions (parcels of the mesh's global storage,
+     each leaf's kept planes gathered to every rank: ``train_checkpoint_bytes``
+     of it), its
+     workers export the global pages (their kv-head slices gathered over
+     the model group) and its replicas install their own heads. Held to
+     phase 19 (a): placements, the greedy and trio streams exactly and
+     the sampled ones under phase 9's near-tie rule (a parting prints its
+     gap), the ``kv_migration`` hops hop for hop, every ``weight_publish``
+     hop the 1×2 parcel's bytes, both equal to ``fleet_migration_bytes``;
+     v1's restored blocks bit-equal to the rank's blocks truncated; every
+     worker prefill and replica tick launching what the tp-2 paged engine
+     launches (flash at H 8 / Kv 4, ``paged_attend`` at Kv 4), the first
+     flash and ``paged_attend`` launch at each shape held to the plain
+     version; streams and hop logs equal on both ranks. Prints decode ms a
+     tick, a KV parcel's export (with the gather), pack, send and install
+     ms, a version's gather, encode and decode s and the memory peak a
+     rank, beside the card's name and power limit.
 
 Phase 4's AWP monitor goes through ``l2norm_sq`` too (one launch per
 monitored leaf per step). Then one ``{"kernels": [...]}`` line and, last, the device line
@@ -5278,6 +5306,8 @@ def _mesh_serve_rank(rank, device_name, cfg, greedy, sampled, one_device, window
         u()
     out["flash_err"] = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
     out["flash_shapes"] = sorted(seen_flash)
+    out["held_to_one_device"] = one_device is not None
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5292,10 +5322,13 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
     ``phase15`` holds phase 15's one-device streams and requests (phase 7's
     prompts); without it (a run of this phase alone) (b) and (c) are held
     to each other only. ``a_layers`` cuts (a)'s model to that many layers
-    (widths unchanged), as phases 13 and 17 are cut. Launch counts, packing
-    records and times are read on a card only, so the phase rehearses on the
-    CPU at a reduced config. Returns the measurements; raises on a failed
-    check."""
+    (widths unchanged), as phases 13 and 17 are cut. Only (a) runs here:
+    (b) and (c) run in a rank pair of the caller's (phase 23's,
+    ``_pair_rank``) through ``_mesh_serve_rank`` on the returned
+    ``"bc_args"``, and :func:`mesh_serve_report` reports them. Launch
+    counts, packing records and times are read on a card only, so the
+    phase rehearses on the CPU at a reduced config. Returns the
+    measurements; raises on a failed check."""
     import shutil
     import tempfile
 
@@ -5303,7 +5336,6 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
     from repro_torch.data.shards import write_lm_shards
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.launch.serve import build_requests
-    from repro_torch.serve.engine import Request
 
     full_width = cfg is None and a_layers is None
     cfg = cfg or get_config("qwen3-1.7b")
@@ -5315,10 +5347,9 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
     if requests is None:
         requests = phase15["requests"] if phase15 else build_requests(SERVE_LENS, gen,
                                                                       cfg.vocab_size)
-    greedy = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=gen) for r in requests]
-    sampled = sampled_requests(greedy)
+    bc_args = mesh_bc_args(cfg, requests, phase15, gen=gen, window=window, spec_k=spec_k)
+    greedy = bc_args[1]
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    out = {}
     threads = 2 if on_card else 1
     try:
         free = shutil.disk_usage(root).free
@@ -5366,15 +5397,35 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
         f"({[round(x, 2) for x in r0['serve_s']]} s); launches per rank "
         f"{[o['launches'] for o in ranks]}; ranks' processes {a_s:.1f} s, set-up "
         f"{[round(o['setup_s'], 1) for o in ranks]} s; {smi}")
-    out["a"] = ranks
+    launches = {k: sum(o["launches"][k] for o in ranks) for k in counts()}
+    phase_s = time.perf_counter() - t_phase
+    say(f"   launches over phase 18 (a)'s runs {launches}; (a) took {phase_s:.1f} s; {smi}")
+    return {"launches": launches, "phase_s": phase_s,
+            "flash_err": max(o["flash_err"] for o in ranks),
+            "monitor_err": max(o["monitor_err"] for o in ranks), "bc_args": bc_args}
 
+
+def mesh_bc_args(cfg, requests, phase15=None, *, gen=MESH_GEN, window=FEAT_WINDOW,
+                 spec_k=FEAT_SPEC_K):
+    """``_mesh_serve_rank``'s arguments after the rank for phase 18 (b)
+    and (c): ``requests``' prompts greedy at ``gen`` tokens and their
+    sampled twins, held to ``phase15``'s one-device streams cut to ``gen``
+    tokens where it is given (a stream's prefix is its own)."""
+    from repro_torch.serve.engine import Request
+
+    greedy = [Request(rid=r.rid, prompt_ids=r.prompt_ids, max_new=gen) for r in requests]
     one = None
-    if phase15:  # the first gen tokens of phase 15's streams: a stream's prefix is its own
+    if phase15:
         one = {k: {rid: s[:gen] for rid, s in phase15[k].items()} for k in ("sampled", "window")}
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(_mesh_serve_rank, TPS_TP, str(device), cfg, greedy, sampled, one,
-                        window, spec_k, threads=threads, timeout_s=900)
-    bc_s = time.perf_counter() - t0
+    return cfg, greedy, sampled_requests(greedy), one, window, spec_k
+
+
+def mesh_serve_report(ranks, smi):
+    """Phase 18 (b) and (c)'s lines from their two ranks' returns
+    (``_mesh_serve_rank``): the streams equal on both ranks, each run's
+    time, tokens/s, staging and launches beside the card's name and power
+    limit ``smi``. Returns the launches summed over the runs and ranks and
+    flash's largest error."""
     r0 = ranks[0]
     for r, o in enumerate(ranks):
         for label in r0["runs"]:
@@ -5393,21 +5444,15 @@ def mesh_path(torch, device, phase15=None, *, cfg=None, batch=LM_BATCH, seq=LM_S
         say(line + f"; {smi}")
     div = {k: v for k, v in r0["diverged"].items() if v}
     say(f"   (b), (c) held: speculative streams == the 1×2 engine's, ring == windowed static"
-        + (", both == phase 15's one-device streams" if phase15 else "")
-        + (f" but for near ties {div}" if div else "") + f"; ranks' processes {bc_s:.1f} s; "
-        f"{smi}")
-    out["bc"] = ranks
-    launches = {k: sum(o["launches"][k] for o in out["a"]) for k in counts()}
+        + (", both == phase 15's one-device streams" if r0["held_to_one_device"] else "")
+        + (f" but for near ties {div}" if div else "")
+        + f"; the ranks' {max(o['wall_s'] for o in ranks):.1f} s; {smi}")
+    launches = {k: 0 for k in counts()}
     for o in ranks:
         for rec in o["runs"].values():
             for k in launches:
                 launches[k] += rec["launches"][k]
-    phase_s = time.perf_counter() - t_phase
-    say(f"   launches over phase 18's runs {launches}; phase 18 took {phase_s:.1f} s; {smi}")
-    return {"launches": launches, "phase_s": phase_s,
-            "flash_err": max([o["flash_err"] for o in out["a"]]
-                             + [o["flash_err"] for o in ranks]),
-            "monitor_err": max(o["monitor_err"] for o in out["a"])}
+    return {"launches": launches, "flash_err": max(o["flash_err"] for o in ranks)}
 
 
 # ---------------------------------------------------------------------------
@@ -5436,7 +5481,8 @@ def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     old = {"prefill": R.PrefillWorker.prefill, "tick": R.DecodeReplica.tick,
            "admit": R.DecodeReplica.admit_parcel, "pack": F.pack_kv_pages,
-           "send": fabric.FabricChannel.send, "publish": F.FleetRouter.publish}
+           "send": fabric.FabricChannel.send, "publish": F.FleetRouter.publish,
+           "export": R.PrefillWorker._export}
 
     def delta(before):
         return {k: v - before[k] for k, v in counts().items()}
@@ -5470,6 +5516,12 @@ def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
         check(got == want, f"replica {self.name}, a tick with {active} live slots: launches "
                            f"{got}, the local paged engine's decode step's {want}")
 
+    def export(self, pcaches, n_hits, n_new):
+        t0 = time.perf_counter()
+        out = old["export"](self, pcaches, n_hits, n_new)
+        rec["export"].append(time.perf_counter() - t0)
+        return out
+
     def admit(self, req, parcel):
         t0 = time.perf_counter()
         old["admit"](self, req, parcel)
@@ -5497,13 +5549,21 @@ def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
     R.PrefillWorker.prefill, R.DecodeReplica.tick = prefill, tick
     R.DecodeReplica.admit_parcel, F.pack_kv_pages = admit, pack
     fabric.FabricChannel.send, F.FleetRouter.publish = send, publish
+    R.PrefillWorker._export = export
 
     def undo():
         R.PrefillWorker.prefill, R.DecodeReplica.tick = old["prefill"], old["tick"]
         R.DecodeReplica.admit_parcel, F.pack_kv_pages = old["admit"], old["pack"]
         fabric.FabricChannel.send, F.FleetRouter.publish = old["send"], old["publish"]
+        R.PrefillWorker._export = old["export"]
 
     return undo
+
+
+def fleet_rec():
+    """An empty record of :func:`_fleet_watch`'s timings and counts."""
+    return {**{k: [] for k in ("prefill", "export", "decode", "install", "pack", "send",
+                               "publish_decode")}, "prefills": 0, "ticks": 0}
 
 
 def _ms(xs):
@@ -5564,11 +5624,7 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
     cap = max(len(r.prompt_ids) for r in requests) + gen
     per_forward = dist_per_forward(spec_tree)
     flash_ok = on_card and cfg.head_dim % 128 == 0
-    def new_rec():
-        return {**{k: [] for k in ("prefill", "decode", "install", "pack", "send",
-                                   "publish_decode")}, "prefills": 0, "ticks": 0}
-
-    rec, rec8 = new_rec(), new_rec()
+    rec, rec8 = fleet_rec(), fleet_rec()
 
     # the two versions' parcels
     pub = WeightPublisher(cfg, spec_tree, plan=plan)
@@ -5663,6 +5719,7 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
         check(versions == {r.rid: int(r.rid in trio_rids) for r in greedy + sampled_f + trio},
               f"(a): versions at admission {versions}")
         ws = pin(router, plan, "(a)")
+        hops_a, placements_a = list(router.fabric.hops), dict(router.placements)
         launched_a = got
         # the whole run's launches: the per-call checks, summed
         want = {"flash_prefill": L * sum(
@@ -5753,7 +5810,232 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
     launches = {k: launched_a[k] + got8[k] for k in got8}
     return {"launches": launches, "flash_err": flash_err, "paged_err": paged_err,
             "parcel_bytes": p0.nbytes, "encode_s": enc, "ws": ws, "ok": True,
-            "decode_s": rec["publish_decode"] + rec8["publish_decode"]}
+            "decode_s": rec["publish_decode"] + rec8["publish_decode"],
+            "requests": {"greedy": greedy, "sampled": sampled_f, "trio": trio},
+            "streams": streams, "hops": hops_a, "placements": placements_a, "page": page}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the serving fleet at tp 2 — phase 19's scenario on a 1×2 mesh, in
+# the two rank processes of phase 23 (a) and (c)
+# ---------------------------------------------------------------------------
+
+
+def _fleet_mesh_rank(rank, device_name, cfg, ref):
+    """One of phase 24's two ranks (a 1×2 mesh, in the process that ran
+    phase 23 (a) and (c)): phase 19 (a)+(c)'s scenario through the fleet at
+    tp 2 from the same seeds. Each rank builds its blocks of versions 0 and
+    1, publishes both (parcels of the mesh's global storage on every rank:
+    byte counts equal to ``train_checkpoint_bytes`` of it), and runs the same router, 2 replicas and 2 workers on
+    its TP slice: phase 7's greedy and phase 15 (a)'s sampled requests at
+    v0, v1 published after ``FLEET_REFRESH_AT`` results with phase 9's
+    shared-prefix trio pinned to it, r2 joining and r0 leaving before tick
+    ``FLEET_JOIN_AT``. ``ref`` is phase 19's return value. Held there: the
+    placements and versions; the greedy and trio streams exactly and the
+    sampled ones under phase 9's near-tie rule (``NEAR_TIE``, the draw's
+    distance to a boundary in a batch-1 static run at the mesh); the
+    ``kv_migration`` hops hop for hop, every ``weight_publish`` hop the 1×2
+    parcel's bytes, both equal to ``fleet_migration_bytes``; v1's restored
+    blocks bit-equal to the rank's blocks truncated at round_to 2. Every
+    worker prefill and replica tick launches what the tp-2 paged engine
+    launches for the same work (``_fleet_watch``), and the first flash and
+    ``paged_attend`` launch at each shape is held to the plain version.
+    Returns the measurements; raises on a failed check."""
+    import torch
+
+    from repro_torch import fp32_math
+    from repro_torch.checkpoint.sharded import assign_widths, global_like, manifest_bytes
+    from repro_torch.dist.spec import MeshCfg
+    from repro_torch.dist import comm
+    from repro_torch.fleet import DecodeReplica, FleetRouter, PrefillWorker, WeightPublisher
+    from repro_torch.launch.mesh import make_mesh_from_cfg
+    from repro_torch.launch.serve import setup
+    from repro_torch.plan import PrecisionPlan
+    from repro_torch.roofline.analysis import fleet_migration_bytes, train_checkpoint_bytes
+    from repro_torch.serve.engine import ServeEngine
+
+    fp32_math()
+    gc.collect()
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mesh_cfg = MeshCfg(tp=TPS_TP)
+    mesh = make_mesh_from_cfg(mesh_cfg)
+    _, spec_tree, storage = setup(cfg, seed=0, device=device, mesh_cfg=mesh_cfg, rank=rank)
+    storage1 = setup(cfg, seed=1, device=device, mesh_cfg=mesh_cfg, rank=rank)[2]
+    setup4 = (cfg, mesh_cfg, spec_tree, storage)
+    L, page = cfg.num_layers, ref["page"]
+    plan = PrecisionPlan.build(cfg.num_groups + 1, round_to=2)
+    greedy, sampled, trio = (ref["requests"][k] for k in ("greedy", "sampled", "trio"))
+    cap = max(len(r.prompt_ids) for r in greedy) + greedy[0].max_new
+    per_forward = dist_per_forward(spec_tree)
+    flash_ok = on_card and cfg.head_dim % 128 == 0
+    rec, codec = fleet_rec(), {"gather": [], "encode": []}
+
+    # the two versions' parcels: a publish's all-gathers (the planes its
+    # tiers keep) timed apart from the rest of it (the device-to-host copy,
+    # the plane split and the layout of the global planes: the encode)
+    real_gather, gathered = comm.all_gather, []
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        value = real_gather(*a, **kw)
+        gathered.append(time.perf_counter() - t0)
+        return value
+
+    pub = WeightPublisher(cfg, spec_tree, plan=plan, mesh_cfg=mesh_cfg)
+    parcels = []
+    comm.all_gather = timed_gather
+    try:
+        for store, step in ((storage, 0), (storage1, 1)):
+            gathered.clear()
+            sync()
+            t0 = time.perf_counter()
+            parcels.append(pub.publish(store, step=step))
+            codec["gather"].append(sum(gathered))
+            codec["encode"].append(time.perf_counter() - t0 - sum(gathered))
+    finally:
+        comm.all_gather = real_gather
+    p0, p1 = parcels
+    model = train_checkpoint_bytes(global_like(storage, spec_tree, mesh_cfg), spec_tree=spec_tree,
+                                   round_tos=plan.round_tos, residuals=False)["total"]
+    check(p0.nbytes == p1.nbytes == manifest_bytes(p0.manifest_meta())["total"] == model
+          and not p0.residuals, f"rank {rank}: 1x{TPS_TP} parcels {p0.nbytes} / {p1.nbytes} B, "
+                                f"train_checkpoint_bytes(residuals=False) of the global storage "
+                                f"{model} B")
+    v1_want = tree_digest(torch, truncate_tree(torch, storage1,
+                                               assign_widths(storage1, spec_tree,
+                                                             plan.round_tos)))
+    del storage1
+
+    def replicas_named(names, n_wrk=0):
+        reps = [DecodeReplica(name, ServeEngine(
+            cfg, mesh_cfg, mesh, spec_tree, storage, plan=plan, max_slots=SERVE_SLOTS,
+            cache_capacity=cap, paged=True, page_size=page)) for name in names]
+        return reps, [PrefillWorker(f"w{i}", cfg, mesh_cfg, mesh, spec_tree, plan=plan,
+                                    cache_capacity=cap, page_size=page) for i in range(n_wrk)]
+
+    seen_flash, seen_paged = {}, []
+    undo = [watch_flash(torch, seen_flash), _fleet_watch(torch, on_card, L, per_forward,
+                                                         flash_ok, rec)]
+    if on_card:
+        undo.append(watch_paged(torch, seen_paged, 8 * L))
+    try:
+        replicas, workers = replicas_named([f"r{i}" for i in range(FLEET_REPLICAS)],
+                                           FLEET_WORKERS)
+        router = FleetRouter(replicas, workers)
+        router.publish(p0)
+        state = {"refresh": None, "join": None}
+
+        def on_tick(r):
+            if state["join"] is None and r.ticks + 1 >= FLEET_JOIN_AT:
+                state["join"] = r.ticks
+                r.add_replica(replicas_named(["r2"])[0][0])
+                r.remove_replica("r0")
+            if state["refresh"] is None and len(r.results) >= FLEET_REFRESH_AT:
+                state["refresh"] = r.ticks
+                r.publish(p1)
+                for req in trio:
+                    r.submit(req)
+
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        results = router.run(greedy + sampled, on_tick=on_tick)
+        sync()
+        wall = time.perf_counter() - t0
+        got = counts()
+        check([r.name for r in router.replicas] == ["r1", "r2"]
+              and router.placements == ref["placements"],
+              f"rank {rank}: replicas {[r.name for r in router.replicas]}, placements "
+              f"{router.placements} against phase 19's {ref['placements']}")
+        ws = router.wire_summary()
+        model = fleet_migration_bytes(
+            plan, cfg, page_size=page, migrated_pages=ws["migrated_pages"],
+            publish_wire_bytes=p0.nbytes, publish_installs=ws["publish_installs"])
+        for cls in ("kv_migration", "weight_publish"):
+            check(ws[cls] == model[cls], f"rank {rank}: fabric {cls} {ws[cls]} B, "
+                                         f"fleet_migration_bytes {model[cls]} B")
+        hops = list(router.fabric.hops)
+        kv = [h for h in hops if h["cls"] == "kv_migration"]
+        check(kv == [h for h in ref["hops"] if h["cls"] == "kv_migration"],
+              f"rank {rank}: kv_migration hops differ from phase 19's")
+        pub_hops = [h for h in hops if h["cls"] == "weight_publish"]
+        check([(h["src"], h["dst"]) for h in pub_hops] == [
+            (h["src"], h["dst"]) for h in ref["hops"] if h["cls"] == "weight_publish"]
+            and all(h["bytes"] == p0.nbytes for h in pub_hops),
+            f"rank {rank}: weight_publish hops {pub_hops}")
+        everyone = greedy + sampled + trio
+        want = {"flash_prefill": L * sum(
+            flash_ok and -(-len(r.prompt_ids) // page) * page % 128 == 0 for r in everyone),
+            "paged_attend": L * rec["ticks"] * on_card,
+            "bitpack": per_forward * (rec["prefills"] + rec["ticks"]) * on_card,
+            "l2norm_sq": 0}
+        want["bitunpack"] = want["bitpack"]
+        check(got == want, f"rank {rank}: launches {got}, expected {want}")
+        check(tree_digest(torch, router.versions[1]) == v1_want,
+              f"rank {rank}: v1's restored blocks differ from the rank's blocks truncated")
+        streams = {rid: r.tokens for rid, r in results.items()}
+        # a parting prints its top-2 gap (its draw's distance for a sampled
+        # request) in a batch-1 static run at the mesh under its version
+        setup_v1 = (cfg, mesh_cfg, spec_tree, router.versions[1])
+        cases = hold_on_mesh(torch, "phase 24 greedy", streams, ref["streams"], greedy, setup4,
+                             plan, mesh, what="phase 19 (a)'s")
+        cases += hold_on_mesh(torch, "phase 24 trio", streams, ref["streams"], trio, setup_v1,
+                              plan, mesh, what="phase 19 (a)'s")
+        cases += hold_on_mesh(torch, "phase 24 sampled", streams, ref["streams"], sampled,
+                              setup4, plan, mesh, near_tie=NEAR_TIE, what="phase 19 (a)'s")
+        check_seen_flash(seen_flash)
+    finally:
+        for u in undo:
+            u()
+    flash_err = max((r["max_abs_err"] for r in seen_flash.values()), default=0.0)
+    paged_err = check_seen_paged(seen_paged) if seen_paged else 0.0
+    return {"streams": streams, "hops": hops, "launches": got, "ws": ws, "wall": wall,
+            "parcel_bytes": p0.nbytes, "codec": codec, "rec": rec, "diverged": cases,
+            "flash_err": flash_err, "paged_err": paged_err, "state": state,
+            "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def fleet_mesh_report(ranks, smi):
+    """Phase 24's lines from its ranks' returns (``_fleet_mesh_rank``): the
+    streams and hop logs equal on both ranks, the times and memory beside
+    the card's name and power limit ``smi``. Returns the launches summed
+    over the ranks and the kernels' largest errors."""
+    r0 = ranks[0]
+    for r, o in enumerate(ranks):
+        check(o["streams"] == r0["streams"] and o["hops"] == r0["hops"],
+              f"phase 24 rank {r}: streams or hop log differ from rank 0's")
+    ws, rec = r0["ws"], r0["rec"]
+    tokens = sum(len(t) for t in r0["streams"].values())
+    say(f"   (a)+(c) at 1x{TPS_TP}: {len(r0['streams'])} requests in {r0['wall']:.2f} s, {tokens} "
+        f"tokens, {tokens / r0['wall']:.1f} tokens/s; v1 published at tick "
+        f"{r0['state']['refresh']}, r2 joined and r0 left at tick {r0['state']['join']}; "
+        f"streams equal to phase 19 (a)'s ({len(r0['diverged'])} parted under the near-tie "
+        f"rule) and on both ranks; {smi}")
+    say(f"   fabric kv_migration {ws['kv_migration']} B over {ws['hops']['kv_migration']} hops "
+        f"({ws['migrated_pages']} pages, phase 19's hop for hop), weight_publish "
+        f"{ws['weight_publish']} B over {ws['publish_installs']} installs of the "
+        f"{r0['parcel_bytes']} B 1x{TPS_TP} parcel == fleet_migration_bytes on both ranks; "
+        f"launches a rank {r0['launches']} (each prefill and tick the tp-2 paged engine's)")
+    for r, o in enumerate(ranks):
+        rec = o["rec"]
+        say(f"   rank {r} ms: decode a replica tick {_ms(rec['decode'])}; KV parcel export "
+            f"(slice + relayout gather) {_ms(rec['export'])}, pack {_ms(rec['pack'])}, send "
+            f"{_ms(rec['send'])}, install (unpack + admit_pages) {_ms(rec['install'])}; a "
+            f"version's gather s {[round(x, 2) for x in o['codec']['gather']]}, encode s "
+            f"{[round(x, 2) for x in o['codec']['encode']]}, decode s "
+            f"{[round(x, 2) for x in rec['publish_decode']]}; memory peak "
+            f"{o['peak'] / 2**30:.2f} GiB; {o['phase_s']:.1f} s; {smi}")
+    return {"launches": {k: sum(o["launches"][k] for o in ranks) for k in r0["launches"]},
+            "flash_err": max(o["flash_err"] for o in ranks),
+            "paged_err": max(o["paged_err"] for o in ranks),
+            "phase_s": max(o["phase_s"] for o in ranks)}
 
 
 # ---------------------------------------------------------------------------
@@ -6516,10 +6798,18 @@ def _gloo_rank(rank, device_name, s_loc, round_to):
     return res
 
 
-def _pair_rank(rank, device_name, s_loc, round_to, cfg, lens, gen, spec_k):
-    """One of the two ranks of phase 23 (a) then (c), in one process each."""
-    return {"a": _gloo_rank(rank, device_name, s_loc, round_to),
-            "c": _spec_wire_rank(rank, device_name, cfg, lens, gen, spec_k)}
+def _pair_rank(rank, device_name, s_loc, round_to, cfg, lens, gen, spec_k, mesh_bc, fleet):
+    """One of the two ranks of phase 23 (a) then (c), in one process each;
+    then phase 18 (b) and (c) (``_mesh_serve_rank`` on ``mesh_bc``, from
+    ``mesh_path``'s ``"bc_args"``) and phase 24 (``_fleet_mesh_rank`` on
+    ``fleet``, phase 19's results): one spawn of a 1×2 pair for the three
+    phases."""
+    out = {"a": _gloo_rank(rank, device_name, s_loc, round_to),
+           "c": _spec_wire_rank(rank, device_name, cfg, lens, gen, spec_k),
+           "mesh_bc": _mesh_serve_rank(rank, device_name, *mesh_bc)}
+    gc.collect()
+    out["fleet"] = _fleet_mesh_rank(rank, device_name, cfg, fleet)
+    return out
 
 
 def _auto_rank(rank, device_name, argv, cfg):
@@ -6609,8 +6899,8 @@ def mfu_line(torch, cfg, batch, seq, step_s):
     return model, counted, model / step_s / PEAK_FLOPS_FP32
 
 
-def accounting_path(torch, device, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS, gen=ACCT_GEN,
-                    spec_k=FEAT_SPEC_K, round_to=2):
+def accounting_path(torch, device, mesh_bc, fleet, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS,
+                    gen=ACCT_GEN, spec_k=FEAT_SPEC_K, round_to=2):
     """Phase 23: (a) the gloo rates behind ``LINK_BW`` and
     ``COLLECTIVE_LATENCY`` and a chunked weight gather of qwen3-1.7b's
     largest ``DIST`` leaf at chunks 1, 2, 4 (two ranks on the card, which
@@ -6620,7 +6910,11 @@ def accounting_path(torch, device, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS
     wire equal to ``step_wire_table``, Bitpack, Bitunpack and ``l2norm_sq``
     launched; (c) the speculative engine with the tiny draft at 1×2: the
     wire summary equal to the tables' sum and to ``comm.LOG``, the draft's
-    entries in both. Returns the measurements; raises on a failed check.
+    entries in both. The two ranks of (a) and (c) then run phase 18 (b)
+    and (c) with ``mesh_bc`` (``mesh_path``'s ``"bc_args"``) and phase 24
+    with ``fleet`` (phase 19's return value); their per-rank returns land
+    in ``"mesh_bc"`` and ``"fleet"``. Returns the
+    measurements; raises on a failed check.
     Rehearses on the CPU at a reduced config (launches read on a card
     only)."""
     from repro_torch.configs.registry import get_config
@@ -6647,7 +6941,9 @@ def accounting_path(torch, device, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS
     t0 = time.perf_counter()
     _, s_loc = chunks_at(full, MeshCfg(dp=2))
     pair = spawn_ranks(_pair_rank, TPS_TP, str(device), s_loc, round_to, cfg, lens, gen, spec_k,
-                       threads=max(1, threads * 2))
+                       mesh_bc, fleet, threads=max(1, threads * 2), timeout_s=900)
+    out["mesh_bc"] = [o["mesh_bc"] for o in pair]
+    out["fleet"] = [o["fleet"] for o in pair]
     ranks = [o["a"] for o in pair]
     lat = _median([t for r in ranks for t in r["all_gather"][ACCT_SIZES[0]]])
     big = _median([t for r in ranks for t in r["all_gather"][ACCT_SIZES[1]]])
@@ -6688,8 +6984,8 @@ def accounting_path(torch, device, *, cfg=None, steps=ACCT_STEPS, lens=ACCT_LENS
     say(f"   (c) spec_k {spec_k} with the tiny draft at 1x{TPS_TP}, prompts {list(lens)} "
         f"+{gen}: {ranks[0]['rounds']} rounds, acceptance {ranks[0]['acceptance']:.3f}; "
         f"wire_log kinds {ranks[0]['kinds']}; wire_summary {ranks[0]['wire']} B = comm.LOG = "
-        f"wire_tables (priced {ranks[0]['priced']}); (a) and (c) "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"wire_tables (priced {ranks[0]['priced']}); (a) and (c) and phase 18 (b), (c) and "
+        f"phase 24 {time.perf_counter() - t0:.1f} s")
     out["c"] = {"wire": ranks[0]["wire"], "kinds": ranks[0]["kinds"]}
 
     # (b) the launcher's rank loop at 2x2, --chunks auto
@@ -6931,6 +7227,7 @@ def main() -> int:
         a_layers=IO_LAYERS)
     for k in served:
         served[k] += mesh18["launches"][k]
+    say("   phase 18 (b) and (c) run in phase 23's two rank processes and print after it")
 
     say(f"phase 19: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
         f"by the fleet at page {PAGE}, "
@@ -7001,7 +7298,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         mfu_job = pool.submit(mfu_line, torch, lm["cfg"], lm["batch"], lm["seq"],
                               lm["warm_step_s"])
-        acct = accounting_path(torch, device)
+        acct = accounting_path(torch, device, mesh18["bc_args"], fleet19)
         model_flops, counted, mfu = mfu_job.result()
     for k in served:
         served[k] += acct["launches"][k]
@@ -7010,7 +7307,22 @@ def main() -> int:
         f"median warm step {lm['warm_step_s'] * 1e3:.2f} ms / PEAK_FLOPS_FP32 67e12 = "
         f"{mfu:.4f}; count_flops of the same step {counted:.4e} FLOP "
         f"({counted / model_flops:.3f}x the estimate); {smi[0]}")
-    say(f"   phase 23 took {time.perf_counter() - t23:.1f} s on {smi[0]}")
+    say(f"   phase 23 took {time.perf_counter() - t23:.1f} s on {smi[0]}, phase 18 (b), (c) "
+        "and phase 24's runs in its ranks included")
+
+    say(f"phase 18 (b), (c): run in phase 23's two rank processes after its (c); {smi[0]}")
+    bc18 = mesh_serve_report(acct["mesh_bc"], smi[0])
+    for k in served:
+        served[k] += bc18["launches"][k]
+
+    say(f"phase 24: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
+        f"by the fleet at tp {TPS_TP} (a 1×{TPS_TP} mesh: phase 23's two rank processes, after "
+        f"its (c)) at page {PAGE}, {FLEET_REPLICAS} replicas of {SERVE_SLOTS} slots and "
+        f"{FLEET_WORKERS} prefill workers: phase 19 (a)+(c)'s requests, refresh, join and "
+        f"leave, held to phase 19's streams and hop log; {smi[0]}")
+    fleet24 = fleet_mesh_report(acct["fleet"], smi[0])
+    for k in served:
+        served[k] += fleet24["launches"][k]
 
     kernels = []
     for name, src, replaces in (
@@ -7031,7 +7343,9 @@ def main() -> int:
         "launches": served["flash_prefill"],
         "max_abs_err": max(f512["max_abs_err"], cut_flash_err, tps["errs"]["flash"],
                            feats["flash_err"], io["flash_err"], mesh18["flash_err"],
-                           fleet19["flash_err"], archs["flash_err"], vis22["flash_err"],
+                           bc18["flash_err"],
+                           fleet19["flash_err"], fleet24["flash_err"], archs["flash_err"],
+                           vis22["flash_err"],
                            flash["G 5"]["max_abs_err"], flash["G 16"]["max_abs_err"],
                            flash["G 8"]["max_abs_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
@@ -7043,9 +7357,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention.py:98",
         "launches": (paged_run["launches"]["paged_attend"] + tps["launches"]["paged_attend"]
                      + feats["launches"]["paged_attend"] + fleet19["launches"]["paged_attend"]
-                     + archs["launches"]["paged_attend"] + rec21["launches"]["paged_attend"]),
+                     + fleet24["launches"]["paged_attend"] + archs["launches"]["paged_attend"]
+                     + rec21["launches"]["paged_attend"]),
         "max_abs_err": max(paged["max_abs_err"], paged_run["paged_err"], tps["errs"]["paged"],
-                           feats["paged_err"], fleet19["paged_err"], archs["paged_err"]),
+                           feats["paged_err"], fleet19["paged_err"], fleet24["paged_err"],
+                           archs["paged_err"]),
         "ms": pm["ms"], "plain_ms": pm["plain_ms"], "bound_ms": pm["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })

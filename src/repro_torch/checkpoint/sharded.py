@@ -202,38 +202,76 @@ def encode_leaf(arr: np.ndarray, width: int, residuals: bool):
     ``[0, width)`` plane-major, exactly ``elems · width`` bytes; ``res`` is
     ``None`` for untiered leaves or ``residuals=False``. The one tier codec
     of the checkpoint writer (and of the fleet fabric's weight parcels)."""
-    dt = arr.dtype
-    tiered = dt == FP32 and width < FP32.itemsize
-    if tiered:
-        planes = plane_split(arr)
-        wire = planes[:width].tobytes()
-        res = planes[width:].tobytes() if residuals else None
-    else:
-        width = dt.itemsize
-        wire = np.ascontiguousarray(arr).tobytes()
-        res = None
-    info = {
-        "dtype": dt.str,
-        "shape": list(arr.shape),
+    if tiered_at(arr.dtype, width):
+        return _tiers(plane_split(arr, None if residuals else width), arr.shape, width,
+                      residuals)
+    wire = np.ascontiguousarray(arr).tobytes()
+    return wire, None, _info(arr.dtype, arr.shape, arr.dtype.itemsize, wire, None, False)
+
+
+def tiered_at(dtype, width: int) -> bool:
+    """Whether a leaf of ``dtype`` is stored as planes at ``width``: fp32
+    below full width."""
+    return np.dtype(dtype) == FP32 and width < FP32.itemsize
+
+
+def _tiers(planes: np.ndarray, shape, width: int, residuals: bool):
+    """An fp32 leaf's ``(wire, res, info)`` from its planes ``(k, n)``
+    (``k`` at least ``width``, all 4 with ``residuals``)."""
+    wire = planes[:width].tobytes()
+    res = planes[width:].tobytes() if residuals else None
+    return wire, res, _info(FP32, shape, width, wire, res, True)
+
+
+def _info(dtype, shape, width, wire, res, tiered) -> dict:
+    return {
+        "dtype": np.dtype(dtype).str,
+        "shape": list(shape),
         "width": int(width),
         "bytes": len(wire),
         "residual_bytes": len(res) if res is not None else 0,
         "tiered": bool(tiered),
     }
-    return wire, res, info
+
+
+def encode_gathered(leaf, spec, mesh_cfg, width: int, residuals: bool):
+    """:func:`encode_leaf` of a leaf's global storage array (the reference's
+    ``np.asarray`` of its sharded leaf) from this rank's block ``leaf``, on
+    every rank (every rank calls): a tiered leaf's block is split into
+    planes on each rank and only the planes its tiers keep are all-gathered
+    (``comm`` traffic ``checkpoint``), then laid out plane by plane by
+    ``storage_to_global``; an untiered leaf's blocks are gathered whole."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.spec import storage_shape, storage_to_global
+
+    arr = host_array(leaf)
+    if not tiered_at(arr.dtype, width):
+        blocks = comm.all_gather(torch.from_numpy(arr)[None], traffic="checkpoint")
+        return encode_leaf(storage_to_global([b.numpy() for b in blocks], spec, mesh_cfg),
+                           width, residuals)
+    keep = FP32.itemsize if residuals else width
+    planes = torch.from_numpy(plane_split(arr, keep).reshape(keep, *arr.shape))
+    blocks = comm.all_gather(planes[None], traffic="checkpoint")  # (ranks, keep, *block)
+    del planes
+    glob = np.stack([storage_to_global([b[k].numpy() for b in blocks], spec, mesh_cfg).reshape(-1)
+                     for k in range(keep)])
+    return _tiers(glob, storage_shape(spec, mesh_cfg), width, residuals)
 
 
 def decode_leaf(wire: bytes, e: dict, quality: str, res: bytes | None = None, *,
-                where: str = "checkpoint") -> np.ndarray:
+                where: str = "checkpoint", select=None) -> np.ndarray:
     """Inverse of :func:`encode_leaf`: tier bytes + manifest entry -> a
     fresh, writable, contiguous array. ``quality="exact"`` needs the
     residual tier of a tiered leaf; ``"wire"`` zero-fills the dropped
-    planes (the transport's truncation)."""
+    planes (the transport's truncation). ``select`` (an array of the
+    leaf's shape -> a fresh array of a part of it, such as a rank's block)
+    decodes that part only: it is applied to each plane before the join."""
     dtype = np.dtype(e["dtype"])
     shape = tuple(e["shape"])
     wire_u8 = np.frombuffer(wire, np.uint8)
     if not e["tiered"]:
-        return wire_u8.view(dtype).reshape(shape).copy()
+        arr = wire_u8.view(dtype).reshape(shape)
+        return arr.copy() if select is None else select(arr)
     n = int(np.prod(shape)) if shape else 1
     planes = wire_u8.reshape(e["width"], n)
     if quality == "exact":
@@ -243,6 +281,10 @@ def decode_leaf(wire: bytes, e: dict, quality: str, res: bytes | None = None, *,
                 f"was written residuals=False (width {e['width']}); use quality='wire'")
         planes = np.concatenate([
             planes, np.frombuffer(res, np.uint8).reshape(FP32.itemsize - e["width"], n)])
+    if select is not None:
+        parts = [select(p.reshape(shape)) for p in planes]
+        shape = parts[0].shape
+        planes = np.stack([p.reshape(-1) for p in parts])
     return plane_join(planes, dtype, shape)
 
 

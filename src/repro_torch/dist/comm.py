@@ -27,10 +27,12 @@ scatter) and those it does not price: ``grad_sync`` and ``metrics`` (the
 step's fp32 psums), ``loss`` (the vocab-parallel loss's row max and sums),
 ``logits`` (a serve step's gather of its vocabulary-sharded, and under a
 sharded batch row-sharded, logits), ``relayout`` (the lossless
-sequence split and merge, and the MoE ``ep`` layout's token split, merge
-and expert exchanges) and ``checkpoint`` (a checkpoint's leaves
-gathered to rank 0 on a save and scattered from it on a load, between
-steps: :func:`gather` and :func:`scatter`). The payload is what
+sequence split and merge, the MoE ``ep`` layout's token split, merge
+and expert exchanges, and a fleet prefill worker's gather of its KV pages'
+kv-head slices over the model group) and ``checkpoint`` (a checkpoint's
+leaves gathered to rank 0 on a save and scattered from it on a load,
+between steps: :func:`gather` and :func:`scatter`; and the byte planes a
+fleet weight publish keeps of each leaf, gathered to every rank). The payload is what
 :func:`~repro_torch.transport.policy.ring_wire_bytes` reads (the output
 of an all-gather or all-to-all, the input of a reduce-scatter or
 all-reduce), so :func:`wire_by_traffic` of the log is a measured count of

@@ -11,9 +11,11 @@ refresh and pinned per request at admission.
 
 Every hop is lossless, so router streams equal a single paged engine's and
 ``generate_static``'s for the same requests, and the fabric's hop log
-equals :func:`repro_torch.roofline.analysis.fleet_migration_bytes`. One
-device only: the fleet on a mesh is ROADMAP item 10b and raises
-``NotImplementedError``.
+equals :func:`repro_torch.roofline.analysis.fleet_migration_bytes`. On any
+mesh the serve engine runs on, every rank runs the same fleet on its TP
+slice: KV parcels carry the global pages (every kv head, gathered over the
+model group), weight parcels the mesh's global storage, so the hop log is
+one device's and equal on every rank.
 """
 from repro_torch.fleet.errors import ReplicaError, RouterError
 from repro_torch.fleet.publish import WeightPublisher

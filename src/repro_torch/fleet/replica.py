@@ -15,8 +15,14 @@ samples the first id with the engine's own function, and its page export
 slices the prefill caches exactly as the engine's paged insert writes the
 pool, so a migrated admission is bit-equal to a local one. The fleet
 serves pure causal attention models only (where padded prompts and shared
-prefixes are causal-safe), on one device (the fleet on a mesh is ROADMAP
-item 10b).
+prefixes are causal-safe).
+
+On a mesh every rank runs the same worker and replica on its TP slice
+(SPMD, as the serve engine). The worker's export gathers the ranks' kv-head
+slices of the pages over the model group (``comm`` traffic ``relayout``),
+so a parcel carries the global pages of every kv head, as the reference's
+worker exports them from its global cache, and each replica rank installs
+its own heads (``ServeEngine.admit_pages``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.fleet.errors import ReplicaError
+from repro_torch.launch.mesh import model_group
 from repro_torch.models.attention import PAGED, QUANT
 from repro_torch.serve.engine import first_sampling, sample_packed
 from repro_torch.serve.sampling import seed_words
-from repro_torch.serve.step import global_cache_shapes, make_prefill_step
+from repro_torch.serve.step import global_cache_shapes, kv_heads_of, make_prefill_step
 from repro_torch.transport.hostdev import pack_tokens_host, stage, unpack_tokens, unpack_tokens_host
 from repro_torch.transport.fabric import unpack_kv_pages
 
@@ -53,12 +61,6 @@ def check_fleet_arch(cfg) -> None:
                            "sliding-window archs stay on the static path")
 
 
-def require_one_device(mesh_cfg, who: str) -> None:
-    if not mesh_cfg.trivial:
-        raise NotImplementedError(f"{who}: the fleet on a {mesh_cfg.shape} mesh is not ported "
-                                  "(one device only; ROADMAP item 10b)")
-
-
 class PrefillWorker:
     """Dedicated prefill role: the engine's paged prefill for one request
     at a time, and the export of its prompt pages for migration.
@@ -72,10 +74,10 @@ class PrefillWorker:
     def __init__(self, name, cfg, mesh_cfg, mesh, spec_tree, *, plan, cache_capacity: int,
                  page_size: int = 64):
         check_fleet_arch(cfg)
-        require_one_device(mesh_cfg, f"worker {name}")
         self.name = str(name)
         self.cfg = cfg
         self.mesh_cfg = mesh_cfg
+        self._model_group = model_group(mesh)
         self.plan = plan.broadcast(cfg.num_groups + 1)
         self.cache_capacity = int(cache_capacity)
         self.page_size = int(page_size)
@@ -134,9 +136,17 @@ class PrefillWorker:
         """The prefill caches' positions ``[n_hits·page, (n_hits +
         n_new)·page)`` as pool pages: the engine's ``_insert_paged`` slice
         (``s[:, 0, start:start + n_new·page]`` reshaped to ``(R, n_new,
-        page, ...)``) at the pool's dtype."""
+        page, ...)``) at the pool's dtype. On a mesh the ranks' kv-head
+        slices (dim 3) are gathered over the model group on the host, one
+        copy of each head kept where ``Kv < tp`` replicates it: the global
+        pages on every rank."""
         page = self.page_size
         start, stop = n_hits * page, (n_hits + n_new) * page
+        tp, kv = self.mesh_cfg.tp, self.cfg.num_kv_heads
+        keep = None  # where Kv < tp the gather holds tp heads: head h's first rank's
+        if kv < tp:
+            firsts = [kv_heads_of(self.cfg, self.mesh_cfg, m)[0] for m in range(tp)]
+            keep = torch.tensor([firsts.index(h) for h in range(kv)])
         out = []
         for pg, sg in zip(self._pool_shapes, pcaches):
             gd = {}
@@ -148,9 +158,14 @@ class PrefillWorker:
                 gd[key] = {}
                 for a in names:
                     src = getattr(sg[key], a)
-                    seg = src[:, 0, start:stop]
-                    gd[key][a] = seg.reshape(src.shape[0], n_new, page,
-                                             *src.shape[3:]).to(getattr(pn, a).dtype)
+                    seg = src[:, 0, start:stop].reshape(
+                        src.shape[0], n_new, page, *src.shape[3:]).to(getattr(pn, a).dtype)
+                    if tp > 1:
+                        seg = comm.all_gather(seg.cpu(), self._model_group, axis=3,
+                                              traffic="relayout")
+                        if keep is not None:
+                            seg = seg.index_select(3, keep)
+                    gd[key][a] = seg
             out.append(gd)
         return out
 
@@ -165,7 +180,6 @@ class DecodeReplica:
         if not engine.paged:
             raise ReplicaError(f"replica {name}: fleet serving needs the paged engine "
                                "(paged=True)")
-        require_one_device(engine.mesh_cfg, f"replica {name}")
         self.name = str(name)
         self.engine = engine
         self.version: int | None = None
@@ -178,8 +192,9 @@ class DecodeReplica:
 
     def admit_parcel(self, req, parcel) -> None:
         """Install a migration parcel (its ``meta`` carries the skipped
-        prefix pages and the worker's first id)."""
-        self.engine.admit_pages(req, unpack_kv_pages(parcel, self.engine.device),
+        prefix pages and the worker's first id), unpacked on the host: the
+        engine moves the heads its pools hold to its device."""
+        self.engine.admit_pages(req, unpack_kv_pages(parcel),
                                 n_hits=parcel.meta["n_hits"], first_tok=parcel.meta["first"],
                                 wire_bytes=parcel.nbytes)
 

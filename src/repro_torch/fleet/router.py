@@ -21,6 +21,12 @@ version only when idle and when no queued request still pins its current
 one. A published version is decoded once, onto the replicas' device, and
 every replica installs the same tensors; its parcel crosses the fabric
 once an install (``weight_publish``).
+
+On a mesh the router runs the same way on every rank (SPMD): the queue,
+the placements, the fabric's hop log and the streams are equal on every
+rank, since every rank samples from the same gathered logits. Every rank
+decodes a version's parcel (the mesh's global storage) at once and keeps
+its own blocks.
 """
 from __future__ import annotations
 
@@ -74,14 +80,15 @@ class FleetRouter:
 
     # -- weight publishing -------------------------------------------------
     def publish(self, parcel) -> None:
-        """Register a weight parcel, decoded once onto the replicas' device.
-        Replicas install it on their next idle tick; requests submitted
-        from now on pin it."""
+        """Register a weight parcel, decoded once onto the replicas' device
+        (on a mesh, this rank's blocks of it). Replicas install it on their
+        next idle tick; requests submitted from now on pin it."""
         if self.latest is not None and parcel.version <= self.latest:
             raise RouterError(f"publish version {parcel.version} is not newer than "
                               f"{self.latest}")
-        self.versions[parcel.version] = unpack_weight_parcel(parcel,
-                                                             self.replicas[0].engine.storage)
+        e = self.replicas[0].engine
+        self.versions[parcel.version] = unpack_weight_parcel(
+            parcel, e.storage, spec_tree=e.spec_tree, mesh_cfg=e.mesh_cfg, rank=e.rank)
         self._parcels[parcel.version] = parcel
         self.latest = parcel.version
 

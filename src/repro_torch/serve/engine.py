@@ -75,8 +75,8 @@ what the fleet router (:mod:`repro_torch.fleet`) drives:
 ``admit_pages`` installs KV pages a prefill worker computed and shipped
 through the fabric instead of running a local prefill (bit-equal to a
 local paged admission), and ``swap_weights`` hot-swaps the weight tree
-between steps. Migration admission runs on one device only (the fleet
-at tp > 1 is ROADMAP item 10b). The reference compiles one
+between steps. On a mesh a parcel carries the global pages (every kv
+head) and each rank installs its own heads. The reference compiles one
 prefill per prompt length (per page-bucket length when paged); PyTorch
 runs eagerly, so one prefill step serves every length. The paged engine still counts bucket lengths seen before
 (``prefill_hits``) and not (``prefill_misses``), as the reference counts
@@ -110,6 +110,7 @@ from repro_torch.serve.spec import (
 from repro_torch.serve.step import (
     global_cache_shapes,
     init_serve_caches,
+    kv_heads_of,
     make_decode_step,
     make_place_step,
     make_prefill_step,
@@ -598,7 +599,7 @@ class ServeEngine:
         its local row."""
         if self._shard_batch:
             per = self.max_slots // self.mesh_cfg.dshards
-            if slot // per != mesh_coords(self.mesh_cfg, dist.get_rank())[0]:
+            if slot // per != mesh_coords(self.mesh_cfg, self.rank)[0]:
                 return
             slot %= per
         insert_slot(self._caches, small, slot)
@@ -645,6 +646,22 @@ class ServeEngine:
                             f"the pool takes {want} {b_leaf.dtype}")
                     b_leaf[:, phys] = src.to(self.device)
                 big.pos[:, slot] = pos_val
+
+    @property
+    def rank(self) -> int:
+        """This process's global rank (0 off a mesh)."""
+        return 0 if self.mesh_cfg.trivial else dist.get_rank()
+
+    def _rank_heads(self, pages):
+        """This rank's kv heads of migrated pages that hold all
+        ``cfg.num_kv_heads`` (dim 3 of every leaf), by the rule that sizes
+        its pools (``kv_heads_of``); the pages as they are at tp 1."""
+        if self.mesh_cfg.tp == 1:
+            return pages
+        start, kv_l = kv_heads_of(self.cfg, self.mesh_cfg,
+                                  mesh_coords(self.mesh_cfg, self.rank)[1])
+        return [{key: {name: x.narrow(3, start, kv_l) for name, x in node.items()}
+                 for key, node in group.items()} for group in pages]
 
     def _init_caches(self):
         return init_serve_caches(
@@ -851,13 +868,12 @@ class ServeEngine:
         ``first_tok`` instead of a local prefill; bit-equal to
         :meth:`admit`, since the worker runs the same prefill. The parcel's
         ``wire_bytes`` land in the step record's ``kv_migration``, not
-        ``host_device``. With a draft, the draft prefills locally from the
-        prompt staged h2d (priced)."""
+        ``host_device``. On a mesh ``pages`` hold every kv head and each
+        rank installs its own (:meth:`_rank_heads`); the pools are not
+        batch-sharded, so every data rank installs. With a draft, the draft
+        prefills locally from the prompt staged h2d (priced)."""
         if not self.paged:
             raise ValueError("admit_pages needs the paged engine (paged=True)")
-        if not self.mesh_cfg.trivial:
-            raise NotImplementedError("migration admission on a mesh is not ported "
-                                      "(the fleet at tp > 1, ROADMAP item 10b)")
         ok, hits = self.can_admit(req)
         if not ok:
             raise CapacityError(f"request {req.rid}: no free slot/pages for migration admission")
@@ -872,7 +888,7 @@ class ServeEngine:
         slot, row = self._alloc_residency(req, hits)
         phys = torch.tensor(row[len(hits):-(-S // page)], dtype=torch.int64, device=self.device)
         rec["kv_migration"] += int(wire_bytes)
-        self._install_pages(pages, slot, phys, S)
+        self._install_pages(self._rank_heads(pages), slot, phys, S)
         if self.draft is not None:
             # migration ships the target's KV, not tokens: the draft prefills
             # locally, so the prompt crosses h2d here (priced)

@@ -113,13 +113,23 @@ def init_serve_caches(
             raise ValueError(f"batch of {batch} does not split over {mesh_cfg.dshards} "
                              "FSDP ranks")
         batch //= mesh_cfg.dshards
-    kv_l = max(1, cfg.num_kv_heads // mesh_cfg.tp)  # Env.heads_local
+    kv_l = kv_heads_of(cfg, mesh_cfg, 0)[1]
     env = Env(int8_kv=int8_kv)
     if paged:
         return M.init_paged_caches(cfg, env, batch, paged_pages, page_size, dtype,
                                    device=device, kv_heads=kv_l, tp=mesh_cfg.tp)
     return M.init_caches(cfg, env, batch, capacity, dtype, per_slot=per_slot,
                          device=device, kv_heads=kv_l, tp=mesh_cfg.tp)
+
+
+def kv_heads_of(cfg: ModelConfig, mesh_cfg: MeshCfg, model_rank: int) -> tuple[int, int]:
+    """``(first, count)`` of the global kv heads model rank ``model_rank``
+    holds in its caches: ``count = max(1, Kv // tp)`` (``Env.heads_local``)
+    from ``model_rank · Kv // tp`` on, one head replicated over ``tp / Kv``
+    ranks where ``Kv < tp`` (the ``wk`` / ``wv`` slices of
+    ``ParamMeta.tp_slice_index``)."""
+    Kv, tp = cfg.num_kv_heads, mesh_cfg.tp
+    return model_rank * Kv // tp, max(1, Kv // tp)
 
 
 def global_cache_shapes(cfg: ModelConfig, mesh_cfg: MeshCfg, batch: int, capacity: int,

@@ -38,6 +38,7 @@ target's leaves.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -180,44 +181,67 @@ class WeightParcel:
 
 
 def pack_weight_parcel(storage, *, spec_tree, round_tos, policy: CompressionPolicy,
-                       version: int, step: int = 0) -> WeightParcel:
+                       version: int, step: int = 0, mesh_cfg=None) -> WeightParcel:
     """Encode ``storage`` (tensors on any device, or arrays) at the
     ``round_tos`` widths with the checkpoint tier codec: wire tiers only
     under a compressing ``policy``, wire + residual under an uncompressed
-    one."""
+    one. With ``mesh_cfg`` a sharded mesh ``storage`` is this rank's
+    blocks, every rank calls, and every rank gets the parcel of the mesh's
+    global storage (:func:`~repro_torch.checkpoint.sharded.encode_gathered`),
+    as the reference's publisher encodes its global arrays."""
     from repro_torch.checkpoint.sharded import (
         assign_widths,
+        encode_gathered,
         encode_leaf,
         host_array,
         leaf_entries,
+        np_dtype,
     )
 
+    across = mesh_cfg is not None and not mesh_cfg.trivial
+    specs = dict(leaf_entries(spec_tree)) if across else {}
     widths = assign_widths(storage, spec_tree, round_tos)
     residuals = not policy.compresses
     entries = []
     for kpath, leaf in leaf_entries(storage):
-        arr = host_array(leaf)
-        wire, res, info = encode_leaf(arr, widths.get(kpath, arr.dtype.itemsize), residuals)
+        width = widths.get(kpath, np_dtype(leaf).itemsize)
+        if across:
+            wire, res, info = encode_gathered(leaf, specs[kpath], mesh_cfg, width, residuals)
+        else:
+            wire, res, info = encode_leaf(host_array(leaf), width, residuals)
         info["path"] = kpath
         entries.append((wire, res, info))
     return WeightParcel(entries=tuple(entries), structure=_skeleton(storage),
                         version=int(version), step=int(step), residuals=residuals)
 
 
-def unpack_weight_parcel(parcel: WeightParcel, storage_like):
+def unpack_weight_parcel(parcel: WeightParcel, storage_like, *, spec_tree=None,
+                         mesh_cfg=None, rank=None):
     """Decode a parcel against a structure-matching restore target: the
     tree of ``storage_like``'s structure with fresh tensors on its leaves'
     device. Residual-bearing parcels restore bitwise (quality
     ``"exact"``), wire-only ones at the transport's truncation
-    (``"wire"``), as a ``residuals=False`` checkpoint export loads."""
+    (``"wire"``), as a ``residuals=False`` checkpoint export loads. With
+    ``mesh_cfg`` a sharded mesh (and ``spec_tree`` and the global
+    ``rank``) ``storage_like`` is that rank's blocks and the parcel holds
+    the mesh's global storage (a publish across ranks): each leaf's planes
+    are cut to the rank's block (``dist.spec.local_shard``) and only the
+    block is joined; every rank decodes on its own, no collective."""
     from repro_torch.checkpoint.sharded import (
         decode_leaf,
+        global_like,
         leaf_entries,
         to_like,
         tree_from_entries,
     )
+    from repro_torch.dist.spec import local_shard
 
+    across = mesh_cfg is not None and not mesh_cfg.trivial
+    if across and (spec_tree is None or rank is None):
+        raise FabricError("a weight parcel restored across ranks needs spec_tree and rank")
     want = leaf_entries(storage_like)
+    shapes = dict(leaf_entries(global_like(storage_like, spec_tree, mesh_cfg))) if across else {}
+    specs = dict(leaf_entries(spec_tree)) if across else {}
     if len(want) != len(parcel.entries):
         raise FabricError(f"weight parcel holds {len(parcel.entries)} leaves, restore "
                           f"target has {len(want)}")
@@ -227,10 +251,18 @@ def unpack_weight_parcel(parcel: WeightParcel, storage_like):
         if info["path"] != kpath:
             raise FabricError(f"weight parcel structure mismatch at {kpath}: parcel has "
                               f"{info['path']}")
-        if tuple(info["shape"]) != tuple(leaf.shape):
+        shape = tuple(shapes[kpath].shape) if across else tuple(leaf.shape)
+        if tuple(info["shape"]) != shape:
             raise FabricError(f"weight parcel shape mismatch at {kpath}: parcel "
-                              f"{tuple(info['shape'])} vs target {tuple(leaf.shape)}")
-        out[kpath] = to_like(decode_leaf(wire, info, quality, res, where="parcel"), leaf)
+                              f"{tuple(info['shape'])} vs target {shape}")
+        select = None
+        if across:
+            def select(a, spec=specs[kpath]):
+                with warnings.catch_warnings():  # a view of the parcel's bytes, only read
+                    warnings.simplefilter("ignore", UserWarning)
+                    return local_shard(torch.from_numpy(a), spec, mesh_cfg, rank).numpy()
+        out[kpath] = to_like(decode_leaf(wire, info, quality, res, where="parcel",
+                                         select=select), leaf)
     return tree_from_entries(storage_like, out)
 
 

@@ -24,16 +24,18 @@ from __future__ import annotations
 import numpy as np
 
 
-def plane_split(arr: np.ndarray) -> np.ndarray:
-    """Array -> uint8 byte planes, shape ``(itemsize, arr.size)``; plane 0
-    holds the most significant byte of every element."""
-    a = np.ascontiguousarray(arr)
-    # big-endian byte order makes byte 0 the MSB for every dtype
-    be = a.astype(a.dtype.newbyteorder(">"), copy=False)
-    raw = np.frombuffer(be.tobytes(), np.uint8)
-    if a.dtype.itemsize == 1:
-        return raw.reshape(1, -1)
-    return np.ascontiguousarray(raw.reshape(-1, a.dtype.itemsize).T)
+def plane_split(arr: np.ndarray, k: int | None = None) -> np.ndarray:
+    """Array -> uint8 byte planes, shape ``(k, arr.size)``: the ``k``
+    most significant (all ``itemsize`` by default); plane 0 holds the most
+    significant byte of every element."""
+    a = np.ascontiguousarray(arr).reshape(-1)
+    width = a.dtype.itemsize
+    # little-endian bytes: plane p is byte width - 1 - p of each element
+    raw = a.astype(a.dtype.newbyteorder("<"), copy=False).view(np.uint8).reshape(-1, width)
+    out = np.empty((width if k is None else k, raw.shape[0]), np.uint8)
+    for p in range(out.shape[0]):
+        out[p] = raw[:, width - 1 - p]
+    return out
 
 
 def plane_join(
@@ -51,11 +53,11 @@ def plane_join(
     total = dtype.itemsize if total_planes is None else int(total_planes)
     planes = np.asarray(planes, np.uint8)
     k, n = planes.shape
-    full = np.zeros((total, n), np.uint8)
-    full[lead_skip:lead_skip + k] = planes
-    raw = np.ascontiguousarray(full.T).tobytes()
-    be = np.frombuffer(raw, dtype.newbyteorder(">"))
-    return be.astype(dtype, copy=False).reshape(shape)
+    full = np.zeros((n, total), np.uint8)  # little-endian bytes of each element
+    for p in range(k):
+        full[:, total - 1 - lead_skip - p] = planes[p]
+    le = full.view(dtype.newbyteorder("<"))
+    return le.astype(dtype, copy=False).reshape(shape)
 
 
 def lead_zero_planes(planes: np.ndarray) -> int:

@@ -535,12 +535,13 @@ def test_serve_launcher_ckpt_at_1x2(runs, capsys):
 
 
 def test_chip_smoke_mesh_phase_rehearses_on_cpu(capsys):
-    """``chip_smoke.py`` phase 18 on the CPU at reduced qwen3-1.7b (plain
-    versions; launch counts and times are read on a card only): (a) 2×2
-    training off shards with an export and an async checkpoint across
+    """``chip_smoke.py`` phase 18 (a) on the CPU at reduced qwen3-1.7b
+    (plain versions; launch counts and times are read on a card only):
+    2×2 training off shards with an export and an async checkpoint across
     ranks, a load equal to the state at submit, the export served at 2×2
-    and step 3 resumed bit-equal; (b) the speculative engine and (c) a
-    window at 1×2, held to each other."""
+    and step 3 resumed bit-equal. Its (b) and (c) run in phase 23's rank
+    pair on the returned ``"bc_args"``, rehearsed in
+    ``tests/test_torch_fleet_mesh.py``."""
     import dataclasses
 
     sys.path.insert(0, ROOT)
@@ -548,17 +549,15 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu(capsys):
     from repro_torch.launch.serve import build_requests
 
     cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")), remat=True)
+    requests = build_requests((32, 32, 24, 16, 12), 4, cfg.vocab_size)
     out = chip_smoke.mesh_path(torch, torch.device("cpu"), cfg=cfg, batch=B, seq=S, gen=4,
-                               window=16, min_free=0,
-                               requests=build_requests((32, 32, 24, 16, 12), 4,
-                                                       cfg.vocab_size))
+                               window=16, min_free=0, requests=requests)
     assert out["launches"] == dict.fromkeys(out["launches"], 0)  # plain versions here
+    assert out["bc_args"] == chip_smoke.mesh_bc_args(cfg, requests, gen=4, window=16)
     text = capsys.readouterr().out
     assert "== train_checkpoint_bytes == the files' sizes" in text
     assert "equal to the state at submit on every rank" in text
     assert "== the weights truncated in memory" in text
-    assert "acceptance 1.0000" in text  # the self draft at 1×2
-    assert "ring == windowed static" in text
 
 
 if __name__ == "__main__":

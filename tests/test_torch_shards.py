@@ -73,6 +73,7 @@ def test_planes_bit_equal_reference(dtype):
             a = tplanes.plane_join(got[:k], x.dtype, x.shape)
             b = jplanes.plane_join(want[:k], x.dtype, x.shape)
             assert a.tobytes() == b.tobytes()
+            assert np.array_equal(tplanes.plane_split(x, k), want[:k])  # the k kept planes
         # small non-negative ids: leading zero planes trimmed and restored
         small = np.random.default_rng(seed).integers(0, 200, x.shape).astype(x.dtype)
         planes = tplanes.plane_split(small)
