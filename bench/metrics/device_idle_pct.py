@@ -1,0 +1,8 @@
+"""The device: the share of the traced steps' window in which nothing ran
+on the card."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
