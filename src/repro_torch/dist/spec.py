@@ -56,6 +56,7 @@ import torch
 from repro_torch.models.meta import COMPRESS_MIN_SIZE, ParamMeta
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
+from repro_torch.utils import spans
 from repro_torch.utils.trees import round_up, tree_leaves, tree_map
 
 DIST = "dist"
@@ -319,21 +320,22 @@ def materialize_leaf(
     ``(forward, backward)`` as :func:`~repro_torch.transport.transport.all_gather`
     takes it."""
     policy = policy_for(round_to, grad_round_to)
-    if mesh_cfg.trivial:
-        return _T.quantize(x, policy, key, index) if spec.kind == DIST else x
-    if spec.kind == REPL:
+    if spec.kind == REPL or (mesh_cfg.trivial and spec.kind != DIST):
         return x
     if spec.kind == TP_SMALL:
         return x[0]
-    flat = x.reshape(-1)
-    if mesh_cfg.dshards > 1:
-        full = _T.all_gather(flat, group, policy, 0, key, index)
-    else:
-        full = _T.quantize(flat, policy, key, None if index is None else index[0])
-    n = spec.n_local
-    if n != full.shape[0]:
-        full = full[:n]
-    return full.reshape(spec.local_logical)
+    with spans.span("transport.materialize"):
+        if mesh_cfg.trivial:
+            return _T.quantize(x, policy, key, index)
+        flat = x.reshape(-1)
+        if mesh_cfg.dshards > 1:
+            full = _T.all_gather(flat, group, policy, 0, key, index)
+        else:
+            full = _T.quantize(flat, policy, key, None if index is None else index[0])
+        n = spec.n_local
+        if n != full.shape[0]:
+            full = full[:n]
+        return full.reshape(spec.local_logical)
 
 
 def build_spec_tree(params, metas, mesh_cfg: MeshCfg):

@@ -20,6 +20,7 @@ from repro_torch.kernels.bitpack import bitpack as _bitpack_kernel
 from repro_torch.kernels.bitunpack import bitunpack as _bitunpack_kernel
 from repro_torch.kernels.l2norm import l2norm_sq as _l2norm_kernel
 from repro_torch.transport.policy import VALID_IMPLS
+from repro_torch.utils import spans
 
 
 def resolve_impl(impl: str, mode: str, device: torch.device) -> str:
@@ -40,14 +41,18 @@ def bitpack(
     mode: str = "truncate", key=None, index=None,
 ) -> torch.Tensor:
     """fp32 (any shape) -> ``(round_to, *w.shape)`` u8 planes (``key`` and
-    ``index``: stochastic rounding's, :func:`~repro_torch.kernels.ref.bitpack_ref`)."""
+    ``index``: stochastic rounding's, :func:`~repro_torch.kernels.ref.bitpack_ref`).
+    Counts ``n × (4 + round_to)`` bytes read and written (``transport.bytes``)."""
+    spans.add("transport.bytes", w.numel() * (4 + round_to))
     if resolve_impl(impl, mode, w.device) == "ref":
         return ref.bitpack_ref(w, round_to, mode=mode, key=key, index=index)
     return _bitpack_kernel(w.contiguous(), round_to)
 
 
 def bitunpack(planes: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-    """``(round_to, *shape)`` u8 planes -> fp32 ``shape``."""
+    """``(round_to, *shape)`` u8 planes -> fp32 ``shape``. Counts ``n ×
+    (round_to + 4)`` bytes read and written (``transport.bytes``)."""
+    spans.add("transport.bytes", planes.numel() // planes.shape[0] * (planes.shape[0] + 4))
     if resolve_impl(impl, "truncate", planes.device) == "ref":
         return ref.bitunpack_ref(planes)
     return _bitunpack_kernel(planes.contiguous())

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as jr
 from repro_torch.models.meta import ParamMeta
+from repro_torch.utils import spans
 
 # layer spec atoms:
 #   ("conv", out_ch, kernel, stride)        conv + ReLU
@@ -313,9 +314,10 @@ def cnn_loss(layers, images, labels, cfg, *, train=True, key=None,
     logits = cnn_forward(
         layers, images, cfg, train=train, key=key, act_quant=act_quant
     )
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -logp.gather(1, labels[:, None].to(torch.int64))[:, 0]
-    return nll.mean()
+    with spans.span("model.loss"):
+        logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -logp.gather(1, labels[:, None].to(torch.int64))[:, 0]
+        return nll.mean()
 
 
 def topk_error(layers, images, labels, cfg, k=5):

@@ -75,6 +75,7 @@ from repro_torch.models.loss import lm_loss
 from repro_torch.models.mlp import gelu_mlp, swiglu
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import RGLRUState, init_rglru_state, rglru_block
+from repro_torch.utils import spans
 
 RECURRENT_STATES = (ssm.MLSTMState, ssm.SLSTMState, RGLRUState)
 
@@ -266,7 +267,8 @@ def forward_loss(params, batch: dict, cfg: ModelConfig, env: Env, *,
         aux_total = aux_total + aux
     logits = _logits(x, params, cfg, env, mat_top)
     vocab_start = env.model_rank() * logits.shape[-1]
-    nll_sum, count = lm_loss(logits, batch["labels"], env, vocab_start, cfg.vocab_size)
+    with spans.span("model.loss"):
+        nll_sum, count = lm_loss(logits, batch["labels"], env, vocab_start, cfg.vocab_size)
     return nll_sum, {"nll_sum": nll_sum, "token_count": count, "aux": aux_total}
 
 

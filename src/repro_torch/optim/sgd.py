@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.utils import spans
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
@@ -42,12 +43,13 @@ def sgd_update(params, grads, momentum, wd_mask, cfg: SGDConfig, lr):
 
     Same arithmetic as the reference: ``g += wd·p; m = μ·m + g;
     p -= lr·m``."""
-    for p, g, m, wd in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(momentum),
-        tree_leaves(wd_mask),
-    ):
-        if wd:
-            g = g + (cfg.weight_decay * wd) * p
-        m.mul_(cfg.momentum).add_(g)
-        p.sub_(lr * m)
+    with spans.span("optim.sgd"):
+        for p, g, m, wd in zip(
+            tree_leaves(params), tree_leaves(grads), tree_leaves(momentum),
+            tree_leaves(wd_mask),
+        ):
+            if wd:
+                g = g + (cfg.weight_decay * wd) * p
+            m.mul_(cfg.momentum).add_(g)
+            p.sub_(lr * m)
     return params, momentum

@@ -58,6 +58,7 @@ from repro_torch.plan import PrecisionPlan, policy_uses_rng
 from repro_torch.train.step import resolve_plan
 from repro_torch.transport import policy_for
 from repro_torch.transport import transport as _T
+from repro_torch.utils import spans
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
@@ -258,10 +259,12 @@ def make_cnn_train_step(
         images, labels = batch["images"], batch["labels"]
         if n > 1:
             images, labels = _rank_slice(images, group, n), _rank_slice(labels, group, n)
-        loss = cnn_loss(
-            layers, images, labels, cfg, train=True, key=key, act_quant=aq,
-        ) / n
-        grads = torch.autograd.grad(loss, live)
+        with spans.span("train.forward"):
+            loss = cnn_loss(
+                layers, images, labels, cfg, train=True, key=key, act_quant=aq,
+            ) / n
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, live)
         if n > 1:
             # DIST gradients came back reduce-scattered onto the shards (the
             # gather's backward); the replicated leaves' are summed in fp32
@@ -276,13 +279,15 @@ def make_cnn_train_step(
         # AWP per-group Σw² (paper Algorithm 1 line 6 input): the
         # l2norm_sq kernel on a CUDA tensor, on the rank's storage
         with torch.no_grad():
-            dev = leaves[0].device
-            sums = torch.zeros((num_groups,), dtype=torch.float32, device=dev)
-            for name, k, g in monitored:
-                sums[g] += ops.l2norm_sq(storage["layers"][name][k])
+            with spans.span("awp.monitor"):
+                dev = leaves[0].device
+                sums = torch.zeros((num_groups,), dtype=torch.float32, device=dev)
+                for name, k, g in monitored:
+                    sums[g] += ops.l2norm_sq(storage["layers"][name][k])
+                if n > 1:
+                    sums = comm.all_reduce(sums, group, traffic="metrics")
             loss = loss.detach()
             if n > 1:
-                sums = comm.all_reduce(sums, group, traffic="metrics")
                 loss = comm.all_reduce(loss, group, traffic="metrics")
         return storage, momentum, {"loss": loss, "group_norms_sq": sums}
 

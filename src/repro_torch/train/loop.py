@@ -34,6 +34,7 @@ import numpy as np
 from repro_torch.core.awp import AWPController
 from repro_torch.dist import comm
 from repro_torch.plan import PrecisionPlan
+from repro_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -111,42 +112,44 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def run_step(self, storage, opt_state, batch, lr, *extra, io_log=None):
-        rts = self.current_round_tos()
-        recompiled = rts not in self._cache
-        fn = self._step_fn(rts)
-        first = len(comm.LOG)
-        t0 = time.perf_counter()
-        storage, opt_state, metrics = fn(storage, opt_state, batch, lr, *extra)
-        loss = float(metrics["loss"])
-        wall_s = time.perf_counter() - t0
-        if self.awp:
-            norms = metrics["group_norms_sq"].detach().cpu().numpy()
-            self.controller.update(np.asarray(norms))
-        entries = self.wire_entries(rts)
-        measured, stage_s = None, 0.0
-        calls = comm.LOG[first:]
-        if self.gather_n > 1 or calls:
-            measured = comm.wire_by_traffic(calls)
-            stage_s = sum(c.stage_s for c in calls)
-        self.records.append(
-            StepRecord(
-                step=len(self.records),
-                loss=loss,
-                round_tos=rts,
-                wire_bytes=entries["total"],
-                recompiled=recompiled,
-                wall_s=wall_s,
-                wire_by_entry=entries,
-                measured_by_entry=measured,
-                stage_s=stage_s,
-                io_by_entry=(
-                    {k: v for k, v in io_log.items() if isinstance(v, int)}
-                    if io_log is not None else None
-                ),
-                aux=float(metrics.get("aux", 0.0)),
+        with spans.span("train.step"):
+            rts = self.current_round_tos()
+            recompiled = rts not in self._cache
+            fn = self._step_fn(rts)
+            first = len(comm.LOG)
+            t0 = time.perf_counter()
+            storage, opt_state, metrics = fn(storage, opt_state, batch, lr, *extra)
+            with spans.span("train.loss_sync"):
+                loss = float(metrics["loss"])
+            wall_s = time.perf_counter() - t0
+            if self.awp:
+                norms = metrics["group_norms_sq"].detach().cpu().numpy()
+                self.controller.update(np.asarray(norms))
+            entries = self.wire_entries(rts)
+            measured, stage_s = None, 0.0
+            calls = comm.LOG[first:]
+            if self.gather_n > 1 or calls:
+                measured = comm.wire_by_traffic(calls)
+                stage_s = sum(c.stage_s for c in calls)
+            self.records.append(
+                StepRecord(
+                    step=len(self.records),
+                    loss=loss,
+                    round_tos=rts,
+                    wire_bytes=entries["total"],
+                    recompiled=recompiled,
+                    wall_s=wall_s,
+                    wire_by_entry=entries,
+                    measured_by_entry=measured,
+                    stage_s=stage_s,
+                    io_by_entry=(
+                        {k: v for k, v in io_log.items() if isinstance(v, int)}
+                        if io_log is not None else None
+                    ),
+                    aux=float(metrics.get("aux", 0.0)),
+                )
             )
-        )
-        return storage, opt_state, metrics
+            return storage, opt_state, metrics
 
     # ------------------------------------------------------------------
     @property

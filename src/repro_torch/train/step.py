@@ -51,6 +51,7 @@ from repro_torch.models import model as M
 from repro_torch.optim.sgd import SGDConfig, sgd_update
 from repro_torch.plan import PrecisionPlan, policy_uses_rng
 from repro_torch.transport import CompressionPolicy, policy_for
+from repro_torch.utils import spans
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
@@ -255,13 +256,14 @@ def awp_group_norms(storage, spec_tree, mesh_cfg: MeshCfg, *, fsdp=None,
                 total = total + ops.l2norm_sq(x) / s.repl_factor
         return total
 
-    norms = [subtree_sum(gp, gs) for gp, gs in zip(storage["groups"], spec_tree["groups"])]
-    norms.append(subtree_sum({k: storage[k] for k in top}, {k: spec_tree[k] for k in top}))
-    out = torch.stack(norms)
-    if mesh_cfg.dshards > 1:
-        out = comm.all_reduce(out, fsdp, traffic="metrics")
-    if mesh_cfg.tp > 1:
-        out = comm.all_reduce(out, model, traffic="metrics")
+    with spans.span("awp.monitor"):
+        norms = [subtree_sum(gp, gs) for gp, gs in zip(storage["groups"], spec_tree["groups"])]
+        norms.append(subtree_sum({k: storage[k] for k in top}, {k: spec_tree[k] for k in top}))
+        out = torch.stack(norms)
+        if mesh_cfg.dshards > 1:
+            out = comm.all_reduce(out, fsdp, traffic="metrics")
+        if mesh_cfg.tp > 1:
+            out = comm.all_reduce(out, model, traffic="metrics")
     return out
 
 
@@ -534,14 +536,16 @@ def make_train_step(
         mat_group, mat_top_factory = make_mat_fns(
             spec_tree, mesh_cfg, policies, plan.compute_dtype, group=fsdp, rng=rng, cfg=cfg
         )
-        nll_sum, metrics = M.forward_loss(
-            live, batch, cfg, env, mat_group=mat_group, mat_top=mat_top_factory(live)
-        )
+        with spans.span("train.forward"):
+            nll_sum, metrics = M.forward_loss(
+                live, batch, cfg, env, mat_group=mat_group, mat_top=mat_top_factory(live)
+            )
         # nll over local tokens x dshards; the MoE aux (0.0 when dense) as
         # the mean over the micro-batches and ranks, weighed as the reference's
         aux = metrics["aux"] / (n * plan.accum_steps)
         loss = nll_sum / total + AUX_COEF * aux / cfg.num_layers
-        grads = list(torch.autograd.grad(loss, tree_leaves(live)))
+        with spans.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, tree_leaves(live)))
         aux = torch.as_tensor(aux, device=loss.device).detach()
         return loss.detach(), metrics["token_count"].detach(), aux, grads
 
