@@ -36,7 +36,14 @@ Phases, each printing its own lines:
      the device time, and eager), the plain version and
      ``scaled_dot_product_attention`` (the library yardstick, in a graph
      and eager) with CUDA events beside the bound (causal FLOPs at 67
-     TFLOP/s fp32, or bytes at 3.35 TB/s).
+     TFLOP/s fp32, or bytes at 3.35 TB/s). Then training attention
+     (``check_flash_train``) at qwen3-1.7b's training shape (B 2, H 16, Kv
+     8, S 2048) and a tp-2 rank's heads (H 8 / Kv 4, B 2 and 1): the
+     forward with its log-sum-exp (out and lse within 1e-5, out bit-equal
+     to serving's call) and ``flash_attn_bwd`` (each gradient within
+     ``FLASH_TRAIN_RTOL`` of the plain one's largest element, two calls
+     bit-equal), timed as above beside fp32 SDPA's forward and backward and
+     the bound (the backward's: 2.5 times the forward's causal FLOPs).
   7. serve — full-width qwen3-1.7b (28 layers, d 2048, vocab 151,936, random
      weights from seed 0) served through ``repro_torch.launch.serve``'s
      functions: ``PrecisionPlan.build(round_to=2)``, five greedy requests
@@ -113,8 +120,13 @@ Phases, each printing its own lines:
      Bitpack/Bitunpack once per ``DIST`` leaf per materialization (198 a
      forward, and the 196 group leaves again in the remat backward, at
      every step below 32 bits), ``l2norm_sq`` once per ``DIST`` leaf per
-     step (30). Layer group 0's first monitor call of each step is recorded
-     and held to the plain version within rtol 1e-5. Prints warm step ms,
+     step (30), and train mode's flash route (``train_flash``: 28 forwards
+     and 28 remat forwards with the log-sum-exp, 28 ``flash_attn_bwd``
+     calls a step). Layer group 0's first monitor call of each step is
+     recorded and held to the plain version within rtol 1e-5, and the first
+     training flash forward and backward to theirs (``check_seen_train_flash``:
+     out and lse within 1e-5, each gradient within ``FLASH_TRAIN_RTOL`` of
+     the plain one's largest element). Prints warm step ms,
      the memory peak and a ``torch.profiler`` trace of one ``oracle:2``
      step with the monitor's and the transfer's share of kernel time.
 
@@ -158,9 +170,11 @@ Phases, each printing its own lines:
      leaf's gathered and unpacked weights bit-equal to ``quantize_ref`` of
      its TP slice of the whole leaf, (b) its Bitpack, Bitunpack and
      ``l2norm_sq`` launches (zeroed before, read after) as its leaves and
-     TP boundaries require, the first launch at each (length, round_to)
-     and the first monitor call at each of its shard lengths held to the
-     plain versions, (c) the measured wire per class equal to
+     TP boundaries require, and its training flash launches at its model
+     rank's heads (H 8 / Kv 4), the first launch at each (length,
+     round_to), the first monitor call at each of its shard lengths and
+     the first training flash forward and backward held to the plain
+     versions, (c) the measured wire per class equal to
      ``step_wire_table`` (the plan's ``wire_table`` with the step's TP
      boundaries and the remat backward's collectives) at every step, the
      unpriced ``grad_sync``, ``metrics`` and ``loss`` printed beside it, and
@@ -1058,6 +1072,102 @@ def check_flash_rows(torch, device, gen, dtype=None):
             "bit-equal alone and in batches of 2 and 4")
 
 
+# training attention (causal, q_offset 0; B, H, Kv, S): qwen3-1.7b's step in
+# the benchmark's qwen3 cell, and a tp-2 rank's heads at B 2 and at B 1 (the
+# backward's long units cut into pieces)
+FLASH_TRAIN_SHAPES = ((2, 16, 8, 2048), (2, 8, 4, 2048), (1, 8, 4, 2048))
+# each gradient of the backward within this share of the plain version's
+# largest element (fp32 sums over up to 2,048 rows in another order;
+# tests/test_torch_flash_train.py's CARD_RTOL)
+FLASH_TRAIN_RTOL = 1e-5
+
+
+def check_flash_train(torch, device):
+    """Training attention's kernels against their plain versions at
+    FLASH_TRAIN_SHAPES: the forward with its log-sum-exp (out and lse within
+    FLASH_TOL; its out bit-equal to serving's call without it) and
+    ``flash_attn_bwd`` (each gradient within FLASH_TRAIN_RTOL of the plain
+    one's largest element; two calls bit-equal). Times both variants of the
+    forward and the backward in a CUDA graph, the plain versions eagerly,
+    and fp32 SDPA (k and v repeated to H heads; the library yardstick the
+    port never calls): its forward in a graph, its backward eagerly (its
+    capture fails at qwen3's shape, and a failed capture leaves the caching
+    allocator unable to release memory for the rest of the process; at
+    these sizes its kernels outlast their dispatch). Beside them the
+    operations bound: the causal FLOPs at 67 TFLOP/s, 2.5 times the
+    forward's for the backward (five products of a (q, k) pair against
+    two). Returns {(B, H, Kv, S): row}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn_bwd import flash_attn_bwd
+    from repro_torch.kernels.flash_prefill import flash_prefill
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=device).manual_seed(11)
+    out_rows = {}
+    for B, H, Kv, S in FLASH_TRAIN_SHAPES:
+        q, g = (torch.randn((B, H, S, 128), generator=gen, device=device) for _ in range(2))
+        k, v = (torch.randn((B, Kv, S, 128), generator=gen, device=device) for _ in range(2))
+        out, lse = flash_prefill(q, k, v, return_lse=True)
+        grads = flash_attn_bwd(q, k, v, out, lse, g)
+        again = flash_attn_bwd(q, k, v, out, lse, g)
+        want_out, want_lse = ref.flash_prefill_ref(q, k, v, return_lse=True)
+        want = ref.flash_attn_bwd_ref(q, k, v, want_out, want_lse, g)
+        label = f"B={B} H={H} Kv={Kv} S={S}"
+        fwd_err = [float((a - b).abs().max()) for a, b in ((out, want_out), (lse, want_lse))]
+        check(all(math.isfinite(e) and e <= FLASH_TOL for e in fwd_err),
+              f"training flash forward {label}: out, lse max |err| {fwd_err} > {FLASH_TOL}")
+        check(torch.equal(out, flash_prefill(q, k, v)),
+              f"training flash forward {label}: out differs from serving's call")
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"flash_attn_bwd {label}: two calls gave other bits")
+        bwd_err = [float((a - b).abs().max()) for a, b in zip(grads, want)]
+        tops = [float(b.abs().max()) for b in want]
+        check(all(math.isfinite(e) and e <= FLASH_TRAIN_RTOL * t for e, t in zip(bwd_err, tops)),
+              f"flash_attn_bwd {label}: max |err| {bwd_err} of largest {tops} > "
+              f"{FLASH_TRAIN_RTOL} of it")
+        del want, again
+        fwd_bound, by = flash_bound(B, H, Kv, S, S, 0)
+        check(by == "operations", f"{label}: the forward is bound by {by}")
+        row = {
+            "ms": time_graph(torch, [lambda: flash_attn_bwd(q, k, v, out, lse, g)], reps=10),
+            "fwd_ms": time_graph(torch, [lambda: flash_prefill(q, k, v, return_lse=True)],
+                                 reps=10),
+            "fwd_serve_ms": time_graph(torch, [lambda: flash_prefill(q, k, v)], reps=10),
+            "plain_ms": time_cuda(torch, lambda: ref.flash_attn_bwd_ref(q, k, v, out, lse, g),
+                                  iters=3),
+            "fwd_plain_ms": time_cuda(
+                torch, lambda: ref.flash_prefill_ref(q, k, v, return_lse=True), iters=3),
+            "bound_ms": 2.5 * fwd_bound, "fwd_bound_ms": fwd_bound, "bound_by": "operations",
+            "max_abs_err": max(fwd_err + bwd_err),
+        }
+        qs, ks, vs = (t.clone().requires_grad_() for t in
+                      (q, k.repeat_interleave(H // Kv, 1), v.repeat_interleave(H // Kv, 1)))
+        row["fwd_library_ms"] = time_graph(torch, [lambda: sdpa(
+            qs.detach(), ks.detach(), vs.detach(), is_causal=True)], reps=10)
+        o = sdpa(qs, ks, vs, is_causal=True)
+
+        def lib_bwd():
+            torch.autograd.grad(o, (qs, ks, vs), g, retain_graph=True)
+
+        row["library_ms"] = time_cuda(torch, lib_bwd)
+        del qs, ks, vs, o
+        say(f"   training flash {label}: forward with its log-sum-exp "
+            f"{row['fwd_ms'] * 1e3:.1f} us in a CUDA graph (serving's call "
+            f"{row['fwd_serve_ms'] * 1e3:.1f}; bit-equal out), plain "
+            f"{row['fwd_plain_ms'] * 1e3:.1f} us, sdpa {row['fwd_library_ms'] * 1e3:.1f} us in a "
+            f"graph, bound {fwd_bound * 1e3:.1f} us ({fwd_bound / row['fwd_ms']:.0%} of it); "
+            f"max |err| out {fwd_err[0]:.3e}, lse {fwd_err[1]:.3e}")
+        say(f"   flash_attn_bwd {label}: {row['ms'] * 1e3:.1f} us in a CUDA graph, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, sdpa's backward {row['library_ms'] * 1e3:.1f} us "
+            f"eager, bound "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_ms'] / row['ms']:.0%} of it); "
+            + ", ".join(f"d{n} max |err| {e:.3e} of {t:.3e}"
+                        for n, e, t in zip("qkv", bwd_err, tops))
+            + "; two calls bit-equal")
+        out_rows[(B, H, Kv, S)] = row
+    return out_rows
+
+
 # ---------------------------------------------------------------------------
 # phase 7: full-width qwen3-1.7b served through the continuous-batching engine
 # ---------------------------------------------------------------------------
@@ -1077,16 +1187,31 @@ def kernel_layers(cfg):
 def _wrappers():
     from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bitunpack import bitunpack
+    from repro_torch.kernels.flash_attn_bwd import flash_attn_bwd
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.l2norm import l2norm_sq
     from repro_torch.kernels.paged_attend import paged_attend
 
     return {"bitpack": bitpack, "bitunpack": bitunpack, "flash_prefill": flash_prefill,
-            "paged_attend": paged_attend, "l2norm_sq": l2norm_sq}
+            "flash_attn_bwd": flash_attn_bwd, "paged_attend": paged_attend,
+            "l2norm_sq": l2norm_sq}
 
 
 def counts():
     return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def train_flash(cfg, seq, steps, on_card):
+    """Launches of ``steps`` training steps on train mode's flash route
+    (``models.attention._flash_train_viable``: a card, causal, no window,
+    the kernels' head width 128, a multiple of 128 tokens): each of the
+    :func:`kernel_layers` runs the fp32 forward once a step (twice under
+    remat) and the backward once. ``cfg.head_dim`` is the effective width
+    (the config fills ``d_model // num_heads`` in for 0)."""
+    viable = on_card and cfg.causal and cfg.head_dim == 128 and seq % 128 == 0
+    layers = kernel_layers(cfg) * viable
+    return {"flash_prefill": steps * layers * (2 if cfg.remat else 1),
+            "flash_attn_bwd": steps * layers}
 
 
 def zero_counts():
@@ -1133,6 +1258,81 @@ def check_seen_flash(seen):
               f"max |err| {err:.3e} > {FLASH_TOL}")
         say(f"   flash on the main path, q {key[0]} k {key[1]} q_offset {off}: "
             f"max |kernel - plain| {err:.3e}")
+
+
+class _Recorded:
+    """A kernel wrapper's stand-in: calls it, hands its inputs and outputs
+    to ``record``, and reads and writes its ``launches``, so that the
+    wrapper's own count (which it bumps through its module's name, here
+    the stand-in's) stays on the wrapper."""
+
+    def __init__(self, fn, record):
+        self.fn, self.record = fn, record
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.record(args, out)
+        return out
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def watch_train_flash(torch, seen):
+    """Route train mode's flash calls (``kernels.flash_attn_bwd``'s forward,
+    ``flash_prefill`` with its log-sum-exp, and its backward) through
+    recorders that keep a copy of the inputs and outputs of the first call
+    of each direction at each (q shape, k shape) in ``seen``;
+    :func:`check_seen_train_flash` holds them to the plain versions. Only
+    copies are taken inside the run. Returns the undo function."""
+    from repro_torch.kernels import flash_attn_bwd as fab
+
+    forward, backward = fab.flash_prefill, fab.flash_attn_bwd
+
+    def recorder(name):
+        def record(ins, outs):
+            key = (name, tuple(ins[0].shape), tuple(ins[1].shape))
+            if key not in seen:
+                seen[key] = (tuple(t.clone() for t in ins), tuple(t.clone() for t in outs))
+        return record
+
+    fab.flash_prefill = _Recorded(forward, recorder("forward"))
+    fab.flash_attn_bwd = _Recorded(backward, recorder("backward"))
+
+    def undo():
+        fab.flash_prefill, fab.flash_attn_bwd = forward, backward
+
+    return undo
+
+
+def check_seen_train_flash(seen, errs):
+    """The plain versions on each recorded training call's own inputs: the
+    forward's output and log-sum-exp within FLASH_TOL, each gradient within
+    FLASH_TRAIN_RTOL of the plain one's largest element. Appends the
+    absolute errors to ``errs``, frees the copies and keeps the keys."""
+    from repro_torch.kernels import ref
+
+    for key, rec in seen.items():
+        if rec is None:
+            continue
+        (name, qs, ks), (ins, outs) = key, rec
+        if name == "forward":
+            want = ref.flash_prefill_ref(*ins, return_lse=True)
+            gaps = [float((a - b).abs().max()) for a, b in zip(outs, want)]
+            ok = all(math.isfinite(g) and g <= FLASH_TOL for g in gaps)
+            what = f"out, lse max |err| {gaps[0]:.3e}, {gaps[1]:.3e} (bound {FLASH_TOL})"
+        else:
+            want = ref.flash_attn_bwd_ref(*ins)
+            gaps = [float((a - b).abs().max()) for a, b in zip(outs, want)]
+            tops = [float(b.abs().max()) for b in want]
+            ok = all(math.isfinite(g) and g <= FLASH_TRAIN_RTOL * t for g, t in zip(gaps, tops))
+            what = ", ".join(f"d{n} max |err| {g:.3e} of {t:.3e}"
+                             for n, g, t in zip("qkv", gaps, tops))
+            what += f" (bound {FLASH_TRAIN_RTOL} of the largest)"
+        check(ok, f"training flash {name} on the main path, q {qs} k {ks}: {what}")
+        say(f"   training flash {name} on the main path, q {qs} k {ks}: {what}")
+        errs.extend(gaps)
+        seen[key] = None
 
 
 def instrument(engine, timings):
@@ -1246,7 +1446,8 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
     groups = sorted(set(lens))
     forwards = len(groups) + len(groups) * (gen - 1)
     want = {"flash_prefill": cfg.num_layers * sum(v for S, v in dict(zip(lens, viable)).items()),
-            "bitpack": per_forward * forwards * on_card, "paged_attend": 0, "l2norm_sq": 0}
+            "bitpack": per_forward * forwards * on_card, "paged_attend": 0, "flash_attn_bwd": 0,
+            "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
     check(launches["static"] == want, f"static: launches {launches['static']}, expected {want}")
     say(f"   static reference: {len(groups)} groups in {static_s:.2f} s; launches "
@@ -1283,7 +1484,8 @@ def serve_path(torch, device, *, cfg=None, lens=SERVE_LENS, gen=SERVE_GEN):
         packed = admissions * per_forward + (per_place if ws else
                                              summary["decode_steps"] * per_forward)
         want = {"flash_prefill": cfg.num_layers * sum(viable), "bitpack": packed * on_card,
-                "bitunpack": packed * on_card, "paged_attend": 0, "l2norm_sq": 0}
+                "bitunpack": packed * on_card, "paged_attend": 0, "flash_attn_bwd": 0,
+                "l2norm_sq": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         new_tokens = sum(len(r.tokens) for r in results.values())
         dec = sorted(timings["decode"])
@@ -1632,7 +1834,7 @@ def paged_path(torch, device, phase7, *, page=PAGE, shared=SHARED_PREFIX,
         packed = (summary["admissions"] + steps) * per_forward * on_card
         want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0 for S in buckets),
                 "paged_attend": cfg.num_layers * steps * on_card,
-                "bitpack": packed, "bitunpack": packed, "l2norm_sq": 0}
+                "bitpack": packed, "bitunpack": packed, "flash_attn_bwd": 0, "l2norm_sq": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         new_tokens = sum(len(r.tokens) for r in results.values())
         dec = sorted(timings["decode"])
@@ -1959,8 +2161,10 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
     # versions after the step, then freed; the memory peak is read over
     # the steps that took no packing copy
     seen, packs, errs, peaks = [], {}, [], []
+    flashes, flash_errs = {}, []
     unwatch = watch_monitor(torch, seen, n_monitor)
     unwatch_packing = watch_packing(torch, packs)
+    unwatch_flash = watch_train_flash(torch, flashes)
     data_s = check_s = 0.0
     zero_counts()
     sync()
@@ -1970,11 +2174,11 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
         tokens, labels = synthetic_lm_batch(cfg.vocab_size, batch, seq, i, device=device)
         data_s += time.perf_counter() - t0
         trainer = awp if i < AWP_STEPS else oracle
-        n_packs = len(packs)
+        n_packs, n_flashes = len(packs), len(flashes)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         storage, mom, _ = trainer.run_step(storage, mom, {"tokens": tokens, "labels": labels}, lr)
-        if on_card and len(packs) == n_packs:
+        if on_card and len(packs) == n_packs and len(flashes) == n_flashes:
             peaks.append(torch.cuda.max_memory_allocated())
         t0 = time.perf_counter()
         for w, out in seen:
@@ -1984,12 +2188,14 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
             errs.append(abs(k - p))
         seen.clear()
         check_seen_packing(torch, packs)
+        check_seen_train_flash(flashes, flash_errs)
         check_s += time.perf_counter() - t0
     sync()
     run_s = time.perf_counter() - t_run - check_s
     got = counts()
     unwatch()
     unwatch_packing()
+    unwatch_flash()
     peak = max(peaks, default=0)
 
     records = awp.records + oracle.records
@@ -2000,9 +2206,13 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
         check(r.wire_bytes == want, f"step {r.step}: wire {r.wire_bytes} != plan {want}")
     check(all(len(set(r.round_tos)) == 1 for r in records), "groups widened apart")
     packed = sum(r.round_tos[0] < 4 for r in records) * (per_forward + recomputed) * on_card
-    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
-            "l2norm_sq": n_monitor * len(records) * on_card}
+    want = {"bitpack": packed, "bitunpack": packed, **train_flash(cfg, seq, len(records), on_card),
+            "paged_attend": 0, "l2norm_sq": n_monitor * len(records) * on_card}
     check(got == want, f"launches {got}, expected {want}")
+    # the first forward and backward at the step's one shape, each held to its plain version
+    flash_keys = {name for name, _, _ in flashes}
+    check(flash_keys == ({"forward", "backward"} if want["flash_attn_bwd"] else set()),
+          f"training flash calls checked: {sorted(flashes)}")
     if on_card:
         check(len(errs) == len(records), f"{len(errs)} monitor calls recorded, "
                                          f"{len(records)} steps")
@@ -2048,6 +2258,7 @@ def lm_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
             f"{profiled['packing_ms']:.3f} ms ({profiled['packing_ms'] / busy:.2%})")
     return {"awp": awp, "oracle": oracle, "launches": got, "peak": peak,
             "monitor_err": max(errs, default=0.0), "profile": profiled,
+            "train_flash_err": max(flash_errs, default=0.0),
             "warm_step_s": warm[len(warm) // 2], "cfg": cfg, "batch": batch, "seq": seq}
 
 
@@ -2217,8 +2428,8 @@ def _dp_rank(rank, device_name, cfg, batch, lr, min_size):
     n_dist = len(dist_keys)
     chunked = sum(2 if spec["layers"][a][b].s_loc % 2 == 0 else 1 for a, b in dist_keys)
     packed = 3 * n_dist + n_dist + chunked + n_dist  # 3 gathers, grad blocks, chunks, eval
-    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
-            "l2norm_sq": n_monitor * len(DP_STEPS)}
+    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "flash_attn_bwd": 0,
+            "paged_attend": 0, "l2norm_sq": n_monitor * len(DP_STEPS)}
     if not on_card:
         want = {k: 0 for k in want}
     check(got == want, f"rank {rank}: launches {got}, expected {want}")
@@ -2523,6 +2734,8 @@ def _tp_rank(rank, device_name, cfg, batch, seq, lr):
     unwatch_packing = watch_packing(torch, packs) if on_card else (lambda: None)
     monitor, monitor_errs = {}, []
     unwatch_monitor = watch_monitor_lengths(torch, monitor) if on_card else (lambda: None)
+    flashes, flash_errs = {}, []
+    unwatch_flash = watch_train_flash(torch, flashes)
     saved, records, norms, moved = None, [], [], []
     start = tree_map(lambda x: x.clone(), storage)  # (e)
     sync()
@@ -2551,11 +2764,13 @@ def _tp_rank(rank, device_name, cfg, batch, seq, lr):
         if on_card:
             check_seen_packing(torch, packs)
             check_seen_monitor(monitor, monitor_errs)
+        check_seen_train_flash(flashes, flash_errs)
     sync()
     got = counts()
     unwatch()
     unwatch_packing()
     unwatch_monitor()
+    unwatch_flash()
 
     # (c): measured wire == the plan's table with the step's TP boundaries
     tables = []
@@ -2575,11 +2790,15 @@ def _tp_rank(rank, device_name, cfg, batch, seq, lr):
     act = 2 * (boundaries + tstep.remat_tp_collectives(cfg)[1]) + 2 * 2
     grads = per_forward  # grad2 step: one packed block exchange per gathered leaf
     packed = mats + act + grads
-    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
-            "l2norm_sq": len(dist_leaves) * n_steps}
+    want = {"bitpack": packed, "bitunpack": packed, **train_flash(cfg, seq, n_steps, on_card),
+            "paged_attend": 0, "l2norm_sq": len(dist_leaves) * n_steps}
     if not on_card:
         want = {k: 0 for k in want}
     check(got == want, f"rank {rank}: launches {got}, expected {want}")
+    # the model rank's heads: the first forward and backward, each held to its plain version
+    flash_keys = {name for name, _, _ in flashes}
+    check(flash_keys == ({"forward", "backward"} if want["flash_attn_bwd"] else set()),
+          f"rank {rank}: training flash calls checked: {sorted(flashes)}")
     if on_card:
         pads = {s.pad_rep for _, s in dist_leaves}
         packs_n = {p // TP_DP for p in pads} | pads | {act_elems, act_elems // TP_TP,
@@ -2629,7 +2848,8 @@ def _tp_rank(rank, device_name, cfg, batch, seq, lr):
                     for r, t in zip(records, tables)],
         "norms": norms, "moved": moved, "psum": psum, "launches": got, "packs": sorted(packs),
         "monitor_lengths": sorted(monitor), "monitor_err": max(monitor_errs, default=0.0),
-        "profile": profiled, "setup_s": setup_s, "elems": elems, "boundaries": boundaries,
+        "train_flash_err": max(flash_errs, default=0.0), "profile": profiled,
+        "setup_s": setup_s, "elems": elems, "boundaries": boundaries,
         "act_elems": act_elems, "n_dist": len(dist_leaves), "per_forward": per_forward,
         "recomputed": recomputed, "remat": tstep.remat_tp_collectives(cfg),
     }
@@ -2776,13 +2996,14 @@ def tp_train_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_
     monitor_err = max(o["monitor_err"] for o in outs)
     say(f"   monitor calls on the main path within {monitor_err:.3e} of the plain version at "
         f"every rank's shard lengths (rank 0: {r0['monitor_lengths']})")
+    train_flash_err = max(o["train_flash_err"] for o in outs)
     warm = r0["records"][1:]
     say(f"   step ms on rank 0: {[round(x['wall_s'] * 1e3, 1) for x in r0['records']]}; gloo "
         f"staging share after the first {sum(x['stage_s'] for x in warm) / sum(x['wall_s'] for x in warm):.1%}; "
         f"set-up {[round(o['setup_s'], 1) for o in outs]} s; ranks' processes {ranks_s:.1f} s")
     launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
     return {"ranks": outs, "one": one, "launches": launches, "monitor_err": monitor_err,
-            "loss_gap": loss_gap, "norm_gap": norm_gap, "move_gap": move_gap,
+            "train_flash_err": train_flash_err, "loss_gap": loss_gap, "norm_gap": norm_gap, "move_gap": move_gap,
             "seq_gap": seq_gap, "seq_bits": seq_bits}
 
 # ---------------------------------------------------------------------------
@@ -3029,7 +3250,8 @@ def _tp_serve_rank(rank, device_name, cfg, dp, all_requests, runs, profiled):
         want = {"flash_prefill": kernel_layers(cfg) * sum(flash_ok and S % 128 == 0
                                                       for S in prefills),
                 "paged_attend": kernel_layers(cfg) * paged_steps * on_card,
-                "bitpack": packed * on_card, "bitunpack": packed * on_card, "l2norm_sq": 0}
+                "bitpack": packed * on_card, "bitunpack": packed * on_card, "flash_attn_bwd": 0,
+                "l2norm_sq": 0}
         check(got == want, f"rank {rank} {label}: launches {got}, expected {want}")
         check_seen_flash(seen_flash)
         if on_card:
@@ -3755,7 +3977,8 @@ def features_path(torch, device, phase7, *, cfg=None, lens=SERVE_LENS, gen=SERVE
         got = counts()
         want = {"flash_prefill": viable(prefills) + (draft_flash if draft is not None else 0),
                 "paged_attend": cfg.num_layers * paged_steps * on_card,
-                "bitpack": packed * on_card, "bitunpack": packed * on_card, "l2norm_sq": 0}
+                "bitpack": packed * on_card, "bitunpack": packed * on_card, "flash_attn_bwd": 0,
+                "l2norm_sq": 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         check_seen_flash(seen_flash)
         if on_card:
@@ -4899,8 +5122,10 @@ def io_path(torch, device, *, cfg=None, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
                                               for r in tr_c.records + ctl.records)
     serve_forwards = 2 * gen  # each run: the admission, then gen - 1 decode steps
     viable = on_card and cfg.head_dim % 128 == 0 and prompt_len % 128 == 0
+    trained = train_flash(cfg, seq, train_steps, on_card)
     want = {"bitpack": (below * per_step + serve_forwards * per_forward) * on_card,
-            "flash_prefill": 2 * cfg.num_layers * viable, "paged_attend": 0,
+            "flash_prefill": 2 * cfg.num_layers * viable + trained["flash_prefill"],
+            "flash_attn_bwd": trained["flash_attn_bwd"], "paged_attend": 0,
             "l2norm_sq": train_steps * (len(group_dist) + len(top_dist)) * on_card}
     want["bitunpack"] = want["bitpack"]
     check(got == want, f"phase 17 launches {got}, expected {want}")
@@ -5137,8 +5362,10 @@ def _mesh_io_rank(rank, device_name, cfg, batch, seq, lr, root, shard_dir, promp
     check(all(min(s["round_tos"]) < 4 for s in out["steps"]), "a step ran at 32 bits")
     packed = n_steps * per_step + 2 * (per_forward + len(dist_specs))
     viable = on_card and cfg.head_dim % 128 == 0 and len(prompt) % 128 == 0
+    trained = train_flash(cfg, seq, n_steps, on_card)
     want = {"bitpack": packed * on_card, "bitunpack": packed * on_card,
-            "flash_prefill": 2 * cfg.num_layers * viable, "paged_attend": 0,
+            "flash_prefill": 2 * cfg.num_layers * viable + trained["flash_prefill"],
+            "flash_attn_bwd": trained["flash_attn_bwd"], "paged_attend": 0,
             "l2norm_sq": n_steps * len(dist_specs) * on_card}
     check(got == want, f"rank {rank}: phase 18 (a) launches {got}, expected {want}")
     out.update(launches=got, hist=hist, losses=losses,
@@ -5261,7 +5488,7 @@ def _mesh_serve_rank(rank, device_name, cfg, greedy, sampled, one_device, window
         want = {"flash_prefill": cfg.num_layers * sum(flash_ok and S % 128 == 0
                                                       for S in prefills) + draft_flash,
                 "paged_attend": 0, "bitpack": packed * on_card, "bitunpack": packed * on_card,
-                "l2norm_sq": 0}
+                "flash_attn_bwd": 0, "l2norm_sq": 0}
         check(got == want, f"rank {rank} {label}: launches {got}, expected {want}")
         check_seen_flash(seen_flash)
         if on_card:
@@ -5495,7 +5722,7 @@ def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
         padded = -(-len(req.prompt_ids) // self.page_size) * self.page_size
         want = {"flash_prefill": L * (flash_ok and padded % 128 == 0), "paged_attend": 0,
                 "bitpack": per_forward * on_card, "bitunpack": per_forward * on_card,
-                "l2norm_sq": 0}
+                "flash_attn_bwd": 0, "l2norm_sq": 0}
         got = delta(before)
         check(got == want, f"worker {self.name}, request {req.rid} (padded {padded}): launches "
                            f"{got}, the local paged admission's {want}")
@@ -5511,7 +5738,8 @@ def _fleet_watch(torch, on_card, L, per_forward, flash_ok, rec):
         paged = L * on_card * (not self.engine.plan.int8_kv)
         want = {"flash_prefill": 0, "paged_attend": paged * bool(active),
                 "bitpack": per_forward * on_card * bool(active),
-                "bitunpack": per_forward * on_card * bool(active), "l2norm_sq": 0}
+                "bitunpack": per_forward * on_card * bool(active), "flash_attn_bwd": 0,
+                "l2norm_sq": 0}
         got = delta(before)
         check(got == want, f"replica {self.name}, a tick with {active} live slots: launches "
                            f"{got}, the local paged engine's decode step's {want}")
@@ -5727,7 +5955,7 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
             for r in greedy + sampled_f + trio),
             "paged_attend": L * rec["ticks"] * on_card,
             "bitpack": per_forward * (rec["prefills"] + rec["ticks"]) * on_card,
-            "l2norm_sq": 0}
+            "flash_attn_bwd": 0, "l2norm_sq": 0}
         want["bitunpack"] = want["bitpack"]
         check(got == want, f"(a): launches {got}, expected {want}")
         tokens = sum(len(r.tokens) for r in results.values())
@@ -5788,7 +6016,7 @@ def fleet_path(torch, device, refs, *, cfg=None, page=PAGE, shared=SHARED_PREFIX
     want = {"flash_prefill": L * sum(flash_ok and -(-len(r.prompt_ids) // page) * page % 128 == 0
                                      for r in greedy),
             "paged_attend": 0, "bitpack": per_forward * (rec8["prefills"] + rec8["ticks"]) * on_card,
-            "l2norm_sq": 0}
+            "flash_attn_bwd": 0, "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
     check(got8 == want, f"(b): launches {got8}, expected {want}")
     pin(router, plan8, "(b) int8")
@@ -5974,7 +6202,7 @@ def _fleet_mesh_rank(rank, device_name, cfg, ref):
             flash_ok and -(-len(r.prompt_ids) // page) * page % 128 == 0 for r in everyone),
             "paged_attend": L * rec["ticks"] * on_card,
             "bitpack": per_forward * (rec["prefills"] + rec["ticks"]) * on_card,
-            "l2norm_sq": 0}
+            "flash_attn_bwd": 0, "l2norm_sq": 0}
         want["bitunpack"] = want["bitpack"]
         check(got == want, f"rank {rank}: launches {got}, expected {want}")
         check(tree_digest(torch, router.versions[1]) == v1_want,
@@ -6120,7 +6348,7 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
     prefills = [len(r.prompt_ids) for r in requests] if cfg.num_experts else sorted(set(lens))
     want = {"flash_prefill": kernel_layers(cfg) * sum(map(viable, prefills)),
             "bitpack": per_forward * len(prefills) * gen * on_card,
-            "paged_attend": 0, "l2norm_sq": 0}
+            "paged_attend": 0, "flash_attn_bwd": 0, "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
     check(got == want, f"{cfg.name} static: launches {got}, expected {want}")
     say(f"   {cfg.name} static ({'request by request' if cfg.num_experts else 'grouped'}): "
@@ -6152,7 +6380,7 @@ def arch_serve(torch, device, cfg, *, paged=True, contiguous=True, lens=SERVE_LE
                                                                   for r in requests)]
         packed = (summary["admissions"] + summary["decode_steps"]) * per_forward * on_card
         want = {"flash_prefill": kernel_layers(cfg) * sum(map(viable, admitted)),
-                "bitpack": packed, "bitunpack": packed, "l2norm_sq": 0,
+                "bitpack": packed, "bitunpack": packed, "flash_attn_bwd": 0, "l2norm_sq": 0,
                 "paged_attend": (kernel_layers(cfg) * summary["decode_steps"] * on_card
                                  * (kind == "paged engine"))}
         check(got == want, f"{cfg.name} {kind}: launches {got}, expected {want}")
@@ -6277,8 +6505,8 @@ def arch_train(torch, device, cfg, *, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
         check(r.wire_bytes == want, f"{cfg.name} step {r.step}: wire {r.wire_bytes} != plan "
                                     f"{want}")
     packed = sum(r.round_tos[0] < 4 for r in records) * (per_forward + recomputed) * on_card
-    want = {"bitpack": packed, "bitunpack": packed, "flash_prefill": 0, "paged_attend": 0,
-            "l2norm_sq": n_monitor * len(records) * on_card}
+    want = {"bitpack": packed, "bitunpack": packed, **train_flash(cfg, seq, len(records), on_card),
+            "paged_attend": 0, "l2norm_sq": n_monitor * len(records) * on_card}
     check(got == want, f"{cfg.name} training: launches {got}, expected {want}")
     if on_card:
         check(len(errs) == len(records), f"{len(errs)} monitor calls held, {len(records)} steps")
@@ -6646,7 +6874,7 @@ def vlm_serve(torch, device, cfg, *, lens=SERVE_LENS, gen=SERVE_GEN):
     per_decode = per_forward - (spec_tree["img_proj"].kind == DIST)
     want = {"flash_prefill": kernel_layers(cfg) * sum(on_card and S % 128 == 0 for S in prefills),
             "bitpack": len(prefills) * (per_forward + (gen - 1) * per_decode) * on_card,
-            "paged_attend": 0, "l2norm_sq": 0}
+            "paged_attend": 0, "flash_attn_bwd": 0, "l2norm_sq": 0}
     want["bitunpack"] = want["bitpack"]
     check(launches == want, f"{cfg.name} static: launches {launches}, expected {want}")
     S0 = len(requests[0].prompt_ids)
@@ -6669,7 +6897,8 @@ def vlm_serve(torch, device, cfg, *, lens=SERVE_LENS, gen=SERVE_GEN):
     extra = counts()
     unwatch_f()
     check(extra == {"flash_prefill": 0, "bitpack": per_forward * on_card,
-                    "bitunpack": per_forward * on_card, "paged_attend": 0, "l2norm_sq": 0},
+                    "bitunpack": per_forward * on_card, "paged_attend": 0, "flash_attn_bwd": 0,
+                    "l2norm_sq": 0},
           f"{cfg.name} fresh prefill: launches {extra}")
     for k in launches:
         launches[k] += extra[k]
@@ -7087,14 +7316,16 @@ def main() -> int:
     say("phase 5: reference — reduced AlexNet on the card vs the CPU")
     reference_check(torch, device)
 
-    say("phase 6: flash prefill kernel vs its plain version on the card")
+    say("phase 6: flash prefill kernel vs its plain version on the card; training attention's "
+        "forward and backward")
     flash = check_flash(torch, device)
+    flash_train = check_flash_train(torch, device)
 
     say(f"phase 7: main path — full-width qwen3-1.7b served, prompts {list(SERVE_LENS)}, "
         f"+{SERVE_GEN} tokens, {SERVE_SLOTS} slots")
     serve = serve_path(torch, device)
     served = {k: sum(run[k] for run in serve["launches"].values())
-              for k in ("bitpack", "bitunpack", "flash_prefill")}
+              for k in ("bitpack", "bitunpack", "flash_prefill", "flash_attn_bwd")}
     # what phase 14 holds its meshes to: phase 7's one-device streams and logits
     serve7 = {"cfg": serve["cfg"], "static": serve["static"], "requests": serve["requests"],
               "runs": {"engine": {"first_logits": serve["runs"]["engine"]["first_logits"]}}}
@@ -7140,7 +7371,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = tp_train_path(torch, device, cfg=dataclasses.replace(get_config("qwen3-1.7b"),
                                                               num_layers=TP_LAYERS))
-    for k in ("bitpack", "bitunpack"):
+    for k in served:
         served[k] += tp["launches"][k]
 
     say(f"phase 14: main path — qwen3-1.7b at its widths and {CUT_LAYERS} of its layers served "
@@ -7350,6 +7581,17 @@ def main() -> int:
                            flash["G 8"]["max_abs_err"]),
         "ms": f512["ms"], "plain_ms": f512["plain_ms"], "bound_ms": f512["bound_ms"],
         "bound_by": f512["bound_by"], "library_ms": f512["library_ms"],
+    })
+    ft = flash_train[FLASH_TRAIN_SHAPES[0]]  # qwen3-1.7b's training attention
+    kernels.append({
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": None,  # the JAX package's flash kernel has no backward
+        "launches": served["flash_attn_bwd"],
+        "max_abs_err": max([row["max_abs_err"] for row in flash_train.values()]
+                           + [lm["train_flash_err"], tp["train_flash_err"]]),
+        "ms": ft["ms"], "plain_ms": ft["plain_ms"], "bound_ms": ft["bound_ms"],
+        "bound_by": ft["bound_by"], "library_ms": ft["library_ms"],
     })
     pm = paged["main path"]  # no single PyTorch call reads through a page table
     kernels.append({

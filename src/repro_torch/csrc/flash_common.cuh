@@ -19,6 +19,7 @@ constexpr int kRowsQ = 64;         // query rows a unit: 64 / Gc positions x Gc 
 constexpr int kBK = 64;            // keys a tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // as the reference: exp() gives exactly 0
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
@@ -82,10 +83,12 @@ struct Unit {
     kvh = hg * Gc / (H / Kv);
   }
   __device__ int pos(int rho) const { return qb * bq + rho % bq; }
-  // offset of (row rho, column 0) in q or out
-  __device__ size_t row(int rho, int H, int Sq) const {
-    return ((static_cast<size_t>(b) * H + hg * Gc + rho / bq) * Sq + pos(rho)) * kHd;
+  // index of row rho in a (B, H, Sq) array: the log-sum-exp's
+  __device__ size_t row1(int rho, int H, int Sq) const {
+    return (static_cast<size_t>(b) * H + hg * Gc + rho / bq) * Sq + pos(rho);
   }
+  // offset of (row rho, column 0) in q or out
+  __device__ size_t row(int rho, int H, int Sq) const { return row1(rho, H, Sq) * kHd; }
 };
 
 // After a piece has written its partial to slot item.z: the unit's last
@@ -101,7 +104,8 @@ __device__ __forceinline__ void merge_if_last(const int4 item, const Unit& u,
                                               int* __restrict__ counters,
                                               const float* __restrict__ part_acc,
                                               const float* __restrict__ part_ml,
-                                              T* __restrict__ out, int H, int Sq) {
+                                              T* __restrict__ out, int H, int Sq,
+                                              float* __restrict__ lse = nullptr) {
   __shared__ int last;
   const int4 mg = merges[item.w];
   // the barrier orders every thread's partial before thread 0's count,
@@ -158,6 +162,11 @@ __device__ __forceinline__ void merge_if_last(const int4 item, const Unit& u,
 #pragma unroll
   for (int i = 0; i < kRowsW; ++i)
     store4(out + u.row(w0 + kWarps * i, H, Sq) + 4 * lane, normalise<T>(a[i], lt[i]));
+  if (lse != nullptr && lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRowsW; ++i)
+      lse[u.row1(w0 + kWarps * i, H, Sq)] = (mt[i] + log2f(lt[i])) * kLn2;
+  }
   if (threadIdx.x == 0) counters[item.w] = 0;  // as it was found
 }
 

@@ -58,6 +58,12 @@
 //   * Occupancy. Q, K, V (32 KB each), P (16 KB) and the row scales take
 //     112 KB and at most 255 registers a thread: two CTAs of 128 threads an
 //     SM.
+//   * The log-sum-exp for training. Given lse (B, H, Sq), whichever piece
+//     writes a unit's output (the unit's only piece, or its merging piece)
+//     also writes each row's (m + log2 l) ln 2, the natural-log LSE that
+//     flash_attn_bwd.cu recomputes P from. Serving passes null and gets
+//     the same bits as without the option: the output's arithmetic is
+//     untouched.
 //   * k-tiles wholly above the diagonal are never listed. That is exact: a
 //     fully masked tile leaves (m, l, acc) unchanged (p = 0, corr = 1). A
 //     row that is fully masked in a piece weighs exactly 0 in the merge
@@ -114,14 +120,14 @@ __device__ __forceinline__ void load_v(float4* __restrict__ Vs, const float* __r
 
 // items[i] = (unit, first tile | end tile << 16, partial slot or -1, merge
 // index); merges[j] = (first slot, pieces, 0, 0); counters[j] is 0 on entry
-// and left 0.
+// and left 0. lse (B, H, Sq) or null.
 __global__ void __launch_bounds__(kThreads, 2)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     const int4* __restrict__ items, const int4* __restrict__ merges,
-                     int* __restrict__ counters, float* __restrict__ part_acc,
-                     float* __restrict__ part_ml, int H, int Kv, int Gc, int Sq, int Sk,
-                     int q_offset, float scale) {
+                     float* __restrict__ lse, const int4* __restrict__ items,
+                     const int4* __restrict__ merges, int* __restrict__ counters,
+                     float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int Kv,
+                     int Gc, int Sq, int Sk, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   float4* Qs = smem4;                 // [64][32]
   float4* Ks = Qs + kRowsQ * kHd4;    // [64][32], swizzled
@@ -274,7 +280,10 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (part < 0) {  // the whole unit: normalise and write the output
     if (tx == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) rowv[4 * ty + i] = l[i];
+      for (int i = 0; i < 4; ++i) {
+        rowv[4 * ty + i] = l[i];
+        if (lse != nullptr) lse[u.row1(4 * ty + i, H, Sq)] = (m[i] + log2f(l[i])) * kLn2;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -304,11 +313,12 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     pacc[(8 * ry + i) * kHd4 + cx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     pacc[(8 * ry + i) * kHd4 + cx + 16] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
-  merge_if_last(item, u, merges, counters, part_acc, part_ml, out, H, Sq);
+  merge_if_last(item, u, merges, counters, part_acc, part_ml, out, H, Sq, lse);
 }
 
-int launch(const float* q, const float* k, const float* v, float* out, const void* items,
-           int n_items, const void* merges, void* counters, void* part_acc, void* part_ml,
+int launch(const float* q, const float* k, const float* v, float* out, float* lse,
+           const void* items, int n_items, const void* merges, void* counters,
+           void* part_acc, void* part_ml,
            int B, int H, int Kv, int Gc, int Sq, int Sk, int q_offset, float scale,
            void* stream) {
   if (bad_shape(B, H, Kv, Gc, Sq, Sk, q_offset, n_items))
@@ -318,7 +328,7 @@ int launch(const float* q, const float* k, const float* v, float* out, const voi
   const cudaError_t err = opt_in_smem(flash_prefill_kernel, kSmemBytes, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_prefill_kernel<<<n_items, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, static_cast<const int4*>(items), static_cast<const int4*>(merges),
+      q, k, v, out, lse, static_cast<const int4*>(items), static_cast<const int4*>(merges),
       static_cast<int*>(counters), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), H, Kv, Gc, Sq, Sk, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
@@ -329,17 +339,18 @@ int launch(const float* q, const float* k, const float* v, float* out, const voi
 // q (B, H, Sq, 128), k / v (B, Kv, Sk, 128), out (B, H, Sq, 128): fp32,
 // contiguous on the current device, 16-byte aligned. Sq and Sk multiples of
 // 64, H a multiple of Kv, q_offset >= 0 (all checked by the Python wrapper).
-// Causal only: the one mask the serving path asks for. items (n_items
+// Causal only: the one mask the serving and training paths ask for. lse
+// (B, H, Sq) fp32, or null where no backward follows. items (n_items
 // int4) and merges (int4) on the device, from the wrapper's work list for
 // Gc query heads a unit; counters (one int a merge) all 0, left 0;
 // part_acc holds 64 * 128 floats a partial slot and part_ml 128.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
-                                   void* out, const void* items, int n_items,
+                                   void* out, void* lse, const void* items, int n_items,
                                    const void* merges, void* counters, void* part_acc,
                                    void* part_ml, int B, int H, int Kv, int Gc, int Sq,
                                    int Sk, int q_offset, float scale, void* stream) {
   return launch(static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<float*>(out), items, n_items,
-                merges, counters, part_acc, part_ml, B, H, Kv, Gc, Sq, Sk, q_offset, scale,
-                stream);
+                static_cast<const float*>(v), static_cast<float*>(out),
+                static_cast<float*>(lse), items, n_items, merges, counters, part_acc,
+                part_ml, B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream);
 }

@@ -23,7 +23,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (
     "bitpack.cu", "bitunpack.cu", "flash_prefill.cu", "flash_prefill_bf16.cu",
-    "paged_attend.cu", "l2norm.cu",
+    "flash_attn_bwd.cu", "paged_attend.cu", "l2norm.cu",
 )
 BUILD_DIR = _PKG.parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -46,9 +46,21 @@ _SIGNATURES = {
     ],
     # (q, k, v, out, items, n_items, merges, counters, part_acc, part_ml,
     #  B, H, Kv, Gc, Sq, Sk, q_offset, scale, stream)
-    "repro_flash_prefill": [
+    "repro_flash_prefill_bf16": [
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         ctypes.c_float, _P,
+    ],
+    # the same with lse (B, H, Sq) or null after out
+    "repro_flash_prefill": [
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P,
+    ],
+    # (q, k, v, out, dout, lse, dq, dk, dv, delta, dq_part, qoff, items,
+    #  n_items, merges, counters, kv_part, B, H, Kv, Sq, Sk, q_offset, scale,
+    #  stream)
+    "repro_flash_attn_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ],
     # (q, k_pool, v_pool, page_table, lengths, out, part_acc, part_ml,
     #  counters, B, Kv, G, P, page, n_pages, n_splits, pps, scale, stream)
@@ -59,8 +71,7 @@ _SIGNATURES = {
     # (w, partials, max_parts, out, n, stream)
     "repro_l2norm_sq": [_P, _P, _I, _P, ctypes.c_longlong, _P],
 }
-# the bf16 attention kernels take the fp32 ones' arguments
-_SIGNATURES["repro_flash_prefill_bf16"] = _SIGNATURES["repro_flash_prefill"]
+# the bf16 paged kernel takes the fp32 one's arguments
 _SIGNATURES["repro_paged_attend_bf16"] = _SIGNATURES["repro_paged_attend"]
 
 _LIB: ctypes.CDLL | None = None

@@ -15,9 +15,15 @@ bf16 terms of each fp32 p, every product exact). On a CPU tensor the
 wrapper runs the plain version ``ref.flash_prefill_ref``; on a CUDA tensor
 it launches the kernel or raises.
 
-``flash_prefill.launches`` counts launches of the fp32 kernel,
-``flash_prefill.launches_bf16`` of the bf16 one (never plain-version
-calls).
+With ``return_lse`` (the training forward, fp32 only) the call also
+returns each row's log-sum-exp ``(B, H, Sq)``, which the backward
+(``kernels.flash_attn_bwd``) recomputes the probabilities from; without
+it the fp32 kernel gets a null pointer and gives the same bits as before
+the option existed.
+
+``flash_prefill.launches`` counts launches of the fp32 kernel (serving and
+training), ``flash_prefill.launches_bf16`` launches of the bf16 one (never
+plain-version calls).
 """
 from __future__ import annotations
 
@@ -102,9 +108,12 @@ def flash_prefill(
     v: torch.Tensor,
     *,
     q_offset: int = 0,
-) -> torch.Tensor:
-    """Fused causal flash prefill attention; returns ``(B, H, Sq, hd)``.
-    The reference's ``causal=False`` is not taken: no path asks for it."""
+    return_lse: bool = False,
+):
+    """Fused causal flash prefill attention; returns ``(B, H, Sq, hd)``, or
+    with ``return_lse`` ``(out, lse)``, ``lse (B, H, Sq)`` fp32 (natural
+    log). The reference's ``causal=False`` is not taken: no path asks for
+    it."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"need q (B,H,Sq,hd), k/v (B,Kv,Sk,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -115,13 +124,15 @@ def flash_prefill(
     if int(q_offset) != q_offset or q_offset < 0:
         raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
     if q.device.type == "cpu":
-        return ref.flash_prefill_ref(q, k, v, q_offset=int(q_offset))
+        return ref.flash_prefill_ref(q, k, v, q_offset=int(q_offset), return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on cuda or cpu, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(f"flash_prefill kernel takes q/k/v all float32 or all bfloat16, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if return_lse and q.dtype != torch.float32:
+        raise ValueError(f"the log-sum-exp comes from the fp32 kernel; got {q.dtype}")
     if hd != HEAD_DIM:
         raise ValueError(f"flash_prefill kernel takes head_dim {HEAD_DIM}, got {hd}")
     if Sq % TILE or Sk % TILE:
@@ -135,6 +146,7 @@ def flash_prefill(
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill kernel needs q/k/v 16-byte aligned")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     bf16 = q.dtype == torch.bfloat16
     if Sq:
         Gc, items, merges, n_parts = _device_work(B, H, Kv, Sq, Sk, int(q_offset), bf16,
@@ -146,10 +158,12 @@ def flash_prefill(
         scratch = workspace("flash_prefill.partials", q.device, stream,
                             n_parts * UNIT_ROWS * (hd + 2), torch.float32)
         lib = library()
-        fn = lib.repro_flash_prefill_bf16 if bf16 else lib.repro_flash_prefill
+        # the fp32 entry point takes the log-sum-exp's pointer (or null) after out
+        fn, ptrs = ((lib.repro_flash_prefill_bf16, ()) if bf16 else
+                    (lib.repro_flash_prefill, (None if lse is None else lse.data_ptr(),)))
         with torch.cuda.device(q.device):
             rc = fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
                 items.data_ptr(), items.shape[0], merges.data_ptr(), counters.data_ptr(),
                 scratch.data_ptr(), scratch.data_ptr() + 4 * n_parts * UNIT_ROWS * hd,
                 B, H, Kv, Gc, Sq, Sk, int(q_offset), hd ** -0.5, stream,
@@ -159,7 +173,7 @@ def flash_prefill(
             flash_prefill.launches_bf16 += 1
         else:
             flash_prefill.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0

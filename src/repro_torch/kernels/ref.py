@@ -137,7 +137,8 @@ def flash_prefill_ref(
     q_offset: int = 0,
     block_q: int = FLASH_BLOCK_Q,
     block_k: int = FLASH_BLOCK_K,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain version of the causal flash prefill kernel (counterpart of
     ``repro.kernels.flash_prefill.flash_prefill_ref`` at ``causal=True``,
     the kernel's one mask): the reference's
@@ -149,7 +150,8 @@ def flash_prefill_ref(
     is the absolute position of ``q[..., 0, :]`` relative to ``k[..., 0,
     :]``. Scores and the running ``(m, l, acc)`` are fp32 (bf16 inputs are
     taken as their exact fp32 values); the output is ``acc / max(l,
-    1e-30)`` in q's dtype.
+    1e-30)`` in q's dtype. With ``return_lse`` also each row's
+    log-sum-exp ``m + log l`` (fp32, ``(B, H, Sq)``): ``(out, lse)``.
     """
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
@@ -165,6 +167,7 @@ def flash_prefill_ref(
     scale = hd ** -0.5
     dev = q.device
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     for i in range(Sq // block_q):
         qb = qf[:, :, i * block_q:(i + 1) * block_q]
         q_pos = q_offset + i * block_q + torch.arange(block_q, device=dev)
@@ -186,7 +189,42 @@ def flash_prefill_ref(
         out[:, :, i * block_q:(i + 1) * block_q] = (
             acc / torch.clamp(l, min=1e-30)[..., None]
         ).to(q.dtype)
-    return out
+        lse[:, :, i * block_q:(i + 1) * block_q] = m + torch.log(l)
+    return (out, lse) if return_lse else out
+
+
+def flash_attn_bwd_ref(q, k, v, out, lse, dout, *, q_offset: int = 0):
+    """Plain version of the flash attention backward
+    (``csrc/flash_attn_bwd.cu``): the gradients ``(dq, dk, dv)`` of
+    :func:`flash_prefill_ref`'s causal attention, given its output ``out``
+    and log-sum-exp ``lse``, from ``dout``. The kernel's algebra on whole
+    rows: ``p = exp(s - lse)`` with the masked scores at ``-1e30``, ``dv =
+    p^T dout``, ``ds = p (dout v^T - rowsum(dout out))``, ``dq = ds k
+    scale``, ``dk = ds^T q scale``; ``dk`` and ``dv`` summed over the ``G``
+    query heads of a kv head. fp32 throughout (bf16 inputs as their exact
+    fp32 values); the gradients in their inputs' dtypes."""
+    B, H, Sq, hd = q.shape
+    Kv, Sk = k.shape[1], k.shape[2]
+    if H % Kv:
+        raise ValueError(f"H={H} not a multiple of Kv={Kv}")
+    G = H // Kv
+    qf, of, gf = (t.to(torch.float32) for t in (q, out, dout))
+    kh = k.repeat_interleave(G, dim=1).to(torch.float32)
+    vh = v.repeat_interleave(G, dim=1).to(torch.float32)
+    scale = hd ** -0.5
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    s = torch.matmul(qf, kh.transpose(-1, -2)) * scale
+    s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vh.transpose(-1, -2))
+    ds = p * (dp - (gf * of).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    fold = lambda x: x.reshape(B, Kv, G, Sk, hd).sum(dim=2)  # noqa: E731
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,16 @@ N``, in the compute dtype even under int8 KV), and decode reads that
 cache through :func:`_cross_decode`.
 
 Training (``mode="train"``) runs the prefill's projections, qk-norm and
-RoPE with no cache, and always attends through :func:`attend_tiled`,
-whose plain PyTorch ops autograd differentiates. The reference's rule
-would send a TPU to the flash kernel in train mode too, but that kernel
-has no backward (neither the Pallas one nor the port's), so the port
-keeps train mode off it on every device; on the CPU the two packages take
-the same branch.
+RoPE with no cache. Where the flash prefill rule holds and the head width
+is the kernels' 128, it attends through
+``kernels.flash_attn_bwd.flash_attention``, whose forward is the fp32
+flash kernel (writing each row's log-sum-exp too) and whose backward is a
+hand-written kernel; the reference's rule sends its chip to its flash
+kernel in train mode too. Everywhere else (the CPU, bidirectional,
+windowed and cross layers) it attends through :func:`attend_tiled`, whose
+plain PyTorch ops autograd differentiates; on the CPU the two packages
+take the same branch. Counters ``attention.flash_train`` and
+``attention.tiled_train`` (``utils.spans``) count the calls of each route.
 
 Viability of the kernels: where the reference asks for a TPU backend
 (``jax.default_backend() == "tpu"``), the port asks for a tensor on a
@@ -56,10 +60,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_attn_bwd import flash_attention
+from repro_torch.kernels.flash_prefill import HEAD_DIM, flash_prefill
 from repro_torch.kernels.paged_attend import paged_attend
 from repro_torch.models.env import Env
 from repro_torch.models.layers import apply_rope, head_rms_norm
+from repro_torch.utils import spans
 
 NEG_INF = -1e30
 
@@ -517,6 +523,25 @@ def _flash_prefill_viable(causal, window, is_cross, pos_offset, qg, k):
     return Sq % 128 == 0 and Sk % 128 == 0
 
 
+def _flash_train_viable(causal, window, is_cross, pos_offset, qg, k):
+    """Train mode's flash route: the prefill rule at the kernels' one head
+    width (the backward kernel's, as the forward wrapper's)."""
+    return _flash_prefill_viable(causal, window, is_cross, pos_offset, qg, k) and \
+        qg.shape[-1] == HEAD_DIM
+
+
+def _flash_train_call(qg, k, v):
+    """:func:`_flash_prefill_call`'s layouts around the differentiable
+    flash attention, in fp32 (bf16 inputs as their exact fp32 values, the
+    output in q's dtype, as :func:`attend_tiled`)."""
+    B, S, Kv, G, hd = qg.shape
+    qf = qg.permute(0, 2, 3, 1, 4).reshape(B, Kv * G, S, hd).float().contiguous()
+    kf = k.permute(0, 2, 1, 3).float().contiguous()
+    vf = v.permute(0, 2, 1, 3).float().contiguous()
+    out = flash_attention(qf, kf, vf)
+    return out.reshape(B, Kv, G, S, hd).permute(0, 3, 1, 2, 4).to(qg.dtype)
+
+
 def _flash_prefill_call(qg, k, v, *, q_offset):
     """(B,S,Kv,G,hd) q / (B,Sk,Kv,hd) kv -> the kernel's layouts and back:
     q head ``h = kv * G + g``."""
@@ -616,11 +641,16 @@ def mha(
     qg = q.reshape(B, S, Kv_l, G, hd)
     causal = cfg.causal and not is_cross
 
-    if mode == "train":  # no backward kernel: never the flash branch
-        out = attend_tiled(
-            qg, k, v, causal=causal, window=window, q_offset=0,  # q and k: one sequence
-            chunk=min(env.attn_chunk, S), causal_skip=env.causal_skip,
-        )
+    if mode == "train":  # q and k: one sequence
+        if _flash_train_viable(causal, window, is_cross, pos_offset, qg, k):
+            spans.add("attention.flash_train", 1)
+            out = _flash_train_call(qg, k, v)
+        else:
+            spans.add("attention.tiled_train", 1)
+            out = attend_tiled(
+                qg, k, v, causal=causal, window=window, q_offset=0,
+                chunk=min(env.attn_chunk, S), causal_skip=env.causal_skip,
+            )
     elif is_cross and mode == "decode":
         out = _cross_decode(qg, cache)
     elif paged:

@@ -24,7 +24,10 @@ and a flag test per boundary.
 | ``awp.monitor`` | the AWP monitor's Σw² (``train.step.awp_group_norms``, the CNN step's) |
 
 Counter ``transport.bytes``: the bytes Bitpack and Bitunpack read and
-write (``kernels.ops``), ``n × (4 + round_to)`` a call each way.
+write (``kernels.ops``), ``n × (4 + round_to)`` a call each way. Counters
+``attention.flash_train`` and ``attention.tiled_train``: the train-mode
+attention calls (``models.attention.mha``, the remat forward's included)
+that take the flash kernels and those that take ``attend_tiled``.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ SPANS = (
     "optim.sgd",
     "awp.monitor",
 )
-COUNTERS = ("transport.bytes",)
+COUNTERS = ("transport.bytes", "attention.flash_train", "attention.tiled_train")
 
 _OFF = contextlib.nullcontext()
 _on = False

@@ -7,7 +7,9 @@ every span once at its place in the step, each nested as the module's
 table says (innermost enclosing span by time; on the CPU autograd runs
 on the caller's thread), and ``transport.bytes`` counts each ``DIST``
 element's pack and unpack: ``2 × (4 + round_to)`` bytes, the group
-leaves twice under ``remat`` (the recomputed forward packs them again).
+leaves twice under ``remat`` (the recomputed forward packs them again);
+``attention.tiled_train`` counts the LM's attention calls (every layer,
+twice under ``remat``; on the CPU none takes the flash route).
 """
 import dataclasses
 
@@ -97,6 +99,7 @@ def _lm_job(round_to, remat):
     def step():
         state[:] = trainer.run_step(*state, batch, 0.01)[:2]
 
+    step.attention_calls = (2 if remat else 1) * cfg.num_layers
     return step, packed
 
 
@@ -151,7 +154,10 @@ def test_transport_bytes_counts_every_pack_and_unpack(case, round_to):
     assert spans.counters() == {}
     with spans.enabled():
         step()
-    assert spans.counters() == {"transport.bytes": packed * 2 * (4 + round_to)}
+    want = {"transport.bytes": packed * 2 * (4 + round_to)}
+    if case != "cnn":
+        want["attention.tiled_train"] = step.attention_calls
+    assert spans.counters() == want
 
 
 def test_the_32_bit_baseline_counts_no_transfer_bytes():

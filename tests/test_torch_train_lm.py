@@ -198,8 +198,9 @@ def test_mha_train_mode_matches_reference(setup):
 
 
 def test_train_mode_never_takes_the_flash_kernel(setup, monkeypatch):
-    """Flash has no backward: even where the viability rule holds, train
-    mode attends through ``attend_tiled``."""
+    """The flash prefill call has no backward: even where its viability
+    rule holds, train mode never takes it (at the reduced config's head
+    width, 64, not the flash route's either: ``attend_tiled``)."""
     s = setup
 
     def no_flash(*a, **k):
